@@ -1,0 +1,22 @@
+"""Kernels of the serving path and their plain PyTorch versions.
+
+Each kernel wrapper counts its launches in an integer attribute,
+``<wrapper>.launches``, incremented only where the kernel is launched.
+"""
+from __future__ import annotations
+
+from . import attention, fused_ffn, fused_ln
+
+KERNEL_WRAPPERS = (fused_ln.fused_ln, fused_ln.fused_add_ln,
+                   fused_ln.fused_sum_ln, attention.fused_mha,
+                   fused_ffn.fused_expert_ffn)
+
+
+def launch_counts() -> dict:
+    """{wrapper name: launches so far}."""
+    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0

@@ -1,0 +1,177 @@
+"""Kernel wrappers of the PyTorch port: dispatch, argument checks, counters.
+
+Imports torch and the port only (no JAX), so the ``cuda``-marked tests also
+run on a GPU host without JAX:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
+
+On a CPU-only host those skip, and the CPU tests check that a CPU tensor
+takes the plain version and counts no launch.
+"""
+import numpy as np
+import pytest
+import torch
+
+from slim_switch_moe_vit_tpu_torch import ops
+from slim_switch_moe_vit_tpu_torch.ops import _build
+from slim_switch_moe_vit_tpu_torch.ops import attention as attn_ops
+from slim_switch_moe_vit_tpu_torch.ops import fused_ffn as ffn_ops
+from slim_switch_moe_vit_tpu_torch.ops import fused_ln as ln_ops
+from slim_switch_moe_vit_tpu_torch.ops import moe as moe_ops
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 references in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Torch's CPU ops on one thread while this module runs: the suite runs
+    several pytest workers per host, and torch's oversubscribed thread pool
+    made these tests ~100x slower there than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _rand(rs, *shape, scale=1.0, dtype=torch.float32, device="cpu"):
+    return torch.from_numpy(rs.randn(*shape).astype(np.float32) * scale).to(
+        device, dtype)
+
+
+def _ffn_case(rs, T, D, H, E, dtype, device):
+    x = _rand(rs, T, D, dtype=dtype, device=device)
+    logits = _rand(rs, T, E, device=device)
+    _, eidx = moe_ops.naive_topk_gate(logits, 2)
+    gather_idx, _, e_of_tile = moe_ops.aligned_expert_layout(eidx, E)
+    xs = moe_ops.dispatch_gather(x, gather_idx)
+    w1 = _rand(rs, E, D, H, scale=D ** -0.5, dtype=dtype, device=device)
+    b1 = _rand(rs, E, H, scale=0.1, device=device)
+    w2 = _rand(rs, E, H, D, scale=H ** -0.5, dtype=dtype, device=device)
+    b2 = _rand(rs, E, D, scale=0.1, device=device)
+    return xs, w1, b1, w2, b2, e_of_tile
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    """No launch is counted when the tensors lie on the CPU, and the result
+    is the plain version's."""
+    rs = np.random.RandomState(0)
+    ops.reset_launch_counts()
+    x, r = _rand(rs, 2, 5, 64), _rand(rs, 2, 5, 64)
+    g, b = _rand(rs, 64), _rand(rs, 64)
+    u, y = ln_ops.fused_add_ln(x, r, g, b)
+    u0, y0 = ln_ops.reference_add_ln(x, r, g, b)
+    assert torch.equal(u, u0) and torch.equal(y, y0)
+    assert torch.equal(ln_ops.fused_ln(x, g, b),
+                       ln_ops.reference_add_ln(x, None, g, b)[1])
+    assert torch.equal(ln_ops.fused_sum_ln(x, r, g, b), y0)
+    qkv = _rand(rs, 2, 9, 3 * 64)
+    assert torch.equal(attn_ops.fused_mha(qkv, 2, 0.125),
+                       attn_ops.fused_mha_reference(qkv, 2, 0.125))
+    case = _ffn_case(rs, 20, 32, 64, 4, torch.float32, "cpu")
+    assert torch.equal(ffn_ops.fused_expert_ffn(*case),
+                       ffn_ops.fused_expert_ffn_reference(*case))
+    assert ops.launch_counts() == {
+        "fused_ln": 0, "fused_add_ln": 0, "fused_sum_ln": 0, "fused_mha": 0,
+        "fused_expert_ffn": 0}
+
+
+def test_reference_add_ln_rounds_the_sum_first():
+    """bf16: the residual sum is rounded to bf16 before the statistics."""
+    rs = np.random.RandomState(1)
+    x = _rand(rs, 3, 128, dtype=torch.bfloat16)
+    r = _rand(rs, 3, 128, scale=1e-3, dtype=torch.bfloat16)
+    g, b = torch.ones(128), torch.zeros(128)
+    u, y = ln_ops.reference_add_ln(x, r, g, b)
+    assert u.dtype == torch.bfloat16 and torch.equal(u, x + r)
+    assert torch.equal(y, ln_ops.reference_add_ln(u, None, g, b)[1])
+
+
+def test_build_key_tracks_sources_and_flags():
+    key = _build.build_key()
+    assert len(key) == 16 and key == _build.build_key()
+    srcs = [p.rsplit("/", 1)[-1] for p in _build._sources()]
+    assert {"mha_fwd.cu", "expert_ffn_fwd.cu", "common.cuh"} <= set(srcs)
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_build_check_raises_on_cuda_error():
+    _build.check(0, "ok")
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        _build.check(1, "kernel")
+
+
+# ---------------------------------------------------------------------------
+# on the card: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1.6e-2)])
+def test_ln_kernels_match_plain(cuda, dtype, tol):
+    rs = np.random.RandomState(2)
+    x = _rand(rs, 4, 197, 384, dtype=dtype, device=cuda)
+    r = _rand(rs, 4, 197, 384, dtype=dtype, device=cuda)
+    g = _rand(rs, 384, scale=0.1, device=cuda) + 1.0
+    b = _rand(rs, 384, scale=0.1, device=cuda)
+    ops.reset_launch_counts()
+    u, y = ln_ops.fused_add_ln(x, r, g, b)
+    u0, y0 = ln_ops.reference_add_ln(x, r, g, b)
+    assert torch.equal(u, u0)
+    torch.testing.assert_close(y.float(), y0.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(ln_ops.fused_sum_ln(x, r, g, b).float(),
+                               y0.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(
+        ln_ops.fused_ln(x, g, b).float(),
+        ln_ops.reference_add_ln(x, None, g, b)[1].float(), atol=tol, rtol=tol)
+    counts = ops.launch_counts()
+    assert (counts["fused_ln"], counts["fused_add_ln"],
+            counts["fused_sum_ln"]) == (1, 1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 1.6e-2)])
+@pytest.mark.parametrize("N,H,d", [(197, 6, 64), (50, 3, 64), (1, 2, 64)])
+def test_mha_kernel_matches_plain(cuda, dtype, tol, N, H, d):
+    rs = np.random.RandomState(3)
+    qkv = _rand(rs, 3, N, 3 * H * d, dtype=dtype, device=cuda)
+    got = attn_ops.fused_mha(qkv, H, d ** -0.5)
+    torch.cuda.synchronize()
+    want = attn_ops.fused_mha_reference(qkv, H, d ** -0.5)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,D,H,E", [(300, 384, 1536, 8), (40, 192, 768, 4)])
+def test_expert_ffn_kernel_matches_plain(cuda, T, D, H, E):
+    rs = np.random.RandomState(4)
+    case = _ffn_case(rs, T, D, H, E, torch.bfloat16, cuda)
+    got = ffn_ops.fused_expert_ffn(*case)
+    torch.cuda.synchronize()
+    want = ffn_ops.fused_expert_ffn_reference(*case)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=1.6e-2,
+                               rtol=1.6e-2)
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    rs = np.random.RandomState(5)
+    qkv = _rand(rs, 2, 10, 3 * 64, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        attn_ops.fused_mha(qkv, 2, 0.1)  # d = 32
+    case = list(_ffn_case(rs, 20, 192, 128, 2, torch.bfloat16, cuda))
+    case[0] = case[0].float()
+    with pytest.raises(TypeError):
+        ffn_ops.fused_expert_ffn(*case)
+    x = _rand(rs, 4, 64, device=cuda).requires_grad_()
+    with pytest.raises(NotImplementedError, match="backward"):
+        ln_ops.fused_ln(x, torch.ones(64, device=cuda),
+                        torch.zeros(64, device=cuda))

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's serving path on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's serving and training paths on one NVIDIA
+GPU.
 
 Run from the repository root, with no arguments:
 
@@ -8,12 +9,18 @@ Run from the repository root, with no arguments:
 Phases (any failure propagates and the script exits non-zero):
 
 1. Print the card (``nvidia-smi`` name and power limit) and build the CUDA
-   kernels from ``slim_switch_moe_vit_tpu_torch/csrc``.
-2. Kernels: at the flagship serving shapes (B = 32 and 128, N = 197,
-   D = 384, bf16) each kernel (LayerNorm K1a/K1b/K2a in Triton, MHA K5 and
-   expert FFN K3 in CUDA C++) is held against its plain PyTorch version on
-   the card, within ``ATOL``/``RTOL``, and both are timed (median of
-   CUDA-event timings).
+   kernels from ``slim_switch_moe_vit_tpu_torch/csrc`` (one nvcc per
+   source, in parallel).
+2. Kernels: at the flagship shapes (B = 32 and 128, N = 197, D = 384,
+   bf16) each of the ten kernel wrappers (LayerNorm K1a/K1b/K2a and its
+   backward K1c (plain and add forms) / K2b in Triton; MHA K5 / K6 and
+   expert FFN K3 / K4 in CUDA C++) is held against its plain PyTorch
+   version on the card and both are timed (median of CUDA-event timings),
+   beside the card's bound for the same work and, where one exists, one
+   PyTorch call computing the same function. Elementwise outputs must be
+   within ``ELEM_TOL`` (default ``ATOL``/``RTOL``); f32 sums over all rows
+   (dgamma, dbeta, dW, db) within ``SUM_REL`` of their largest |ref|. K6's
+   limit must reject planted faults in its plain form.
 3. Serving: ``moe_small_patch16_224_expert8`` at full width (ViT-S/16, 12
    blocks, 8 experts top-2), bf16, seeded random weights, exported through
    the export CLI with buckets 1, 8 and 32, loaded, and served over HTTP on
@@ -26,6 +33,19 @@ Phases (any failure propagates and the script exits non-zero):
 5. Speed: serving images/s at bucket 32, p50 latency at batch 1, device
    time per forward at B = 32 and 128, and the device-time breakdown of one
    B = 128 forward by kernel.
+6. Training: ``moe_small_patch16_224_expert8`` at full width and depth,
+   bf16, seed-0 weights, B = 128 (``bench.py``'s cfg2: label smoothing
+   0.1, AdamW wd 0.05, EMA 0.99996, lr 1e-3), one warm-up step and then 10
+   steps on the same batch through ``engine.make_train_step``. Every loss
+   and gradient finite, the EMA moved, and the launch counters rise by
+   exactly ``PER_TRAIN_STEP`` per step.
+7. Training cross-check: the same weights and one B = 8 batch through 5
+   steps at lr 1e-3 on the card (bf16) and on the port's CPU plain path in
+   bf16 (also with the batch reversed, the witness of bf16 rounding alone)
+   and in f32: per-step losses and the step-1 gradient's cosines within
+   ``XTRAIN_PAIRS``.
+8. Training speed: the B = 128 step on the device clock and images/s, the
+   busy share and kernel profile of one step, and the peak memory.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -51,27 +71,70 @@ BUCKETS = (1, 8, 32)
 REQUESTS = (1, 5, 40)              # a padded bucket, a padded tail, chunking
 PER_FORWARD = {"fused_ln": 1, "fused_add_ln": 23, "fused_sum_ln": 1,
                "fused_mha": 12, "fused_expert_ffn": 12}
+PER_TRAIN_STEP = {**PER_FORWARD, "fused_ln_bwd": 1, "fused_add_ln_bwd": 23,
+                  "fused_sum_ln_bwd": 1, "fused_mha_bwd": 12,
+                  "fused_expert_ffn_bwd": 12}
 # kernel vs plain version on the card, bf16 outputs: |d| <= atol + rtol*|ref|
 # elementwise; 1.6e-2 is two bf16 ulps at 1.0 (the two sides round once
 # each, with f32 sums taken in different orders)
 ATOL = RTOL = 1.6e-2
+# per-kernel (atol, rtol) where outputs sit far below 1: K6's dq/dk/dv
+# are ~0.07 per element (max ~1.9 at B=128), so its atol is one bf16 ulp
+# at 0.5-1 (2^-8 = 3.9e-3, the largest |d| measured). The smoke checks
+# that this limit rejects the plain backward with its softmax delta term
+# (e*linv*sum(e*dp)) dropped or off by 5% or 2% (PLANTED_DELTA).
+ELEM_TOL = {"fused_mha_bwd": (4e-3, 1.6e-2)}
+PLANTED_DELTA = (0.0, 0.95, 0.98)
+# f32 sums over all ~25k (LN) or an expert's ~6k (FFN) rows, in other
+# orders on the two sides, of products that differ by an ulp where a bf16
+# rounding flips; dW is rounded to bf16 on both sides (2^-9 relative):
+# max |d| within 1e-2 of max |ref|
+SUM_REL = 1e-2
 # card bf16 logits vs CPU f32 logits: max |d| within 5% of max |ref| (a
 # CPU-only bf16 run of this model differs by 1.4%), cosine >= 0.999 per
 # image, and the same top-1 wherever the f32 top-1 margin exceeds twice
 # the largest |d|
 XCHECK_REL, XCHECK_COS = 5e-2, 0.999
+# card bf16 training vs the CPU plain path, 5 steps at B=8 and bench's lr
+# 1e-3 from the same weights: (pair, (each step's loss rel diff, flattened
+# step-1 gradient cosine, every tensor's cosine) or None where the pair is
+# printed only). Adam memorizes the 8 images in a few steps and bf16
+# rounding alone then moves the loss: the CPU bf16 run with its batch
+# reversed parts from itself by 0, 0.44%, 1.6%, 2.2% and 7.6% per step
+# (measured on an NVIDIA H100 80GB HBM3 host at 700 W). So:
+# - vs CPU bf16: 1% for the first two steps (0.03%, 0.40% measured), 5%
+#   at step 3 (1.7%), 10% after (3.6%, 2.4%); the step-1 gradient at
+#   cosine >= 0.999 (0.999885), every tensor's >= 0.99 (0.9989);
+# - vs CPU f32: the same 1%, 1%, 5% (0.29%, 0.13%, 0.90%), then 30%:
+#   the CPU's own bf16 run is 19.2% and 10.3% from f32 at steps 4-5, the
+#   card 22.1% and 12.4%; the step-1 gradient at cosine >= 0.99 (0.992;
+#   block 10's router gradients, a difference of two bf16 rowsums in the
+#   combine's backward as in the JAX package, sit at cosine 0.17-0.22 to
+#   f32 on the card and 0.18-0.24 in the CPU bf16 run)
+XTRAIN_B, XTRAIN_STEPS, XTRAIN_LR = 8, 5, 1e-3
+XTRAIN_PAIRS = (
+    ("cuda bfloat16", "cpu bfloat16", ((1e-2, 1e-2, 5e-2, 0.1, 0.1), 0.999,
+                                       0.99)),
+    ("cpu bfloat16 reversed", "cpu bfloat16", None),
+    ("cuda bfloat16", "cpu float32", ((1e-2, 1e-2, 5e-2, 0.3, 0.3), 0.99,
+                                      None)),
+    ("cpu bfloat16", "cpu float32", None))
+TRAIN_B, TRAIN_STEPS, LR, EMA_DECAY = 128, 10, 1e-3, 0.99996
+# H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
+HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
+SRC = "slim_switch_moe_vit_tpu_torch/"
+JAX = "slim_switch_moe_vit_tpu/"
 KERNELS = [  # name, route, source, TPU kernel it replaces
-    ("fused_ln", "triton", "slim_switch_moe_vit_tpu_torch/ops/_fused_ln_triton.py",
-     "slim_switch_moe_vit_tpu/ops/fused_ln.py:123"),
-    ("fused_add_ln", "triton", "slim_switch_moe_vit_tpu_torch/ops/_fused_ln_triton.py",
-     "slim_switch_moe_vit_tpu/ops/fused_ln.py:117"),
-    ("fused_sum_ln", "triton", "slim_switch_moe_vit_tpu_torch/ops/_fused_ln_triton.py",
-     "slim_switch_moe_vit_tpu/ops/fused_ln.py:268"),
-    ("fused_mha", "cuda", "slim_switch_moe_vit_tpu_torch/csrc/mha_fwd.cu",
-     "slim_switch_moe_vit_tpu/ops/attention.py:168"),
-    ("fused_expert_ffn", "cuda",
-     "slim_switch_moe_vit_tpu_torch/csrc/expert_ffn_fwd.cu",
-     "slim_switch_moe_vit_tpu/ops/fused_ffn.py:166"),
+    ("fused_ln", "triton", SRC + "ops/_fused_ln_triton.py", JAX + "ops/fused_ln.py:123"),
+    ("fused_add_ln", "triton", SRC + "ops/_fused_ln_triton.py", JAX + "ops/fused_ln.py:117"),
+    ("fused_sum_ln", "triton", SRC + "ops/_fused_ln_triton.py", JAX + "ops/fused_ln.py:268"),
+    ("fused_mha", "cuda", SRC + "csrc/mha_fwd.cu", JAX + "ops/attention.py:168"),
+    ("fused_expert_ffn", "cuda", SRC + "csrc/expert_ffn_fwd.cu", JAX + "ops/fused_ffn.py:166"),
+    ("fused_ln_bwd", "triton", SRC + "ops/_fused_ln_triton.py", JAX + "ops/fused_ln.py:159"),
+    ("fused_add_ln_bwd", "triton", SRC + "ops/_fused_ln_triton.py", JAX + "ops/fused_ln.py:159"),
+    ("fused_sum_ln_bwd", "triton", SRC + "ops/_fused_ln_triton.py", JAX + "ops/fused_ln.py:273"),
+    ("fused_mha_bwd", "cuda", SRC + "csrc/mha_bwd.cu", JAX + "ops/attention.py:203"),
+    ("fused_expert_ffn_bwd", "cuda", SRC + "csrc/expert_ffn_bwd.cu", JAX + "ops/fused_ffn.py:261"),
 ]
 
 
@@ -103,9 +166,20 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def bound(nbytes: float, flops: float, peak: float) -> tuple:
+    """(ms, what bounds it): the larger of the bytes over the HBM rate and
+    the operations over the peak rate for their type."""
+    t_mem, t_ops = nbytes / HBM_BPS * 1e3, flops / peak * 1e3
+    return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
 def kernel_cases(B: int, gen):
-    """{name: (kernel call, plain call)} on random inputs at batch B."""
+    """({name: (kernel call, plain call, one-call library equivalent or
+    None, (bytes, flops, peak), per-output comparison modes)}, (qkv, do))
+    on random inputs at batch B. A mode is "elem" (ELEM_TOL elementwise) or
+    "sum" (SUM_REL of max |ref|)."""
     import torch
+    import torch.nn.functional as F
 
     from slim_switch_moe_vit_tpu_torch.ops import attention, fused_ffn
     from slim_switch_moe_vit_tpu_torch.ops import fused_ln as ln
@@ -114,77 +188,199 @@ def kernel_cases(B: int, gen):
     def rnd(*shape, std=1.0, dtype=torch.bfloat16):
         return (torch.randn(*shape, generator=gen) * std).to("cuda", dtype)
 
-    x, r = rnd(B, N_TOK, DIM), rnd(B, N_TOK, DIM)
+    x, r, dy, du = (rnd(B, N_TOK, DIM) for _ in range(4))
     g = rnd(DIM, std=0.1, dtype=torch.float32) + 1.0
     b = rnd(DIM, std=0.1, dtype=torch.float32)
-    qkv = rnd(B, N_TOK, 3 * DIM)
-    scale = (DIM // HEADS) ** -0.5
-    # the expert FFN on a real layout: routed tokens, counting-sort slots
+    qkv, do = rnd(B, N_TOK, 3 * DIM), rnd(B, N_TOK, DIM)
+    hd = DIM // HEADS
+    scale = hd ** -0.5
+    # the expert FFN on a real layout: routed tokens, counting-sort slots,
+    # the cotangent zero at padding slots as the combine backward gives it
     tokens = rnd(B * N_TOK, DIM)
     router_w = rnd(DIM, EXPERTS, std=DIM ** -0.5, dtype=torch.float32)
-    _, eidx = moe.naive_topk_gate(tokens.float() @ router_w, 2)
-    gather_idx, _, e_of_tile = moe.aligned_expert_layout(eidx, EXPERTS)
-    xs = moe.dispatch_gather(tokens, gather_idx)
-    ffn = (xs, rnd(EXPERTS, DIM, HIDDEN, std=DIM ** -0.5),
-           rnd(EXPERTS, HIDDEN, std=0.1, dtype=torch.float32),
-           rnd(EXPERTS, HIDDEN, DIM, std=HIDDEN ** -0.5),
-           rnd(EXPERTS, DIM, std=0.1, dtype=torch.float32), e_of_tile)
-    return {
+    gate_w, eidx = moe.naive_topk_gate(tokens.float() @ router_w, 2)
+    gather_idx, pair_slot, e_of_tile, w_slot = moe.aligned_expert_layout(
+        eidx, EXPERTS, gate_w=gate_w)
+    xs = moe.dispatch_gather(tokens, gather_idx, pair_slot)
+    w1, b1 = rnd(EXPERTS, DIM, HIDDEN, std=DIM ** -0.5), rnd(
+        EXPERTS, HIDDEN, std=0.1, dtype=torch.float32)
+    w2, b2 = rnd(EXPERTS, HIDDEN, DIM, std=HIDDEN ** -0.5), rnd(
+        EXPERTS, DIM, std=0.1, dtype=torch.float32)
+    ffn = (xs, w1, b1, w2, b2, e_of_tile)
+    dys = rnd(*xs.shape) * w_slot[:, None]
+    ffn_bwd = (xs, w1, b1, w2, e_of_tile, dys)
+
+    # one-call equivalents, timed as yardsticks and used nowhere in the port
+    gb = g.to(torch.bfloat16)
+    bb = b.to(torch.bfloat16)
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x, (DIM,), gb, bb, 1e-6)
+    q4 = qkv.view(B, N_TOK, 3, HEADS, hd).permute(2, 0, 3, 1, 4)
+    qkv_leaf = qkv.detach().requires_grad_()
+    q4g = qkv_leaf.view(B, N_TOK, 3, HEADS, hd).permute(2, 0, 3, 1, 4)
+    sdpa_out = F.scaled_dot_product_attention(q4g[0], q4g[1], q4g[2],
+                                              scale=scale)
+    do4 = do.view(B, N_TOK, HEADS, hd).transpose(1, 2)
+
+    n = B * N_TOK * DIM
+    Tp = xs.shape[0]
+    ln_cost = lambda rows_io: (rows_io * n * 2 + 2 * DIM * 4, 10 * n,  # noqa: E731
+                               F32_FLOPS)
+    mha_f = 2 * B * HEADS * N_TOK * N_TOK * hd  # one N x N x d product
+    w_bytes = 2 * EXPERTS * DIM * HIDDEN * 2    # w1 and w2, bf16
+    return ({
         "fused_ln": (lambda: ln.fused_ln(x, g, b),
-                     lambda: ln.reference_add_ln(x, None, g, b)[1]),
+                     lambda: ln.reference_add_ln(x, None, g, b)[1],
+                     lambda: F.layer_norm(x, (DIM,), gb, bb, 1e-6),
+                     ln_cost(2), ("elem",)),
         "fused_add_ln": (lambda: ln.fused_add_ln(x, r, g, b),
-                         lambda: ln.reference_add_ln(x, r, g, b)),
+                         lambda: ln.reference_add_ln(x, r, g, b), None,
+                         ln_cost(4), ("elem", "elem")),
         "fused_sum_ln": (lambda: ln.fused_sum_ln(x, r, g, b),
-                         lambda: ln.reference_add_ln(x, r, g, b)[1]),
+                         lambda: ln.reference_add_ln(x, r, g, b)[1], None,
+                         ln_cost(3), ("elem",)),
         "fused_mha": (lambda: attention.fused_mha(qkv, HEADS, scale),
-                      lambda: attention.fused_mha_reference(qkv, HEADS, scale)),
+                      lambda: attention.fused_mha_reference(qkv, HEADS, scale),
+                      lambda: F.scaled_dot_product_attention(
+                          q4[0], q4[1], q4[2], scale=scale),
+                      (4 * n * 2, 2 * mha_f, BF16_FLOPS), ("elem",)),
         "fused_expert_ffn": (lambda: fused_ffn.fused_expert_ffn(*ffn),
-                             lambda: fused_ffn.fused_expert_ffn_reference(*ffn)),
-    }
+                             lambda: fused_ffn.fused_expert_ffn_reference(*ffn),
+                             None, (2 * Tp * DIM * 2 + w_bytes,
+                                    4 * Tp * DIM * HIDDEN, BF16_FLOPS),
+                             ("elem",)),
+        "fused_ln_bwd": (lambda: ln.fused_ln_bwd(x, dy, g),
+                         lambda: ln.reference_ln_bwd(x, dy, None, g),
+                         lambda: torch.ops.aten.native_layer_norm_backward(
+                             dy, x, (DIM,), mean, rstd, gb, bb,
+                             [True, True, True]),
+                         ln_cost(3), ("elem", "sum", "sum")),
+        "fused_add_ln_bwd": (lambda: ln.fused_add_ln_bwd(x, dy, du, g),
+                             lambda: ln.reference_ln_bwd(x, dy, du, g), None,
+                             ln_cost(4), ("elem", "sum", "sum")),
+        "fused_sum_ln_bwd": (lambda: ln.fused_sum_ln_bwd(x, r, dy, g),
+                             lambda: ln.reference_ln_bwd(x + r, dy, None, g),
+                             None, ln_cost(4), ("elem", "sum", "sum")),
+        "fused_mha_bwd": (lambda: attention.fused_mha_bwd(qkv, do, HEADS, scale),
+                          lambda: attention.reference_mha_bwd(qkv, do, HEADS,
+                                                              scale),
+                          lambda: torch.autograd.grad(sdpa_out, qkv_leaf, do4,
+                                                      retain_graph=True),
+                          (7 * n * 2, 5 * mha_f, BF16_FLOPS), ("elem",)),
+        "fused_expert_ffn_bwd": (
+            lambda: fused_ffn.fused_expert_ffn_bwd(*ffn_bwd),
+            lambda: fused_ffn.reference_expert_ffn_bwd(*ffn_bwd), None,
+            (3 * Tp * DIM * 2 + 2 * w_bytes + EXPERTS * (HIDDEN + DIM) * 4,
+             10 * Tp * DIM * HIDDEN, BF16_FLOPS),
+            ("elem", "sum", "sum", "sum", "sum")),
+    }, (qkv, do))
 
 
-def compare(name: str, got, want) -> tuple:
-    """(max |got - want|, that over max |want|) across every output; raises
-    beyond ATOL/RTOL."""
+def compare(name: str, got, want, modes, tol=None) -> tuple:
+    """(max |got - want|, max |want|, the largest ratio of |d| to max |ref|)
+    across every output; raises beyond ``tol`` or else the kernel's
+    ELEM_TOL (default ATOL/RTOL; "elem"), or SUM_REL ("sum")."""
     import torch
 
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
-    worst, rel = 0.0, 0.0
-    for a, b in zip(got, want):
+    atol, rtol = tol or ELEM_TOL.get(name, (ATOL, RTOL))
+    worst, top, rel = 0.0, 0.0, 0.0
+    for a, b, mode in zip(got, want, modes, strict=True):
         a, b = a.float(), b.float()
         if a.shape != b.shape or not torch.isfinite(a).all():
             raise AssertionError(f"{name}: shape {tuple(a.shape)} vs "
                                  f"{tuple(b.shape)} or non-finite output")
         d = (a - b).abs()
-        worst = max(worst, d.max().item())
-        rel = max(rel, d.max().item() / b.abs().max().item())
-        if not (d <= ATOL + RTOL * b.abs()).all():
-            raise AssertionError(f"{name}: max |d| {d.max().item():.3e} beyond "
-                                 f"atol {ATOL} + rtol {RTOL} * |ref|")
-    return worst, rel
+        peak = b.abs().max().item()
+        worst, top = max(worst, d.max().item()), max(top, peak)
+        rel = max(rel, d.max().item() / peak)
+        ok = ((d <= atol + rtol * b.abs()).all() if mode == "elem"
+              else d.max().item() <= SUM_REL * peak)
+        if not ok:
+            raise AssertionError(
+                f"{name}: max |d| {d.max().item():.3e} (max |ref| {peak:.3e})"
+                f" beyond " + (f"atol {atol} + rtol {rtol} * |ref|"
+                               if mode == "elem" else f"{SUM_REL} * max |ref|"))
+    return worst, top, rel
+
+
+def mha_bwd_planted(qkv, do, num_heads: int, scale: float, delta: float):
+    """The plain MHA backward with a planted fault: the softmax's delta
+    term e*linv*sum(e*dp) scaled by ``delta`` (the right value is 1)."""
+    import torch
+
+    B, N, C3 = qkv.shape
+    q, k, v = (t.reshape(B, N, num_heads, -1).transpose(1, 2).float()
+               for t in qkv.split(C3 // 3, dim=-1))
+    do = do.reshape(B, N, num_heads, -1).transpose(1, 2).float()
+    e = torch.softmax((q * scale) @ k.transpose(-1, -2), dim=-1)  # e*linv
+    dv = e.transpose(-1, -2) @ do
+    dp = do @ v.transpose(-1, -2) * scale
+    ds = e * (dp - delta * (e * dp).sum(-1, keepdim=True))
+    return torch.cat([t.transpose(1, 2).reshape(B, N, C3 // 3)
+                      for t in (ds @ k, ds.transpose(-1, -2) @ q, dv)],
+                     dim=-1).to(qkv.dtype)
+
+
+def check_planted_faults(qkv, do, plain_out) -> None:
+    """K6's limit must reject each planted fault of PLANTED_DELTA; the
+    unplanted form (delta 1) must pass it. What the global ATOL/RTOL would
+    say is printed beside it."""
+    hd = DIM // HEADS
+
+    def rejects(bad, tol=None) -> bool:
+        try:
+            compare("fused_mha_bwd", bad, plain_out, ("elem",), tol)
+            return False
+        except AssertionError:
+            return True
+
+    verdict = {True: "rejected", False: "passed"}
+    for delta in (1.0, *PLANTED_DELTA):
+        bad = mha_bwd_planted(qkv, do, HEADS, hd ** -0.5, delta)
+        rejected = rejects(bad)
+        log(f"  planted fault in K6's plain form, delta term x{delta}: "
+            f"{verdict[rejected]} by K6's limit, "
+            f"{verdict[rejects(bad, (ATOL, RTOL))]} by the global one")
+        if rejected != (delta != 1.0):
+            raise AssertionError(f"K6's limit {verdict[rejected]} the plain "
+                                 f"form with delta x{delta}")
 
 
 def kernel_phase(results: dict) -> None:
+    """Each kernel against its plain version at B = 32 and 128; times, the
+    bound and the library call's time at B = 128 (the training path's
+    batch) go under the JSON keys, B = 32's under ``*_b32``."""
     import torch
 
     gen = torch.Generator().manual_seed(0)
     for B in (32, 128):
-        for name, (kernel, plain) in kernel_cases(B, gen).items():
+        cases, mha_inputs = kernel_cases(B, gen)
+        for name, (kernel, plain, library, cost, modes) in cases.items():
             t0 = time.perf_counter()
             got = kernel()
             torch.cuda.synchronize()
             first_s = time.perf_counter() - t0
-            err, rel = compare(name, got, plain())
-            ms, plain_ms = median_ms(kernel), median_ms(plain, reps=10)
+            want = plain()
+            err, peak, rel = compare(name, got, want, modes)
+            if name == "fused_mha_bwd":
+                check_planted_faults(*mha_inputs, want)
+            ms, plain_ms = median_ms(kernel), median_ms(plain, reps=5, warmup=1)
+            lib_ms = median_ms(library) if library is not None else None
+            bound_ms, bound_by = bound(*cost)
             res = results.setdefault(name, {"max_abs_err": 0.0})
             res["max_abs_err"] = max(res["max_abs_err"], err)
-            res.update({"ms" if B == 32 else "ms_b128": ms,
-                        "plain_ms" if B == 32 else "plain_ms_b128": plain_ms})
-            log(f"kernel {name:17s} B={B:3d}: max|d| {err:.3e}, relative to "
-                f"max|ref| {rel:.2e} (elementwise atol/rtol {ATOL:g}) kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, first call "
-                f"{first_s:.2f} s")
+            sfx = "" if B == 128 else "_b32"
+            res.update({"ms" + sfx: ms, "plain_ms" + sfx: plain_ms,
+                        "bound_ms" + sfx: bound_ms, "bound_by": bound_by,
+                        "library_ms" + sfx: lib_ms})
+            lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+            log(f"kernel {name:20s} B={B:3d}: max|d| {err:.3e}, max|ref| "
+                f"{peak:.3e}, largest max|d|/max|ref| {rel:.2e}; kernel "
+                f"{ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, library {lib}, bound {bound_ms:.4f} ms "
+                f"({bound_by}), first call {first_s:.2f} s")
+        torch.cuda.empty_cache()
 
 
 def forwards_for(n: int) -> int:
@@ -236,7 +432,7 @@ def serving_phase(artifact: str, rs) -> tuple:
         batcher.close()
         thread.join(timeout=30)
     forwards = sum(forwards_for(n) for n in REQUESTS)
-    want = {k: v * forwards for k, v in PER_FORWARD.items()}
+    want = {k: PER_FORWARD.get(k, 0) * forwards for k in PER_TRAIN_STEP}
     log(f"launch counts over {forwards} forwards: {counts} (expected {want})")
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
@@ -249,7 +445,7 @@ def serving_phase(artifact: str, rs) -> tuple:
                                  f"max |d| {np.abs(logits - direct).max()}")
     log(f"served requests of {list(REQUESTS)} images over HTTP: finite, "
         "(n, 1000), equal to Predictor.predict")
-    return pred, requests[-1][:8], counts
+    return pred, requests[-1][:8]
 
 
 def cross_check(artifact: str, pred, images: np.ndarray) -> None:
@@ -304,34 +500,177 @@ def speed_phase(pred, card: str) -> None:
         ms = median_ms(lambda: serve(xb), reps=10)
         log(f"device forward B={B}: {ms:.3f} ms ({B / ms * 1e3:.1f} images/s "
             f"on the device clock); card {card}")
-    profile_forward(serve, xb)
+    profile_call(lambda: serve(xb), f"one forward B={xb.shape[0]}")
 
 
-def profile_forward(serve, xb) -> None:
-    """Device time of one forward by kernel name, from torch.profiler."""
+def profile_call(fn, what: str) -> None:
+    """Device time of one call of ``fn`` by kernel name, from
+    torch.profiler, and its busy share (kernel time over wall time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    serve(xb)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve(xb)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict = {}
-    for ev in prof.events():  # device-side events only: the kernels
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+    for ev in prof.events():  # device-side kernels; not the optimizer's
+        # annotation, which spans kernels already counted
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(ev, "is_user_annotation", False)
+                and not ev.name.startswith("Optimizer.")):
             us, n = by_name.get(ev.name, (0.0, 0))
             by_name[ev.name] = (us + ev.time_range.elapsed_us(), n + 1)
     rows = sorted(((us, n, name) for name, (us, n) in by_name.items()),
                   reverse=True)
     total = sum(r[0] for r in rows) / 1e3
-    log(f"profile, one forward B={xb.shape[0]}: wall {wall_ms:.3f} ms, "
+    log(f"profile, {what}: wall {wall_ms:.3f} ms, "
         f"device kernels {total:.3f} ms in {sum(r[1] for r in rows)} launches "
         f"(busy share {total / wall_ms:.3f})")
     for us, n, name in rows[:15]:
         log(f"  {us / 1e3:9.3f} ms {n:5d}x  {name[:90]}")
+
+
+def _train_setup(dtype, device):
+    """The flagship with seed-0 weights, AdamW + EMA, and its train step."""
+    import torch
+
+    from slim_switch_moe_vit_tpu_torch import create_model, losses, optim
+    from slim_switch_moe_vit_tpu_torch.engine import make_train_step
+    from slim_switch_moe_vit_tpu_torch.train_state import create_train_state
+
+    model = create_model(MODEL, num_classes=1000, dtype=dtype)
+    opt_init, opt_update = optim.make_optimizer(weight_decay=0.05)
+    state = create_train_state(model, device=device, opt_init=opt_init,
+                               use_ema=True)
+    step = make_train_step(model, opt_update,
+                           losses.make_base_criterion(False, 0.1, False),
+                           ema_decay=EMA_DECAY)
+    return model, state, step
+
+
+def _batch(B: int, seed: int, device):
+    import torch
+
+    x = np.random.RandomState(seed).randn(B, 224, 224, 3).astype(np.float32)
+    y = np.random.RandomState(seed + 1).randint(0, 1000, B)
+    return torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+
+
+def train_phase(card: str) -> dict:
+    """10 B=128 steps on the card through the kernels; returns the launch
+    counts of those steps."""
+    import torch
+
+    from slim_switch_moe_vit_tpu_torch import ops
+
+    model, state, step = _train_setup(torch.bfloat16, "cuda")
+    init = {n: p.detach().clone() for n, p in model.named_parameters()}
+    x, y = _batch(TRAIN_B, 0, "cuda")  # bench.py:93-95: seeds 0 and 1
+    t0 = time.perf_counter()
+    state, m = step(state, x, y, LR, LR)
+    log(f"train warm-up step B={TRAIN_B}: loss {m['loss'].item():.4f}, "
+        f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    losses = []
+    start.record()
+    for _ in range(TRAIN_STEPS):
+        state, m = step(state, x, y, LR, LR)
+        losses.append(m["loss"])
+    end.record()
+    end.synchronize()
+    counts = ops.launch_counts()
+    step_ms = start.elapsed_time(end) / TRAIN_STEPS
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {k: v * TRAIN_STEPS for k, v in PER_TRAIN_STEP.items()}
+    log(f"train launch counts over {TRAIN_STEPS} steps: {counts}")
+    if counts != want:
+        raise AssertionError(f"train launch counts {counts} != {want}")
+    losses = torch.stack(losses).tolist()
+    log(f"train losses: {[round(v, 5) for v in losses]}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError("non-finite training loss")
+    bad = [n for n, p in model.named_parameters()
+           if p.grad is None or not torch.isfinite(p.grad).all()]
+    if bad:
+        raise AssertionError(f"missing or non-finite gradients: {bad[:5]}")
+    moved = sum(bool((state.ema_params[n] != init[n]).any()) for n in init)
+    log(f"EMA moved in {moved} of {len(init)} tensors")
+    if not moved:
+        raise AssertionError("the EMA did not move")
+    log(f"train step B={TRAIN_B}: {step_ms:.3f} ms on the device clock "
+        f"({TRAIN_B / step_ms * 1e3:.1f} images/s), peak memory allocated "
+        f"{peak_gib:.2f} GiB; card {card}")
+    profile_call(lambda: step(state, x, y, LR, LR),
+                 f"one train step B={TRAIN_B}")
+    del model, state, step, init, x, y
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _cos(a, b) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    return (a @ b / (a.norm() * b.norm() + 1e-300)).item()
+
+
+def train_cross_check() -> None:
+    """5 steps at B=8 from the same seed-0 weights on the card (bf16), on
+    the CPU plain path in bf16 (the same precision, other summation
+    orders), again with the batch's samples in reverse order (the same
+    math in other summation orders: the witness of what bf16 rounding
+    alone does to the run), and in f32. Every pair is printed before any
+    limit is checked."""
+    import torch
+
+    runs = {}
+    for device, dtype, rev in (("cuda", torch.bfloat16, False),
+                               ("cpu", torch.bfloat16, False),
+                               ("cpu", torch.bfloat16, True),
+                               ("cpu", torch.float32, False)):
+        model, state, step = _train_setup(dtype, device)
+        x, y = _batch(XTRAIN_B, 2, device)
+        if rev:
+            x, y = x.flip(0), y.flip(0)
+        losses, grads = [], None
+        t0 = time.perf_counter()
+        for _ in range(XTRAIN_STEPS):
+            state, m = step(state, x, y, XTRAIN_LR, XTRAIN_LR)
+            losses.append(m["loss"].item())
+            if grads is None:
+                grads = {n: p.grad.detach().float().cpu()
+                         for n, p in model.named_parameters()}
+        key = f"{device} {str(dtype)[6:]}" + (" reversed" if rev else "")
+        runs[key] = (losses, grads)
+        log(f"cross-check {key}: losses {[round(v, 5) for v in losses]} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        del model, state, step
+    failed = []
+    for a, b, limits in XTRAIN_PAIRS:
+        (la, ga), (lb, gb) = runs[a], runs[b]
+        rel = [abs(u - w) / abs(w) for u, w in zip(la, lb)]
+        cos = _cos(torch.cat([ga[n].flatten() for n in gb]),
+                   torch.cat([gb[n].flatten() for n in gb]))
+        per = {n: _cos(ga[n], gb[n]) for n in gb}
+        lowest = sorted(per, key=per.get)[:5]
+        router = [per[n] for n in per if "router" in n]
+        log(f"train cross-check {a} vs {b}, B={XTRAIN_B}, lr {XTRAIN_LR:g}: "
+            f"loss rel diff per step {[float(f'{v:.3e}') for v in rel]}, "
+            f"step-1 gradient cosine {cos:.6f}, lowest per-tensor cosines "
+            + ", ".join(f"{n} {per[n]:.4f}" for n in lowest)
+            + f"; router tensors {min(router):.4f}-{max(router):.4f}"
+            + (f" (limits: loss {limits[0]}, cosine {limits[1]}, per tensor "
+               f"{limits[2]})" if limits else " (printed only)"))
+        if limits and (any(r > t for r, t in zip(rel, limits[0], strict=True))
+                       or cos < limits[1]
+                       or (limits[2] and per[lowest[0]] < limits[2])):
+            failed.append(f"{a} vs {b}")
+    if failed:
+        raise AssertionError(f"card bf16 training disagrees: {failed}")
 
 
 def main() -> int:
@@ -359,21 +698,26 @@ def main() -> int:
                 log("  ptxas: " + line.strip())
 
     results: dict = {}
-    with torch.no_grad():
-        kernel_phase(results)
+    kernel_phase(results)
     rs = np.random.RandomState(0)
     tmp = tempfile.mkdtemp(prefix="ssmv_smoke_")
     try:
         artifact = os.path.join(tmp, "artifact")
-        pred, images, launches = serving_phase(artifact, rs)
+        pred, images = serving_phase(artifact, rs)
         cross_check(artifact, pred, images)
         speed_phase(pred, card)
+        del pred
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    trained = train_phase(card)
+    train_cross_check()
 
+    # launches: each kernel's in the 10 training steps, which run all ten
+    # (the serving run's counts are checked in serving_phase)
     summary = {"kernels": [
         {"name": name, "route": route, "source": source, "replaces": replaces,
-         "launches": launches[name], **results[name]}
+         "launches": trained[name], **results[name]}
         for name, route, source, replaces in KERNELS]}
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {

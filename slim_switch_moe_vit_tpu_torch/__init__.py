@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of the Slim-Switch-MoE-ViT serving path for Hopper.
+"""PyTorch + CUDA port of the Slim-Switch-MoE-ViT serving and training paths
+for Hopper.
 
 Imports ``torch`` only; the JAX package ``slim_switch_moe_vit_tpu`` is the
 reference this package is tested against and is never imported here.

@@ -1,4 +1,4 @@
-// Shared helpers for the hand-written Hopper kernels of the serving path.
+// Shared helpers for the hand-written Hopper kernels.
 //
 // Every C entry point of this directory launches on the caller's stream,
 // allocates nothing and returns cudaGetLastError() (0 on success), so the
@@ -7,6 +7,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <mma.h>
 
 namespace ssmv {
 
@@ -34,6 +35,29 @@ __device__ __forceinline__ float warp_max(float v) {
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
+}
+
+// Write one 16x16 f32 WMMA accumulator as bf16 to rows [r0, r0+16) of a
+// row-major global matrix ``dst`` (row stride ld, the tile's first column at
+// dst), rows >= n_rows dropped. ``stg`` is the calling warp's own 16x16 f32
+// staging tile in shared memory (32-byte aligned); every lane of the warp
+// calls this.
+template <typename Frag>
+__device__ __forceinline__ void store_frag_bf16(const Frag& f, float* stg,
+                                                __nv_bfloat16* dst, int ld,
+                                                int r0, int n_rows) {
+  const int lane = threadIdx.x & 31;
+  nvcuda::wmma::store_matrix_sync(stg, f, 16, nvcuda::wmma::mem_row_major);
+  __syncwarp();
+  const int r = lane >> 1, c = (lane & 1) * 8;
+  if (r0 + r < n_rows) {
+    __align__(16) __nv_bfloat16 v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = __float2bfloat16(stg[r * 16 + c + j]);
+    *reinterpret_cast<uint4*>(dst + (size_t)(r0 + r) * ld + c) =
+        *reinterpret_cast<const uint4*>(v);
+  }
+  __syncwarp();
 }
 
 // Largest dynamic shared memory one block may use on sm_90.

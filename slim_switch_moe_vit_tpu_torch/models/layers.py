@@ -9,7 +9,8 @@ in f32; each layer computes in its ``dtype`` (bf16 for serving).
   only by ``utils/checkpoint.py::from_jax_params``.
 - :class:`LayerNorm`: eps 1e-6, with the ``residual`` and ``emit_sum``
   forms; routes to the kernels of ``ops/fused_ln.py``.
-- :class:`DropPath`: stochastic depth, the identity at eval.
+- :class:`DropPath`: stochastic depth from an explicit generator, the
+  identity at eval.
 - :class:`Mlp`: fc1 -> GELU -> dropout -> fc2 -> dropout.
 - :class:`PatchEmbed`: channels-last (NHWC) images cut into patches by a
   reshape and embedded by one GEMM; no convolution.
@@ -91,18 +92,25 @@ class LayerNorm(nn.Module):
 
 class DropPath(nn.Module):
     """Stochastic depth: drop the whole residual branch per sample while
-    training (kept branches scaled by 1/keep); the identity at eval."""
+    training (kept branches scaled by 1/keep); the identity at eval. The
+    mask is drawn from the ``generator`` the caller passes (on x's device),
+    never from the global one."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: typ.Optional[torch.Generator] = None
+                ) -> torch.Tensor:
         if self.rate == 0.0 or not self.training:
             return x
+        if generator is None:
+            raise ValueError("DropPath in training needs the caller's "
+                             "torch.Generator")
         keep = 1.0 - self.rate
         shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-        mask = torch.rand(shape, device=x.device) < keep
+        mask = torch.rand(shape, device=x.device, generator=generator) < keep
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

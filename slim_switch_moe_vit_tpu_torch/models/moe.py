@@ -15,6 +15,10 @@ h) / (E, h), fc2 (E, h, d) / (E, d), all f32), dispatched by
 
 The capacity, capacity_fused(_a2a) and expert_choice modes are not ported
 yet and raise.
+
+Each forward keeps its dispatch's aux (``balance_loss``, ``drop_fraction``)
+in ``self.aux``, the last value per block as the JAX module's ``sow`` keeps
+it (:151-153), for the engine to collect.
 """
 from __future__ import annotations
 
@@ -49,6 +53,7 @@ class MoEMlp(nn.Module):
         self.b1 = nn.Parameter(torch.zeros(E, h))
         self.w2 = nn.Parameter(torch.empty(E, h, d))
         self.b2 = nn.Parameter(torch.zeros(E, d))
+        self.aux = None
 
     def init_weights(self, generator: torch.Generator) -> None:
         for p in (self.router_weight, self.w1, self.w2):
@@ -59,9 +64,10 @@ class MoEMlp(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training and self.drop > 0.0:
             raise NotImplementedError(
-                "expert dropout: training is not ported yet (ROADMAP)")
+                "expert dropout: the fused dispatch has no dropout path and "
+                "the ragged one's is not ported yet (ROADMAP)")
         B, N, d = x.shape
-        y = _MODES[self.mode](x.reshape(B * N, d), self.router_weight,
+        y, self.aux = _MODES[self.mode](x.reshape(B * N, d), self.router_weight,
                               self.router_bias, self.w1, self.b1, self.w2,
                               self.b2, top_k=self.top_k)
         return y.reshape(B, N, d)

@@ -6,6 +6,11 @@ residual-deferred forms (:146-168), and :class:`VisionTransformer` with the
 residual-deferred chain (:279-331). The distilled and pre-logits heads are
 not ported yet.
 
+Training runs the same chain in ``model.train()``: every kernel wrapper is
+an autograd Function with its backward kernel. Stochastic depth draws from
+the ``generator`` passed to ``forward``; attention dropout and expert
+dropout raise (no kernel has a dropout path).
+
 Residual-deferred chain: each block leaves its last branch output
 (``pending``) un-added; the next LayerNorm folds the add into its kernel.
 Block 0's ``norm1`` is the no-add LN, every later norm the add+LN, and the
@@ -41,8 +46,7 @@ class Attention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training and self.attn_drop > 0.0:
             raise NotImplementedError(
-                "attention dropout: the MHA kernel has no dropout path "
-                "(training is not ported yet, see ROADMAP)")
+                "attention dropout: the MHA kernels have no dropout path")
         C = x.shape[-1]
         scale = (C // self.num_heads) ** -0.5
         out = fused_mha(self.qkv(x), self.num_heads, scale)
@@ -64,11 +68,14 @@ class Block(nn.Module):
         self.mlp = mlp
         self.drop_path = DropPath(drop_path)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.drop_path(self.attn(self.norm1(x)))
-        return x + self.drop_path(self.mlp(self.norm2(x)))
+    def forward(self, x: torch.Tensor,
+                generator: typ.Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        x = x + self.drop_path(self.attn(self.norm1(x)), generator)
+        return x + self.drop_path(self.mlp(self.norm2(x)), generator)
 
-    def deferred(self, u: torch.Tensor, pending: typ.Optional[torch.Tensor]):
+    def deferred(self, u: torch.Tensor, pending: typ.Optional[torch.Tensor],
+                 generator: typ.Optional[torch.Generator] = None):
         """Residual-deferred step: ``pending`` (the previous branch output)
         is not yet added to the stream ``u``; the add rides this block's
         norm1. Returns (new stream, new pending). Same math as forward."""
@@ -76,9 +83,9 @@ class Block(nn.Module):
             u1, y1 = u, self.norm1(u)
         else:
             u1, y1 = self.norm1(u, residual=pending)
-        a = self.drop_path(self.attn(y1))
+        a = self.drop_path(self.attn(y1), generator)
         u2, y2 = self.norm2(u1, residual=a)
-        return u2, self.drop_path(self.mlp(y2))
+        return u2, self.drop_path(self.mlp(y2), generator)
 
 
 MlpFactory = typ.Callable[[int, int, float, float, torch.dtype], nn.Module]
@@ -132,17 +139,22 @@ class VisionTransformer(nn.Module):
             if m is not self and hasattr(m, "init_weights"):
                 m.init_weights(generator)
 
-    def forward_features(self, x: torch.Tensor) -> torch.Tensor:
+    def forward_features(self, x: torch.Tensor,
+                         generator: typ.Optional[torch.Generator] = None
+                         ) -> torch.Tensor:
         x = self.patch_embed(x)
         cls = self.cls_token.to(x.dtype).expand(x.shape[0], -1, -1)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(x.dtype)
         x = self.pos_drop(x)
         pending = None
         for blk in self.blocks:
-            x, pending = blk.deferred(x, pending)
+            x, pending = blk.deferred(x, pending, generator)
         # the raw sum is never read again: the slim (no-sum) LN
         return self.norm(x, residual=pending, emit_sum=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        feat = self.forward_features(x)[:, 0].float()
+    def forward(self, x: torch.Tensor,
+                generator: typ.Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """Logits (f32); ``generator`` feeds stochastic depth in training."""
+        feat = self.forward_features(x, generator)[:, 0].float()
         return feat if self.head is None else self.head(feat)

@@ -1,7 +1,9 @@
-"""Kernels of the serving path and their plain PyTorch versions.
+"""Kernels of the serving and training paths and their plain PyTorch
+versions.
 
 Each kernel wrapper counts its launches in an integer attribute,
-``<wrapper>.launches``, incremented only where the kernel is launched.
+``<wrapper>.launches``, incremented only where the kernel is launched: the
+five forwards, and the five backward forms their autograd Functions call.
 """
 from __future__ import annotations
 
@@ -9,7 +11,9 @@ from . import attention, fused_ffn, fused_ln
 
 KERNEL_WRAPPERS = (fused_ln.fused_ln, fused_ln.fused_add_ln,
                    fused_ln.fused_sum_ln, attention.fused_mha,
-                   fused_ffn.fused_expert_ffn)
+                   fused_ffn.fused_expert_ffn, fused_ln.fused_ln_bwd,
+                   fused_ln.fused_add_ln_bwd, fused_ln.fused_sum_ln_bwd,
+                   attention.fused_mha_bwd, fused_ffn.fused_expert_ffn_bwd)
 
 
 def launch_counts() -> dict:

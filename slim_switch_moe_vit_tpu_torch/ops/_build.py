@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of ``csrc/``.
 
 At first use, every ``csrc/*.cu`` file is compiled by ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface, which is then
-loaded with ``ctypes``. The library lands in ``_build/<hash>/`` inside the
+``sm_90a`` (one ``nvcc`` process per source, all started together) and the
+objects are linked into one shared library with a plain C interface, which
+is then loaded with ``ctypes``. The library lands in ``_build/<hash>/`` inside the
 package, keyed by a hash of the sources and the flags, so an edited source
 is rebuilt and an unchanged one is loaded as it is. Nothing is fetched: the
 build needs only this package's sources and the CUDA toolkit.
@@ -25,7 +26,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 LIB_NAME = "libssmv_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 PTXAS_LOG = "ptxas.log"  # per-kernel registers / shared memory / spills
 
 _P = ctypes.c_void_p
@@ -35,6 +36,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "ssmv_mha_fwd": (_P, _P, _I, _I, _I, _I, _F, _I, _P),
     "ssmv_expert_ffn_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "ssmv_mha_bwd": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
+    "ssmv_expert_ffn_bwd": (_P,) * 14 + (_I, _I, _I, _I, _I, _P),
 }
 
 
@@ -72,15 +75,36 @@ def build() -> str:
     if os.path.exists(lib):
         return lib
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[p for p in _sources() if p.endswith(".cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    tag = f"{os.getpid()}.tmp"
+    nvcc = _nvcc()
+    jobs = []
+    for src in (p for p in _sources() if p.endswith(".cu")):
+        obj = os.path.join(out_dir, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:  # wait for every compile, then report
+        out = proc.communicate()[0]
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}"
+                          f"\n{out}")
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = f"{lib}.{tag}"
+        cmd = [nvcc, "-shared", "-o", tmp, *[obj for _, obj, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    finally:
+        for _, obj, _ in jobs:
+            if os.path.exists(obj):
+                os.remove(obj)
     with open(os.path.join(out_dir, PTXAS_LOG), "w") as f:
-        f.write(proc.stdout + proc.stderr)
+        f.write("".join(log))
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
     return lib
 

@@ -34,12 +34,3 @@ def check_tensor(t: torch.Tensor, name: str,
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: data pointer not 16-byte aligned")
 
-
-def check_no_grad(*tensors: typ.Optional[torch.Tensor], what: str) -> None:
-    """The ported kernels are forward-only: refuse to run where autograd
-    would silently drop the gradient."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{what} has no backward kernel in this package yet; run under "
-            "torch.no_grad() or torch.inference_mode()")

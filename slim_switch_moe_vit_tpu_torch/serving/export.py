@@ -18,9 +18,10 @@ A request carries raw uint8 NHWC images; the serving forward normalizes
 them on the device, runs the model in its compute dtype (bf16 by default)
 and returns f32 logits.
 
-The platform check stays: an artifact exported for ``cuda`` refuses to load
-where CUDA is unavailable, and a ``cpu`` one where it is available. There
-is no silent fallback.
+Every entry point takes its device explicitly and defaults to ``cuda``:
+where CUDA is unavailable and ``cpu`` was not asked for, it raises instead
+of running on the CPU. The manifest records the device the artifact was
+exported for, and an artifact refuses to load on another one.
 """
 from __future__ import annotations
 
@@ -33,14 +34,11 @@ import torch
 
 from ..data.device_aug import build_eval_normalize
 from ..models import create_model, list_models
+from ..utils.device import resolve_device
 
 SERVING_FORMAT_VERSION = 1
 _MANIFEST = "manifest.json"
 _PARAMS = "params.pt"
-
-
-def current_platform() -> str:
-    return "cuda" if torch.cuda.is_available() else "cpu"
 
 
 def make_serve_fn(model: torch.nn.Module,
@@ -62,10 +60,12 @@ def make_serve_fn(model: torch.nn.Module,
 
 def export_model(model: torch.nn.Module, out_dir: str, *, model_name: str,
                  batch_sizes: typ.Sequence[int] = (1, 8, 32),
-                 with_preprocess: bool = True,
+                 with_preprocess: bool = True, device: str = "cuda",
                  manifest_extra: typ.Optional[dict] = None) -> dict:
     """Write the serving artifact for ``model`` (a registered model,
-    ``model_name``) into ``out_dir``; returns the manifest."""
+    ``model_name``) into ``out_dir``, to be served on ``device``; returns
+    the manifest."""
+    platform = resolve_device(device)
     out_dir = os.path.abspath(out_dir)
     os.makedirs(out_dir, exist_ok=True)
     batch_sizes = sorted(set(int(b) for b in batch_sizes))
@@ -87,7 +87,7 @@ def export_model(model: torch.nn.Module, out_dir: str, *, model_name: str,
         "input_dtype": "uint8" if with_preprocess else compute,
         "with_preprocess": bool(with_preprocess),
         "batch_sizes": batch_sizes,
-        "platform": current_platform(),
+        "platform": platform,
         "torch_version": torch.__version__,
     }
     if manifest_extra:
@@ -156,8 +156,10 @@ class Predictor:
         return idx, np.take_along_axis(p, idx, axis=1)
 
 
-def load_predictor(path: str) -> Predictor:
-    """Load an artifact directory onto its platform's device.
+def load_predictor(path: str, device: str = "cuda") -> Predictor:
+    """Load an artifact directory onto ``device`` (raises when CUDA is
+    asked for and unavailable, or when the artifact was exported for
+    another device).
 
     Needs this package's code: the model is rebuilt from ``model_name``
     through the registry, and on CUDA its kernels are built from the
@@ -169,11 +171,12 @@ def load_predictor(path: str) -> Predictor:
         raise ValueError(
             f"artifact format {manifest['format_version']} is newer than "
             f"this library ({SERVING_FORMAT_VERSION})")
-    if manifest["platform"] != current_platform():
+    platform = resolve_device(device)
+    if manifest["platform"] != platform:
         raise ValueError(
             f"artifact was exported for platform '{manifest['platform']}' "
-            f"but this host's platform is '{current_platform()}'; re-export "
-            "on this platform")
+            f"but is being loaded on '{platform}'; re-export it with "
+            f"--device {platform}")
     model = create_model(manifest["model_name"],
                          num_classes=manifest["num_classes"],
                          img_size=manifest["img_size"],
@@ -181,10 +184,9 @@ def load_predictor(path: str) -> Predictor:
     state = torch.load(os.path.join(path, _PARAMS), map_location="cpu",
                        weights_only=True)
     model.load_state_dict(state)
-    device = torch.device(manifest["platform"])
-    model.to(device).eval()
+    model.to(platform).eval()
     serve = make_serve_fn(model, with_preprocess=manifest["with_preprocess"])
-    return Predictor(serve, manifest, device)
+    return Predictor(serve, manifest, torch.device(platform))
 
 
 # ---------------------------------------------------------------------------
@@ -207,11 +209,14 @@ def _cli_parser():
                    choices=["bfloat16", "float32"])
     p.add_argument("--batch-sizes", default="1,8,32")
     p.add_argument("--no-preprocess", action="store_true")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="device the artifact is served on")
     return p
 
 
 def main(argv=None):
     args = _cli_parser().parse_args(argv)
+    resolve_device(args.device)  # refuse before building the model
     model = create_model(args.model, num_classes=args.num_classes,
                          img_size=args.img_size,
                          dtype=getattr(torch, args.dtype))
@@ -222,7 +227,7 @@ def main(argv=None):
     batch_sizes = [int(b) for b in args.batch_sizes.split(",") if b]
     manifest = export_model(
         model, args.output, model_name=args.model, batch_sizes=batch_sizes,
-        with_preprocess=not args.no_preprocess,
+        with_preprocess=not args.no_preprocess, device=args.device,
         manifest_extra={"checkpoint": args.checkpoint})
     print(json.dumps(manifest))
     return manifest

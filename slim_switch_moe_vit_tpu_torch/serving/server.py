@@ -241,9 +241,10 @@ def main(argv=None):
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--max-wait-ms", type=float, default=5.0)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = p.parse_args(argv)
 
-    predictor = load_predictor(args.artifact)
+    predictor = load_predictor(args.artifact, device=args.device)
     server, _ = make_server(predictor, args.host, args.port,
                             max_wait_ms=args.max_wait_ms)
     print(json.dumps({"serving": predictor.manifest.get("model_name"),

@@ -13,6 +13,11 @@ package's ``state_dict``:
   b1, w2, b2): (E, d, h) / (E, h, d) is what the expert-FFN kernel reads;
 - ``blocks_<i>`` becomes ``blocks.<i>``.
 
+:func:`to_jax_tree` is the inverse: a ``state_dict`` (or a dict of
+gradients under the same names) back into the flax tree's names, layouts
+and nesting, as numpy f32 arrays, so a port tensor can be held leaf by leaf
+against the JAX tree.
+
 :func:`load_npz_tree` reads such a tree from an ``.npz`` whose keys are the
 tree paths joined by ``/``. Reading the JAX package's Orbax checkpoints is
 not ported yet.
@@ -54,6 +59,40 @@ def from_jax_params(params: typ.Mapping) -> typ.Dict[str, torch.Tensor]:
 
     walk(params, "")
     return out
+
+
+_INVERSE = {v: k for k, v in _RENAME.items() if k != "scale"}
+
+
+def jax_path(name: str) -> typ.List[str]:
+    """The flax tree path of a port parameter name, e.g.
+    ``blocks.0.mlp.b1`` -> ``["blocks_0", "mlp", "expert_fc1_bias"]``. A
+    ``weight`` is a LayerNorm ``scale`` under a module named ``norm*``, a
+    Dense ``kernel`` elsewhere."""
+    parts = name.split(".")
+    if parts[0] == "blocks":
+        parts = [f"blocks_{parts[1]}"] + parts[2:]
+    *mods, leaf = parts
+    if leaf == "weight":
+        leaf = "scale" if mods and mods[-1].startswith("norm") else "kernel"
+    return mods + [_INVERSE.get(leaf, leaf)]
+
+
+def to_jax_tree(tensors: typ.Mapping[str, torch.Tensor]) -> dict:
+    """A port ``state_dict`` (or gradients by parameter name) -> the flax
+    param tree: nested dicts of numpy f32 arrays, Dense kernels transposed
+    back to (in, out)."""
+    tree: dict = {}
+    for name, val in tensors.items():
+        *mods, leaf = jax_path(name)
+        arr = val.detach().to("cpu", torch.float32).numpy()
+        if leaf == "kernel":
+            arr = arr.T
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return tree
 
 
 def flatten_tree(tree: typ.Mapping, prefix: str = "") -> typ.Dict[str, np.ndarray]:

@@ -49,8 +49,8 @@ def _ffn_case(rs, T, D, H, E, dtype, device):
     x = _rand(rs, T, D, dtype=dtype, device=device)
     logits = _rand(rs, T, E, device=device)
     _, eidx = moe_ops.naive_topk_gate(logits, 2)
-    gather_idx, _, e_of_tile = moe_ops.aligned_expert_layout(eidx, E)
-    xs = moe_ops.dispatch_gather(x, gather_idx)
+    gather_idx, pair_slot, e_of_tile, _ = moe_ops.aligned_expert_layout(eidx, E)
+    xs = moe_ops.dispatch_gather(x, gather_idx, pair_slot)
     w1 = _rand(rs, E, D, H, scale=D ** -0.5, dtype=dtype, device=device)
     b1 = _rand(rs, E, H, scale=0.1, device=device)
     w2 = _rand(rs, E, H, D, scale=H ** -0.5, dtype=dtype, device=device)
@@ -79,7 +79,8 @@ def test_cpu_tensors_take_the_plain_versions():
                        ffn_ops.fused_expert_ffn_reference(*case))
     assert ops.launch_counts() == {
         "fused_ln": 0, "fused_add_ln": 0, "fused_sum_ln": 0, "fused_mha": 0,
-        "fused_expert_ffn": 0}
+        "fused_expert_ffn": 0, "fused_ln_bwd": 0, "fused_add_ln_bwd": 0,
+        "fused_sum_ln_bwd": 0, "fused_mha_bwd": 0, "fused_expert_ffn_bwd": 0}
 
 
 def test_reference_add_ln_rounds_the_sum_first():
@@ -97,7 +98,8 @@ def test_build_key_tracks_sources_and_flags():
     key = _build.build_key()
     assert len(key) == 16 and key == _build.build_key()
     srcs = [p.rsplit("/", 1)[-1] for p in _build._sources()]
-    assert {"mha_fwd.cu", "expert_ffn_fwd.cu", "common.cuh"} <= set(srcs)
+    assert {"mha_fwd.cu", "mha_bwd.cu", "expert_ffn_fwd.cu",
+            "expert_ffn_bwd.cu", "common.cuh"} <= set(srcs)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
@@ -171,7 +173,124 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     case[0] = case[0].float()
     with pytest.raises(TypeError):
         ffn_ops.fused_expert_ffn(*case)
-    x = _rand(rs, 4, 64, device=cuda).requires_grad_()
-    with pytest.raises(NotImplementedError, match="backward"):
-        ln_ops.fused_ln(x, torch.ones(64, device=cuda),
-                        torch.zeros(64, device=cuda))
+    with pytest.raises(TypeError):  # the MHA backward kernel is bf16 only
+        attn_ops.fused_mha_bwd(_rand(rs, 2, 10, 3 * 128, device=cuda),
+                               _rand(rs, 2, 10, 128, device=cuda), 2, 0.125)
+    # a CPU tensor that requires grad goes through the plain backward
+    ops.reset_launch_counts()
+    x = _rand(rs, 4, 64).requires_grad_()
+    g, b = torch.ones(64), torch.zeros(64)
+    dy = _rand(rs, 4, 64)
+    ln_ops.fused_ln(x, g, b).backward(dy)
+    torch.testing.assert_close(x.grad,
+                               ln_ops.reference_ln_bwd(x.detach(), dy, None, g)[0])
+    assert sum(ops.launch_counts().values()) == 0
+
+
+# ---------------------------------------------------------------------------
+# on the card: each backward kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def _rel_close(got, want, rel, what):
+    """|got - want| <= rel * max |want| (f32 reductions over many rows)."""
+    d = (got.float() - want.float()).abs().max().item()
+    assert d <= rel * want.float().abs().max().item(), f"{what}: max |d| {d}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1.6e-2)])
+@pytest.mark.parametrize("shape", [(4, 197, 384), (37, 192)])
+def test_ln_bwd_kernels_match_plain(cuda, dtype, tol, shape):
+    """K1c in both forms and K2b: du elementwise within tol; dgamma/dbeta
+    (f32 sums over the rows, in other orders) within 1e-4 of max |ref|."""
+    rs = np.random.RandomState(6)
+    a, b, dy, du = (_rand(rs, *shape, dtype=dtype, device=cuda)
+                    for _ in range(4))
+    g = _rand(rs, shape[-1], scale=0.1, device=cuda) + 1.0
+    ops.reset_launch_counts()
+    cases = {
+        "fused_ln_bwd": (ln_ops.fused_ln_bwd(a, dy, g),
+                         ln_ops.reference_ln_bwd(a, dy, None, g)),
+        "fused_add_ln_bwd": (ln_ops.fused_add_ln_bwd(a, dy, du, g),
+                             ln_ops.reference_ln_bwd(a, dy, du, g)),
+        "fused_sum_ln_bwd": (ln_ops.fused_sum_ln_bwd(a, b, dy, g),
+                             ln_ops.reference_ln_bwd(a + b, dy, None, g)),
+    }
+    torch.cuda.synchronize()
+    for name, (got, want) in cases.items():
+        assert got[0].dtype == dtype
+        torch.testing.assert_close(got[0].float(), want[0].float(), atol=tol,
+                                   rtol=tol, msg=name)
+        for gt, w in zip(got[1:], want[1:]):
+            _rel_close(gt, w, 1e-4, name)
+        assert ops.launch_counts()[name] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [197, 50, 17])
+def test_mha_bwd_kernel_matches_plain(cuda, N):
+    """K6, bf16: e, ds and do*linv round to bf16 on both sides in other
+    summation orders, so a flipped rounding moves a term by one ulp. The
+    outputs are ~0.07 an element, so elementwise within one bf16 ulp at
+    0.5-1 (4e-3) + 1.6e-2 |ref|, the smoke's limit for K6."""
+    rs = np.random.RandomState(7)
+    qkv = _rand(rs, 3, N, 3 * 6 * 64, dtype=torch.bfloat16, device=cuda)
+    do = _rand(rs, 3, N, 6 * 64, dtype=torch.bfloat16, device=cuda)
+    got = attn_ops.fused_mha_bwd(qkv, do, 6, 0.125)
+    torch.cuda.synchronize()
+    want = attn_ops.reference_mha_bwd(qkv, do, 6, 0.125)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), atol=4e-3,
+                               rtol=1.6e-2, msg="dqkv")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,D,H,E", [(300, 384, 1536, 8), (40, 192, 768, 4)])
+def test_expert_ffn_bwd_kernel_matches_plain(cuda, T, D, H, E):
+    """K4 on a routed layout, dy zero at padding slots: dx elementwise
+    within 1.6e-2; dW (bf16 out) and db (f32) within 1e-2 of max |ref|."""
+    rs = np.random.RandomState(8)
+    _, w1, b1, w2, _, _ = _ffn_case(rs, T, D, H, E, torch.bfloat16, cuda)
+    x = _rand(rs, T, D, dtype=torch.bfloat16, device=cuda)
+    _, eidx = moe_ops.naive_topk_gate(_rand(rs, T, E, device=cuda), 2)
+    gather_idx, pair_slot, e_of_tile, w_slot = moe_ops.aligned_expert_layout(
+        eidx, E, gate_w=torch.ones(T, 2, device=cuda))
+    xs = moe_ops.dispatch_gather(x, gather_idx, pair_slot)
+    dy = _rand(rs, xs.shape[0], D, dtype=torch.bfloat16, device=cuda) * \
+        w_slot[:, None]
+    got = ffn_ops.fused_expert_ffn_bwd(xs, w1, b1, w2, e_of_tile, dy)
+    torch.cuda.synchronize()
+    want = ffn_ops.reference_expert_ffn_bwd(xs, w1, b1, w2, e_of_tile, dy)
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=1.6e-2,
+                               rtol=1.6e-2)
+    for name, gt, w in zip(["dw1", "db1", "dw2", "db2"], got[1:], want[1:]):
+        assert gt.dtype == w.dtype and torch.isfinite(gt.float()).all(), name
+        _rel_close(gt, w, 1e-2, name)
+
+
+@pytest.mark.cuda
+def test_train_step_runs_through_the_kernels(cuda):
+    """A bf16 train step of a small ViT-S-width model on the card launches
+    every forward and backward kernel, and its loss is finite."""
+    from slim_switch_moe_vit_tpu_torch import create_model, losses, optim
+    from slim_switch_moe_vit_tpu_torch.engine import make_train_step
+    from slim_switch_moe_vit_tpu_torch.train_state import create_train_state
+
+    model = create_model("moe_small_patch16_224_expert8", img_size=64,
+                         num_classes=10, dtype=torch.bfloat16)
+    opt_init, opt_update = optim.make_optimizer(weight_decay=0.05)
+    state = create_train_state(model, opt_init=opt_init, use_ema=True)
+    step = make_train_step(model, opt_update,
+                           losses.make_base_criterion(False, 0.1, False),
+                           ema_decay=0.99996)
+    rs = np.random.RandomState(9)
+    x = torch.from_numpy(rs.randn(4, 64, 64, 3).astype(np.float32))
+    y = torch.from_numpy(rs.randint(0, 10, 4))
+    ops.reset_launch_counts()
+    state, metrics = step(state, x, y, 1e-3, 1e-3)
+    assert torch.isfinite(metrics["loss"]).item()
+    assert ops.launch_counts() == {
+        "fused_ln": 1, "fused_add_ln": 23, "fused_sum_ln": 1, "fused_mha": 12,
+        "fused_expert_ffn": 12, "fused_ln_bwd": 1, "fused_add_ln_bwd": 23,
+        "fused_sum_ln_bwd": 1, "fused_mha_bwd": 12, "fused_expert_ffn_bwd": 12}

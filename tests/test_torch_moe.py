@@ -68,8 +68,9 @@ def test_aligned_layout_matches_jax(T, E):
     eidx = np.random.RandomState(T).randint(0, E, (T, 2)).astype(np.int32)
     gj, pj, ej, _, _ = jax.jit(jax_moe.aligned_expert_layout,
                                static_argnums=1)(jnp.asarray(eidx), E)
-    gt, pt, et = torch_moe.aligned_expert_layout(
+    gt, pt, et, wt = torch_moe.aligned_expert_layout(
         torch.from_numpy(eidx).long(), E)
+    assert wt is None
     np.testing.assert_array_equal(gt.numpy(), np.asarray(gj))
     np.testing.assert_array_equal(pt.numpy(), np.asarray(pj))
     np.testing.assert_array_equal(et.numpy(), np.asarray(ej))
@@ -105,7 +106,7 @@ def test_moe_forward_fused_matches_jax(dtype):
     (jx,), (tx,) = _both([x], dtype)
     jp, tp = _both(_params(rs, E, d, h))
     want, _ = jax.jit(partial(jax_moe.moe_forward_fused, top_k=2))(jx, *jp)
-    got = torch_moe.moe_forward_fused(tx, *tp, top_k=2)
+    got, _ = torch_moe.moe_forward_fused(tx, *tp, top_k=2)
     assert got.dtype == getattr(torch, dtype)
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32),
@@ -120,12 +121,12 @@ def test_plain_oracles_match_jax_and_the_fused_path():
     dense_j = np.asarray(jax.jit(partial(jax_moe.moe_dense, top_k=2))(jx, *jp))
     ragged_j, _ = jax.jit(partial(jax_moe.moe_forward_ragged, top_k=2))(
         jx, *jp)
-    for got in (torch_moe.moe_dense(tx, *tp, top_k=2),
-                torch_moe.moe_forward_ragged(tx, *tp, top_k=2),
-                torch_moe.moe_forward_fused(tx, *tp, top_k=2)):
+    for fn in (torch_moe.moe_dense, torch_moe.moe_forward_ragged,
+               torch_moe.moe_forward_fused):
+        got, _ = fn(tx, *tp, top_k=2)
         np.testing.assert_allclose(got.numpy(), dense_j, atol=2e-5, rtol=1e-5)
     np.testing.assert_allclose(
-        torch_moe.moe_forward_ragged(tx, *tp, top_k=2).numpy(),
+        torch_moe.moe_forward_ragged(tx, *tp, top_k=2)[0].numpy(),
         np.asarray(ragged_j), atol=2e-5, rtol=1e-5)
 
 
@@ -156,3 +157,70 @@ def test_moe_mlp_module_matches_jax(jax_moe_mlp, mode):
 def test_unported_dispatch_modes_raise(mode):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MoEMlp(32, 64, dispatch_mode=mode)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_w_slot_and_balance_loss_match_jax(dtype):
+    """The layout's combine weight per slot (bf16 at bf16 activations, as
+    the JAX package's packed table gives it), the balance loss and aux."""
+    rs = np.random.RandomState(5)
+    T, d, h, E = 90, 16, 32, 4
+    logits = rs.randn(T, E).astype(np.float32)
+    gw, ei = jax_moe.naive_topk_gate(jnp.asarray(logits), 2)
+    _, _, _, wj, _ = jax_moe.aligned_expert_layout(
+        ei, E, gate_w=gw, weight_dtype=jnp.dtype(dtype))
+    tg, ti = torch_moe.naive_topk_gate(torch.from_numpy(logits), 2)
+    *_, wt = torch_moe.aligned_expert_layout(ti, E, gate_w=tg,
+                                             weight_dtype=getattr(torch, dtype))
+    assert wt.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(wt.float().numpy(), np.asarray(wj, np.float32),
+                               rtol=1e-6)
+    np.testing.assert_allclose(
+        torch_moe.load_balance_loss(torch.from_numpy(logits), ti, E).numpy(),
+        np.asarray(jax_moe.load_balance_loss(jnp.asarray(logits), ei, E)),
+        rtol=1e-6)
+    x = rs.randn(T, d)
+    (jx,), (tx,) = _both([x], dtype)
+    jp, tp = _both(_params(rs, E, d, h))
+    _, ja = jax.jit(partial(jax_moe.moe_forward_fused, top_k=2))(jx, *jp)
+    _, ta = torch_moe.moe_forward_fused(tx, *tp, top_k=2)
+    assert ta.keys() == ja.keys() == {"balance_loss", "drop_fraction"}
+    for k in ja:
+        assert ta[k].dtype == torch.float32 and ta[k].dim() == 0
+        np.testing.assert_allclose(ta[k].numpy(), np.asarray(ja[k]),
+                                   rtol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5), ("bfloat16", 3e-2)])
+def test_moe_forward_fused_gradients_match_jax(dtype, tol):
+    """jax.grad of sum(y * c) + 0.1 * balance_loss through the JAX fused
+    dispatch (custom backwards of the gather and combine, the Pallas FFN
+    backward in interpret mode) vs the port's autograd, for x, the router
+    and every expert parameter. Each gradient within tol * its max |ref|
+    (bf16: the JAX package's polynomial GELU/GELU', the bf16 rowsum of
+    d_gate in another order)."""
+    rs = np.random.RandomState(6)
+    T, d, h, E = 120, 32, 64, 4
+    x, c = rs.randn(T, d), rs.randn(T, d)
+    (jx,), (tx,) = _both([x], dtype)
+    jp, tp = _both(_params(rs, E, d, h))
+    jc = jnp.asarray(c, jnp.dtype(dtype))
+
+    def jloss(x, *p):
+        y, aux = jax_moe.moe_forward_fused(x, *p, top_k=2)
+        return (y.astype(jnp.float32) * jc.astype(jnp.float32)).sum() \
+            + 0.1 * aux["balance_loss"]
+
+    want = jax.jit(jax.grad(jloss, argnums=tuple(range(7))))(jx, *jp)
+    tx.requires_grad_()
+    for p in tp:
+        p.requires_grad_()
+    y, aux = torch_moe.moe_forward_fused(tx, *tp, top_k=2)
+    loss = (y.float() * torch.from_numpy(c.astype(np.float32)).to(
+        y.dtype).float()).sum() + 0.1 * aux["balance_loss"]
+    got = torch.autograd.grad(loss, [tx, *tp])
+    names = ["x", "router_w", "router_b", "w1", "b1", "w2", "b2"]
+    for name, g, w in zip(names, got, want):
+        w = np.asarray(w, np.float32)
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=0,
+                                   atol=tol * np.abs(w).max(), err_msg=name)

@@ -30,6 +30,7 @@ from slim_switch_moe_vit_tpu_torch.utils.checkpoint import (
     flatten_tree,
     from_jax_params,
     load_npz_tree,
+    to_jax_tree,
 )
 
 IMG, NCLS, MODEL = 32, 10, "moe_tiny_patch16_224_expert8"
@@ -69,40 +70,16 @@ def artifact(tmp_path_factory):
     ref = create_model(MODEL, num_classes=NCLS, img_size=IMG,
                        generator=torch.Generator().manual_seed(7))
     rs = np.random.RandomState(1)
-    tree = {}
-    for k, v in ref.state_dict().items():  # a JAX-layout tree, random values
-        tree[k] = (rs.randn(*v.shape) * 0.05).astype(np.float32)
-    jax_tree = _to_jax_tree(tree)
+    jax_tree = to_jax_tree({  # a JAX-layout tree, random values
+        k: torch.from_numpy((rs.randn(*v.shape) * 0.05).astype(np.float32))
+        for k, v in ref.state_dict().items()})
     ckpt = os.path.join(out, "params.npz")
     np.savez(ckpt, **flatten_tree(jax_tree))
     manifest = export_mod.main([
         "--model", MODEL, "--output", out, "--checkpoint", ckpt,
         "--num-classes", str(NCLS), "--img-size", str(IMG),
-        "--dtype", "float32", "--batch-sizes", "2,4"])
+        "--dtype", "float32", "--batch-sizes", "2,4", "--device", "cpu"])
     return out, manifest, jax_tree
-
-
-def _to_jax_tree(sd):
-    """Invert from_jax_params' naming on a port state_dict."""
-    rename = {"router_weight": "router_kernel", "w1": "expert_fc1_kernel",
-              "b1": "expert_fc1_bias", "w2": "expert_fc2_kernel",
-              "b2": "expert_fc2_bias"}
-    tree: dict = {}
-    for key, val in sd.items():
-        parts = key.split(".")
-        if parts[0] == "blocks":
-            parts = [f"blocks_{parts[1]}"] + parts[2:]
-        *mods, leaf = parts
-        if leaf == "weight" and mods and mods[-1].startswith("norm"):
-            leaf = "scale"
-        elif leaf == "weight":
-            leaf, val = "kernel", val.T
-        leaf = rename.get(leaf, leaf)
-        node = tree
-        for m in mods:
-            node = node.setdefault(m, {})
-        node[leaf] = np.ascontiguousarray(val)
-    return tree
 
 
 def test_export_manifest_and_checkpoint(artifact):
@@ -138,7 +115,7 @@ def _bucketed(serve, x, buckets):
 
 def test_predictor_buckets_match_direct_forward(artifact):
     out, _, jax_tree = artifact
-    pred = load_predictor(out)
+    pred = load_predictor(out, device="cpu")
     model = create_model(MODEL, num_classes=NCLS, img_size=IMG).eval()
     model.load_state_dict(from_jax_params(jax_tree))
     serve = make_serve_fn(model)
@@ -155,7 +132,7 @@ def test_predictor_buckets_match_direct_forward(artifact):
 
 def test_batcher_and_http_server(artifact):
     out, _, _ = artifact
-    pred = load_predictor(out)
+    pred = load_predictor(out, device="cpu")
     x = _images(6, seed=11)
     want = pred.predict(x)
     batcher = DynamicBatcher(pred, max_wait_ms=20)
@@ -204,10 +181,24 @@ def test_platform_mismatch_refuses_to_load(artifact, tmp_path):
     with open(tmp_path / "manifest.json", "w") as f:
         json.dump(other, f)
     with pytest.raises(ValueError, match="platform 'cuda'"):
-        load_predictor(str(tmp_path))
+        load_predictor(str(tmp_path), device="cpu")
 
 
 def test_export_refuses_unregistered_name(tmp_path):
     model = create_model(MODEL, num_classes=NCLS, img_size=IMG)
     with pytest.raises(ValueError, match="not registered"):
-        export_mod.export_model(model, str(tmp_path), model_name="mystery")
+        export_mod.export_model(model, str(tmp_path), model_name="mystery",
+                                device="cpu")
+
+
+def test_default_device_refuses_without_cuda(artifact, tmp_path, monkeypatch):
+    """The entry points default to cuda; without CUDA they raise instead of
+    serving on the CPU."""
+    out, _, _ = artifact
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_predictor(out)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        export_mod.main(["--model", MODEL, "--output", str(tmp_path),
+                         "--num-classes", str(NCLS), "--img-size", str(IMG)])
+    assert not os.listdir(tmp_path)  # no CPU artifact written

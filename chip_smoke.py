@@ -12,12 +12,15 @@ Phases (any failure propagates and the script exits non-zero):
    kernels from ``slim_switch_moe_vit_tpu_torch/csrc`` (one nvcc per
    source, in parallel).
 2. Kernels: at the flagship shapes (B = 32 and 128, N = 197, D = 384,
-   bf16) each of the ten kernel wrappers (LayerNorm K1a/K1b/K2a and its
+   bf16) each of the twelve kernel wrappers (LayerNorm K1a/K1b/K2a and its
    backward K1c (plain and add forms) / K2b in Triton; MHA K5 / K6 and
-   expert FFN K3 / K4 in CUDA C++) is held against its plain PyTorch
-   version on the card and both are timed (median of CUDA-event timings),
-   beside the card's bound for the same work and, where one exists, one
-   PyTorch call computing the same function. Elementwise outputs must be
+   expert FFN K3 / K4, the fused AdamW + EMA K7 and the flash forward K11
+   in CUDA C++) is held against its plain PyTorch version on the card and
+   both are timed, beside the card's bound for the same work and, where
+   one exists, one PyTorch call computing the same function. Each time is
+   the median over CUDA-event pairs that each span a loop of calls (about
+   2 ms of device work), so the host's pace does not enter a
+   sub-millisecond kernel's time. Elementwise outputs must be
    within ``ELEM_TOL`` (default ``ATOL``/``RTOL``); f32 sums over all rows
    (dgamma, dbeta, dW, db) within ``SUM_REL`` of their largest |ref|. K6's
    limit must reject planted faults in its plain form.
@@ -46,12 +49,36 @@ Phases (any failure propagates and the script exits non-zero):
    ``XTRAIN_PAIRS``.
 8. Training speed: the B = 128 step on the device clock and images/s, the
    busy share and kernel profile of one step, and the peak memory.
+9. ResMoE step: ``resmoe_small_patch16_224_expert8`` (the gated ResMoE
+   ViT-S/16, 24 slim LNs a forward) at B = 128, bf16, 10 steps each with
+   and without the fused optimizer (K7) on the device clock, with exact
+   launch counts; then one step from the same state and gradients on both
+   optimizer paths, whose parameters, moments and EMA must agree
+   (``PATH_ULPS``, ``BC_REL``).
+10. Driver: ``python -m slim_switch_moe_vit_tpu_torch.main``'s ``main()``
+    on ``SYNTH`` at full width (``DRIVER_ARGS``: 2 tasks of 2 epochs, 3
+    steps an epoch at B = 128, rehearsal, ``--fused-optimizer``, the gates
+    disabled through each task's first epoch and enabled at 0.95 then 0.9).
+    Every train step launches exactly ``PER_RESMOE_STEP`` and every eval
+    forward ``PER_RESMOE_FORWARD``; losses are finite; the gate thresholds
+    after each epoch equal the anneal plan's; the checkpoint restores
+    parameters, moments and EMA bit for bit. Then ``--eval --resume
+    <checkpoint> --use-flash-attention``: 12 K11 launches and no K5 per
+    forward, and the flash logits within the serving limit (``XCHECK_*``)
+    of K5's on the same checkpoint.
+
+The kernel phase (2) also holds K7 (the fused AdamW + EMA over every
+parameter of the ResMoE model) and K11 (the flash forward, at N = 197 and
+577) against their plain versions. Each kernel's ``launches`` in the JSON
+line is its count in the run of the path it belongs to: the 10 training
+steps of phase 6 for K1a-K6, the driver run for K7, the flash eval for K11.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import copy
 import json
 import os
 import shutil
@@ -95,6 +122,17 @@ SUM_REL = 1e-2
 # image, and the same top-1 wherever the f32 top-1 margin exceeds twice
 # the largest |d|
 XCHECK_REL, XCHECK_COS = 5e-2, 0.999
+# the flash eval's logits vs the K5 eval's of the driver's checkpoint: the
+# serving limit above, or FLASH_WITNESS times the gap between the K5 eval
+# and the CPU bf16 plain path on the same 64 images (the witness of what
+# bf16 rounding alone does to this checkpoint), whichever is wider; each
+# block's K11 output on the checkpoint's own qkv within K5's limit. On an
+# NVIDIA H100 80GB HBM3 at 700 W: flash vs K5 11.3% of max |ref| and
+# cosine 0.9974, the witness 11.9% and 0.9974, both from the same three
+# images (~1% of tokens routed to another expert pair by block 12 in both
+# pairs); every other image within 1%; K11 within one bf16 ulp of K5 on
+# every block
+FLASH_WITNESS = 3.0
 # card bf16 training vs the CPU plain path, 5 steps at B=8 and bench's lr
 # 1e-3 from the same weights: (pair, (each step's loss rel diff, flattened
 # step-1 gradient cosine, every tensor's cosine) or None where the pair is
@@ -120,6 +158,44 @@ XTRAIN_PAIRS = (
                                       None)),
     ("cpu bfloat16", "cpu float32", None))
 TRAIN_B, TRAIN_STEPS, LR, EMA_DECAY = 128, 10, 1e-3, 0.99996
+# the gated ResMoE ViT-S/16: block 0's norm1 the plain LN, every other norm
+# the slim LN (K2a forward, K2b backward)
+RESMOE = "resmoe_small_patch16_224_expert8"
+PER_RESMOE_FORWARD = {"fused_ln": 1, "fused_sum_ln": 24, "fused_mha": 12,
+                      "fused_expert_ffn": 12}
+PER_RESMOE_STEP = {**PER_RESMOE_FORWARD, "fused_ln_bwd": 1,
+                   "fused_sum_ln_bwd": 24, "fused_mha_bwd": 12,
+                   "fused_expert_ffn_bwd": 12, "fused_adamw_ema": 1}
+PER_FLASH_FORWARD = {"fused_ln": 1, "fused_sum_ln": 24, "flash_attention": 12,
+                     "fused_expert_ffn": 12}
+RESMOE_STEPS = 10
+# the training driver at full width: 2 tasks of 2 epochs, 3 steps an epoch
+# at B=128 (4 batches a task: SYNTH's 10 classes split 5/5 over 1024
+# images), one rehearsal step after each epoch of task 2, the gates
+# disabled through each task's first epoch
+DRIVER_ARGS = ["--data-set", "SYNTH", "--synth-size", "1024", "--model",
+               RESMOE, "--batch-size", "128", "--epochs", "2", "--num-tasks",
+               "2", "--rehearsal", "--rehearsal-batch-size", "128",
+               "--fused-optimizer", "--warmup-epochs", "0",
+               "--gate-epoch-offset", "0", "--max-steps-per-epoch", "3",
+               "--no-repeated-aug", "--mixup", "0", "--cutmix", "0", "--aa",
+               "", "--color-jitter", "0", "--reprob", "0"]
+DRIVER_TRAIN_STEPS = 2 * 3 + 2 * (3 + 1)
+# K7 vs its plain version, f32: the same operations in the same order, but
+# nvcc contracts a*b + c into one FMA where torch rounds twice, so a value
+# may be off by an ulp or two of its operands: |d| <= 4 ulps (4 * 2^-23)
+# of |ref| plus 4 ulps of the leaf's largest |ref|
+K7_ULPS = 4 * 2.0 ** -23
+# one step of the fused optimizer vs torch.optim.AdamW + the foreach EMA
+# from the same state and gradients: the same function in another order
+# (torch decays p first and lerps the first moment), within 8 ulps (2^-20)
+# of each leaf's largest value before or after the step (for the first
+# moment also of (1-b1)*|g|: b1*mu + (1-b1)*g can cancel far below its
+# terms, and the two forms round the terms differently); the JAX math's
+# bias corrections are f32
+# (1 - 0.999^t keeps up to ~3e-5/t of relative error, torch's are double),
+# so parameters and EMA also get 1e-4 * lr (tests/test_torch_fused_adamw.py)
+PATH_ULPS, BC_REL = 2.0 ** -20, 1e-4
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 SRC = "slim_switch_moe_vit_tpu_torch/"
@@ -135,7 +211,14 @@ KERNELS = [  # name, route, source, TPU kernel it replaces
     ("fused_sum_ln_bwd", "triton", SRC + "ops/_fused_ln_triton.py", JAX + "ops/fused_ln.py:273"),
     ("fused_mha_bwd", "cuda", SRC + "csrc/mha_bwd.cu", JAX + "ops/attention.py:203"),
     ("fused_expert_ffn_bwd", "cuda", SRC + "csrc/expert_ffn_bwd.cu", JAX + "ops/fused_ffn.py:261"),
+    ("fused_adamw_ema", "cuda", SRC + "csrc/fused_adamw.cu", JAX + "ops/fused_adamw.py:50"),
+    ("flash_attention", "cuda", SRC + "csrc/flash_fwd.cu", JAX + "ops/attention.py:35"),
 ]
+
+
+def expected(per: dict, n: int) -> dict:
+    """Launch counts of every wrapper after ``n`` runs of ``per``."""
+    return {name: per.get(name, 0) * n for name, *_ in KERNELS}
 
 
 def log(msg: str) -> None:
@@ -149,20 +232,58 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+_SLEEP_CYCLES_PER_MS: list = []
+
+
+def hold_device(ms: float) -> None:
+    """Queue ~``ms`` of idle device time (``torch.cuda._sleep``) on the
+    current stream, so the host can queue the calls that follow before the
+    device reaches them."""
+    import torch
+
+    if not _SLEEP_CYCLES_PER_MS:  # calibrate once
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10_000_000)
+        end.record()
+        end.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(1e7 / start.elapsed_time(end))
+    torch.cuda._sleep(int(ms * _SLEEP_CYCLES_PER_MS[0]))
+
+
+def median_ms(fn, reps: int = 20, warmup: int = 3,
+              window_ms: float = 2.0) -> float:
+    """Median device ms of one call. Each event pair spans a loop of calls
+    sized to ~``window_ms`` of device work, and the device is held idle
+    (``hold_device``) for longer than the host takes to queue the loop, so
+    the events read the device's time, not the host's pace between
+    launches."""
     import torch
 
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    hold_device(50.0)
+    start.record()
+    fn()
+    end.record()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.synchronize()
+    loop = min(200, max(1, int(window_ms / max(start.elapsed_time(end),
+                                               1e-3))))
     times = []
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
+        hold_device(1.0 + 2.0 * loop * host_ms)
         start.record()
-        fn()
+        for _ in range(loop):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / loop)
     return statistics.median(times)
 
 
@@ -272,7 +393,117 @@ def kernel_cases(B: int, gen):
             (3 * Tp * DIM * 2 + 2 * w_bytes + EXPERTS * (HIDDEN + DIM) * 4,
              10 * Tp * DIM * HIDDEN, BF16_FLOPS),
             ("elem", "sum", "sum", "sum", "sum")),
+        "flash_attention": (lambda: attention.flash_attention(qkv, HEADS, scale),
+                            lambda: attention.flash_attention_reference(
+                                qkv, HEADS, scale),
+                            lambda: F.scaled_dot_product_attention(
+                                q4[0], q4[1], q4[2], scale=scale),
+                            (4 * n * 2, 2 * mha_f, BF16_FLOPS), ("elem",)),
     }, (qkv, do))
+
+
+def flash_long_case(gen) -> tuple:
+    """K11 at B = 32, N = 577 (ViT-S/16 at 384 px), beyond K5's reach:
+    (kernel, plain, library, cost, modes) as in ``kernel_cases``."""
+    import torch
+    import torch.nn.functional as F
+
+    from slim_switch_moe_vit_tpu_torch.ops import attention
+
+    B, N = 32, 577
+    qkv = torch.randn(B, N, 3 * DIM, generator=gen).to("cuda", torch.bfloat16)
+    hd = DIM // HEADS
+    q4 = qkv.view(B, N, 3, HEADS, hd).permute(2, 0, 3, 1, 4)
+    return (lambda: attention.flash_attention(qkv, HEADS, hd ** -0.5),
+            lambda: attention.flash_attention_reference(qkv, HEADS,
+                                                        hd ** -0.5),
+            lambda: F.scaled_dot_product_attention(q4[0], q4[1], q4[2],
+                                                   scale=hd ** -0.5),
+            (4 * B * N * DIM * 2, 4 * B * HEADS * N * N * hd, BF16_FLOPS),
+            ("elem",))
+
+
+def k7_phase(results: dict) -> None:
+    """K7 over every parameter of the ResMoE model (~121M f32 values in 176
+    leaves, their weight-decay and gate flags as the optimizer sets them)
+    at step t = 3, against its plain version (``K7_ULPS``); timed beside
+    its bound (9 f32 streams: p, g, mu, nu, ema read, p, mu, nu, ema
+    written), one ``torch.optim.AdamW(fused=True).step()`` on the same
+    tensors (its library call, which computes no EMA), and the unfused
+    path the port takes without ``--fused-optimizer``: the foreach AdamW
+    step and the foreach EMA."""
+    import torch
+
+    from slim_switch_moe_vit_tpu_torch import create_model, optim
+    from slim_switch_moe_vit_tpu_torch.ops import fused_adamw
+
+    named = [(n, p.detach().to("cuda"))
+             for n, p in create_model(RESMOE).named_parameters()]
+    wd, gate = optim.wd_mask(named), optim.gate_mask(named)
+    flags = ([wd[n] for n, _ in named], [gate[n] for n, _ in named])
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def like(p, std):
+        return torch.randn(p.shape, generator=gen, device="cuda") * std
+
+    params = [p for _, p in named]
+    base = (params, [like(p, 1e-2) for p in params],
+            [like(p, 1e-3) for p in params],
+            [like(p, 1e-3).square() for p in params],
+            [p + like(p, 1e-3) for p in params])
+    sets = [[[t.clone() for t in group] for group in base] for _ in range(2)]
+    bc1, bc2 = fused_adamw.bias_corrections(0.9, 0.999, 3)
+    kw = dict(lr_base=LR, lr_gate=2 * LR, bc1=bc1, bc2=bc2,
+              weight_decay=0.05, ema_decay=EMA_DECAY)
+    fused_adamw.fused_adamw_ema(*sets[0], *flags, **kw)
+    torch.cuda.synchronize()
+    fused_adamw.fused_adamw_ema_reference(*sets[1], *flags, **kw)
+    err, worst = 0.0, 0.0
+    for what, got, want in zip(("p", "g", "mu", "nu", "ema"), *sets):
+        for a, b in zip(got, want):
+            d = (a - b).abs()
+            lim = K7_ULPS * (b.abs() + b.abs().max())
+            err = max(err, d.max().item())
+            worst = max(worst, (d / lim).max().item())
+            if not (d <= lim).all():
+                raise AssertionError(f"fused_adamw_ema: {what} max |d| "
+                                     f"{d.max().item():.3e} beyond {K7_ULPS:.3e}"
+                                     " * (|ref| + max |ref|)")
+    n = sum(p.numel() for p in params)
+    ms = median_ms(lambda: fused_adamw.fused_adamw_ema(*sets[0], *flags, **kw))
+    plain_ms = median_ms(lambda: fused_adamw.fused_adamw_ema_reference(
+        *sets[1], *flags, **kw), reps=5, warmup=1)
+    del sets
+    yard = {}
+    for how in ("fused", "foreach"):
+        leaves = [torch.nn.Parameter(p.clone()) for p in params]
+        for q, g in zip(leaves, base[1]):
+            q.grad = g
+        opt = torch.optim.AdamW(leaves, lr=LR, weight_decay=0.05,
+                                **{how: True})
+        yard[how] = median_ms(opt.step)
+        del opt, leaves
+    ema = [e.clone() for e in base[4]]
+
+    def ema_foreach():
+        torch._foreach_mul_(ema, EMA_DECAY)
+        torch._foreach_add_(ema, params, alpha=1.0 - EMA_DECAY)
+
+    ema_ms = median_ms(ema_foreach)
+    bound_ms, bound_by = bound(36 * n, 15 * n, F32_FLOPS)
+    results["fused_adamw_ema"] = {
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": yard["fused"], "adamw_foreach_ms": yard["foreach"],
+        "ema_foreach_ms": ema_ms, "params": n}
+    log(f"kernel fused_adamw_ema {n} params in {len(params)} leaves: max|d| "
+        f"{err:.3e}, largest |d| / limit {worst:.3f}; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, library AdamW(fused=True).step() "
+        f"{yard['fused']:.4f} ms (no EMA), unfused path: AdamW(foreach).step()"
+        f" {yard['foreach']:.4f} ms + foreach EMA {ema_ms:.4f} ms; bound "
+        f"{bound_ms:.4f} ms ({bound_by})")
+    del base, ema, params, named
+    torch.cuda.empty_cache()
 
 
 def compare(name: str, got, want, modes, tol=None) -> tuple:
@@ -380,7 +611,27 @@ def kernel_phase(results: dict) -> None:
                 f"{ms:.4f} ms, plain "
                 f"{plain_ms:.4f} ms, library {lib}, bound {bound_ms:.4f} ms "
                 f"({bound_by}), first call {first_s:.2f} s")
+        # K11 against K5 on the same input, to K5's limit
+        err, peak, _ = compare("flash_attention", cases["flash_attention"][0](),
+                               cases["fused_mha"][0](), ("elem",))
+        log(f"kernel flash_attention vs fused_mha B={B}: max|d| {err:.3e} "
+            f"(max|ref| {peak:.3e})")
+        del cases, mha_inputs
         torch.cuda.empty_cache()
+    kernel, plain, library, cost, modes = flash_long_case(gen)
+    err, peak, _ = compare("flash_attention", kernel(), plain(), modes)
+    res = results["flash_attention"]
+    res["max_abs_err"] = max(res["max_abs_err"], err)
+    res.update({"ms_n577_b32": median_ms(kernel),
+                "plain_ms_n577_b32": median_ms(plain, reps=5, warmup=1),
+                "library_ms_n577_b32": median_ms(library),
+                "bound_ms_n577_b32": bound(*cost)[0]})
+    log(f"kernel flash_attention B=32 N=577: max|d| {err:.3e}, max|ref| "
+        f"{peak:.3e}; kernel {res['ms_n577_b32']:.4f} ms, plain "
+        f"{res['plain_ms_n577_b32']:.4f} ms, library "
+        f"{res['library_ms_n577_b32']:.4f} ms, bound "
+        f"{res['bound_ms_n577_b32']:.4f} ms ({bound(*cost)[1]})")
+    k7_phase(results)
 
 
 def forwards_for(n: int) -> int:
@@ -432,7 +683,7 @@ def serving_phase(artifact: str, rs) -> tuple:
         batcher.close()
         thread.join(timeout=30)
     forwards = sum(forwards_for(n) for n in REQUESTS)
-    want = {k: PER_FORWARD.get(k, 0) * forwards for k in PER_TRAIN_STEP}
+    want = expected(PER_FORWARD, forwards)
     log(f"launch counts over {forwards} forwards: {counts} (expected {want})")
     if counts != want:
         raise AssertionError(f"launch counts {counts} != {want}")
@@ -587,7 +838,7 @@ def train_phase(card: str) -> dict:
     counts = ops.launch_counts()
     step_ms = start.elapsed_time(end) / TRAIN_STEPS
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = {k: v * TRAIN_STEPS for k, v in PER_TRAIN_STEP.items()}
+    want = expected(PER_TRAIN_STEP, TRAIN_STEPS)
     log(f"train launch counts over {TRAIN_STEPS} steps: {counts}")
     if counts != want:
         raise AssertionError(f"train launch counts {counts} != {want}")
@@ -673,6 +924,377 @@ def train_cross_check() -> None:
         raise AssertionError(f"card bf16 training disagrees: {failed}")
 
 
+def resmoe_phase(card: str) -> None:
+    """The ResMoE B=128 step on the device clock with and without the fused
+    optimizer (exact launch counts), then one step from the same state and
+    gradients on both optimizer paths (``PATH_ULPS``, ``BC_REL``)."""
+    import torch
+
+    from slim_switch_moe_vit_tpu_torch import create_model, engine, losses, ops, optim
+    from slim_switch_moe_vit_tpu_torch.train_state import create_train_state
+
+    model = create_model(RESMOE, num_classes=1000, dtype=torch.bfloat16)
+    opt_init, update = optim.make_optimizer(weight_decay=0.05)
+    state = create_train_state(model, device="cuda", opt_init=opt_init,
+                               use_ema=True)
+    crit = losses.make_base_criterion(False, 0.1, False)
+    steps = {fused: engine.make_train_step(model, update, crit,
+                                           ema_decay=EMA_DECAY,
+                                           use_fused_optimizer=fused)
+             for fused in (False, True)}
+    x, y = _batch(TRAIN_B, 0, "cuda")
+    for fused in (False, True):
+        state, m = steps[fused](state, x, y, LR, LR)  # warm-up
+        ops.reset_launch_counts()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        losses_ = []
+        start.record()
+        for _ in range(RESMOE_STEPS):
+            state, m = steps[fused](state, x, y, LR, LR)
+            losses_.append(m["loss"])
+        end.record()
+        end.synchronize()
+        counts = ops.launch_counts()
+        per = dict(PER_RESMOE_STEP, fused_adamw_ema=int(fused))
+        if counts != expected(per, RESMOE_STEPS):
+            raise AssertionError(f"ResMoE launch counts {counts} != "
+                                 f"{expected(per, RESMOE_STEPS)}")
+        losses_ = torch.stack(losses_).tolist()
+        if not all(np.isfinite(losses_)):
+            raise AssertionError(f"non-finite ResMoE loss {losses_}")
+        ms = start.elapsed_time(end) / RESMOE_STEPS
+        what = ("fused optimizer (K7)" if fused
+                else "torch AdamW + foreach EMA")
+        log(f"ResMoE train step B={TRAIN_B}, {what}: {ms:.3f} ms on the "
+            f"device clock ({TRAIN_B / ms * 1e3:.1f} images/s), losses "
+            f"{[round(v, 4) for v in losses_]}, launches per step exact; "
+            f"card {card}")
+        # the device's own time: the profile's kernel sum (the events
+        # above also count the device's idle gaps behind a slow host)
+        profile_call(lambda: steps[fused](state, x, y, LR, LR),
+                     f"one ResMoE train step B={TRAIN_B}, {what}")
+
+    # one step on each optimizer path from the same state and gradients
+    state.optimizer.zero_grad(set_to_none=True)
+    model.train()
+    crit(model(x, state.generator), y).backward()
+    named = list(model.named_parameters())
+
+    def snapshot():
+        out = {"param": {n: p.detach().clone() for n, p in named},
+               "ema": {n: e.clone() for n, e in state.ema_params.items()}}
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            out[key] = {n: state.optimizer.state[p][key].clone()
+                        for n, p in named}
+        return out
+
+    def restore(snap):
+        with torch.no_grad():
+            for n, p in named:
+                p.copy_(snap["param"][n])
+                for key in ("exp_avg", "exp_avg_sq", "step"):
+                    state.optimizer.state[p][key].copy_(snap[key][n])
+            for n, e in state.ema_params.items():
+                e.copy_(snap["ema"][n])
+
+    start_state = snapshot()
+    grads = {n: p.grad for n, p in named}
+    update.fused_apply(model, state.optimizer, state.ema_params, LR, LR,
+                       EMA_DECAY)
+    fused_state = snapshot()
+    restore(start_state)
+    update(state.optimizer, LR, LR)
+    engine.ema_update(state.ema_params, model, EMA_DECAY)
+    torch_state = snapshot()
+    worst = {}
+    for what in ("param", "ema", "exp_avg", "exp_avg_sq"):
+        extra = BC_REL * LR if what in ("param", "ema") else 0.0
+        for n, want in torch_state[what].items():
+            # ulps of the leaf's largest value before or after the step
+            # (and of (1-b1)*g for the first moment, which can cancel)
+            scale = max(want.abs().max().item(),
+                        start_state[what][n].abs().max().item())
+            if what == "exp_avg":
+                scale = max(scale, 0.1 * grads[n].abs().max().item())
+            d = (fused_state[what][n] - want).abs().max().item()
+            lim = PATH_ULPS * scale + extra
+            worst[what] = max(worst.get(what, 0.0), d / lim)
+            if d > lim:
+                raise AssertionError(f"fused vs torch AdamW: {what} {n} max "
+                                     f"|d| {d:.3e} beyond {lim:.3e}")
+    if fused_state["step"] != torch_state["step"]:
+        steps_seen = {float(v) for v in fused_state["step"].values()}
+        raise AssertionError(f"optimizer step counts differ: {steps_seen}")
+    log("one step, fused vs torch AdamW + foreach EMA, from the same state "
+        f"(t={int(float(next(iter(torch_state['step'].values()))))}): "
+        "largest |d| / limit " + ", ".join(f"{k} {v:.3f}"
+                                           for k, v in worst.items()))
+    del model, state, steps, start_state, fused_state, torch_state, named
+    torch.cuda.empty_cache()
+
+
+def eval_decisions(model, x) -> tuple:
+    """(logits, each MoE call's chosen expert pairs, each gate's skip
+    decisions) of one eval forward, on the host."""
+    import torch
+
+    from slim_switch_moe_vit_tpu_torch.models import gates
+    from slim_switch_moe_vit_tpu_torch.ops import moe as moe_ops
+
+    routes, skips = [], []
+    real = moe_ops.naive_topk_gate
+
+    def spy(logits, top_k):
+        w, idx = real(logits, top_k)
+        routes.append(idx.sort(-1).values.cpu())
+        return w, idx
+
+    hooks = [g.register_forward_hook(
+        lambda mod, i, o: skips.append((o[..., 0] > 0.5).cpu()))
+        for g in gates.gate_modules(model).values()]
+    moe_ops.naive_topk_gate = spy
+    try:
+        with torch.no_grad():
+            logits = model(x).float().cpu().numpy()
+    finally:
+        moe_ops.naive_topk_gate = real
+        for h in hooks:
+            h.remove()
+    return logits, routes, skips
+
+
+def logit_gap(got: tuple, ref: tuple) -> dict:
+    """How far two ``eval_decisions`` results lie apart: the logits as in
+    ``cross_check``, and the routing and gate decisions that differ."""
+    a, b = got[0], ref[0]
+    d = np.abs(a - b)
+    cos = (a * b).sum(1) / np.linalg.norm(a, axis=1) / np.linalg.norm(b, axis=1)
+    top2 = np.sort(b, axis=1)[:, -2:]
+    decisive = (top2[:, 1] - top2[:, 0]) > 2 * d.max()
+    agree = a.argmax(1) == b.argmax(1)
+    per_image = np.sort(d.max(1))[::-1][:5] / np.abs(b).max()
+    return {"rel": float(d.max() / np.abs(b).max()), "cos": float(cos.min()),
+            "per_image": [float(f"{v:.2e}") for v in per_image],
+            "n": len(a), "agree": int(agree.sum()),
+            "decisive": int(decisive.sum()),
+            "decisive_agree": int(agree[decisive].sum()),
+            "route_flips": [round(float((u != w).any(-1).float().mean()), 4)
+                            for u, w in zip(got[1], ref[1])],
+            "skip_flips": int(sum(int((u != w).sum())
+                                  for u, w in zip(got[2], ref[2]))),
+            "skips": int(sum(w.numel() for w in ref[2])),
+            "skipped": int(sum(int(w.sum()) for w in ref[2]))}
+
+
+def driver_phase(card: str, tmp: str) -> dict:
+    """The training driver's ``main()`` at full width, then ``--eval
+    --use-flash-attention`` from its checkpoint; returns the launches of
+    K7 (training run) and K11 (eval run)."""
+    import argparse
+
+    import torch
+
+    from slim_switch_moe_vit_tpu_torch import config, engine, ops, optim
+    from slim_switch_moe_vit_tpu_torch import main as driver
+    from slim_switch_moe_vit_tpu_torch.data import (
+        build_dataset,
+        build_eval_normalize,
+    )
+    from slim_switch_moe_vit_tpu_torch.models import gates
+    from slim_switch_moe_vit_tpu_torch.train_state import create_train_state
+    from slim_switch_moe_vit_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    parser = argparse.ArgumentParser(parents=[config.get_args_parser()])
+    out = os.path.join(tmp, "driver")
+    os.makedirs(out)
+    rec = {"train": [], "eval": [], "losses": [], "loop_s": 0.0,
+           "anneals": []}
+
+    def counting(make, key):
+        def make_counted(*a, **kw):
+            fn = make(*a, **kw)
+
+            def run(*fa, **fkw):
+                before = ops.launch_counts()
+                res = fn(*fa, **fkw)
+                after = ops.launch_counts()
+                rec[key].append({k: after[k] - before[k] for k in after})
+                if key == "train":
+                    rec["losses"].append(res[1]["loss"])
+                return res
+            return run
+        return make_counted
+
+    def timed_epoch(*a, **kw):
+        t0 = time.perf_counter()
+        res = real["train_one_epoch"](*a, **kw)
+        rec["loop_s"] += time.perf_counter() - t0
+        return res
+
+    def anneal_spy(model, plan, epoch):
+        mods = gates.gate_modules(model)
+        before = {p: (g.threshold.item(), g.enabled.item())
+                  for p, g in mods.items()}
+        real["apply_epoch_anneal"](model, plan, epoch)
+        rec["anneals"].append((epoch, plan, before, {
+            p: (g.threshold.item(), g.enabled.item(),
+                g.target_threshold.item()) for p, g in mods.items()}))
+
+    real = {"make_train_step": engine.make_train_step,
+            "make_eval_step": engine.make_eval_step,
+            "train_one_epoch": engine.train_one_epoch,
+            "apply_epoch_anneal": driver.apply_epoch_anneal}
+    engine.make_train_step = counting(real["make_train_step"], "train")
+    engine.make_eval_step = counting(real["make_eval_step"], "eval")
+    engine.train_one_epoch = timed_epoch
+    driver.apply_epoch_anneal = anneal_spy
+    try:
+        args = parser.parse_args(DRIVER_ARGS + ["--output_dir", out])
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        state = driver.main(args)
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        ckpt = os.path.join(out, "checkpoint")
+        eargs = parser.parse_args(DRIVER_ARGS + [
+            "--eval", "--resume", ckpt, "--use-flash-attention"])
+        train_evals, rec["eval"] = rec["eval"], []
+        ops.reset_launch_counts()
+        estate = driver.main(eargs)
+        flash_counts = ops.launch_counts()
+    finally:
+        engine.make_train_step = real["make_train_step"]
+        engine.make_eval_step = real["make_eval_step"]
+        engine.train_one_epoch = real["train_one_epoch"]
+        driver.apply_epoch_anneal = real["apply_epoch_anneal"]
+
+    # every train step and eval forward through exactly its kernels
+    bad = [d for d in rec["train"] if d != expected(PER_RESMOE_STEP, 1)]
+    bad += [d for d in train_evals if d != expected(PER_RESMOE_FORWARD, 1)]
+    want = {k: PER_RESMOE_STEP.get(k, 0) * len(rec["train"])
+            + PER_RESMOE_FORWARD.get(k, 0) * len(train_evals)
+            for k in counts}
+    log(f"driver: {len(rec['train'])} train steps, {len(train_evals)} eval "
+        f"forwards, launches {counts}")
+    if bad or counts != want or len(rec["train"]) != DRIVER_TRAIN_STEPS:
+        raise AssertionError(f"driver launch counts: {counts} != {want}, "
+                             f"{len(rec['train'])} steps, off: {bad[:2]}")
+    losses_ = torch.stack(rec["losses"]).tolist()
+    if not all(np.isfinite(losses_)):
+        raise AssertionError(f"non-finite driver loss: {losses_}")
+    loop_steps = DRIVER_TRAIN_STEPS - 2  # the rehearsal steps run outside
+    log(f"driver: losses {[round(v, 4) for v in losses_]}; {wall:.1f} s for "
+        f"the whole run, {DRIVER_TRAIN_STEPS / wall:.3f} train steps/s over "
+        f"it (data, eval, checkpoints included), {loop_steps / rec['loop_s']:.3f}"
+        f" steps/s in the epoch loops (host data loading included); card "
+        f"{card}")
+
+    # the gates: disabled through each task's first epoch, then the plan
+    f32 = np.float32
+    for epoch, plan, before, after in rec["anneals"]:
+        if epoch == 0 and any(en != 0.0 for _, en in before.values()):
+            raise AssertionError("gates not disabled through a task's first "
+                                 "epoch")
+        for path, (delta, start) in plan.items():
+            thr, en = before[path]
+            if epoch >= start:
+                thr = float(np.maximum(f32(thr) - f32(delta),
+                                       f32(after[path][2])))
+                en = 1.0
+            if after[path][:2] != (thr, en):
+                raise AssertionError(f"gate {path} after epoch {epoch}: "
+                                     f"{after[path][:2]} != {(thr, en)}")
+    log("driver: gate thresholds after each epoch (task, epoch -> values): "
+        + "; ".join(f"{i // 2}, {e} -> "
+                    f"{sorted({round(v[0], 6) for v in a.values()})} "
+                    f"enabled {sorted({v[1] for v in a.values()})}"
+                    for i, (e, _, _, a) in enumerate(rec["anneals"]))
+        + ", as planned")
+
+    # the checkpoint restores parameters, moments and EMA bit for bit
+    fresh = driver.build_model(args, args.nb_classes, args.seed)
+    opt_init, _ = optim.make_optimizer(weight_decay=args.weight_decay)
+    restored, epoch = restore_checkpoint(ckpt, create_train_state(
+        fresh, device="cuda", seed=args.seed, opt_init=opt_init,
+        use_ema=True))
+    same = [torch.equal(a, b) for a, b in zip(
+        state.model.state_dict().values(),
+        restored.model.state_dict().values())]
+    same += [torch.equal(e, restored.ema_params[n])
+             for n, e in state.ema_params.items()]
+    for p, q in zip(state.model.parameters(), restored.model.parameters()):
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            same.append(torch.equal(state.optimizer.state[p][key].cpu(),
+                                    restored.optimizer.state[q][key].cpu()))
+    if not all(same) or restored.step != state.step:
+        raise AssertionError(f"--resume: {same.count(False)} tensors differ")
+    log(f"driver: --resume restored epoch {epoch}, step {restored.step}: "
+        f"{len(same)} tensors (parameters and gate buffers, EMA, moments) "
+        "bit-identical")
+    del fresh, restored, state
+
+    # --eval --use-flash-attention: K11 in every forward, K5 in none
+    bad = [d for d in rec["eval"] if d != expected(PER_FLASH_FORWARD, 1)]
+    if bad or flash_counts != expected(PER_FLASH_FORWARD, len(rec["eval"])):
+        raise AssertionError(f"flash eval launch counts {flash_counts}")
+    log(f"driver --eval --use-flash-attention: {len(rec['eval'])} forwards, "
+        f"launches {flash_counts}")
+    ds, _ = build_dataset(False, eargs)
+    imgs = torch.from_numpy(np.stack([ds[i][0] for i in range(64)])).cuda()
+    x = build_eval_normalize(dtype=torch.bfloat16)(imgs)
+    model = estate.model.eval()
+    flash = eval_decisions(model, x)
+    for blk in model.blocks:
+        blk.attn.use_flash = False
+    qkvs = []  # each block's qkv as the K5 eval computes it
+    hooks = [blk.attn.qkv.register_forward_hook(
+        lambda mod, i, o: qkvs.append(o.detach())) for blk in model.blocks]
+    k5 = eval_decisions(model, x)
+    for h in hooks:
+        h.remove()
+    # the witness: the same checkpoint's K5 eval against the port's plain
+    # path on the CPU in bf16 (the same precision, other roundings)
+    plain = eval_decisions(copy.deepcopy(model).cpu(), x.cpu())
+    gaps = {"flash vs K5": logit_gap(flash, k5),
+            "K5 vs CPU bf16 plain (witness)": logit_gap(k5, plain)}
+    for what, g in gaps.items():
+        log(f"eval logits, {what}, 64 images: max |d| / max |ref| "
+            f"{g['rel']:.4e} (per image, largest five: {g['per_image']}), "
+            f"min cosine {g['cos']:.6f}, top-1 agree {g['agree']}/{g['n']} "
+            f"({g['decisive']} decisive, {g['decisive_agree']} of them "
+            f"agree); tokens routed to another expert pair per block "
+            f"{g['route_flips']}; gate decisions flipped {g['skip_flips']} "
+            f"of {g['skips']} ({g['skipped']} skipped)")
+    # K11 against K5 and the plain version on the checkpoint's own qkv
+    from slim_switch_moe_vit_tpu_torch.ops import attention
+
+    hd = DIM // HEADS
+    rows = []
+    for qkv in qkvs:
+        f = attention.flash_attention(qkv, HEADS, hd ** -0.5)
+        k = attention.fused_mha(qkv, HEADS, hd ** -0.5)
+        p = attention.flash_attention_reference(qkv, HEADS, hd ** -0.5)
+        rows.append((compare("flash_attention", f, k, ("elem",))[:2],
+                     compare("flash_attention", f, p, ("elem",))[0],
+                     compare("fused_mha", k, p, ("elem",))[0]))
+    log("K11 on each block's qkv of the checkpoint (max |d| flash-K5 / "
+        "flash-plain / K5-plain, max |ref|): " + "; ".join(
+            f"{i}: {fk[0]:.2e}/{fp:.2e}/{kp:.2e}, {fk[1]:.2f}"
+            for i, (fk, fp, kp) in enumerate(rows)))
+    g, w = gaps["flash vs K5"], gaps["K5 vs CPU bf16 plain (witness)"]
+    rel_lim = max(XCHECK_REL, FLASH_WITNESS * w["rel"])
+    cos_lim = min(XCHECK_COS, 1.0 - FLASH_WITNESS * (1.0 - w["cos"]))
+    if (g["rel"] > rel_lim or g["cos"] < cos_lim
+            or g["decisive_agree"] != g["decisive"]):
+        raise AssertionError(f"flash eval logits disagree with K5's beyond "
+                             f"max |d| / max |ref| {rel_lim:.3e}, cosine "
+                             f"{cos_lim:.6f}")
+    del model, estate
+    torch.cuda.empty_cache()
+    return {"fused_adamw_ema": counts["fused_adamw_ema"],
+            "flash_attention": flash_counts["flash_attention"]}
+
+
 def main() -> int:
     import torch
 
@@ -698,7 +1320,15 @@ def main() -> int:
                 log("  ptxas: " + line.strip())
 
     results: dict = {}
+    t_phase = time.perf_counter()
+
+    def phase_done(what: str) -> None:
+        nonlocal t_phase
+        log(f"[{what}: {time.perf_counter() - t_phase:.1f} s]")
+        t_phase = time.perf_counter()
+
     kernel_phase(results)
+    phase_done("kernel phase")
     rs = np.random.RandomState(0)
     tmp = tempfile.mkdtemp(prefix="ssmv_smoke_")
     try:
@@ -710,11 +1340,25 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
+    phase_done("serving phases")
     trained = train_phase(card)
+    phase_done("training phase")
     train_cross_check()
+    phase_done("training cross-check")
+    resmoe_phase(card)
+    phase_done("ResMoE phase")
+    tmp = tempfile.mkdtemp(prefix="ssmv_driver_")
+    try:
+        trained.update(driver_phase(card, tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_done("driver phase")
 
-    # launches: each kernel's in the 10 training steps, which run all ten
-    # (the serving run's counts are checked in serving_phase)
+    # launches: K1a-K6 in the 10 training steps of phase 6, which run all
+    # ten (the serving run's counts are checked in serving_phase); K7 in the
+    # driver's training run, K11 in its flash eval
+    if any(trained[name] == 0 for name, *_ in KERNELS):
+        raise AssertionError(f"a kernel never launched on its path: {trained}")
     summary = {"kernels": [
         {"name": name, "route": route, "source": source, "replaces": replaces,
          "launches": trained[name], **results[name]}

@@ -7,8 +7,11 @@ autograd Function with its backward kernel (``ops/``). bf16 activations over
 f32 parameters, no loss scaling (bf16's exponent range needs none), as in
 the JAX package.
 
-Not ported yet: on-device augmentation and mixup (``augment_fn``,
-``mixup_fn``; ROADMAP Queue 1 #3) and the fused optimizer (K7).
+``use_fused_optimizer`` takes the optimizer's ``fused_apply`` (the K7
+kernel: AdamW and the EMA in one pass), as the JAX step takes its
+``fused_apply`` (engine.py:116-125). Images may come as uint8 batches with
+an ``augment_fn`` (``data/device_aug.py``) that runs on the device. Mixup
+is not ported yet (ROADMAP Queue 1 #3).
 """
 from __future__ import annotations
 
@@ -19,23 +22,45 @@ import typing as typ
 import torch
 
 from .losses import accuracy_topk, cross_entropy, distillation_loss
+from .models.gates import TokenGate
 from .models.moe import MoEMlp
 from .train_state import TrainState
 from .utils.metrics import MetricLogger, SmoothedValue
 
 
-def _moe_modules(model: torch.nn.Module) -> typ.List[MoEMlp]:
-    return [m for m in model.modules() if isinstance(m, MoEMlp)]
+def _moe_modules(model: torch.nn.Module) -> typ.List[torch.nn.Module]:
+    """The MoE MLPs and token gates, whose forwards keep metrics."""
+    return [m for m in model.modules() if isinstance(m, (MoEMlp, TokenGate))]
 
 
 def _collect_moe_metrics(moe_modules) -> typ.Dict[str, torch.Tensor]:
-    """Average each MoE metric (balance_loss, drop_fraction) over the blocks
-    that ran."""
+    """Average each metric (balance_loss, drop_fraction of the MoE MLPs,
+    skip_fraction of the gates) over the modules that ran."""
     buckets: typ.Dict[str, list] = {}
     for m in moe_modules:
-        for k, v in (m.aux or {}).items():
+        metrics = (m.aux or {}) if isinstance(m, MoEMlp) else (
+            {} if m.skip_fraction is None
+            else {"skip_fraction": m.skip_fraction})
+        for k, v in metrics.items():
             buckets.setdefault(k, []).append(v)
     return {k: torch.stack(v).mean() for k, v in buckets.items()}
+
+
+def _reset_metrics(moe_modules) -> None:
+    for m in moe_modules:
+        if isinstance(m, MoEMlp):
+            m.aux = None
+        else:
+            m.skip_fraction = None
+
+
+def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host batch to the device through pinned memory, so the copy is
+    queued behind the work already on the stream instead of waiting for it
+    (a pageable copy synchronises)."""
+    if device.type == "cuda" and not t.is_cuda:
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 @torch.no_grad()
@@ -59,28 +84,40 @@ def make_train_step(model: torch.nn.Module, update_fn: typ.Callable,
                     mixup_fn: typ.Optional[typ.Callable] = None,
                     bce_loss: bool = False,
                     augment_fn: typ.Optional[typ.Callable] = None,
-                    set_training_mode: bool = True):
+                    set_training_mode: bool = True,
+                    use_fused_optimizer: bool = False):
     """Build the train step.
 
     Args:
         update_fn: from ``optim.make_optimizer`` — (optimizer, lr_base,
-            lr_gate) -> None, one step on the gradients in ``p.grad``.
+            lr_gate) -> None, one step on the gradients in ``p.grad``; with
+            ``use_fused_optimizer``, its ``fused_apply`` (when it has one)
+            takes the step and the EMA update in one kernel instead.
         teacher_apply: fn(images) -> logits for distillation (no grad).
+        augment_fn: fn(generator, images) -> images on the device (uint8
+            NHWC in, normalized f32 out), drawing from the state's
+            generator.
     Returns:
         train_step(state, images, targets, lr_base, lr_gate) -> (state,
         metrics): the state updated in place (parameters, optimizer, EMA,
-        step), metrics ``{loss, balance_loss, drop_fraction}`` as 0-d
-        tensors on the device, not fetched. The step's gradients stay in
-        ``p.grad`` until the next step.
+        step), metrics ``{loss, balance_loss, drop_fraction}`` (and
+        ``skip_fraction`` with gates) as 0-d tensors on the device, not
+        fetched. The step's gradients stay in ``p.grad`` until the next
+        step.
     """
-    if augment_fn is not None or mixup_fn is not None:
-        raise NotImplementedError("on-device augmentation and mixup are not "
-                                  "ported yet (ROADMAP Queue 1 #3)")
+    if mixup_fn is not None:
+        raise NotImplementedError("mixup is not ported yet (ROADMAP Queue 1 "
+                                  "#3)")
     moe_modules = _moe_modules(model)
+    fused_apply = (getattr(update_fn, "fused_apply", None)
+                   if use_fused_optimizer else None)
 
     def train_step(state: TrainState, images, targets, lr_base, lr_gate):
         device = next(model.parameters()).device
-        images, targets = images.to(device), targets.to(device)
+        images, targets = _to_device(images, device), _to_device(targets,
+                                                                  device)
+        if augment_fn is not None:
+            images = augment_fn(state.generator, images)
         if bce_loss:
             targets = (targets > 0.0).float()
         teacher_logits = None
@@ -91,8 +128,7 @@ def make_train_step(model: torch.nn.Module, update_fn: typ.Callable,
         # set_training_mode=False keeps dropout/droppath off while still
         # training (the reference's model.train(set_training_mode))
         model.train(set_training_mode)
-        for m in moe_modules:
-            m.aux = None
+        _reset_metrics(moe_modules)
         out = model(images, state.generator)
         logits, logits_kd = out if isinstance(out, tuple) else (out, None)
         loss = distillation_loss(base_criterion(logits, targets), logits_kd,
@@ -103,9 +139,15 @@ def make_train_step(model: torch.nn.Module, update_fn: typ.Callable,
 
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        update_fn(state.optimizer, lr_base, lr_gate)
-        if state.ema_params is not None and ema_decay is not None:
-            ema_update(state.ema_params, model, ema_decay)
+        ema_on = state.ema_params is not None and ema_decay is not None
+        if fused_apply is not None:
+            fused_apply(model, state.optimizer,
+                        state.ema_params if ema_on else None, lr_base,
+                        lr_gate, ema_decay)
+        else:
+            update_fn(state.optimizer, lr_base, lr_gate)
+            if ema_on:
+                ema_update(state.ema_params, model, ema_decay)
         state.step += 1
         metrics = {"loss": loss.detach(),
                    **{k: v.detach() for k, v in moe_metrics.items()}}
@@ -121,7 +163,8 @@ def make_eval_step(model: torch.nn.Module, use_ema: bool = False,
     @torch.no_grad()
     def eval_step(state: TrainState, images, targets):
         device = next(model.parameters()).device
-        images, targets = images.to(device), targets.to(device)
+        images, targets = _to_device(images, device), _to_device(targets,
+                                                                  device)
         if preprocess_fn is not None:
             images = preprocess_fn(images)
         model.eval()

@@ -32,12 +32,15 @@ PTXAS_LOG = "ptxas.log"  # per-kernel registers / shared memory / spills
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 # C signatures of the entry points (argtypes, restype int = cudaError_t)
 _SIGNATURES = {
     "ssmv_mha_fwd": (_P, _P, _I, _I, _I, _I, _F, _I, _P),
     "ssmv_expert_ffn_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "ssmv_mha_bwd": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
     "ssmv_expert_ffn_bwd": (_P,) * 14 + (_I, _I, _I, _I, _I, _P),
+    "ssmv_flash_fwd": (_P, _P, _I, _I, _I, _I, _F, _P),
+    "ssmv_fused_adamw": (_P, _I) + (_F,) * 9 + (_D, _D, _D, _P),
 }
 
 

@@ -1,10 +1,12 @@
 """Multi-head attention over the packed qkv tensor, forward (K5) and
-backward (K6), for the H100.
+backward (K6), and the online-softmax forward (K11), for the H100.
 
-Replaces two Pallas kernels of ``slim_switch_moe_vit_tpu/ops/attention.py``:
+Replaces three Pallas kernels of ``slim_switch_moe_vit_tpu/ops/attention.py``:
 ``_mha_fwd_kernel`` (:168) behind ``_mha_fwd_call`` (:279) and ``fused_mha``
-(:296), and ``_mha_bwd_kernel`` (:203) behind ``_fused_mha_bwd`` (:312). The
-CUDA C++ kernels are ``csrc/mha_fwd.cu`` and ``csrc/mha_bwd.cu``; their
+(:296), ``_mha_bwd_kernel`` (:203) behind ``_fused_mha_bwd`` (:312), and
+``_flash_kernel`` (:35) behind ``flash_attention`` (:120). The CUDA C++
+kernels are ``csrc/mha_fwd.cu``, ``csrc/mha_bwd.cu`` and
+``csrc/flash_fwd.cu``; their
 header notes say what bounds them on the card and how their designs answer
 that. In short: at ViT lengths the whole score matrix of a (sample, head)
 pair fits on chip, so the forward reads the packed (B, N, 3C) qkv once and
@@ -13,9 +15,13 @@ and writes d(qkv) in the packed layout, the normalized probabilities never
 in device memory.
 
 Dispatch: a CPU tensor takes the plain versions
-(:func:`fused_mha_reference`, :func:`reference_mha_bwd`); a CUDA tensor
-launches the kernels or raises. The autograd Function saves qkv, as the JAX
-VJP does (attention.py:308-310).
+(:func:`fused_mha_reference`, :func:`reference_mha_bwd`,
+:func:`flash_attention_reference`); a CUDA tensor launches the kernels or
+raises. The autograd Functions save qkv, as the JAX VJPs do
+(attention.py:308-310, :125-127). The flash forward's backward recomputes
+through the plain version with ``torch.matmul``, as the JAX package's
+``_fa_bwd`` differentiates its XLA oracle outside any kernel
+("correctness-first", :129-133).
 """
 from __future__ import annotations
 
@@ -143,5 +149,53 @@ def fused_mha(qkv: torch.Tensor, num_heads: int, scale: float) -> torch.Tensor:
     return _FusedMHA.apply(qkv, num_heads, scale)
 
 
+def flash_attention_reference(qkv: torch.Tensor, num_heads: int,
+                              scale: float) -> torch.Tensor:
+    """Plain version of the flash forward: the same function as
+    :func:`fused_mha_reference` (f32 scores and softmax, the probabilities
+    cast to v's dtype for the PV product), which is the JAX package's
+    ``_xla_attention`` oracle over the packed layout."""
+    return fused_mha_reference(qkv, num_heads, scale)
+
+
+def _flash_forward(qkv, num_heads, scale):
+    if not qkv.is_cuda:
+        return flash_attention_reference(qkv, num_heads, scale)
+    B, N, C, d = _check_qkv(qkv, num_heads, (torch.bfloat16,))
+    out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
+    lib = _build.load_library()
+    err = lib.ssmv_flash_fwd(qkv.data_ptr(), out.data_ptr(), B, N, num_heads,
+                             d, float(scale),
+                             torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, num_heads, scale):
+        ctx.num_heads, ctx.scale = num_heads, scale
+        ctx.save_for_backward(qkv)
+        return _flash_forward(qkv, num_heads, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        (qkv,) = ctx.saved_tensors
+        with torch.enable_grad():
+            leaf = qkv.detach().requires_grad_()
+            out = flash_attention_reference(leaf, ctx.num_heads, ctx.scale)
+            (dqkv,) = torch.autograd.grad(out, leaf, do)
+        return dqkv, None, None
+
+
+def flash_attention(qkv: torch.Tensor, num_heads: int,
+                    scale: float) -> torch.Tensor:
+    """Online-softmax attention (K11) over packed qkv: the same function as
+    :func:`fused_mha`, for any N (K5 keeps the whole score row on chip)."""
+    return _FlashAttention.apply(qkv, num_heads, scale)
+
+
 fused_mha.launches = 0
 fused_mha_bwd.launches = 0
+flash_attention.launches = 0

@@ -1,12 +1,18 @@
-"""The optimizer, in PyTorch: the ``adamw`` part of
-``slim_switch_moe_vit_tpu/optim.py::make_optimizer`` (:567-673).
+"""The optimizer and the learning-rate schedules, in PyTorch.
+
+Port of ``slim_switch_moe_vit_tpu/optim.py``: the four timm schedules and
+``create_scheduler`` (:84-356, pure Python, copied as they are), ``scaled_lr``
+(:359-364), and the ``adamw`` part of ``make_optimizer`` (:567-695).
 
 The JAX package's default chain (``scale_by_adam`` then
 ``add_decayed_weights`` on ``wd_mask``, times -lr per group) is AdamW's
 decoupled update, p <- p - lr * (adam(g) + wd * p), which is what
-``torch.optim.AdamW`` computes (the foreach form; not ``fused=True``: the
-one-pass fused AdamW + EMA is a TPU kernel, K7, that a later slice writes by
-hand for the card).
+``torch.optim.AdamW`` computes (the foreach form). ``update_fn.fused_apply``
+is the one-pass AdamW + EMA of the K7 kernel (``ops/fused_adamw.py``), in
+the JAX math's order; it reads and writes the same state
+``torch.optim.AdamW`` keeps (``exp_avg``, ``exp_avg_sq``, ``step``), so a
+checkpoint moves between the two paths, as the JAX package keeps optax's
+layout for its fused path (optim.py:604-607).
 
 Parameters fall into four groups, weight decay or none by ``wd_mask``
 crossed with the base or the gate learning rate by ``gate_mask``; each
@@ -18,10 +24,12 @@ biases, which the JAX mask exempts from decay (optim.py:55).
 """
 from __future__ import annotations
 
+import math
 import typing as typ
 
 import torch
 
+from .ops.fused_adamw import bias_corrections, fused_adamw_ema
 from .utils.checkpoint import jax_path
 
 NO_WEIGHT_DECAY_NAMES = {"pos_embed", "cls_token", "dist_token"}
@@ -49,6 +57,292 @@ def gate_mask(named: typ.Iterable[typ.Tuple[str, torch.Tensor]]
             for name, _ in named}
 
 
+class TimmCosineSchedule:
+    """lr(epoch) per param group, matching timm CosineLRScheduler defaults as
+    driven by the reference CLI (sched=cosine, warmup_prefix False)."""
+
+    def __init__(self, base_lr: float, epochs: int, warmup_epochs: int = 5,
+                 warmup_lr: float = 1e-6, min_lr: float = 1e-5,
+                 cooldown_epochs: int = 10,
+                 noise_range: typ.Optional[typ.Sequence[float]] = None,
+                 noise_pct: float = 0.67, noise_std: float = 1.0,
+                 noise_seed: int = 42):
+        self.base_lr = base_lr
+        self.epochs = epochs
+        self.warmup_epochs = warmup_epochs
+        self.warmup_lr = warmup_lr
+        self.min_lr = min_lr
+        self.cooldown_epochs = cooldown_epochs
+        # timm lr-noise: epoch percentages of t_initial (--lr-noise pct pct)
+        self.noise_range = None
+        if noise_range:
+            rng = [p * epochs if p < 1.0 else p for p in noise_range]
+            self.noise_range = (rng[0], rng[1] if len(rng) > 1 else epochs)
+        self.noise_pct = noise_pct
+        self.noise_std = noise_std
+        self.noise_seed = noise_seed
+
+    def _noise(self, epoch: int) -> float:
+        """timm Scheduler._calculate_noise: per-epoch seeded gaussian clipped
+        to +/- noise_pct."""
+        if self.noise_range is None:
+            return 0.0
+        if not (self.noise_range[0] <= epoch < self.noise_range[1]):
+            return 0.0
+        import numpy as np
+
+        g = np.random.RandomState(self.noise_seed + epoch)
+        while True:
+            n = g.randn() * self.noise_std
+            if abs(n) < self.noise_pct:
+                return float(n)
+
+    def scale(self, epoch: int) -> float:
+        """Relative multiplier applied to every group's base lr. Warmup is an
+        absolute ramp for the main group; we return the main group's ratio and
+        let groups share it (timm scales groups proportionally)."""
+        return self(epoch) / self.base_lr if self.base_lr > 0 else 0.0
+
+    def __call__(self, epoch: int) -> float:
+        if self.warmup_epochs > 0 and epoch < self.warmup_epochs:
+            slope = (self.base_lr - self.warmup_lr) / self.warmup_epochs
+            return self.warmup_lr + slope * epoch
+        if epoch >= self.epochs:
+            return self.min_lr
+        t = epoch / max(self.epochs, 1)
+        lr = self.min_lr + 0.5 * (self.base_lr - self.min_lr) * (
+            1.0 + math.cos(math.pi * t)
+        )
+        return lr * (1.0 + self._noise(epoch))
+
+
+class TimmStepSchedule:
+    """lr(epoch) matching timm StepLRScheduler as driven by the reference CLI
+    (``--sched step --decay-epochs N --decay-rate R``): linear warmup, then
+    ``base_lr * R ** (epoch // N)``. timm does not clamp step decay to
+    ``min_lr``; lr-noise applies the same way as for cosine."""
+
+    def __init__(self, base_lr: float, epochs: int, *, decay_epochs: float = 30,
+                 decay_rate: float = 0.1, warmup_epochs: int = 5,
+                 warmup_lr: float = 1e-6,
+                 noise_range: typ.Optional[typ.Sequence[float]] = None,
+                 noise_pct: float = 0.67, noise_std: float = 1.0,
+                 noise_seed: int = 42):
+        self.base_lr = base_lr
+        self.epochs = epochs
+        self.decay_epochs = max(decay_epochs, 1e-9)
+        self.decay_rate = decay_rate
+        self.warmup_epochs = warmup_epochs
+        self.warmup_lr = warmup_lr
+        self._noise_helper = TimmCosineSchedule(
+            base_lr, epochs, noise_range=noise_range, noise_pct=noise_pct,
+            noise_std=noise_std, noise_seed=noise_seed)
+
+    def scale(self, epoch: int) -> float:
+        return self(epoch) / self.base_lr if self.base_lr > 0 else 0.0
+
+    def __call__(self, epoch: int) -> float:
+        if self.warmup_epochs > 0 and epoch < self.warmup_epochs:
+            slope = (self.base_lr - self.warmup_lr) / self.warmup_epochs
+            return self.warmup_lr + slope * epoch
+        lr = self.base_lr * self.decay_rate ** int(epoch // self.decay_epochs)
+        return lr * (1.0 + self._noise_helper._noise(epoch))
+
+
+class TimmPlateauSchedule:
+    """``--sched plateau``: timm PlateauLRScheduler semantics — a thin wrapper
+    around ``torch.optim.lr_scheduler.ReduceLROnPlateau`` (mode inferred from
+    the eval metric; accuracy -> 'max') with timm's linear warmup on top.
+    Parity-tested against torch's ReduceLROnPlateau itself
+    (tests/test_optim_extras.py), since torch is the authoritative
+    implementation timm defers to.
+
+    NOTE the reference driver cannot actually run plateau: it steps the
+    scheduler without a metric (its ``main.py:886``,
+    ``lr_scheduler.step(epoch)``), and torch's ReduceLROnPlateau then raises
+    on ``float(None)``. Implemented here are the INTENDED semantics — the way
+    timm's own train loop drives it, feeding the epoch's eval metric — via
+    ``observe(metric)`` called after each epoch's eval (main.py). lr-noise is
+    not supported with plateau (timm applies/restores it around the torch
+    state in a way that cannot be reproduced without torch's internals;
+    passing ``--lr-noise`` with plateau raises up front).
+
+    torch-parity points (ReduceLROnPlateau defaults): relative improvement
+    threshold 1e-4 — for mode 'max' an epoch improves iff
+    ``metric > best * (1 + 1e-4)`` — patience counted in *bad* epochs, decay
+    ``lr *= decay_rate`` floored at ``min_lr``, cooldown 0.
+    """
+
+    def __init__(self, base_lr: float, epochs: int, *, decay_rate: float = 0.1,
+                 patience_epochs: int = 10, warmup_epochs: int = 5,
+                 warmup_lr: float = 1e-6, min_lr: float = 1e-5,
+                 mode: str = "max", threshold: float = 1e-4,
+                 eps: float = 1e-8):
+        self.base_lr = base_lr
+        self.epochs = epochs
+        self.decay_rate = decay_rate
+        self.patience = patience_epochs
+        self.warmup_epochs = warmup_epochs
+        self.warmup_lr = warmup_lr
+        self.min_lr = min_lr
+        self.mode = mode
+        self.threshold = threshold
+        self.eps = eps
+        self.current_lr = base_lr
+        self.best = -math.inf if mode == "max" else math.inf
+        self.num_bad = 0
+
+    def _is_better(self, metric: float) -> bool:
+        # torch ReduceLROnPlateau.is_better, threshold_mode='rel'
+        if self.mode == "max":
+            return metric > self.best * (1.0 + self.threshold)
+        return metric < self.best * (1.0 - self.threshold)
+
+    def observe(self, epoch: int, metric: float) -> None:
+        """Feed epoch's eval metric (timm train loop:
+        ``lr_scheduler.step(epoch + 1, eval_metric)``). No-op during warmup,
+        mirroring timm's PlateauLRScheduler.step warmup branch."""
+        if self.warmup_epochs > 0 and epoch < self.warmup_epochs:
+            return
+        if self._is_better(metric):
+            self.best = metric
+            self.num_bad = 0
+        else:
+            self.num_bad += 1
+        if self.num_bad > self.patience:
+            # torch _reduce_lr: floor at min_lr, skip sub-eps updates (so the
+            # lr can never INCREASE toward min_lr, and tiny lrs stop moving)
+            new_lr = max(self.current_lr * self.decay_rate, self.min_lr)
+            if self.current_lr - new_lr > self.eps:
+                self.current_lr = new_lr
+            self.num_bad = 0
+
+    def scale(self, epoch: int) -> float:
+        return self(epoch) / self.base_lr if self.base_lr > 0 else 0.0
+
+    def __call__(self, epoch: int) -> float:
+        if self.warmup_epochs > 0 and epoch < self.warmup_epochs:
+            slope = (self.base_lr - self.warmup_lr) / self.warmup_epochs
+            return self.warmup_lr + slope * epoch
+        return self.current_lr
+
+    # Unlike cosine/step, plateau is STATEFUL — the reference checkpoints
+    # lr_scheduler.state_dict() (main.py:900) so a resumed run keeps its
+    # decay bookkeeping. Same here via a JSON sidecar
+    # (utils/checkpoint.py::save_checkpoint extra={"sched": ...}).
+    def state_dict(self) -> dict:
+        return {"current_lr": self.current_lr, "best": self.best,
+                "num_bad": self.num_bad}
+
+    def load_state_dict(self, st: dict) -> None:
+        self.current_lr = float(st["current_lr"])
+        self.best = float(st["best"])
+        self.num_bad = int(st["num_bad"])
+
+
+class TimmTanhSchedule:
+    """``--sched tanh``: timm TanhLRScheduler — the hyperbolic-tangent decay
+    of Hsueh et al. 2018 (arXiv:1806.01593), the fourth and last schedule the
+    DeiT-era timm ``create_scheduler`` dispatches (cosine/tanh/step/plateau).
+
+    Decay: ``lr = min_lr + 0.5*(base - min_lr) * (1 - tanh(lb + (ub-lb)*t/T))``
+    with timm's defaults ``lb=-6.0, ub=4.0`` (not CLI-exposed in the reference,
+    so the defaults are the whole surface). Warmup ramp, cooldown-to-min_lr,
+    and lr-noise behave exactly as in TimmCosineSchedule (shared timm
+    ``Scheduler`` base-class behavior).
+
+    Copied as the JAX package has it, including its open fault: lb/ub are
+    not verified against timm (ROADMAP Queue 3)."""
+
+    def __init__(self, base_lr: float, epochs: int, *, lb: float = -6.0,
+                 ub: float = 4.0, warmup_epochs: int = 5,
+                 warmup_lr: float = 1e-6, min_lr: float = 1e-5,
+                 cooldown_epochs: int = 10,
+                 noise_range: typ.Optional[typ.Sequence[float]] = None,
+                 noise_pct: float = 0.67, noise_std: float = 1.0,
+                 noise_seed: int = 42):
+        self.base_lr = base_lr
+        self.epochs = epochs
+        self.lb = lb
+        self.ub = ub
+        self.warmup_epochs = warmup_epochs
+        self.warmup_lr = warmup_lr
+        self.min_lr = min_lr
+        self.cooldown_epochs = cooldown_epochs
+        self._noise_helper = TimmCosineSchedule(
+            base_lr, epochs, noise_range=noise_range, noise_pct=noise_pct,
+            noise_std=noise_std, noise_seed=noise_seed)
+
+    def scale(self, epoch: int) -> float:
+        return self(epoch) / self.base_lr if self.base_lr > 0 else 0.0
+
+    def __call__(self, epoch: int) -> float:
+        if self.warmup_epochs > 0 and epoch < self.warmup_epochs:
+            slope = (self.base_lr - self.warmup_lr) / self.warmup_epochs
+            return self.warmup_lr + slope * epoch
+        if epoch >= self.epochs:
+            return self.min_lr
+        tr = epoch / max(self.epochs, 1)
+        lr = self.min_lr + 0.5 * (self.base_lr - self.min_lr) * (
+            1.0 - math.tanh(self.lb + (self.ub - self.lb) * tr)
+        )
+        return lr * (1.0 + self._noise_helper._noise(epoch))
+
+
+SUPPORTED_SCHEDULERS = ("cosine", "tanh", "step", "plateau")
+
+
+def create_scheduler(sched: str, base_lr: float, epochs: int, *,
+                     warmup_epochs: int = 5, warmup_lr: float = 1e-6,
+                     min_lr: float = 1e-5, cooldown_epochs: int = 10,
+                     decay_epochs: float = 30, decay_rate: float = 0.1,
+                     patience_epochs: int = 10,
+                     noise_range=None, noise_pct: float = 0.67,
+                     noise_std: float = 1.0, noise_seed: int = 42):
+    """timm ``create_scheduler`` parity for the CLI surface this framework
+    honors (reference ``main.py:734``). Unsupported names raise instead of
+    silently substituting an algorithm (PARITY 2.1)."""
+    if sched == "cosine":
+        return TimmCosineSchedule(
+            base_lr, epochs, warmup_epochs=warmup_epochs, warmup_lr=warmup_lr,
+            min_lr=min_lr, cooldown_epochs=cooldown_epochs,
+            noise_range=noise_range, noise_pct=noise_pct, noise_std=noise_std,
+            noise_seed=noise_seed)
+    if sched == "tanh":
+        return TimmTanhSchedule(
+            base_lr, epochs, warmup_epochs=warmup_epochs, warmup_lr=warmup_lr,
+            min_lr=min_lr, cooldown_epochs=cooldown_epochs,
+            noise_range=noise_range, noise_pct=noise_pct, noise_std=noise_std,
+            noise_seed=noise_seed)
+    if sched == "step":
+        return TimmStepSchedule(
+            base_lr, epochs, decay_epochs=decay_epochs, decay_rate=decay_rate,
+            warmup_epochs=warmup_epochs, warmup_lr=warmup_lr,
+            noise_range=noise_range, noise_pct=noise_pct, noise_std=noise_std,
+            noise_seed=noise_seed)
+    if sched == "plateau":
+        if noise_range:
+            raise ValueError(
+                "--lr-noise is not supported with --sched plateau (see "
+                "TimmPlateauSchedule docstring)")
+        return TimmPlateauSchedule(
+            base_lr, epochs, decay_rate=decay_rate,
+            patience_epochs=patience_epochs, warmup_epochs=warmup_epochs,
+            warmup_lr=warmup_lr, min_lr=min_lr)
+    raise ValueError(
+        f"--sched {sched!r} is not implemented; supported: "
+        f"{SUPPORTED_SCHEDULERS} (see PARITY.md 2.1 — this framework refuses "
+        "to silently substitute a schedule)")
+
+
+def scaled_lr(lr: float, batch_size: int, world_size: int,
+              unscale_lr: bool) -> float:
+    """Linear LR scaling: lr * global_batch / 512 (reference main.py:615-617)."""
+    if unscale_lr:
+        return lr
+    return lr * batch_size * world_size / 512.0
+
+
 def make_optimizer(*, opt: str = "adamw",
                    weight_decay: float = 0.05,
                    betas: typ.Tuple[float, float] = (0.9, 0.999),
@@ -59,7 +353,11 @@ def make_optimizer(*, opt: str = "adamw",
     ``init_fn(model)`` builds the optimizer over the model's parameters (on
     their device), ``update_fn(optimizer, lr_base, lr_gate)`` sets the
     groups' learning rates and applies one step to the gradients in
-    ``p.grad``."""
+    ``p.grad``.
+
+    ``update_fn.fused_apply(model, optimizer, ema, lr_base, lr_gate,
+    ema_decay)`` takes the same step, and the EMA update when ``ema`` (the
+    EMA tensors by parameter name) is given, in one K7 launch."""
     if opt not in SUPPORTED_OPTIMIZERS:
         raise ValueError(f"--opt {opt!r} is not implemented; supported: "
                          f"{SUPPORTED_OPTIMIZERS}")
@@ -90,4 +388,44 @@ def make_optimizer(*, opt: str = "adamw",
             group["lr"] = float(lr_gate if group["gate"] else lr_base)
         optimizer.step()
 
+    @torch.no_grad()
+    def fused_apply(model: torch.nn.Module, optimizer: torch.optim.AdamW,
+                    ema: typ.Optional[typ.Dict[str, torch.Tensor]],
+                    lr_base: float, lr_gate: float,
+                    ema_decay: typ.Optional[float]) -> None:
+        names = {p: n for n, p in model.named_parameters()}
+        leaves: typ.Dict[str, list] = {k: [] for k in (
+            "p", "g", "mu", "nu", "ema", "wd", "gate", "step")}
+        for group in optimizer.param_groups:
+            group["lr"] = float(lr_gate if group["gate"] else lr_base)
+            for p in group["params"]:
+                if p.grad is None:  # as torch.optim.AdamW: no step
+                    continue
+                st = optimizer.state[p]
+                if not st:  # torch.optim.AdamW's lazily built state
+                    st["step"] = torch.tensor(0.0, dtype=torch.float32)
+                    st["exp_avg"] = torch.zeros_like(p)
+                    st["exp_avg_sq"] = torch.zeros_like(p)
+                for k, v in (("p", p), ("g", p.grad), ("mu", st["exp_avg"]),
+                             ("nu", st["exp_avg_sq"]),
+                             ("wd", group["weight_decay"] != 0),
+                             ("gate", group["gate"]), ("step", st["step"])):
+                    leaves[k].append(v)
+                if ema is not None:
+                    leaves["ema"].append(ema[names[p]])
+        if not leaves["p"]:
+            return
+        t = int(leaves["step"][0]) + 1
+        bc1, bc2 = bias_corrections(betas[0], betas[1], t)
+        fused_adamw_ema(
+            leaves["p"], leaves["g"], leaves["mu"], leaves["nu"],
+            leaves["ema"] if ema is not None else None, leaves["wd"],
+            leaves["gate"], lr_base=float(lr_base), lr_gate=float(lr_gate),
+            bc1=bc1, bc2=bc2, b1=betas[0], b2=betas[1], eps=eps,
+            weight_decay=weight_decay,
+            ema_decay=ema_decay if ema is not None else None)
+        for step in leaves["step"]:
+            step.fill_(t)
+
+    update_fn.fused_apply = fused_apply
     return init_fn, update_fn

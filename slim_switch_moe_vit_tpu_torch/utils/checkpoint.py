@@ -1,8 +1,16 @@
-"""Weight transfer from the JAX package's parameter tree.
+"""Checkpoints, and weight transfer from the JAX package's parameter tree.
+
+:func:`save_checkpoint` / :func:`restore_checkpoint` are the torch-native
+form of the JAX package's ``utils/checkpoint.py`` (:59-149): one
+``torch.save`` file holding the model's ``state_dict`` (the gate buffers
+included), the optimizer's, the EMA, the generator's state, the step and
+the epoch, with the run's ``args`` and the scheduler's state in JSON files
+beside it (``<path>.args.json``, ``<path>.sched.json``), as there.
 
 :func:`from_jax_params` turns the flax param tree of a ViT / Switch-MoE ViT
-(nested dicts of numpy arrays, as ``variables["params"]``) into this
-package's ``state_dict``:
+/ ResMoE ViT (nested dicts of numpy arrays, as ``variables["params"]``,
+and optionally the ``gates`` collection) into this package's
+``state_dict``:
 
 - a Dense ``kernel`` (in, out) becomes ``weight`` (out, in), transposed;
   the qkv kernel's output columns stay in their contiguous [q | k | v]
@@ -11,7 +19,11 @@ package's ``state_dict``:
 - the MoE ``router_kernel`` (d, E) and the expert-major
   ``expert_fc{1,2}_{kernel,bias}`` keep their layout (router_weight, w1,
   b1, w2, b2): (E, d, h) / (E, h, d) is what the expert-FFN kernel reads;
-- ``blocks_<i>`` becomes ``blocks.<i>``.
+- ``blocks_<i>`` becomes ``blocks.<i>``;
+- the gates' ``dense_gate/head`` and ``moe_gate/head`` are Dense layers like
+  any other, and the ``gates`` collection's ``threshold``,
+  ``target_threshold`` and ``enabled`` become the gates' buffers of the
+  same names.
 
 :func:`to_jax_tree` is the inverse: a ``state_dict`` (or a dict of
 gradients under the same names) back into the flax tree's names, layouts
@@ -24,6 +36,8 @@ not ported yet.
 """
 from __future__ import annotations
 
+import json
+import os
 import re
 import typing as typ
 
@@ -41,8 +55,11 @@ def _module_name(key: str) -> str:
     return f"blocks.{m.group(1)}" if m else key
 
 
-def from_jax_params(params: typ.Mapping) -> typ.Dict[str, torch.Tensor]:
-    """Flax param tree (nested dicts of arrays) -> f32 torch state_dict."""
+def from_jax_params(params: typ.Mapping,
+                    gates: typ.Optional[typ.Mapping] = None
+                    ) -> typ.Dict[str, torch.Tensor]:
+    """Flax param tree (nested dicts of arrays) and, for the gated models,
+    the ``gates`` collection -> f32 torch state_dict."""
     out: typ.Dict[str, torch.Tensor] = {}
 
     def walk(tree, prefix):
@@ -58,6 +75,7 @@ def from_jax_params(params: typ.Mapping) -> typ.Dict[str, torch.Tensor]:
             out[prefix + name] = torch.tensor(np.ascontiguousarray(arr))
 
     walk(params, "")
+    walk(gates or {}, "")
     return out
 
 
@@ -118,3 +136,73 @@ def load_npz_tree(path: str) -> dict:
                 node = node.setdefault(p, {})
             node[leaf] = z[flat_key]
     return tree
+
+
+def _write_json(path: str, record) -> None:
+    with open(path, "w") as f:
+        json.dump(record, f, indent=2, default=str)
+
+
+def save_checkpoint(path: str, state, epoch: int,
+                    extra: typ.Optional[dict] = None,
+                    is_main: bool = True) -> None:
+    """Write the train state to ``path`` (rank 0 only), atomically.
+    ``extra={"args": vars(args), "sched": sched.state_dict()}`` land in
+    the JSON files beside it."""
+    if not is_main:
+        return
+    payload = {
+        "model": state.model.state_dict(),
+        "optimizer": (state.optimizer.state_dict()
+                      if state.optimizer is not None else None),
+        "ema_params": state.ema_params,
+        "generator": state.generator.get_state(),
+        "step": state.step,
+        "epoch": epoch,
+    }
+    path = os.path.abspath(path)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    extra = dict(extra or {})
+    for key in ("args", "sched"):
+        if extra.get(key) is not None:
+            _write_json(f"{path}.{key}.json", extra[key])
+
+
+def _sidecar(path: str, key: str) -> typ.Optional[dict]:
+    sidecar = f"{os.path.abspath(path)}.{key}.json"
+    if not os.path.exists(sidecar):
+        return None
+    with open(sidecar) as f:
+        return json.load(f)
+
+
+def load_checkpoint_args(path: str) -> typ.Optional[dict]:
+    """The args record saved beside a checkpoint, if present."""
+    return _sidecar(path, "args")
+
+
+def load_checkpoint_sched(path: str) -> typ.Optional[dict]:
+    """The scheduler state saved beside a checkpoint, if present (the
+    plateau schedule's bookkeeping)."""
+    return _sidecar(path, "sched")
+
+
+def restore_checkpoint(path: str, state) -> typ.Tuple[typ.Any, int]:
+    """Restore into an existing state, in place (model, optimizer, EMA,
+    generator, step); returns (state, epoch). Read onto the host, so the
+    optimizer's ``step`` counts stay CPU tensors, as ``torch.optim.AdamW``
+    keeps them."""
+    payload = torch.load(os.path.abspath(path), map_location="cpu",
+                         weights_only=True)
+    state.model.load_state_dict(payload["model"])
+    if state.optimizer is not None and payload["optimizer"] is not None:
+        state.optimizer.load_state_dict(payload["optimizer"])
+    if state.ema_params is not None and payload["ema_params"] is not None:
+        with torch.no_grad():
+            for name, t in state.ema_params.items():
+                t.copy_(payload["ema_params"][name])
+    state.generator.set_state(payload["generator"])
+    state.step = int(payload["step"])
+    return state, int(payload["epoch"])

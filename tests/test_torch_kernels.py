@@ -15,6 +15,7 @@ import torch
 from slim_switch_moe_vit_tpu_torch import ops
 from slim_switch_moe_vit_tpu_torch.ops import _build
 from slim_switch_moe_vit_tpu_torch.ops import attention as attn_ops
+from slim_switch_moe_vit_tpu_torch.ops import fused_adamw as adamw_ops
 from slim_switch_moe_vit_tpu_torch.ops import fused_ffn as ffn_ops
 from slim_switch_moe_vit_tpu_torch.ops import fused_ln as ln_ops
 from slim_switch_moe_vit_tpu_torch.ops import moe as moe_ops
@@ -58,6 +59,17 @@ def _ffn_case(rs, T, D, H, E, dtype, device):
     return xs, w1, b1, w2, b2, e_of_tile
 
 
+def _adamw_case(rs, shapes, device):
+    """(params, grads, mus, nus, emas) lists of f32 leaves."""
+    def leaf(shape, scale):
+        return _rand(rs, *shape, scale=scale, device=device)
+    params = [leaf(s, 0.1) for s in shapes]
+    return (params, [leaf(s, 1e-2) for s in shapes],
+            [leaf(s, 1e-3) for s in shapes],
+            [leaf(s, 1e-3).abs() * 1e-3 for s in shapes],
+            [p + leaf(p.shape, 1e-3) for p in params])
+
+
 def test_cpu_tensors_take_the_plain_versions():
     """No launch is counted when the tensors lie on the CPU, and the result
     is the plain version's."""
@@ -77,10 +89,23 @@ def test_cpu_tensors_take_the_plain_versions():
     case = _ffn_case(rs, 20, 32, 64, 4, torch.float32, "cpu")
     assert torch.equal(ffn_ops.fused_expert_ffn(*case),
                        ffn_ops.fused_expert_ffn_reference(*case))
+    assert torch.equal(attn_ops.flash_attention(qkv, 2, 0.125),
+                       attn_ops.flash_attention_reference(qkv, 2, 0.125))
+    leaves = _adamw_case(rs, [(7, 3), (64,)], "cpu")
+    copies = [[t.clone() for t in group] for group in leaves]
+    kw = dict(lr_base=1e-3, lr_gate=2e-3, bc1=10.0, bc2=1000.0,
+              ema_decay=0.9)
+    adamw_ops.fused_adamw_ema(*leaves, [True, False], [False, True], **kw)
+    adamw_ops.fused_adamw_ema_reference(*copies, [True, False],
+                                        [False, True], **kw)
+    for got, want in zip(leaves, copies):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
     assert ops.launch_counts() == {
         "fused_ln": 0, "fused_add_ln": 0, "fused_sum_ln": 0, "fused_mha": 0,
         "fused_expert_ffn": 0, "fused_ln_bwd": 0, "fused_add_ln_bwd": 0,
-        "fused_sum_ln_bwd": 0, "fused_mha_bwd": 0, "fused_expert_ffn_bwd": 0}
+        "fused_sum_ln_bwd": 0, "fused_mha_bwd": 0, "fused_expert_ffn_bwd": 0,
+        "fused_adamw_ema": 0, "flash_attention": 0}
 
 
 def test_reference_add_ln_rounds_the_sum_first():
@@ -99,7 +124,8 @@ def test_build_key_tracks_sources_and_flags():
     assert len(key) == 16 and key == _build.build_key()
     srcs = [p.rsplit("/", 1)[-1] for p in _build._sources()]
     assert {"mha_fwd.cu", "mha_bwd.cu", "expert_ffn_fwd.cu",
-            "expert_ffn_bwd.cu", "common.cuh"} <= set(srcs)
+            "expert_ffn_bwd.cu", "flash_fwd.cu", "fused_adamw.cu",
+            "common.cuh"} <= set(srcs)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
@@ -293,4 +319,106 @@ def test_train_step_runs_through_the_kernels(cuda):
     assert ops.launch_counts() == {
         "fused_ln": 1, "fused_add_ln": 23, "fused_sum_ln": 1, "fused_mha": 12,
         "fused_expert_ffn": 12, "fused_ln_bwd": 1, "fused_add_ln_bwd": 23,
-        "fused_sum_ln_bwd": 1, "fused_mha_bwd": 12, "fused_expert_ffn_bwd": 12}
+        "fused_sum_ln_bwd": 1, "fused_mha_bwd": 12, "fused_expert_ffn_bwd": 12,
+        "fused_adamw_ema": 0, "flash_attention": 0}
+
+
+# ---------------------------------------------------------------------------
+# on the card: the fused optimizer (K7) and the flash forward (K11)
+# ---------------------------------------------------------------------------
+
+# K7 vs its plain version, f32: the same operations in the same order, but
+# nvcc contracts a*b + c into one FMA where torch rounds twice, so a value
+# may be off by an ulp or two of its operands (b1*mu + (1-b1)*g can cancel
+# to far below them): |d| <= 4 ulps (4 * 2^-23) of |ref| + max |ref| over
+# the leaf
+ADAMW_ULPS = 4 * 2.0 ** -23
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_ema", [True, False])
+@pytest.mark.parametrize("t", [1, 3])
+def test_fused_adamw_kernel_matches_plain(cuda, with_ema, t):
+    """K7 over odd-sized and large leaves, decay and gate flags mixed, at
+    step t, within ADAMW_ULPS of the plain version; one launch."""
+    rs = np.random.RandomState(10)
+    shapes = [(1,), (5, 7), (384, 1536), (197, 384), (3,), (70000,)]
+    leaves = _adamw_case(rs, shapes, cuda)
+    if not with_ema:
+        leaves = leaves[:4] + (None,)
+    copies = [None if g is None else [x.clone() for x in g] for g in leaves]
+    wd = [True, False, True, True, False, True]
+    gate = [False, True, False, True, False, False]
+    bc1, bc2 = adamw_ops.bias_corrections(0.9, 0.999, t)
+    kw = dict(lr_base=1e-3, lr_gate=5e-4, bc1=bc1, bc2=bc2,
+              ema_decay=0.99996 if with_ema else None)
+    ops.reset_launch_counts()
+    adamw_ops.fused_adamw_ema(*leaves, wd, gate, **kw)
+    torch.cuda.synchronize()
+    adamw_ops.fused_adamw_ema_reference(*copies, wd, gate, **kw)
+    assert ops.launch_counts()["fused_adamw_ema"] == 1
+    for name, got, want in zip(("p", "g", "mu", "nu", "ema"), leaves, copies):
+        for a, b in zip(got or (), want or ()):
+            torch.testing.assert_close(a, b, rtol=ADAMW_ULPS,
+                                       atol=ADAMW_ULPS * b.abs().max().item(),
+                                       msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N", [(3, 197), (2, 577), (2, 77), (1, 1)])
+def test_flash_kernel_matches_plain(cuda, B, N):
+    """K11, bf16: P rounds to bf16 before P.V (the plain version rounds the
+    normalized probabilities), within the global bf16 limit 1.6e-2."""
+    rs = np.random.RandomState(11)
+    qkv = _rand(rs, B, N, 3 * 6 * 64, dtype=torch.bfloat16, device=cuda)
+    ops.reset_launch_counts()
+    got = attn_ops.flash_attention(qkv, 6, 0.125)
+    torch.cuda.synchronize()
+    want = attn_ops.flash_attention_reference(qkv, 6, 0.125)
+    assert ops.launch_counts()["flash_attention"] == 1
+    torch.testing.assert_close(got.float(), want.float(), atol=1.6e-2,
+                               rtol=1.6e-2)
+    if N <= 208:  # against K5 on the same input, to K5's limit
+        torch.testing.assert_close(got.float(),
+                                   attn_ops.fused_mha(qkv, 6, 0.125).float(),
+                                   atol=1.6e-2, rtol=1.6e-2)
+
+
+@pytest.mark.cuda
+def test_resmoe_train_step_launch_counts(cuda):
+    """A bf16 train step of a small ResMoE at ViT-S width with the fused
+    optimizer: 1 plain LN + 24 slim LN, 12 MHA, 12 expert FFN, their
+    backwards and one K7 launch; an eval forward with use_flash launches 12
+    K11 and no K5."""
+    from slim_switch_moe_vit_tpu_torch import create_model, losses, optim
+    from slim_switch_moe_vit_tpu_torch.engine import make_train_step
+    from slim_switch_moe_vit_tpu_torch.train_state import create_train_state
+
+    model = create_model("resmoe_small_patch16_224_expert8", img_size=64,
+                         num_classes=10, dtype=torch.bfloat16,
+                         target_threshold=0.5)
+    opt_init, opt_update = optim.make_optimizer(weight_decay=0.05)
+    state = create_train_state(model, opt_init=opt_init, use_ema=True)
+    step = make_train_step(model, opt_update,
+                           losses.make_base_criterion(False, 0.1, False),
+                           ema_decay=0.99996, use_fused_optimizer=True)
+    rs = np.random.RandomState(12)
+    x = torch.from_numpy(rs.randn(4, 64, 64, 3).astype(np.float32))
+    y = torch.from_numpy(rs.randint(0, 10, 4))
+    ops.reset_launch_counts()
+    state, metrics = step(state, x, y, 1e-3, 1e-3)
+    assert torch.isfinite(metrics["loss"]).item()
+    assert "skip_fraction" in metrics
+    assert ops.launch_counts() == {
+        "fused_ln": 1, "fused_add_ln": 0, "fused_sum_ln": 24, "fused_mha": 12,
+        "fused_expert_ffn": 12, "fused_ln_bwd": 1, "fused_add_ln_bwd": 0,
+        "fused_sum_ln_bwd": 24, "fused_mha_bwd": 12, "fused_expert_ffn_bwd": 12,
+        "fused_adamw_ema": 1, "flash_attention": 0}
+    for blk in model.blocks:
+        blk.attn.use_flash = True
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        logits = model.eval()(x.to(cuda))
+    assert torch.isfinite(logits).all()
+    counts = ops.launch_counts()
+    assert (counts["flash_attention"], counts["fused_mha"]) == (12, 0)

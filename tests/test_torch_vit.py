@@ -158,8 +158,9 @@ def test_create_model_seeds_and_options():
     assert w.abs().max() <= 0.04 and 0.015 < w.std() < 0.02  # trunc at 2 std
     with pytest.raises(ValueError, match="Unknown model"):
         create_model("deit_nano")
-    with pytest.raises(NotImplementedError, match="K11"):
-        create_model("moe_tiny_patch16_224_expert8", use_flash=True)
+    flash = create_model("moe_tiny_patch16_224_expert8", use_flash=True)
+    assert all(blk.attn.use_flash for blk in flash.blocks)
+    assert not any(blk.attn.use_flash for blk in a.blocks)
 
 
 def test_port_imports_neither_jax_nor_flax():
@@ -174,6 +175,11 @@ def test_port_imports_neither_jax_nor_flax():
         "bad = [n for n in sys.modules if n.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'flax', 'slim_switch_moe_vit_tpu')]\n"
         "assert not bad, bad\n"
+        "for name in ('main', 'config', 'data.datasets', 'data.samplers',\n"
+        "             'data.loader', 'data.transforms', 'data.device_aug',\n"
+        "             'models.gates', 'ops.fused_adamw', 'utils.memory',\n"
+        "             'utils.logging'):\n"
+        "    assert p.__name__ + '.' + name in sys.modules, name\n"
         "print('clean', len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

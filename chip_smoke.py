@@ -67,17 +67,38 @@ Phases (any failure propagates and the script exits non-zero):
     forward, and the flash logits within the serving limit (``XCHECK_*``)
     of K5's on the same checkpoint.
 
+11. Capacity (``bench.py``'s cfg4: ``moe_small_patch16_224_expert8``,
+    ``capacity_fused`` at factor 1.25, B = 128): (a) the gather-in-kernel
+    expert FFN forward and backward (K9) and the deferred-dW backward (K8)
+    against their plain versions at cfg4's layout (Tp = 63,488), the
+    dropless B = 128 layout (Tp = 52,480) and a small layout with a
+    starved expert and a skewed router that overflows the capacity, timed
+    beside their bounds, K9's forward beside the dispatch gather + K3 and
+    K8 beside K4; (b) one MoE layer at full width with a skewed router
+    (``drop_fraction`` > 0.1) through ``capacity_fused`` three ways (K3/K4,
+    ``SSMV_GATHER_IN_KERNEL=1``, ``SSMV_DEFER_DW=1``) against the
+    scatter-buffer ``'capacity'`` oracle: ``keep`` and ``drop_fraction``
+    identical, y, dx, dW1 and dW2 within the kernel limits; (c) cfg4's
+    training step in the same three forms from the same weights on
+    ``bench.py``'s batch, ``CAP_STEPS`` steps each with exact per-step
+    launch counts (``PER_CAP_STEP``, ``CAP_DISPATCH_GATHERS``), finite
+    losses within ``CAP_WITNESS`` times the gap of a witness (the default
+    form with the batch reversed) of the default form's, images/s and one
+    step's profile. The knobs are set inside the phase and restored.
+
 The kernel phase (2) also holds K7 (the fused AdamW + EMA over every
 parameter of the ResMoE model) and K11 (the flash forward, at N = 197 and
 577) against their plain versions. Each kernel's ``launches`` in the JSON
 line is its count in the run of the path it belongs to: the 10 training
-steps of phase 6 for K1a-K6, the driver run for K7, the flash eval for K11.
+steps of phase 6 for K1a-K6, the driver run for K7, the flash eval for K11,
+cfg4's steps in the K9 form for K9 and in the K8 form for K8 (phase 11).
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -181,6 +202,28 @@ DRIVER_ARGS = ["--data-set", "SYNTH", "--synth-size", "1024", "--model",
                "--no-repeated-aug", "--mixup", "0", "--cutmix", "0", "--aa",
                "", "--color-jitter", "0", "--reprob", "0"]
 DRIVER_TRAIN_STEPS = 2 * 3 + 2 * (3 + 1)
+# cfg4 (bench.py:315-326): capacity_fused at factor 1.25, B=128, in three
+# forms: the default (dispatch gather + K3, K4), the gather-in-kernel knob
+# (K9 forward and backward, no dispatch gather) and the deferred-dW knob
+# (K3, K8)
+CAP_FACTOR, CAP_STEPS = 1.25, 4
+CAP_FORMS = {"default": None, "K9": "SSMV_GATHER_IN_KERNEL",
+             "K8": "SSMV_DEFER_DW"}
+PER_CAP_STEP = {
+    "default": PER_TRAIN_STEP,
+    "K9": {**PER_TRAIN_STEP, "fused_expert_ffn": 0, "fused_expert_ffn_bwd": 0,
+           "fused_expert_ffn_gather": 12, "fused_expert_ffn_gather_bwd": 12},
+    "K8": {**PER_TRAIN_STEP, "fused_expert_ffn_bwd": 0,
+           "fused_expert_ffn_bwd_defer": 12}}
+CAP_DISPATCH_GATHERS = {"default": 12, "K9": 0, "K8": 12}
+# the three forms' per-step losses vs the default form's, relative: within
+# CAP_WITNESS times the witness's gap at the same step (the default form on
+# the batch reversed: the same function in other summation orders, since
+# random weights drop no pair at 1.25), or CAP_FLOOR, whichever is wider
+CAP_WITNESS, CAP_FLOOR = 3.0, 1e-3
+# the MoE layer check: a router bias that sends more pairs to experts 0
+# and 1 than their capacity holds
+CAP_ROUTER_SKEW = 1.5
 # K7 vs its plain version, f32: the same operations in the same order, but
 # nvcc contracts a*b + c into one FMA where torch rounds twice, so a value
 # may be off by an ulp or two of its operands: |d| <= 4 ulps (4 * 2^-23)
@@ -213,6 +256,9 @@ KERNELS = [  # name, route, source, TPU kernel it replaces
     ("fused_expert_ffn_bwd", "cuda", SRC + "csrc/expert_ffn_bwd.cu", JAX + "ops/fused_ffn.py:261"),
     ("fused_adamw_ema", "cuda", SRC + "csrc/fused_adamw.cu", JAX + "ops/fused_adamw.py:50"),
     ("flash_attention", "cuda", SRC + "csrc/flash_fwd.cu", JAX + "ops/attention.py:35"),
+    ("fused_expert_ffn_gather", "cuda", SRC + "csrc/expert_ffn_fwd.cu", JAX + "ops/fused_ffn.py:605"),
+    ("fused_expert_ffn_gather_bwd", "cuda", SRC + "csrc/expert_ffn_bwd.cu", JAX + "ops/fused_ffn.py:658"),
+    ("fused_expert_ffn_bwd_defer", "cuda", SRC + "csrc/expert_ffn_bwd_defer.cu", JAX + "ops/fused_ffn.py:312"),
 ]
 
 
@@ -320,7 +366,7 @@ def kernel_cases(B: int, gen):
     tokens = rnd(B * N_TOK, DIM)
     router_w = rnd(DIM, EXPERTS, std=DIM ** -0.5, dtype=torch.float32)
     gate_w, eidx = moe.naive_topk_gate(tokens.float() @ router_w, 2)
-    gather_idx, pair_slot, e_of_tile, w_slot = moe.aligned_expert_layout(
+    gather_idx, pair_slot, e_of_tile, w_slot, _ = moe.aligned_expert_layout(
         eidx, EXPERTS, gate_w=gate_w)
     xs = moe.dispatch_gather(tokens, gather_idx, pair_slot)
     w1, b1 = rnd(EXPERTS, DIM, HIDDEN, std=DIM ** -0.5), rnd(
@@ -472,7 +518,7 @@ def k7_phase(results: dict) -> None:
     n = sum(p.numel() for p in params)
     ms = median_ms(lambda: fused_adamw.fused_adamw_ema(*sets[0], *flags, **kw))
     plain_ms = median_ms(lambda: fused_adamw.fused_adamw_ema_reference(
-        *sets[1], *flags, **kw), reps=5, warmup=1)
+        *sets[1], *flags, **kw), reps=3, warmup=1)
     del sets
     yard = {}
     for how in ("fused", "foreach"):
@@ -586,6 +632,7 @@ def kernel_phase(results: dict) -> None:
 
     gen = torch.Generator().manual_seed(0)
     for B in (32, 128):
+        t_batch = time.perf_counter()
         cases, mha_inputs = kernel_cases(B, gen)
         for name, (kernel, plain, library, cost, modes) in cases.items():
             t0 = time.perf_counter()
@@ -596,26 +643,33 @@ def kernel_phase(results: dict) -> None:
             err, peak, rel = compare(name, got, want, modes)
             if name == "fused_mha_bwd":
                 check_planted_faults(*mha_inputs, want)
-            ms, plain_ms = median_ms(kernel), median_ms(plain, reps=5, warmup=1)
+            # the plain versions are timed at B = 128 only, the batch of
+            # the training path (they are no yardstick of speed)
+            ms = median_ms(kernel)
+            plain_ms = (median_ms(plain, reps=3, warmup=1) if B == 128
+                        else None)
             lib_ms = median_ms(library) if library is not None else None
             bound_ms, bound_by = bound(*cost)
             res = results.setdefault(name, {"max_abs_err": 0.0})
             res["max_abs_err"] = max(res["max_abs_err"], err)
             sfx = "" if B == 128 else "_b32"
-            res.update({"ms" + sfx: ms, "plain_ms" + sfx: plain_ms,
-                        "bound_ms" + sfx: bound_ms, "bound_by": bound_by,
-                        "library_ms" + sfx: lib_ms})
+            res.update({"ms" + sfx: ms, "bound_ms" + sfx: bound_ms,
+                        "bound_by": bound_by, "library_ms" + sfx: lib_ms})
+            if plain_ms is not None:
+                res["plain_ms"] = plain_ms
             lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+            plain_txt = ("" if plain_ms is None
+                         else f", plain {plain_ms:.4f} ms")
             log(f"kernel {name:20s} B={B:3d}: max|d| {err:.3e}, max|ref| "
                 f"{peak:.3e}, largest max|d|/max|ref| {rel:.2e}; kernel "
-                f"{ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, library {lib}, bound {bound_ms:.4f} ms "
-                f"({bound_by}), first call {first_s:.2f} s")
+                f"{ms:.4f} ms{plain_txt}, library {lib}, bound "
+                f"{bound_ms:.4f} ms ({bound_by}), first call {first_s:.2f} s")
         # K11 against K5 on the same input, to K5's limit
         err, peak, _ = compare("flash_attention", cases["flash_attention"][0](),
                                cases["fused_mha"][0](), ("elem",))
         log(f"kernel flash_attention vs fused_mha B={B}: max|d| {err:.3e} "
-            f"(max|ref| {peak:.3e})")
+            f"(max|ref| {peak:.3e}); [kernels at B={B}: "
+            f"{time.perf_counter() - t_batch:.1f} s]")
         del cases, mha_inputs
         torch.cuda.empty_cache()
     kernel, plain, library, cost, modes = flash_long_case(gen)
@@ -623,7 +677,7 @@ def kernel_phase(results: dict) -> None:
     res = results["flash_attention"]
     res["max_abs_err"] = max(res["max_abs_err"], err)
     res.update({"ms_n577_b32": median_ms(kernel),
-                "plain_ms_n577_b32": median_ms(plain, reps=5, warmup=1),
+                "plain_ms_n577_b32": median_ms(plain, reps=3, warmup=1),
                 "library_ms_n577_b32": median_ms(library),
                 "bound_ms_n577_b32": bound(*cost)[0]})
     log(f"kernel flash_attention B=32 N=577: max|d| {err:.3e}, max|ref| "
@@ -785,15 +839,17 @@ def profile_call(fn, what: str) -> None:
         log(f"  {us / 1e3:9.3f} ms {n:5d}x  {name[:90]}")
 
 
-def _train_setup(dtype, device):
-    """The flagship with seed-0 weights, AdamW + EMA, and its train step."""
+def _train_setup(dtype, device, model=None):
+    """The flagship with seed-0 weights (or ``model``), AdamW + EMA, and its
+    train step."""
     import torch
 
     from slim_switch_moe_vit_tpu_torch import create_model, losses, optim
     from slim_switch_moe_vit_tpu_torch.engine import make_train_step
     from slim_switch_moe_vit_tpu_torch.train_state import create_train_state
 
-    model = create_model(MODEL, num_classes=1000, dtype=dtype)
+    if model is None:
+        model = create_model(MODEL, num_classes=1000, dtype=dtype)
     opt_init, opt_update = optim.make_optimizer(weight_decay=0.05)
     state = create_train_state(model, device=device, opt_init=opt_init,
                                use_ema=True)
@@ -1031,6 +1087,326 @@ def resmoe_phase(card: str) -> None:
                                            for k, v in worst.items()))
     del model, state, steps, start_state, fused_state, torch_state, named
     torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def ffn_knob(name):
+    """Run with only the expert-FFN knob ``name`` (or none) set to 1; the
+    environment is restored afterwards."""
+    keys = [k for k in CAP_FORMS.values() if k]
+    saved = {k: os.environ.pop(k, None) for k in keys}
+    if name:
+        os.environ[name] = "1"
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def capacity_kernel_phase(results: dict) -> None:
+    """K9 forward and backward and K8 against their plain versions at
+    cfg4's layout, the dropless B=128 layout and a small skewed capacity
+    layout with a starved expert; timed at the first two beside their
+    bounds, K9's forward beside the dispatch gather + K3 and K8 beside
+    K4."""
+    import torch
+
+    from slim_switch_moe_vit_tpu_torch.ops import fused_ffn as ffn
+    from slim_switch_moe_vit_tpu_torch.ops import moe
+
+    gen = torch.Generator().manual_seed(3)
+
+    def rnd(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=gen) * std).to("cuda", dtype)
+
+    T = TRAIN_B * N_TOK
+    x = rnd(T, DIM)
+    router_w = rnd(DIM, EXPERTS, std=DIM ** -0.5, dtype=torch.float32)
+    weights = (rnd(EXPERTS, DIM, HIDDEN, std=DIM ** -0.5),
+               rnd(EXPERTS, HIDDEN, std=0.1, dtype=torch.float32),
+               rnd(EXPERTS, HIDDEN, DIM, std=HIDDEN ** -0.5),
+               rnd(EXPERTS, DIM, std=0.1, dtype=torch.float32))
+    w1, b1, w2, b2 = weights
+    w_bytes = 2 * EXPERTS * DIM * HIDDEN * 2 + EXPERTS * (HIDDEN + DIM) * 4
+    # a small layout: expert 0 favoured past its capacity, expert 7 starved
+    Ts = 2000
+    skew = torch.zeros(EXPERTS, device="cuda")
+    skew[0], skew[-1] = 1.5, -1e9
+    layouts = {
+        "cfg4": (x, x.float() @ router_w,
+                 moe.compute_capacity(T, EXPERTS, 2, CAP_FACTOR)),
+        "dropless": (x, x.float() @ router_w, None),
+        "skewed": (x[:Ts], x[:Ts].float() @ router_w + skew,
+                   moe.compute_capacity(Ts, EXPERTS, 2, CAP_FACTOR))}
+    for label, (xt, logits, cap) in layouts.items():
+        gate_w, eidx = moe.naive_topk_gate(logits, 2)
+        gidx, pslot, eot, w_slot, keep = moe.aligned_expert_layout(
+            eidx, EXPERTS, gate_w=gate_w, capacity=cap)
+        keep_in = None if cap is None else keep
+        xs = moe.dispatch_gather(xt, gidx, pslot, keep_in)
+        dy = rnd(gidx.shape[0], DIM) * w_slot[:, None]
+        Tp, n = gidx.shape[0], xt.shape[0]
+        flags = ffn.bwd_flags(eot)
+        log(f"capacity layout {label}: T={n}, capacity {cap}, Tp={Tp} "
+            f"({Tp // 256} tiles), pairs dropped {int((~keep).sum())}, "
+            "tiles per expert "
+            f"{torch.bincount(eot.long(), minlength=EXPERTS).tolist()}, K8 "
+            f"flushes {int((flags & 1).sum())}, of which single-tile "
+            f"{int(((flags & 1) & ~(flags >> 1) & 1).sum())}")
+        cases = {
+            "fused_expert_ffn_gather": (
+                lambda: ffn.fused_expert_ffn_gather(xt, gidx, pslot, keep_in,
+                                                    *weights, eot),
+                lambda: ffn.fused_expert_ffn_reference(
+                    xt.index_select(0, gidx), *weights, eot),
+                (n * DIM * 2 + Tp * 8 + Tp * DIM * 2 + w_bytes,
+                 4 * Tp * DIM * HIDDEN, BF16_FLOPS), ("elem",),
+                ("dispatch gather + K3", "gather_k3",
+                 lambda: ffn.fused_expert_ffn(
+                     moe.dispatch_gather(xt, gidx, pslot, keep_in), *weights,
+                     eot))),
+            "fused_expert_ffn_gather_bwd": (
+                lambda: ffn.fused_expert_ffn_gather_bwd(xt, gidx, w1, b1, w2,
+                                                        eot, dy),
+                lambda: ffn.reference_expert_ffn_bwd(
+                    xt.index_select(0, gidx), w1, b1, w2, eot, dy),
+                (n * DIM * 2 + Tp * 8 + 2 * Tp * DIM * 2 + 2 * w_bytes,
+                 10 * Tp * DIM * HIDDEN, BF16_FLOPS),
+                ("elem", "sum", "sum", "sum", "sum"),
+                ("K4", "k4", lambda: ffn.fused_expert_ffn_bwd(xs, w1, b1, w2,
+                                                              eot, dy))),
+            "fused_expert_ffn_bwd_defer": (
+                lambda: ffn.fused_expert_ffn_bwd_defer(xs, w1, b1, w2, eot,
+                                                       dy),
+                lambda: ffn.reference_expert_ffn_bwd_defer(xs, w1, b1, w2,
+                                                           eot, dy),
+                (3 * Tp * DIM * 2 + 2 * w_bytes, 10 * Tp * DIM * HIDDEN,
+                 BF16_FLOPS),
+                ("elem", "sum", "sum", "sum", "sum"),
+                ("K4", "k4", lambda: ffn.fused_expert_ffn_bwd(xs, w1, b1, w2,
+                                                              eot, dy)))}
+        for name, (kernel, plain, cost, modes, (other, key, beside)) in \
+                cases.items():
+            got = kernel()
+            torch.cuda.synchronize()
+            want = plain()
+            err, peak, rel = compare(name, got, want, modes)
+            if label == "skewed" and isinstance(got, tuple):
+                # the starved expert's dW1 and dW2: exact zeros
+                if any(g[-1].abs().max().item() != 0.0
+                       for g in (got[1], got[3])):
+                    raise AssertionError(f"{name}: the starved expert's dW "
+                                         "is not zero")
+            res = results.setdefault(name, {"max_abs_err": 0.0,
+                                            "library_ms": None})
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            line = (f"kernel {name} ({label}, Tp={Tp}): max|d| {err:.3e}, "
+                    f"max|ref| {peak:.3e}, largest max|d|/max|ref| {rel:.2e}")
+            if label != "skewed":
+                sfx = "" if label == "cfg4" else "_" + label
+                ms, beside_ms = median_ms(kernel), median_ms(beside)
+                bound_ms, bound_by = bound(*cost)
+                res.update({"ms" + sfx: ms, "bound_ms" + sfx: bound_ms,
+                            "bound_by": bound_by,
+                            f"ms_{key}{sfx}": beside_ms})
+                line += (f"; kernel {ms:.4f} ms, {other} {beside_ms:.4f} ms, "
+                         f"bound {bound_ms:.4f} ms ({bound_by})")
+                if label == "cfg4":
+                    res["plain_ms"] = median_ms(plain, reps=3, warmup=1)
+                    line += f", plain {res['plain_ms']:.4f} ms"
+            log(line)
+        del cases, xs, dy
+    del x, weights, w1, b1, w2, b2
+    torch.cuda.empty_cache()
+
+
+def capacity_layer_check() -> None:
+    """One MoE layer at full width (T = 25,216 tokens), a router skewed so
+    that more than a tenth of the pairs drop, through ``capacity_fused`` in
+    the three forms against the scatter-buffer ``'capacity'`` oracle on the
+    card: the same ``keep`` and ``drop_fraction``; y elementwise within the
+    kernel limit; dW1, dW2 and dx within SUM_REL of max |ref|. dx is a sum
+    over the token's two experts' bf16 rows and the router's term, which
+    cancel in places: one ulp of a summand near max |ref| (2^-5 at 4.4)
+    then lands on a sum far below it, beyond the elementwise limit (3.1e-2
+    at |ref| < 1, 0.71% of max |ref|, on an NVIDIA H100 80GB HBM3 at
+    700 W)."""
+    import torch
+
+    from slim_switch_moe_vit_tpu_torch import ops
+    from slim_switch_moe_vit_tpu_torch.ops import moe
+
+    gen = torch.Generator().manual_seed(4)
+
+    def rnd(*shape, std=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=gen) * std).to("cuda", dtype)
+
+    T = TRAIN_B * N_TOK
+    x = rnd(T, DIM, dtype=torch.bfloat16)
+    router_w = rnd(DIM, EXPERTS, std=DIM ** -0.5)
+    router_b = torch.zeros(EXPERTS, device="cuda")
+    router_b[:2] = CAP_ROUTER_SKEW
+    w1, b1 = rnd(EXPERTS, DIM, HIDDEN, std=DIM ** -0.5), rnd(
+        EXPERTS, HIDDEN, std=0.1)
+    w2, b2 = rnd(EXPERTS, HIDDEN, DIM, std=HIDDEN ** -0.5), rnd(
+        EXPERTS, DIM, std=0.1)
+    c = rnd(T, DIM, dtype=torch.bfloat16)
+    cap = moe.compute_capacity(T, EXPERTS, 2, CAP_FACTOR)
+    _, eidx = moe.naive_topk_gate(moe._router_logits(x, router_w, router_b), 2)
+    _, keep = moe.make_dispatch(eidx, EXPERTS, cap)
+    keep_fused = moe.aligned_expert_layout(eidx, EXPERTS, capacity=cap)[4]
+    if not torch.equal(keep, keep_fused):
+        raise AssertionError("the fused capacity layout keeps other pairs "
+                             "than the scatter buffers")
+
+    def run(fn):
+        xl, w1l, w2l = (t.detach().clone().requires_grad_()
+                        for t in (x, w1, w2))
+        y, aux = fn(xl, router_w, router_b, w1l, b1, w2l, b2, top_k=2,
+                    capacity_factor=CAP_FACTOR)
+        (y.float() * c.float()).sum().backward()
+        return (y.detach(), xl.grad, w1l.grad, w2l.grad), aux
+
+    want, aux = run(moe.moe_forward)
+    drop = aux["drop_fraction"].item()
+    log(f"capacity layer, T={T}, capacity {cap}, router bias "
+        f"+{CAP_ROUTER_SKEW} on experts 0-1: drop_fraction {drop:.6f} "
+        f"({int((~keep).sum())} of {keep.numel()} pairs dropped)")
+    if not drop > 0.1:
+        raise AssertionError(f"drop_fraction {drop} <= 0.1: the skew did "
+                             "not overflow the capacity")
+    for form, knob in CAP_FORMS.items():
+        with ffn_knob(knob):
+            ops.reset_launch_counts()
+            got, aux_f = run(moe.moe_forward_fused)
+            counts = {k: v for k, v in ops.launch_counts().items() if v}
+        want_ffn = {k: v // 12 for k, v in PER_CAP_STEP[form].items()
+                    if "expert_ffn" in k and v}
+        if counts != want_ffn:
+            raise AssertionError(f"capacity layer {form}: launches {counts}"
+                                 f" != {want_ffn}")
+        if aux_f["drop_fraction"].item() != drop:
+            raise AssertionError(f"{form}: drop_fraction "
+                                 f"{aux_f['drop_fraction'].item()} != {drop}")
+        err = [compare(f"capacity layer {form} {what}", g, w, (mode,))
+               for what, g, w, mode in zip(("y", "dx", "dW1", "dW2"), got,
+                                           want, ("elem", "sum", "sum",
+                                                  "sum"))]
+        log(f"capacity layer {form} vs 'capacity' oracle: max|d| / max|ref| "
+            + ", ".join(f"{w} {e[0]:.3e}/{e[1]:.3e}"
+                        for w, e in zip(("y", "dx", "dW1", "dW2"), err))
+            + f"; launches {counts}")
+    del x, w1, w2, c, want
+    torch.cuda.empty_cache()
+
+
+def capacity_train_phase(card: str) -> dict:
+    """cfg4's training step in the three forms and the witness, from the
+    same weights, CAP_STEPS steps each with exact per-step launch counts;
+    returns the K9 launches of the K9 form and the K8 launches of the K8
+    form."""
+    import torch
+
+    from slim_switch_moe_vit_tpu_torch import create_model, ops
+    from slim_switch_moe_vit_tpu_torch.ops import moe as moe_ops
+
+    base = create_model(MODEL, num_classes=1000, dtype=torch.bfloat16,
+                        dispatch_mode="capacity_fused",
+                        capacity_factor=CAP_FACTOR)
+    x, y = _batch(TRAIN_B, 0, "cuda")  # bench.py:93-95: seeds 0 and 1
+    gathers = []
+    real_gather = moe_ops.dispatch_gather
+
+    def counted_gather(*a, **kw):
+        gathers.append(1)
+        return real_gather(*a, **kw)
+
+    losses, launched = {}, {}
+    moe_ops.dispatch_gather = counted_gather
+    try:
+        for form, knob in (*CAP_FORMS.items(), ("witness", None)):
+            per = PER_CAP_STEP.get(form, PER_CAP_STEP["default"])
+            n_gather = CAP_DISPATCH_GATHERS.get(form, 12)
+            with ffn_knob(knob):
+                model, state, step = _train_setup(
+                    torch.bfloat16, "cuda", model=copy.deepcopy(base))
+                xb, yb = (x.flip(0), y.flip(0)) if form == "witness" else (x, y)
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                run, drops, total = [], [], {}
+                for i in range(CAP_STEPS):
+                    if i == 1:
+                        start.record()
+                    ops.reset_launch_counts()
+                    gathers.clear()
+                    state, m = step(state, xb, yb, LR, LR)
+                    counts = ops.launch_counts()
+                    if counts != expected(per, 1) or len(gathers) != n_gather:
+                        raise AssertionError(
+                            f"cfg4 {form} step {i}: launches {counts}, "
+                            f"{len(gathers)} dispatch gathers; expected "
+                            f"{expected(per, 1)}, {n_gather}")
+                    total = {k: total.get(k, 0) + v for k, v in counts.items()}
+                    run.append(m["loss"])
+                    drops.append(m["drop_fraction"])
+                end.record()
+                end.synchronize()
+                ms = start.elapsed_time(end) / (CAP_STEPS - 1)
+                losses[form] = torch.stack(run).tolist()
+                launched[form] = total
+                log(f"cfg4 train step B={TRAIN_B}, capacity_fused "
+                    f"{CAP_FACTOR}, {form} form: {ms:.3f} ms on the device "
+                    f"clock over steps 2-{CAP_STEPS} "
+                    f"({TRAIN_B / ms * 1e3:.1f} images/s), losses "
+                    f"{[round(v, 5) for v in losses[form]]}, drop_fraction "
+                    f"{[round(v.item(), 6) for v in drops]}, launches per "
+                    f"step exact ({n_gather} dispatch gathers); card {card}")
+                if not all(np.isfinite(losses[form])):
+                    raise AssertionError(f"cfg4 {form}: non-finite loss")
+                if form != "witness":
+                    profile_call(lambda: step(state, xb, yb, LR, LR),
+                                 f"one cfg4 train step B={TRAIN_B}, {form} "
+                                 "form")
+                del model, state, step
+                torch.cuda.empty_cache()
+    finally:
+        moe_ops.dispatch_gather = real_gather
+    ref = losses["default"]
+
+    def gaps(a):
+        return [abs(u - w) / abs(w) for u, w in zip(a, ref)]
+
+    witness = gaps(losses["witness"])
+    limit = [max(CAP_WITNESS * w, CAP_FLOOR) for w in witness]
+    log(f"cfg4 losses vs the default form, relative per step: witness "
+        f"(batch reversed) {[float(f'{v:.3e}') for v in witness]}; limits "
+        f"{[float(f'{v:.3e}') for v in limit]}; "
+        + "; ".join(f"{f} {[float(f'{v:.3e}') for v in gaps(losses[f])]}"
+                    for f in ("K9", "K8")))
+    for form in ("K9", "K8"):
+        if any(g > t for g, t in zip(gaps(losses[form]), limit)):
+            raise AssertionError(f"cfg4 {form} form's losses part from the "
+                                 "default form's beyond the limit")
+    del base
+    return {"fused_expert_ffn_gather": launched["K9"]["fused_expert_ffn_gather"],
+            "fused_expert_ffn_gather_bwd":
+                launched["K9"]["fused_expert_ffn_gather_bwd"],
+            "fused_expert_ffn_bwd_defer":
+                launched["K8"]["fused_expert_ffn_bwd_defer"]}
+
+
+def capacity_phase(results: dict, card: str) -> dict:
+    """Phase 11: K9 and K8 against their plain versions, the MoE layer
+    against the 'capacity' oracle, and cfg4's training step in three forms;
+    returns the new kernels' launches on cfg4's path."""
+    t0 = time.perf_counter()
+    capacity_kernel_phase(results)
+    log(f"[capacity kernels: {time.perf_counter() - t0:.1f} s]")
+    capacity_layer_check()
+    return capacity_train_phase(card)
 
 
 def eval_decisions(model, x) -> tuple:
@@ -1343,6 +1719,8 @@ def main() -> int:
     phase_done("serving phases")
     trained = train_phase(card)
     phase_done("training phase")
+    trained.update(capacity_phase(results, card))
+    phase_done("capacity phase")
     train_cross_check()
     phase_done("training cross-check")
     resmoe_phase(card)
@@ -1356,7 +1734,8 @@ def main() -> int:
 
     # launches: K1a-K6 in the 10 training steps of phase 6, which run all
     # ten (the serving run's counts are checked in serving_phase); K7 in the
-    # driver's training run, K11 in its flash eval
+    # driver's training run, K11 in its flash eval; K9 and K8 in cfg4's
+    # steps in their forms (phase 11)
     if any(trained[name] == 0 for name, *_ in KERNELS):
         raise AssertionError(f"a kernel never launched on its path: {trained}")
     summary = {"kernels": [

@@ -181,8 +181,12 @@ def get_args_parser():
                                  "expert_choice", "dense"],
                         help="MoE dispatch: fused (dropless + the expert "
                              "FFN kernel), ragged (dropless, one GEMM pair "
-                             "per expert), dense (exact O(E) oracle); the "
-                             "capacity and expert_choice modes are not "
+                             "per expert), dense (exact O(E) oracle), "
+                             "capacity (per-expert buffers of "
+                             "--capacity-factor slots, token-major drops; "
+                             "plain), capacity_fused (the same drops through "
+                             "the expert FFN kernel; capacity_fused_a2a is "
+                             "the same on one card); expert_choice is not "
                              "ported yet. auto = fused")
     parser.add_argument("--moe-balance-weight", default=0.0, type=float,
                         help="aux load-balance loss weight (0 = FastMoE naive-"

@@ -1,0 +1,227 @@
+// The dgrad kernel shared by the expert-FFN backward kernels: K4
+// (expert_ffn_bwd.cu), K9's backward (the same file, kGather) and K8
+// (expert_ffn_bwd_defer.cu, no workspace). See expert_ffn_bwd.cu for the
+// math and the design.
+//
+// One block per 64-row block of the layout (a quarter of a 256-row tile):
+// x and dy of the block stay in shared memory, H is streamed in 32-wide
+// chunks of W1 / W2, and each chunk's h and dy . W2^T stay on chip; dx
+// accumulates in registers over the chunks and is rounded to bf16 once.
+// kGather: layout row s reads x row gather_idx[s] (K9); dy and dx stay in
+// layout (slot) space. kWorkspace: each chunk also writes bf16(dh) and
+// bf16(gelu(h)) to (Tp, H) workspaces and the block's f32 column sums of
+// dh to a (Tp / 64, H) table, for the wgrad kernel (K4, K9); K8 computes
+// its dW and db from x and dy itself and writes none of them.
+#pragma once
+
+#include "common.cuh"
+
+namespace ssmv_ffn {
+
+using namespace nvcuda;
+using bf16 = __nv_bfloat16;
+
+constexpr int kRows = 64;      // rows per dgrad block
+constexpr int kHC = 32;        // hidden chunk
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kBPad = 8;
+constexpr int kFPad = 4;
+
+template <int D>
+struct DgradSmem {
+  static constexpr int XLD = D + kBPad;     // x, dy and W2-chunk rows (bf16)
+  static constexpr int W1LD = kHC + kBPad;  // W1 chunk rows (bf16)
+  static constexpr int HLD = kHC + kFPad;   // h / dy.W2^T chunk rows (f32)
+  static constexpr int GLD = kHC + kBPad;   // bf16(dh) chunk rows
+  static constexpr int DXLD = D + kFPad;    // dx staging rows (f32)
+  static constexpr size_t X = 0;
+  static constexpr size_t DY = X + sizeof(bf16) * kRows * XLD;
+  static constexpr size_t W1 = DY + sizeof(bf16) * kRows * XLD;
+  static constexpr size_t W2 = W1 + sizeof(bf16) * D * W1LD;
+  static constexpr size_t Hs = W2 + sizeof(bf16) * kHC * XLD;
+  static constexpr size_t Ps = Hs + sizeof(float) * kRows * HLD;
+  static constexpr size_t Gs = Ps + sizeof(float) * kRows * HLD;
+  static constexpr size_t Red = Gs + sizeof(bf16) * kRows * GLD;
+  static constexpr size_t bytes = Red + sizeof(float) * kWarps * kHC;
+  // dx is staged over the x and dy tiles once the hidden loop is done
+  static_assert(sizeof(float) * kRows * DXLD <= W1, "dx staging overflow");
+  static_assert(DY % 32 == 0 && W1 % 32 == 0 && W2 % 32 == 0 &&
+                    Hs % 32 == 0 && Ps % 32 == 0 && Gs % 32 == 0,
+                "WMMA needs 32-byte aligned tiles");
+  static_assert(bytes <= ssmv::kMaxSmemBytes, "shared memory budget");
+};
+
+__device__ __forceinline__ void gelu_pair(float h, float* g, float* dg) {
+  const float cdf = 0.5f * (1.f + erff(h * 0.70710678118654752f));
+  *g = h * cdf;
+  *dg = cdf + h * expf(-0.5f * h * h) * 0.39894228040143268f;
+}
+
+template <int D, bool kGather, bool kWorkspace>
+__global__ void __launch_bounds__(kThreads, 1)
+expert_ffn_dgrad_kernel(const bf16* __restrict__ xs,
+                        const long long* __restrict__ gather_idx,
+                        const bf16* __restrict__ dy,
+                        const bf16* __restrict__ w1, const float* __restrict__ b1,
+                        const bf16* __restrict__ w2,
+                        const int* __restrict__ e_of_tile,
+                        bf16* __restrict__ dxs, bf16* __restrict__ ws_dh,
+                        bf16* __restrict__ ws_g, float* __restrict__ db1_part,
+                        int H, int tile_rows) {
+  using L = DgradSmem<D>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Xs = reinterpret_cast<bf16*>(smem + L::X);
+  bf16* DYs = reinterpret_cast<bf16*>(smem + L::DY);
+  bf16* W1s = reinterpret_cast<bf16*>(smem + L::W1);
+  bf16* W2s = reinterpret_cast<bf16*>(smem + L::W2);
+  float* Hs = reinterpret_cast<float*>(smem + L::Hs);
+  float* Ps = reinterpret_cast<float*>(smem + L::Ps);
+  bf16* Gs = reinterpret_cast<bf16*>(smem + L::Gs);
+  float* Red = reinterpret_cast<float*>(smem + L::Red);
+  float* DXs = reinterpret_cast<float*>(smem + L::X);
+
+  const int row0 = blockIdx.x * kRows;
+  const int e = e_of_tile[row0 / tile_rows];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const bf16* w1e = w1 + (size_t)e * D * H;
+  const bf16* w2e = w2 + (size_t)e * H * D;
+  const float* b1e = b1 + (size_t)e * H;
+
+  constexpr int XV = D / 8;  // 16-byte vectors per row of D
+  for (int i = tid; i < kRows * XV; i += kThreads) {
+    const int r = i / XV, v = i % XV;
+    const size_t g = (size_t)(row0 + r) * D + v * 8;
+    const size_t src = kGather ? (size_t)gather_idx[row0 + r] * D + v * 8 : g;
+    *reinterpret_cast<uint4*>(Xs + r * L::XLD + v * 8) =
+        *reinterpret_cast<const uint4*>(xs + src);
+    *reinterpret_cast<uint4*>(DYs + r * L::XLD + v * 8) =
+        *reinterpret_cast<const uint4*>(dy + g);
+  }
+
+  const int rs = warp & 3;     // this warp's 16-row strip
+  const int half = warp >> 2;  // its chunk column tile (h) / dx column half
+  constexpr int NF = D / 32;   // dx fragments per warp
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> dxacc[NF];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) wmma::fill_fragment(dxacc[f], 0.f);
+
+  for (int c0 = 0; c0 < H; c0 += kHC) {
+    __syncthreads();  // last chunk's readers of W1s, W2s, Gs are done
+    for (int i = tid; i < D * (kHC / 8); i += kThreads) {
+      const int k = i / (kHC / 8), v = i % (kHC / 8);
+      *reinterpret_cast<uint4*>(W1s + k * L::W1LD + v * 8) =
+          *reinterpret_cast<const uint4*>(w1e + (size_t)k * H + c0 + v * 8);
+    }
+    for (int i = tid; i < kHC * XV; i += kThreads) {
+      const int r = i / XV, v = i % XV;
+      *reinterpret_cast<uint4*>(W2s + r * L::XLD + v * 8) =
+          *reinterpret_cast<const uint4*>(w2e + (size_t)(c0 + r) * D + v * 8);
+    }
+    __syncthreads();
+
+    {  // h = x . W1[:, chunk] and p = dy . W2[chunk, :]^T; one tile each
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> hacc, pacc;
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bh;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bp;
+      wmma::fill_fragment(hacc, 0.f);
+      wmma::fill_fragment(pacc, 0.f);
+      for (int kk = 0; kk < D; kk += 16) {
+        wmma::load_matrix_sync(a, Xs + rs * 16 * L::XLD + kk, L::XLD);
+        wmma::load_matrix_sync(bh, W1s + kk * L::W1LD + half * 16, L::W1LD);
+        wmma::mma_sync(hacc, a, bh, hacc);
+        wmma::load_matrix_sync(a, DYs + rs * 16 * L::XLD + kk, L::XLD);
+        wmma::load_matrix_sync(bp, W2s + half * 16 * L::XLD + kk, L::XLD);
+        wmma::mma_sync(pacc, a, bp, pacc);
+      }
+      wmma::store_matrix_sync(Hs + rs * 16 * L::HLD + half * 16, hacc, L::HLD,
+                              wmma::mem_row_major);
+      wmma::store_matrix_sync(Ps + rs * 16 * L::HLD + half * 16, pacc, L::HLD,
+                              wmma::mem_row_major);
+    }
+    __syncthreads();
+
+    // dh = p * gelu'(h + b1), g = gelu(h + b1); thread (warp, lane) takes
+    // column lane of rows warp, warp + 8, ... and sums its f32 dh
+    float dsum = 0.f;
+    const float bias = b1e[c0 + lane];
+    for (int r = warp; r < kRows; r += kWarps) {
+      float g, dg;
+      gelu_pair(Hs[r * L::HLD + lane] + bias, &g, &dg);
+      const float dh = Ps[r * L::HLD + lane] * dg;
+      const bf16 dhb = __float2bfloat16(dh);
+      Gs[r * L::GLD + lane] = dhb;
+      if (kWorkspace) {
+        dsum += dh;
+        const size_t o = (size_t)(row0 + r) * H + c0 + lane;
+        ws_dh[o] = dhb;
+        ws_g[o] = __float2bfloat16(g);
+      }
+    }
+    if (kWorkspace) {
+      Red[warp * kHC + lane] = dsum;
+      __syncthreads();
+      if (warp == 0) {
+        float s = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) s += Red[w * kHC + lane];
+        db1_part[(size_t)blockIdx.x * H + c0 + lane] = s;
+      }
+    } else {
+      __syncthreads();  // Gs is complete before the dx product reads it
+    }
+
+    {  // dx += bf16(dh) . W1[:, chunk]^T; this warp: rows rs*16, its half
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bm;
+#pragma unroll
+      for (int kk = 0; kk < kHC; kk += 16) {
+        wmma::load_matrix_sync(a, Gs + rs * 16 * L::GLD + kk, L::GLD);
+#pragma unroll
+        for (int f = 0; f < NF; ++f) {
+          wmma::load_matrix_sync(
+              bm, W1s + (half * (D / 2) + f * 16) * L::W1LD + kk, L::W1LD);
+          wmma::mma_sync(dxacc[f], a, bm, dxacc[f]);
+        }
+      }
+    }
+  }
+  __syncthreads();  // every warp is done with x and dy before dx overwrites
+#pragma unroll
+  for (int f = 0; f < NF; ++f)
+    wmma::store_matrix_sync(DXs + rs * 16 * L::DXLD + half * (D / 2) + f * 16,
+                            dxacc[f], L::DXLD, wmma::mem_row_major);
+  __syncthreads();
+  for (int i = tid; i < kRows * (D / 2); i += kThreads) {
+    const int r = i / (D / 2), c = (i % (D / 2)) * 2;
+    *reinterpret_cast<__nv_bfloat162*>(dxs + (size_t)(row0 + r) * D + c) =
+        __floats2bfloat162_rn(DXs[r * L::DXLD + c], DXs[r * L::DXLD + c + 1]);
+  }
+}
+
+
+// Launch the dgrad kernel on Tp / 64 blocks; ws_dh, ws_g and db1_part are
+// used only with kWorkspace.
+template <int D, bool kGather, bool kWorkspace>
+cudaError_t launch_dgrad(const void* xs, const void* gather_idx,
+                         const void* dy, const void* w1, const void* b1,
+                         const void* w2, const void* e_of_tile, void* dxs,
+                         void* ws_dh, void* ws_g, void* db1_part, int Tp,
+                         int H, int tile_rows, cudaStream_t stream) {
+  const size_t smem = DgradSmem<D>::bytes;
+  auto kernel = expert_ffn_dgrad_kernel<D, kGather, kWorkspace>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<Tp / kRows, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(xs), static_cast<const long long*>(gather_idx),
+      static_cast<const bf16*>(dy), static_cast<const bf16*>(w1),
+      static_cast<const float*>(b1), static_cast<const bf16*>(w2),
+      static_cast<const int*>(e_of_tile), static_cast<bf16*>(dxs),
+      static_cast<bf16*>(ws_dh), static_cast<bf16*>(ws_g),
+      static_cast<float*>(db1_part), H, tile_rows);
+  return cudaGetLastError();
+}
+
+}  // namespace ssmv_ffn

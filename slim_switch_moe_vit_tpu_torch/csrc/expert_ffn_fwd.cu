@@ -1,9 +1,18 @@
-// Per-expert FFN forward over the tile-aligned expert layout (K3).
+// Per-expert FFN forward over the tile-aligned expert layout (K3), and its
+// gather-in-kernel form (K9 forward).
 //
-// Replaces the Pallas kernel slim_switch_moe_vit_tpu/ops/fused_ffn.py
+// K3 replaces the Pallas kernel slim_switch_moe_vit_tpu/ops/fused_ffn.py
 // _fwd_kernel (:166), reached through _fwd (:176) and fused_expert_ffn
-// (:511). Rows of xs are sorted by expert and every 256-row layout tile
-// (TILE_ROWS) belongs to one expert, e = e_of_tile[tile]; each row computes
+// (:511). K9's forward replaces _fwd_gather_kernel (:605), reached through
+// _fwd_gather (:628) and fused_expert_ffn_gather (:763): the same function
+// of the rows x[gather_idx[s]], with the dispatch row gather folded into
+// the kernel's x load, so the expanded (Tp, D) xs is never written. The TPU
+// kernel issues one DMA per 768-byte row, double-buffered a tile ahead
+// (and never lowered: Mosaic needs 8-row-aligned slices of device memory);
+// on the card an indexed row is 48 aligned 16-byte loads, so K9 is K3 with
+// each row's source address read from gather_idx (kGather). Rows of xs are
+// sorted by expert and every 256-row layout tile (TILE_ROWS) belongs to one
+// expert, e = e_of_tile[tile]; each row computes
 //   y = GELU(x . W1[e] + b1[e]) . W2[e] + b2[e]
 // with W1 (E, D, H) and W2 (E, H, D) expert-major, as the JAX package stores
 // them.
@@ -28,8 +37,8 @@
 // that is a TPU VPU policy and is not ported, so the two differ by up to
 // 5.7e-4 before the bf16 rounding of g.
 //
-// Layout padding slots gather token 0 and yield finite rows that the combine
-// never reads.
+// Layout padding slots gather token 0 (in both forms) and yield finite rows
+// that the combine never reads.
 #include <mma.h>
 
 #include "common.cuh"
@@ -65,9 +74,12 @@ struct Smem {
   static_assert(bytes <= ssmv::kMaxSmemBytes, "shared memory budget");
 };
 
-template <int D>
+// kGather: row s of the layout is row gather_idx[s] of xs (K9); else row s.
+template <int D, bool kGather>
 __global__ void __launch_bounds__(kThreads, 1)
-expert_ffn_fwd_kernel(const bf16* __restrict__ xs, const bf16* __restrict__ w1,
+expert_ffn_fwd_kernel(const bf16* __restrict__ xs,
+                      const long long* __restrict__ gather_idx,
+                      const bf16* __restrict__ w1,
                       const float* __restrict__ b1, const bf16* __restrict__ w2,
                       const float* __restrict__ b2,
                       const int* __restrict__ e_of_tile, bf16* __restrict__ y,
@@ -93,8 +105,10 @@ expert_ffn_fwd_kernel(const bf16* __restrict__ xs, const bf16* __restrict__ w1,
   constexpr int XV = D / 8;  // 16-byte vectors per row of D
   for (int i = tid; i < kRows * XV; i += kThreads) {
     const int r = i / XV, v = i % XV;
+    const size_t src = kGather ? (size_t)gather_idx[row0 + r]
+                               : (size_t)(row0 + r);
     *reinterpret_cast<uint4*>(Xs + r * L::XLD + v * 8) =
-        *reinterpret_cast<const uint4*>(xs + (size_t)(row0 + r) * D + v * 8);
+        *reinterpret_cast<const uint4*>(xs + src * D + v * 8);
   }
 
   const int rs = warp & 3;    // this warp's 16-row strip
@@ -180,26 +194,45 @@ expert_ffn_fwd_kernel(const bf16* __restrict__ xs, const bf16* __restrict__ w1,
   }
 }
 
-template <int D>
-cudaError_t launch(const void* xs, const void* w1, const void* b1,
-                   const void* w2, const void* b2, const void* e_of_tile,
-                   void* y, int Tp, int H, int tile_rows, cudaStream_t stream) {
+template <int D, bool kGather>
+cudaError_t launch(const void* xs, const void* gather_idx, const void* w1,
+                   const void* b1, const void* w2, const void* b2,
+                   const void* e_of_tile, void* y, int Tp, int H,
+                   int tile_rows, cudaStream_t stream) {
   const size_t smem = Smem<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      expert_ffn_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      expert_ffn_fwd_kernel<D, kGather>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  expert_ffn_fwd_kernel<D><<<Tp / kRows, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(xs), static_cast<const bf16*>(w1),
+  expert_ffn_fwd_kernel<D, kGather><<<Tp / kRows, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(xs),
+      static_cast<const long long*>(gather_idx), static_cast<const bf16*>(w1),
       static_cast<const float*>(b1), static_cast<const bf16*>(w2),
       static_cast<const float*>(b2), static_cast<const int*>(e_of_tile),
       static_cast<bf16*>(y), H, tile_rows);
   return cudaGetLastError();
 }
 
+template <bool kGather>
+int dispatch(const void* xs, const void* gather_idx, const void* w1,
+             const void* b1, const void* w2, const void* b2,
+             const void* e_of_tile, void* y, int Tp, int D, int H,
+             int tile_rows, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Tp < kRows || Tp % kRows || H < kHC || H % kHC || tile_rows % kRows)
+    return (int)cudaErrorInvalidValue;
+  if (D == 384)
+    return (int)launch<384, kGather>(xs, gather_idx, w1, b1, w2, b2,
+                                     e_of_tile, y, Tp, H, tile_rows, s);
+  if (D == 192)
+    return (int)launch<192, kGather>(xs, gather_idx, w1, b1, w2, b2,
+                                     e_of_tile, y, Tp, H, tile_rows, s);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// xs (Tp, D) bf16, w1 (E, D, H) bf16, b1 (E, H) f32, w2 (E, H, D) bf16,
+// K3: xs (Tp, D) bf16, w1 (E, D, H) bf16, b1 (E, H) f32, w2 (E, H, D) bf16,
 // b2 (E, D) f32, e_of_tile (Tp / tile_rows,) int32 -> y (Tp, D) bf16; all
 // contiguous and 16-byte aligned. D is 192 or 384; H a multiple of 64;
 // tile_rows and Tp multiples of 64.
@@ -208,15 +241,18 @@ extern "C" int ssmv_expert_ffn_fwd(const void* xs, const void* w1,
                                    const void* b2, const void* e_of_tile,
                                    void* y, int Tp, int D, int H,
                                    int tile_rows, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Tp < kRows || Tp % kRows || H < kHC || H % kHC || tile_rows % kRows)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err;
-  if (D == 384)
-    err = launch<384>(xs, w1, b1, w2, b2, e_of_tile, y, Tp, H, tile_rows, s);
-  else if (D == 192)
-    err = launch<192>(xs, w1, b1, w2, b2, e_of_tile, y, Tp, H, tile_rows, s);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  return dispatch<false>(xs, nullptr, w1, b1, w2, b2, e_of_tile, y, Tp, D, H,
+                         tile_rows, stream);
+}
+
+// K9 forward: x (T, D) bf16 tokens and gather_idx (Tp,) int64, each in
+// [0, T); the rest as K3. Layout row s computes from x[gather_idx[s]].
+extern "C" int ssmv_expert_ffn_fwd_gather(const void* x, const void* gather_idx,
+                                          const void* w1, const void* b1,
+                                          const void* w2, const void* b2,
+                                          const void* e_of_tile, void* y,
+                                          int Tp, int D, int H, int tile_rows,
+                                          void* stream) {
+  return dispatch<true>(x, gather_idx, w1, b1, w2, b2, e_of_tile, y, Tp, D, H,
+                        tile_rows, stream);
 }

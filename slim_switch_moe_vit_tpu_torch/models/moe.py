@@ -11,10 +11,20 @@ h) / (E, h), fc2 (E, h, d) / (E, d), all f32), dispatched by
 - ``'fused'``: dropless counting-sort layout + the expert-FFN kernel
   (``ops/fused_ffn.py``), the serving path;
 - ``'ragged'``: dropless, one GEMM pair per expert group (plain oracle);
-- ``'dense'``: every expert on every token, in f32 (plain oracle).
+- ``'dense'``: every expert on every token, in f32 (plain oracle);
+- ``'capacity'``: static per-expert buffers of ``compute_capacity`` slots
+  filled by a scatter, token-major drop priority (plain PyTorch, the oracle
+  of the fused form);
+- ``'capacity_fused'``: the same drops and outputs through the counting-sort
+  capacity layout and the expert-FFN kernels;
+- ``'capacity_fused_a2a'``: ``'capacity_fused'`` on one card (the JAX
+  module's all-to-all form applies only under an expert mesh).
 
-The capacity, capacity_fused(_a2a) and expert_choice modes are not ported
-yet and raise.
+The capacity factor is ``capacity_factor`` in training mode and
+``eval_capacity_factor`` otherwise (JAX :92). An odd hidden size sends
+``'fused'`` to ``'ragged'`` and the fused capacity modes to ``'capacity'``
+(JAX :99-102). ``expert_choice``, expert dropout and expert parallelism are
+not ported yet and raise.
 
 Each forward keeps its dispatch's aux (``balance_loss``, ``drop_fraction``)
 in ``self.aux``, the last value per block as the JAX module's ``sow`` keeps
@@ -30,22 +40,32 @@ from .layers import trunc_normal_
 
 _MODES = {"fused": moe_ops.moe_forward_fused,
           "ragged": moe_ops.moe_forward_ragged,
-          "dense": moe_ops.moe_dense}
+          "dense": moe_ops.moe_dense,
+          "capacity": moe_ops.moe_forward,
+          "capacity_fused": moe_ops.moe_forward_fused,
+          "capacity_fused_a2a": moe_ops.moe_forward_fused}
+_CAPACITY_MODES = ("capacity", "capacity_fused", "capacity_fused_a2a")
 
 
 class MoEMlp(nn.Module):
     def __init__(self, dim: int, hidden_features: int, num_experts: int = 8,
                  top_k: int = 2, drop: float = 0.0,
-                 dispatch_mode: str = "auto"):
+                 dispatch_mode: str = "auto", capacity_factor: float = 2.0,
+                 eval_capacity_factor: float = 2.0):
         super().__init__()
         mode = "fused" if dispatch_mode == "auto" else dispatch_mode
         if mode not in _MODES:
             raise NotImplementedError(
                 f"dispatch_mode '{dispatch_mode}' is not ported yet (ROADMAP "
-                "Queue 1: capacity dispatch; expert_choice with the extras)")
+                "Queue 1 #8: expert_choice with the extras)")
+        if hidden_features % 2 and _MODES[mode] is moe_ops.moe_forward_fused:
+            # the fused kernels take an even hidden size only (JAX :99-102)
+            mode = "ragged" if mode == "fused" else "capacity"
         self.mode = mode
         self.top_k = top_k
         self.drop = drop
+        self.capacity_factor = capacity_factor
+        self.eval_capacity_factor = eval_capacity_factor
         E, d, h = num_experts, dim, hidden_features
         self.router_weight = nn.Parameter(torch.empty(d, E))
         self.router_bias = nn.Parameter(torch.zeros(E))
@@ -65,9 +85,15 @@ class MoEMlp(nn.Module):
         if self.training and self.drop > 0.0:
             raise NotImplementedError(
                 "expert dropout: the fused dispatch has no dropout path and "
-                "the ragged one's is not ported yet (ROADMAP)")
+                "the ragged and capacity ones' are not ported yet (ROADMAP "
+                "Queue 1 #8)")
         B, N, d = x.shape
+        kw = {}
+        if self.mode in _CAPACITY_MODES:
+            kw["capacity_factor"] = (self.capacity_factor if self.training
+                                     else self.eval_capacity_factor)
         y, self.aux = _MODES[self.mode](x.reshape(B * N, d), self.router_weight,
-                              self.router_bias, self.w1, self.b1, self.w2,
-                              self.b2, top_k=self.top_k)
+                                        self.router_bias, self.w1, self.b1,
+                                        self.w2, self.b2, top_k=self.top_k,
+                                        **kw)
         return y.reshape(B, N, d)

@@ -49,7 +49,8 @@ class ResMoEBlock(nn.Module):
                  attn_drop: float = 0.0, drop_path: float = 0.0,
                  dtype: torch.dtype = torch.float32, use_flash: bool = False,
                  num_experts: int = 8, top_k: int = 2,
-                 dispatch_mode: str = "auto",
+                 dispatch_mode: str = "auto", capacity_factor: float = 2.0,
+                 eval_capacity_factor: float = 2.0,
                  starting_threshold: float = 1.0,
                  target_threshold: float = 0.9, mode: str = "parity",
                  token_capacity: float = 1.0):
@@ -64,7 +65,9 @@ class ResMoEBlock(nn.Module):
                               use_flash=use_flash)
         self.norm2 = LayerNorm(dim)
         self.mlp = MoEMlp(dim, int(dim * mlp_ratio), num_experts=num_experts,
-                          top_k=top_k, drop=drop, dispatch_mode=dispatch_mode)
+                          top_k=top_k, drop=drop, dispatch_mode=dispatch_mode,
+                          capacity_factor=capacity_factor,
+                          eval_capacity_factor=eval_capacity_factor)
         self.dense_gate = TokenGate(dim, starting_threshold, target_threshold)
         self.moe_gate = TokenGate(dim, starting_threshold, target_threshold)
         self.drop_path = DropPath(drop_path)
@@ -120,15 +123,16 @@ class ResMoEBlock(nn.Module):
 
 def _moe_kwargs(kwargs: dict) -> dict:
     """Pop the MoE and gate kwargs (the training CLI passes all of them).
-    The capacity factors are dropped: every ported dispatch mode is
-    dropless, and the JAX package's dropless ``MoEMlp`` ignores them too."""
-    for unused in ("capacity_factor", "eval_capacity_factor"):
-        kwargs.pop(unused, None)
+    The train and eval capacity factors go on to every ``MoEMlp``, which
+    uses them in the capacity modes (the dropless modes ignore them, as the
+    JAX package's do)."""
     dense = kwargs.pop("parity_dense", False)
     mode = kwargs.pop("dispatch_mode", "auto")
     return dict(num_experts=kwargs.pop("num_experts", 8),
                 top_k=kwargs.pop("moe_top_k", 2),
                 dispatch_mode="dense" if dense else mode,
+                capacity_factor=kwargs.pop("capacity_factor", 2.0),
+                eval_capacity_factor=kwargs.pop("eval_capacity_factor", 2.0),
                 starting_threshold=kwargs.pop("starting_threshold", 1.0),
                 target_threshold=kwargs.pop("target_threshold", 0.9),
                 mode=kwargs.pop("resmoe_mode", "parity"),

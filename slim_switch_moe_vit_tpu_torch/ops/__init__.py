@@ -4,7 +4,8 @@ PyTorch versions.
 Each kernel wrapper counts its launches in an integer attribute,
 ``<wrapper>.launches``, incremented only where the kernel is launched: the
 five forwards, the five backward forms their autograd Functions call, the
-flash forward and the fused optimizer.
+flash forward, the fused optimizer, and the expert FFN's gather-in-kernel
+forward and backward (K9) and deferred-dW backward (K8).
 """
 from __future__ import annotations
 
@@ -15,7 +16,10 @@ KERNEL_WRAPPERS = (fused_ln.fused_ln, fused_ln.fused_add_ln,
                    fused_ffn.fused_expert_ffn, fused_ln.fused_ln_bwd,
                    fused_ln.fused_add_ln_bwd, fused_ln.fused_sum_ln_bwd,
                    attention.fused_mha_bwd, fused_ffn.fused_expert_ffn_bwd,
-                   fused_adamw.fused_adamw_ema, attention.flash_attention)
+                   fused_adamw.fused_adamw_ema, attention.flash_attention,
+                   fused_ffn.fused_expert_ffn_gather,
+                   fused_ffn.fused_expert_ffn_gather_bwd,
+                   fused_ffn.fused_expert_ffn_bwd_defer)
 
 
 def launch_counts() -> dict:

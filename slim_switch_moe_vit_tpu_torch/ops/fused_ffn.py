@@ -1,15 +1,25 @@
 """Per-expert FFN (fc1 -> GELU -> fc2) over the tile-aligned expert layout,
-forward (K3) and backward (K4), for the H100.
+forward (K3) and backward (K4), their gather-in-kernel forms (K9) and the
+deferred-dW backward (K8), for the H100.
 
-Replaces two Pallas kernels of ``slim_switch_moe_vit_tpu/ops/fused_ffn.py``:
-``_fwd_kernel`` (:166) behind ``_fwd`` (:176) and ``fused_expert_ffn``
-(:511), and ``_bwd_kernel`` (:261) behind ``_bwd`` (:374) and ``_ffn_bwd``
-(:834). The CUDA C++ kernels are ``csrc/expert_ffn_fwd.cu`` and
-``csrc/expert_ffn_bwd.cu``; their header notes say what bounds them on the
-card and how their designs answer that. In short: the FFN is FLOP-bound;
-the forward keeps the (rows, H) hidden activation out of device memory by
-streaming H in chunks, and the backward recomputes it the same way for dx,
-then sums dW1/dW2 per expert over its consecutive tiles in a second kernel.
+Replaces these Pallas kernels of ``slim_switch_moe_vit_tpu/ops/fused_ffn.py``:
+
+- K3 ``_fwd_kernel`` (:166) behind ``_fwd`` (:176) and ``fused_expert_ffn``
+  (:511); K4 ``_bwd_kernel`` (:261) behind ``_bwd`` (:374) and ``_ffn_bwd``
+  (:834): ``csrc/expert_ffn_fwd.cu``, ``csrc/expert_ffn_bwd.cu``;
+- K9 ``_fwd_gather_kernel`` (:605) and ``_bwd_gather_kernel`` (:658) behind
+  ``fused_expert_ffn_gather`` (:763): the same sources, with each layout
+  row's x read through ``gather_idx`` (``SSMV_GATHER_IN_KERNEL=1``);
+- K8 ``_bwd_kernel_defer`` (:312) with ``_bwd_flags`` (:285), the
+  ``SSMV_DEFER_DW=1`` branch of ``_ffn_bwd``: ``csrc/expert_ffn_bwd_defer.cu``.
+
+The sources' header notes say what bounds each kernel on the card and how
+its design answers that. In short: the FFN is FLOP-bound; the forward keeps
+the (rows, H) hidden activation out of device memory by streaming H in
+chunks, and the backward recomputes it the same way for dx, then sums
+dW1/dW2 per expert over its consecutive tiles in a second kernel (K4, K9
+through a (Tp, H) workspace; K8 over same-expert tile pairs, recomputing dh
+on chip).
 
 Layout contract (``ops/moe.py::aligned_expert_layout``): rows are sorted by
 expert and every ``TILE_ROWS``-row tile belongs to one expert,
@@ -20,13 +30,22 @@ package evaluates them for bf16 with odd polynomials (``gelu_fast``, within
 5.7e-4 of exact; gelu' within 1.5e-3), a TPU VPU policy that is not ported.
 
 Dispatch: a CPU tensor takes the plain versions
-(:func:`fused_expert_ffn_reference`, :func:`reference_expert_ffn_bwd`); a
-CUDA tensor launches the kernels or raises. The autograd Function saves
-(xs, w1, b1, w2, b2, e_of_tile), as the JAX VJP does (fused_ffn.py:829-831).
+(:func:`fused_expert_ffn_reference`, :func:`reference_expert_ffn_bwd`,
+:func:`reference_expert_ffn_bwd_defer`; K9's are these on the gathered
+rows); a CUDA tensor launches the kernels or raises. The autograd Function
+saves (xs, w1, b1, w2, b2, e_of_tile), as the JAX VJP does
+(fused_ffn.py:829-831); the gather form saves x and the layout instead of
+xs. The JAX wrapper's promotion of the backward to 512-row tiles when every
+tile pair shares an expert (:540-548, :783-790) is a TPU tiling policy and
+is not ported: the backward tile is always ``TILE_ROWS``, so
+``SSMV_DEFER_DW=1`` always takes K8, and K9's backward never defers, as in
+the JAX package.
 """
 from __future__ import annotations
 
 import math
+import os
+import typing as typ
 
 import torch
 
@@ -69,12 +88,14 @@ def fused_expert_ffn_reference(xs, w1, b1, w2, b2, e_of_tile):
     return y
 
 
-def reference_expert_ffn_bwd(xs, w1, b1, w2, e_of_tile, dy):
-    """Plain version of the backward: a loop over row tiles, step by step as
-    the JAX kernel (products in f32 on the activation-dtype operands, dh
-    rounded to the activation dtype for the dx and dW1 products, g for the
-    dW2 product, db1 from the f32 dh). Returns (dx, dw1, db1, dw2, db2): dx
-    in xs's dtype, dw1/dw2 in the weights' dtype, the biases' f32."""
+def _plain_bwd(xs, w1, b1, w2, e_of_tile, dy, flags):
+    """The plain backwards' loop over row tiles, step by step as the JAX
+    kernels (products in f32 on the activation-dtype operands, dh rounded
+    to the activation dtype for the dx and dW1 products, g for the dW2
+    product, db1 from the f32 dh), with the dW products taken as the
+    per-tile ``flags`` of :func:`bwd_flags` direct: at a flush tile, over
+    it and, with the include bit, the tile before it; initializing the
+    expert's dW at its first flush."""
     Tp, D = xs.shape
     E, _, H = w1.shape
     tile = Tp // e_of_tile.shape[0]
@@ -84,33 +105,81 @@ def reference_expert_ffn_bwd(xs, w1, b1, w2, e_of_tile, dy):
     dw2 = torch.zeros((E, H, D), dtype=torch.float32, device=xs.device)
     db1 = torch.zeros((E, H), dtype=torch.float32, device=xs.device)
     db2 = torch.zeros((E, D), dtype=torch.float32, device=xs.device)
-    for i, e in enumerate(e_of_tile.tolist()):
+    stash = [None, None]  # the pair's two halves: (x, bf16 dh, bf16 g, dy)
+    for i, (e, f) in enumerate(zip(e_of_tile.tolist(), flags)):
         rows = slice(i * tile, (i + 1) * tile)
         x, d = xs[rows].float(), dy[rows].to(dt).float()
         h = x @ w1[e].float() + b1[e].float()
         dh = (d @ w2[e].float().T) * dgelu(h)
         dhb = dh.to(dt).float()
         dx[rows] = (dhb @ w1[e].float().T).to(dt)
-        dw1[e] += x.T @ dhb
-        dw2[e] += gelu_exact(h).to(dt).float().T @ d
         db1[e] += dh.sum(0)
         db2[e] += d.sum(0)
+        include = bool(f & 2)
+        stash[int(include)] = (x, dhb, gelu_exact(h).to(dt).float(), d)
+        if f & 1:
+            pair = stash if include else stash[:1]
+            xk, dhk, gk, dk = (torch.cat(m) for m in zip(*pair))
+            pw1, pw2 = xk.T @ dhk, gk.T @ dk
+            if f & 4:
+                dw1[e], dw2[e] = pw1, pw2
+            else:
+                dw1[e] += pw1
+                dw2[e] += pw2
     return dx, dw1.to(w1.dtype), db1, dw2.to(w2.dtype), db2
 
 
-def _check_ffn(xs, w1, b1, w2, b2, e_of_tile):
-    check_tensor(xs, "xs", (torch.bfloat16,))
-    if xs.dim() != 2 or w1.dim() != 3:
-        raise ValueError(f"xs must be (Tp, D) and w1 (E, D, H), got "
-                         f"{tuple(xs.shape)} and {tuple(w1.shape)}")
-    Tp, D = xs.shape
+def reference_expert_ffn_bwd(xs, w1, b1, w2, e_of_tile, dy):
+    """Plain version of the backward (K4): the dW products tile by tile.
+    Returns (dx, dw1, db1, dw2, db2): dx in xs's dtype, dw1/dw2 in the
+    weights' dtype, the biases' f32."""
+    return _plain_bwd(xs, w1, b1, w2, e_of_tile, dy,
+                      [1] * e_of_tile.shape[0])
+
+
+def bwd_flags(e_of_tile: torch.Tensor) -> torch.Tensor:
+    """Per-tile control flags of the deferred-dW backward (K8), int32, from
+    a nondecreasing ``e_of_tile`` (the JAX ``_bwd_flags``, exactly):
+
+    - bit 0 (flush): issue the dW products at this tile (the 2nd tile of a
+      pair, or the expert's last tile);
+    - bit 1 (include): the previous tile, of the same expert, is the pair's
+      first half: the products run over both;
+    - bit 2 (first): the expert's first flush, which initializes its dW
+      instead of accumulating.
+    """
+    e = e_of_tile.long()
+    n = e.shape[0]
+    idx = torch.arange(n, device=e.device)
+    edge = e.new_full((1,), -1)
+    prev = torch.cat([edge, e[:-1]])
+    group_start = torch.cummax(torch.where(e != prev, idx, 0), dim=0).values
+    pos = idx - group_start
+    nxt = torch.cat([e[1:], edge])
+    odd = (pos % 2) == 1
+    flush = odd | (e != nxt)
+    first = flush & (pos <= 1)
+    return (flush.int() | (odd.int() << 1) | (first.int() << 2)).to(
+        torch.int32)
+
+
+def reference_expert_ffn_bwd_defer(xs, w1, b1, w2, e_of_tile, dy):
+    """Plain version of K8: K4's function with the dW products taken over
+    the same-expert tile pairs (K = 2 * TILE_ROWS) or single tiles that
+    :func:`bwd_flags` directs. Returns (dx, dw1, db1, dw2, db2) as K4's."""
+    return _plain_bwd(xs, w1, b1, w2, e_of_tile, dy,
+                      bwd_flags(e_of_tile).tolist())
+
+
+def _check_weights(Tp, D, dev, w1, b1, w2, b2, e_of_tile):
+    if w1.dim() != 3:
+        raise ValueError(f"w1 must be (E, D, H), got {tuple(w1.shape)}")
     E, _, H = w1.shape
     if D not in (192, 384):
         raise ValueError(f"the expert-FFN kernels take D 192 or 384, got {D}")
     if H % 64 or Tp % TILE_ROWS:
         raise ValueError(f"H ({H}) must be a multiple of 64 and Tp ({Tp}) of "
                          f"{TILE_ROWS}")
-    dev = xs.device
     check_tensor(w1, "w1", (torch.bfloat16,), device=dev, shape=(E, D, H))
     check_tensor(b1, "b1", (torch.float32,), device=dev, shape=(E, H))
     check_tensor(w2, "w2", (torch.bfloat16,), device=dev, shape=(E, H, D))
@@ -118,7 +187,41 @@ def _check_ffn(xs, w1, b1, w2, b2, e_of_tile):
         check_tensor(b2, "b2", (torch.float32,), device=dev, shape=(E, D))
     check_tensor(e_of_tile, "e_of_tile", (torch.int32,), device=dev,
                  shape=(Tp // TILE_ROWS,))
-    return Tp, D, H, E
+    return H, E
+
+
+def _check_ffn(xs, w1, b1, w2, b2, e_of_tile):
+    check_tensor(xs, "xs", (torch.bfloat16,))
+    if xs.dim() != 2:
+        raise ValueError(f"xs must be (Tp, D), got {tuple(xs.shape)}")
+    Tp, D = xs.shape
+    return (Tp, D, *_check_weights(Tp, D, xs.device, w1, b1, w2, b2,
+                                   e_of_tile))
+
+
+def _check_gather(x, gather_idx, w1, b1, w2, b2, e_of_tile):
+    check_tensor(x, "x", (torch.bfloat16,))
+    if x.dim() != 2 or gather_idx.dim() != 1:
+        raise ValueError(f"x must be (T, D) and gather_idx (Tp,), got "
+                         f"{tuple(x.shape)} and {tuple(gather_idx.shape)}")
+    Tp, D = gather_idx.shape[0], x.shape[1]
+    check_tensor(gather_idx, "gather_idx", (torch.int64,), device=x.device)
+    return (Tp, D, *_check_weights(Tp, D, x.device, w1, b1, w2, b2,
+                                   e_of_tile))
+
+
+def _bwd_outputs(Tp, D, H, E, like, w1, w2):
+    """(dx, dw1, db1, dw2, db2), uninitialized, for a backward kernel."""
+    dev = like.device
+    return (torch.empty((Tp, D), dtype=like.dtype, device=dev),
+            torch.empty_like(w1),
+            torch.empty((E, H), dtype=torch.float32, device=dev),
+            torch.empty_like(w2),
+            torch.empty((E, D), dtype=torch.float32, device=dev))
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
 
 
 def fused_expert_ffn_bwd(xs, w1, b1, w2, e_of_tile, dy):
@@ -128,23 +231,72 @@ def fused_expert_ffn_bwd(xs, w1, b1, w2, e_of_tile, dy):
         return reference_expert_ffn_bwd(xs, w1, b1, w2, e_of_tile, dy)
     Tp, D, H, E = _check_ffn(xs, w1, b1, w2, None, e_of_tile)
     check_tensor(dy, "dy", (torch.bfloat16,), device=xs.device, shape=(Tp, D))
-    dx = torch.empty_like(xs)
-    dw1, dw2 = torch.empty_like(w1), torch.empty_like(w2)
-    db1 = torch.empty((E, H), dtype=torch.float32, device=xs.device)
-    db2 = torch.empty((E, D), dtype=torch.float32, device=xs.device)
+    out = _bwd_outputs(Tp, D, H, E, xs, w1, w2)
     ws_dh = torch.empty((Tp, H), dtype=xs.dtype, device=xs.device)
     ws_g = torch.empty_like(ws_dh)
     ws_db1 = torch.empty((Tp // 64, H), dtype=torch.float32, device=xs.device)
     lib = _build.load_library()
     err = lib.ssmv_expert_ffn_bwd(
         xs.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), e_of_tile.data_ptr(), dx.data_ptr(), dw1.data_ptr(),
-        db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(), ws_dh.data_ptr(),
-        ws_g.data_ptr(), ws_db1.data_ptr(), Tp, D, H, E, TILE_ROWS,
-        torch.cuda.current_stream().cuda_stream)
+        w2.data_ptr(), e_of_tile.data_ptr(), *(t.data_ptr() for t in out),
+        ws_dh.data_ptr(), ws_g.data_ptr(), ws_db1.data_ptr(), Tp, D, H, E,
+        TILE_ROWS, _stream())
     _build.check(err, "fused_expert_ffn_bwd")
     fused_expert_ffn_bwd.launches += 1
-    return dx, dw1, db1, dw2, db2
+    return out
+
+
+def fused_expert_ffn_bwd_defer(xs, w1, b1, w2, e_of_tile, dy):
+    """K8: K4's function (:func:`fused_expert_ffn_bwd`) with the dW products
+    taken over same-expert tile pairs as :func:`bwd_flags` directs, from x,
+    dh, g and dy on chip (no (Tp, H) workspace). H must be at least D."""
+    if not xs.is_cuda:
+        return reference_expert_ffn_bwd_defer(xs, w1, b1, w2, e_of_tile, dy)
+    Tp, D, H, E = _check_ffn(xs, w1, b1, w2, None, e_of_tile)
+    check_tensor(dy, "dy", (torch.bfloat16,), device=xs.device, shape=(Tp, D))
+    if H < D:
+        raise ValueError(f"the deferred-dW kernel needs H ({H}) >= D ({D})")
+    flags = bwd_flags(e_of_tile)
+    out = _bwd_outputs(Tp, D, H, E, xs, w1, w2)
+    lib = _build.load_library()
+    err = lib.ssmv_expert_ffn_bwd_defer(
+        xs.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), e_of_tile.data_ptr(), flags.data_ptr(),
+        *(t.data_ptr() for t in out), Tp, D, H, E, TILE_ROWS, _stream())
+    _build.check(err, "fused_expert_ffn_bwd_defer")
+    fused_expert_ffn_bwd_defer.launches += 1
+    return out
+
+
+def fused_expert_ffn_gather_bwd(x, gather_idx, w1, b1, w2, e_of_tile, dy):
+    """K9's backward: (dx in slot space (Tp, D), dw1, db1, dw2, db2) of
+    :func:`fused_expert_ffn_gather`, x re-read by index: K4's function on
+    the rows x[gather_idx]."""
+    if not x.is_cuda:
+        return reference_expert_ffn_bwd(x.index_select(0, gather_idx), w1, b1,
+                                        w2, e_of_tile, dy)
+    Tp, D, H, E = _check_gather(x, gather_idx, w1, b1, w2, None, e_of_tile)
+    check_tensor(dy, "dy", (torch.bfloat16,), device=x.device, shape=(Tp, D))
+    out = _bwd_outputs(Tp, D, H, E, x, w1, w2)
+    ws_dh = torch.empty((Tp, H), dtype=x.dtype, device=x.device)
+    ws_g = torch.empty_like(ws_dh)
+    ws_db1 = torch.empty((Tp // 64, H), dtype=torch.float32, device=x.device)
+    lib = _build.load_library()
+    err = lib.ssmv_expert_ffn_bwd_gather(
+        x.data_ptr(), gather_idx.data_ptr(), dy.data_ptr(), w1.data_ptr(),
+        b1.data_ptr(), w2.data_ptr(), e_of_tile.data_ptr(),
+        *(t.data_ptr() for t in out), ws_dh.data_ptr(), ws_g.data_ptr(),
+        ws_db1.data_ptr(), Tp, D, H, E, TILE_ROWS, _stream())
+    _build.check(err, "fused_expert_ffn_gather_bwd")
+    fused_expert_ffn_gather_bwd.launches += 1
+    return out
+
+
+def _defer_dw() -> bool:
+    """``SSMV_DEFER_DW=1``: the fused FFN's backward launches K8 instead of
+    K4. Read when the backward runs; off by default, as in the JAX
+    package."""
+    return os.environ.get("SSMV_DEFER_DW", "0") == "1"
 
 
 def _ffn_forward(xs, w1, b1, w2, b2, e_of_tile):
@@ -156,9 +308,25 @@ def _ffn_forward(xs, w1, b1, w2, b2, e_of_tile):
     err = lib.ssmv_expert_ffn_fwd(
         xs.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), e_of_tile.data_ptr(), y.data_ptr(), Tp, D, H,
-        TILE_ROWS, torch.cuda.current_stream().cuda_stream)
+        TILE_ROWS, _stream())
     _build.check(err, "fused_expert_ffn")
     fused_expert_ffn.launches += 1
+    return y
+
+
+def _ffn_gather_forward(x, gather_idx, w1, b1, w2, b2, e_of_tile):
+    if not x.is_cuda:
+        return fused_expert_ffn_reference(x.index_select(0, gather_idx), w1,
+                                          b1, w2, b2, e_of_tile)
+    Tp, D, H, _ = _check_gather(x, gather_idx, w1, b1, w2, b2, e_of_tile)
+    y = torch.empty((Tp, D), dtype=x.dtype, device=x.device)
+    lib = _build.load_library()
+    err = lib.ssmv_expert_ffn_fwd_gather(
+        x.data_ptr(), gather_idx.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), b2.data_ptr(), e_of_tile.data_ptr(), y.data_ptr(), Tp,
+        D, H, TILE_ROWS, _stream())
+    _build.check(err, "fused_expert_ffn_gather")
+    fused_expert_ffn_gather.launches += 1
     return y
 
 
@@ -171,8 +339,9 @@ class _FusedExpertFFN(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         xs, w1, b1, w2, _, e_of_tile = ctx.saved_tensors
-        grads = fused_expert_ffn_bwd(xs, w1, b1, w2, e_of_tile,
-                                     dy.to(xs.dtype).contiguous())
+        bwd = (fused_expert_ffn_bwd_defer if _defer_dw()
+               else fused_expert_ffn_bwd)
+        grads = bwd(xs, w1, b1, w2, e_of_tile, dy.to(xs.dtype).contiguous())
         return (*grads, None)
 
 
@@ -192,5 +361,67 @@ def fused_expert_ffn(xs: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     return _FusedExpertFFN.apply(xs, w1, b1, w2, b2, e_of_tile)
 
 
+def gather_slots_to_tokens(dxs: torch.Tensor, pair_slot: torch.Tensor,
+                           keep: typ.Optional[torch.Tensor] = None):
+    """dx[t] = sum_k dxs[pair_slot[t, k]] (* keep[t, k]): each token owns
+    exactly its k slots and padding slots carry zero cotangents, so k row
+    gathers replace a scatter-add; a dropped pair points at a padding slot
+    whose cotangent is arbitrary, so it is masked to zero."""
+    dx = None
+    for kk in range(pair_slot.shape[1]):
+        g = dxs.index_select(0, pair_slot[:, kk])
+        if keep is not None:
+            g = g * keep[:, kk:kk + 1].to(g.dtype)
+        dx = g if dx is None else dx + g
+    return dx
+
+
+class _FusedExpertFFNGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gather_idx, pair_slot, keep, w1, b1, w2, b2,
+                e_of_tile):
+        ctx.save_for_backward(x, gather_idx, pair_slot, keep, w1, b1, w2,
+                              e_of_tile)
+        return _ffn_gather_forward(x, gather_idx, w1, b1, w2, b2, e_of_tile)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gather_idx, pair_slot, keep, w1, b1, w2, e_of_tile = \
+            ctx.saved_tensors
+        dx_slots, *grads = fused_expert_ffn_gather_bwd(
+            x, gather_idx, w1, b1, w2, e_of_tile,
+            dy.to(x.dtype).contiguous())
+        # token-space dx: k row gathers, glue outside the kernel as in JAX
+        dx = gather_slots_to_tokens(dx_slots, pair_slot, keep)
+        return (dx, None, None, None, *grads, None)
+
+
+def fused_expert_ffn_gather(x: torch.Tensor, gather_idx: torch.Tensor,
+                            pair_slot: torch.Tensor,
+                            keep: typ.Optional[torch.Tensor],
+                            w1: torch.Tensor, b1: torch.Tensor,
+                            w2: torch.Tensor, b2: torch.Tensor,
+                            e_of_tile: torch.Tensor) -> torch.Tensor:
+    """fc2(GELU(fc1(x[gather_idx]))) with per-tile expert weights (K9): the
+    dispatch gather folded into the kernels' x loads, so the expanded xs is
+    never written. Replaces ``dispatch_gather`` + :func:`fused_expert_ffn`.
+
+    Args:
+        x: (T, D) tokens (not expanded).
+        gather_idx: (Tp,) int64 source token of each layout slot.
+        pair_slot: (T, k) slot of each (token, choice) pair, for the
+            backward's token-space dx (k row gathers).
+        keep: (T, k) bool capacity mask of those gathers, or None.
+        w1/b1/w2/b2/e_of_tile: as :func:`fused_expert_ffn`.
+    Returns:
+        (Tp, D) in x's dtype, as ``fused_expert_ffn(x[gather_idx], ...)``.
+    """
+    return _FusedExpertFFNGather.apply(x, gather_idx, pair_slot, keep, w1, b1,
+                                       w2, b2, e_of_tile)
+
+
 fused_expert_ffn.launches = 0
 fused_expert_ffn_bwd.launches = 0
+fused_expert_ffn_gather.launches = 0
+fused_expert_ffn_gather_bwd.launches = 0
+fused_expert_ffn_bwd_defer.launches = 0

@@ -1,26 +1,37 @@
-"""Dropless Switch/MoE dispatch for the H100, forward and backward.
+"""Switch/MoE dispatch for the H100, forward and backward.
 
-Port of the dropless pieces of ``slim_switch_moe_vit_tpu/ops/moe.py``:
+Port of the single-device pieces of ``slim_switch_moe_vit_tpu/ops/moe.py``:
 
 - :func:`naive_topk_gate` (:49-79): top-k by repeated argmax (ties go to the
   first index), softmax over the k selected logits (FastMoE ``NaiveGate``);
 - :func:`load_balance_loss` (:82-93), the Switch auxiliary loss;
 - :func:`rank_in_expert` (:279-308) and :func:`aligned_expert_layout`
-  (:353-469, dropless form): a counting sort of the (token, choice) pairs by
-  expert into a padded layout whose expert groups start on ``TILE_ROWS``
-  boundaries, ``Tp = roundup(T*k, tile) + E*tile`` rows, at least one tile
-  per expert, with ``w_slot``, the combine weight of each slot;
+  (:353-469): a counting sort of the (token, choice) pairs by expert into a
+  padded layout whose expert groups start on ``TILE_ROWS`` boundaries.
+  Dropless: ``Tp = roundup(T*k, tile) + E*tile`` rows, at least one tile
+  per expert. With a ``capacity``: a static region of
+  ``Cp = capacity_region_rows(capacity)`` rows per expert whose last slot
+  is always padding; pairs ranked at or beyond the capacity are dropped.
+  ``w_slot`` is the combine weight of each slot;
+- the capacity primitives :func:`compute_capacity` (:96-101),
+  :func:`make_dispatch` (:104-125), :func:`dispatch_tokens` (:128-143),
+  :func:`combine_tokens` (:146-160), :func:`grouped_ffn` (:163-183) and
+  :func:`moe_forward` (:186-219), the scatter-buffer ``'capacity'`` mode:
+  plain PyTorch, the oracle of the fused capacity form;
 - :func:`dispatch_gather` (:476-507) and :func:`combine_slots` (:510-552)
   as autograd Functions with the JAX custom backwards: k row gathers
-  instead of a scatter-add for dx, one row gather scaled by ``w_slot`` for
-  the combine's d_out;
+  instead of a scatter-add for dx (the dropped pairs' masked to zero), one
+  row gather scaled by ``w_slot`` for the combine's d_out;
 - :func:`moe_forward_fused` (:555-626), the serving and training path, over
-  the expert-FFN kernels of ``ops/fused_ffn.py``;
+  the expert-FFN kernels of ``ops/fused_ffn.py``, dropless or with a
+  capacity; with ``SSMV_GATHER_IN_KERNEL=1`` the dispatch gather rides the
+  FFN kernels' x loads (K9, ``fused_expert_ffn_gather``);
 - :func:`moe_forward_ragged` (:222-276) and :func:`moe_dense` (:902) as
   plain oracles.
 
 Each forward returns ``(y, aux)``, aux holding ``balance_loss`` and
-``drop_fraction`` (0 for the dropless modes) as 0-d f32 tensors.
+``drop_fraction`` (0 for the dropless modes, ``1 - mean(keep)`` with a
+capacity) as 0-d f32 tensors.
 
 Functions keep the JAX package's layouts: ``router_w`` is (d, E), the expert
 tensors are expert-major (E, d, h) / (E, h) / (E, h, d) / (E, d).
@@ -28,15 +39,27 @@ tensors are expert-major (E, d, h) / (E, h) / (E, h, d) / (E, d).
 Not ported here (TPU layout policies): the lane-major prefix count of
 ``_rank_in_expert`` (a one-hot cumsum does the same), the packed-s32 slot
 table (``w_slot`` is one scatter into the activation dtype, the same values
-the JAX package's packing gives), and the 512-row layout policy (the
-flagship's T*k = 50,432 takes the 256-row layout there too). Capacity
-dispatch waits for its ROADMAP item.
+the JAX package's packing gives), the 512-row layout policy (the
+flagship's T*k = 50,432 takes the 256-row layout there too), and expert
+dropout in :func:`grouped_ffn`. The expert-parallel forms wait for their
+ROADMAP item.
 """
 from __future__ import annotations
 
+import os
+import typing as typ
+
 import torch
 
-from .fused_ffn import TILE_ROWS, fused_expert_ffn, gelu_exact, gelu_fast
+from .fused_ffn import (TILE_ROWS, fused_expert_ffn, fused_expert_ffn_gather,
+                        gather_slots_to_tokens, gelu_exact, gelu_fast)
+
+
+def _gather_in_kernel() -> bool:
+    """``SSMV_GATHER_IN_KERNEL=1``: fold the dispatch row gather into the
+    expert-FFN kernels' x loads (K9). Read at call time, as the JAX package
+    reads it at trace time; off by default, as there."""
+    return os.environ.get("SSMV_GATHER_IN_KERNEL", "0") == "1"
 
 
 def _router_logits(x, router_w, router_b):
@@ -66,6 +89,85 @@ def load_balance_loss(logits: torch.Tensor, expert_idx: torch.Tensor,
     return num_experts * (f.mean(0) * probs.mean(0)).sum()
 
 
+def compute_capacity(tokens: int, num_experts: int, top_k: int,
+                     capacity_factor: float, multiple: int = 8) -> int:
+    """Static per-expert slot count: int(T*k*factor/E) + 1, at most T,
+    rounded up to ``multiple`` (the JAX package's Python float arithmetic)."""
+    cap = int(tokens * top_k * capacity_factor / num_experts) + 1
+    cap = min(cap, tokens)  # an expert can never receive more than all tokens
+    return ((cap + multiple - 1) // multiple) * multiple
+
+
+def make_dispatch(expert_idx: torch.Tensor, num_experts: int, capacity: int):
+    """Destinations of the (token, choice) pairs in the (E*C,) buffer.
+
+    Priority is token order, then choice order (FastMoE's): a pair's
+    position in its expert is the count of earlier pairs that chose it.
+    Returns ((T, k) int64 ``dest``, E*C (the dump row) for dropped pairs;
+    (T, k) bool ``keep``)."""
+    T, k = expert_idx.shape
+    flat = expert_idx.reshape(-1)
+    pos, _ = rank_in_expert(flat, num_experts)
+    keep = pos < capacity
+    dest = torch.where(keep, flat * capacity + pos, num_experts * capacity)
+    return dest.reshape(T, k), keep.reshape(T, k)
+
+
+def dispatch_tokens(x: torch.Tensor, dest: torch.Tensor, num_experts: int,
+                    capacity: int) -> torch.Tensor:
+    """Scatter the tokens into the (E, C, d) buffer. Duplicate destinations
+    only hit the dump row E*C, which is dropped, so which copy lands there
+    does not matter."""
+    T, d = x.shape
+    k = dest.shape[1]
+    src = x.repeat_interleave(k, dim=0) if k > 1 else x
+    buf = torch.zeros((num_experts * capacity + 1, d), dtype=x.dtype,
+                      device=x.device).index_copy(0, dest.reshape(-1), src)
+    return buf[:-1].reshape(num_experts, capacity, d)
+
+
+def combine_tokens(expert_out: torch.Tensor, dest: torch.Tensor,
+                   keep: torch.Tensor, gate_weights: torch.Tensor):
+    """y[t] = sum_k gate[t, k] * keep[t, k] * expert_out[dest[t, k]]."""
+    E, C, d = expert_out.shape
+    flat = torch.cat([expert_out.reshape(E * C, d),
+                      expert_out.new_zeros((1, d))])
+    gathered = flat[dest]  # (T, k, d)
+    w = (gate_weights * keep.to(gate_weights.dtype)).to(gathered.dtype)
+    return torch.einsum("tkd,tk->td", gathered, w)
+
+
+def grouped_ffn(buf: torch.Tensor, w1, b1, w2, b2) -> torch.Tensor:
+    """Per-expert FFN over the (E, C, d) buffer: products in f32 on
+    buf-dtype operands, + b1, the exact GELU in f32, rounded to buf's dtype,
+    then fc2 in f32 + b2 and one final rounding (the JAX einsums with
+    ``preferred_element_type=f32``). Expert dropout is not ported."""
+    dt = buf.dtype
+    h = torch.einsum("ecd,edh->ech", buf.float(), w1.to(dt).float())
+    h = gelu_exact(h + b1.float()[:, None, :]).to(dt)
+    y = torch.einsum("ech,ehd->ecd", h.float(), w2.to(dt).float())
+    return (y + b2.float()[:, None, :]).to(dt)
+
+
+def moe_forward(x, router_w, router_b, w1, b1, w2, b2, *, top_k: int = 2,
+                capacity_factor: float = 2.0,
+                capacity: typ.Optional[int] = None):
+    """The ``'capacity'`` mode: static per-expert buffers filled by a
+    scatter, token-major drop priority, grouped GEMMs, gather + mix. Plain
+    PyTorch; the oracle of the fused capacity form. Returns (y, aux)."""
+    T, d = x.shape
+    E = w1.shape[0]
+    logits = _router_logits(x, router_w, router_b)
+    gate_w, expert_idx = naive_topk_gate(logits, top_k)
+    if capacity is None:
+        capacity = compute_capacity(T, E, top_k, capacity_factor)
+    dest, keep = make_dispatch(expert_idx, E, capacity)
+    buf = dispatch_tokens(x, dest, E, capacity)
+    out = grouped_ffn(buf, w1, b1, w2, b2)
+    y = combine_tokens(out, dest, keep, gate_w)
+    return y.to(x.dtype), _aux(logits, expert_idx, E, keep)
+
+
 def rank_in_expert(flat_e: torch.Tensor, num_experts: int):
     """For each pair, how many earlier pairs (token-major order) chose the
     same expert, plus the group sizes.
@@ -80,11 +182,25 @@ def rank_in_expert(flat_e: torch.Tensor, num_experts: int):
     return rank, oh.sum(dim=1)
 
 
+def capacity_region_rows(capacity: int, tile: int = TILE_ROWS) -> int:
+    """Rows of each expert's static region in a capacity layout:
+    roundup(capacity + 1, tile); the +1 keeps the last slot always padding,
+    the slot dropped pairs point at."""
+    return (capacity + 1 + tile - 1) // tile * tile
+
+
 def aligned_expert_layout(expert_idx: torch.Tensor, num_experts: int,
                           gate_w: torch.Tensor = None,
-                          weight_dtype: torch.dtype = torch.bfloat16):
+                          weight_dtype: torch.dtype = torch.bfloat16,
+                          capacity: typ.Optional[int] = None):
     """Sort (token, choice) pairs by expert with TILE_ROWS-aligned group
     starts.
+
+    Dropless (``capacity`` None): ``Tp = roundup(T*k, tile) + E*tile``
+    rows, every expert at least one tile. With ``capacity``: each expert owns
+    a static region of ``Cp = capacity_region_rows(capacity)`` rows,
+    ``Tp = E*Cp``; pairs ranked at or beyond ``capacity`` (token-major, the
+    scatter path's priority) are dropped and point at slot ``Tp - 1``.
 
     Returns:
         gather_idx: (Tp,) int64, source token of each padded slot (padding
@@ -94,54 +210,70 @@ def aligned_expert_layout(expert_idx: torch.Tensor, num_experts: int,
         w_slot: (Tp,) ``weight_dtype``, the combine weight of each slot (0 at
             padding; detached, the gate's gradient comes through the
             combine's d_gate), or None when ``gate_w`` is None.
+        keep: (T, k) bool, False where the pair was dropped (all True
+            without a capacity).
     """
     T, k = expert_idx.shape
     TK = T * k
     E = num_experts
     tile = TILE_ROWS
     flat = expert_idx.reshape(-1)
+    dev = flat.device
     rank, group_sizes = rank_in_expert(flat, E)
-    Tp = (TK + tile - 1) // tile * tile + E * tile
-    # at least one tile per expert, as the JAX layout keeps for its backward
-    padded = torch.clamp((group_sizes + tile - 1) // tile * tile, min=tile)
-    starts = torch.cumsum(padded, dim=0) - padded
-    slot = starts[flat] + rank
-    pairs = torch.arange(TK, device=flat.device)
-    gather_idx = torch.zeros(Tp, dtype=torch.long, device=flat.device)
-    gather_idx.scatter_(0, slot, pairs // k)
-    tile_starts = torch.arange(0, Tp, tile, device=flat.device)
-    e_of_tile = torch.clamp(
-        torch.searchsorted(starts, tile_starts, right=True) - 1, 0, E - 1)
+    if capacity is not None:
+        Cp = capacity_region_rows(capacity, tile)
+        Tp = E * Cp
+        keep = rank < capacity
+        slot = torch.where(keep, flat * Cp + rank, Tp - 1)
+        # dropped pairs must not enter the slot table (slot Tp - 1 is real
+        # padding): their scatters go to a dump row Tp, cut off below
+        dest = torch.where(keep, slot, Tp)
+        e_of_tile = torch.arange(E, dtype=torch.int32,
+                                 device=dev).repeat_interleave(Cp // tile)
+    else:
+        Tp = (TK + tile - 1) // tile * tile + E * tile
+        keep = torch.ones(TK, dtype=torch.bool, device=dev)
+        # at least one tile per expert, as the JAX layout keeps for its
+        # backward
+        padded = torch.clamp((group_sizes + tile - 1) // tile * tile,
+                             min=tile)
+        starts = torch.cumsum(padded, dim=0) - padded
+        slot = dest = starts[flat] + rank
+        tile_starts = torch.arange(0, Tp, tile, device=dev)
+        e_of_tile = torch.clamp(
+            torch.searchsorted(starts, tile_starts, right=True) - 1, 0,
+            E - 1).to(torch.int32)
+    pairs = torch.arange(TK, device=dev)
+    gather_idx = torch.zeros(Tp + 1, dtype=torch.long, device=dev)
+    gather_idx.scatter_(0, dest, pairs // k)
     w_slot = None
     if gate_w is not None:
-        w_slot = torch.zeros(Tp, dtype=weight_dtype, device=flat.device)
-        w_slot.scatter_(0, slot, gate_w.detach().reshape(-1).to(weight_dtype))
-    return gather_idx, slot.reshape(T, k), e_of_tile.to(torch.int32), w_slot
+        w_slot = torch.zeros(Tp + 1, dtype=weight_dtype, device=dev)
+        w_slot.scatter_(0, dest, gate_w.detach().reshape(-1).to(weight_dtype))
+        w_slot = w_slot[:Tp]
+    return (gather_idx[:Tp], slot.reshape(T, k), e_of_tile, w_slot,
+            keep.reshape(T, k))
 
 
 class _DispatchGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, gather_idx, pair_slot):
-        ctx.save_for_backward(pair_slot)
+    def forward(ctx, x, gather_idx, pair_slot, keep):
+        ctx.save_for_backward(pair_slot, keep)
         return x.index_select(0, gather_idx)
 
     @staticmethod
     def backward(ctx, dxs):
-        # each token owns exactly its k slots, and padding slots carry zero
-        # cotangents: k row gathers instead of a scatter-add
-        (pair_slot,) = ctx.saved_tensors
-        dx = None
-        for kk in range(pair_slot.shape[1]):
-            g = dxs.index_select(0, pair_slot[:, kk])
-            dx = g if dx is None else dx + g
-        return dx, None, None
+        pair_slot, keep = ctx.saved_tensors
+        return gather_slots_to_tokens(dxs, pair_slot, keep), None, None, None
 
 
 def dispatch_gather(x: torch.Tensor, gather_idx: torch.Tensor,
-                    pair_slot: torch.Tensor) -> torch.Tensor:
+                    pair_slot: torch.Tensor,
+                    keep: typ.Optional[torch.Tensor] = None) -> torch.Tensor:
     """xs[s] = x[gather_idx[s]]: tokens into the padded expert layout;
-    backward dx[t] = sum_k dxs[pair_slot[t, k]]."""
-    return _DispatchGather.apply(x, gather_idx, pair_slot)
+    backward dx[t] = sum_k dxs[pair_slot[t, k]], the dropped pairs' (keep
+    False) masked to zero."""
+    return _DispatchGather.apply(x, gather_idx, pair_slot, keep)
 
 
 class _CombineSlots(torch.autograd.Function):
@@ -177,26 +309,43 @@ def combine_slots(out: torch.Tensor, pair_slot: torch.Tensor,
     return _CombineSlots.apply(out, pair_slot, gate_w, gather_idx, w_slot)
 
 
-def _aux(logits, expert_idx, num_experts):
+def _aux(logits, expert_idx, num_experts, keep=None):
+    drop = (torch.zeros((), dtype=torch.float32, device=logits.device)
+            if keep is None else 1.0 - keep.float().mean())
     return {"balance_loss": load_balance_loss(logits, expert_idx, num_experts),
-            "drop_fraction": torch.zeros((), dtype=torch.float32,
-                                         device=logits.device)}
+            "drop_fraction": drop}
 
 
 def moe_forward_fused(x, router_w, router_b, w1, b1, w2, b2, *,
-                      top_k: int = 2):
-    """Dropless MoE MLP over (T, d) tokens through the expert-FFN kernels.
-    Returns (y in x's dtype, aux)."""
+                      top_k: int = 2,
+                      capacity_factor: typ.Optional[float] = None,
+                      capacity: typ.Optional[int] = None):
+    """MoE MLP over (T, d) tokens through the expert-FFN kernels. Dropless
+    by default; with ``capacity_factor`` or ``capacity`` the fused form of
+    the ``'capacity'`` mode (static regions, token-major drop priority, the
+    same outputs as :func:`moe_forward`). Returns (y in x's dtype, aux)."""
+    T = x.shape[0]
     E = w1.shape[0]
     logits = _router_logits(x, router_w, router_b)
     gate_w, expert_idx = naive_topk_gate(logits, top_k)
-    gather_idx, pair_slot, e_of_tile, w_slot = aligned_expert_layout(
-        expert_idx, E, gate_w=gate_w, weight_dtype=x.dtype)
-    xs = dispatch_gather(x, gather_idx, pair_slot)
-    out = fused_expert_ffn(xs, w1.to(x.dtype).contiguous(), b1.float(),
-                           w2.to(x.dtype).contiguous(), b2.float(), e_of_tile)
-    y = combine_slots(out, pair_slot, gate_w, gather_idx, w_slot)
-    return y.to(x.dtype), _aux(logits, expert_idx, E)
+    if capacity is None and capacity_factor is not None:
+        capacity = compute_capacity(T, E, top_k, capacity_factor)
+    gather_idx, pair_slot, e_of_tile, w_slot, keep = aligned_expert_layout(
+        expert_idx, E, gate_w=gate_w, weight_dtype=x.dtype, capacity=capacity)
+    if capacity is None:
+        gate_eff, keep_in = gate_w, None
+    else:
+        gate_eff, keep_in = gate_w * keep.to(gate_w.dtype), keep
+    weights = (w1.to(x.dtype).contiguous(), b1.float(),
+               w2.to(x.dtype).contiguous(), b2.float(), e_of_tile)
+    if _gather_in_kernel():
+        out = fused_expert_ffn_gather(x, gather_idx, pair_slot, keep_in,
+                                      *weights)
+    else:
+        xs = dispatch_gather(x, gather_idx, pair_slot, keep_in)
+        out = fused_expert_ffn(xs, *weights)
+    y = combine_slots(out, pair_slot, gate_eff, gather_idx, w_slot)
+    return y.to(x.dtype), _aux(logits, expert_idx, E, keep_in)
 
 
 def moe_forward_ragged(x, router_w, router_b, w1, b1, w2, b2, *,

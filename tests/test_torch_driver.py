@@ -266,6 +266,25 @@ def test_driver_trains_resumes_and_evaluates(tmp_path, monkeypatch, capsys):
         capsys.readouterr().out
 
 
+def test_driver_trains_with_capacity_dispatch(tmp_path):
+    """``--moe-dispatch capacity_fused --capacity-factor 1.25`` runs through
+    the driver (2 steps, the fused capacity form on the plain FFN), and the
+    epoch logs carry each epoch's mean ``drop_fraction``."""
+    out = tmp_path / "cap"
+    state = main.main(_parse(RUN + [
+        "--output_dir", str(out), "--num-tasks", "1", "--num-experts", "4",
+        "--moe-dispatch", "capacity_fused", "--capacity-factor", "1.25"]))
+    assert state.step == 2
+    assert all(blk.mlp.mode == "capacity_fused"
+               and blk.mlp.capacity_factor == 1.25
+               for blk in state.model.blocks)
+    log = _log(out)
+    assert [r["epoch"] for r in log] == [0, 1]
+    for r in log:
+        assert np.isfinite(r["train_loss"])
+        assert 0.0 <= r["train_drop_fraction"] < 1.0
+
+
 @pytest.mark.parametrize("flags,error,match", [
     (["--mixup", "0.8"], NotImplementedError, "ROADMAP Queue 1 #3"),
     (["--opt", "sgd"], NotImplementedError, "ROADMAP Queue 1 #6"),

@@ -50,7 +50,8 @@ def _ffn_case(rs, T, D, H, E, dtype, device):
     x = _rand(rs, T, D, dtype=dtype, device=device)
     logits = _rand(rs, T, E, device=device)
     _, eidx = moe_ops.naive_topk_gate(logits, 2)
-    gather_idx, pair_slot, e_of_tile, _ = moe_ops.aligned_expert_layout(eidx, E)
+    gather_idx, pair_slot, e_of_tile, _, _ = moe_ops.aligned_expert_layout(
+        eidx, E)
     xs = moe_ops.dispatch_gather(x, gather_idx, pair_slot)
     w1 = _rand(rs, E, D, H, scale=D ** -0.5, dtype=dtype, device=device)
     b1 = _rand(rs, E, H, scale=0.1, device=device)
@@ -89,6 +90,16 @@ def test_cpu_tensors_take_the_plain_versions():
     case = _ffn_case(rs, 20, 32, 64, 4, torch.float32, "cpu")
     assert torch.equal(ffn_ops.fused_expert_ffn(*case),
                        ffn_ops.fused_expert_ffn_reference(*case))
+    ident = torch.arange(case[0].shape[0])
+    assert torch.equal(
+        ffn_ops.fused_expert_ffn_gather(case[0], ident, ident[:, None], None,
+                                        *case[1:]),
+        ffn_ops.fused_expert_ffn_reference(*case))
+    dy = torch.ones_like(case[0])
+    bwd_case = (*case[:4], case[5], dy)
+    for a, b in zip(ffn_ops.fused_expert_ffn_bwd_defer(*bwd_case),
+                    ffn_ops.reference_expert_ffn_bwd_defer(*bwd_case)):
+        assert torch.equal(a, b)
     assert torch.equal(attn_ops.flash_attention(qkv, 2, 0.125),
                        attn_ops.flash_attention_reference(qkv, 2, 0.125))
     leaves = _adamw_case(rs, [(7, 3), (64,)], "cpu")
@@ -105,7 +116,9 @@ def test_cpu_tensors_take_the_plain_versions():
         "fused_ln": 0, "fused_add_ln": 0, "fused_sum_ln": 0, "fused_mha": 0,
         "fused_expert_ffn": 0, "fused_ln_bwd": 0, "fused_add_ln_bwd": 0,
         "fused_sum_ln_bwd": 0, "fused_mha_bwd": 0, "fused_expert_ffn_bwd": 0,
-        "fused_adamw_ema": 0, "flash_attention": 0}
+        "fused_adamw_ema": 0, "flash_attention": 0,
+        "fused_expert_ffn_gather": 0, "fused_expert_ffn_gather_bwd": 0,
+        "fused_expert_ffn_bwd_defer": 0}
 
 
 def test_reference_add_ln_rounds_the_sum_first():
@@ -124,7 +137,8 @@ def test_build_key_tracks_sources_and_flags():
     assert len(key) == 16 and key == _build.build_key()
     srcs = [p.rsplit("/", 1)[-1] for p in _build._sources()]
     assert {"mha_fwd.cu", "mha_bwd.cu", "expert_ffn_fwd.cu",
-            "expert_ffn_bwd.cu", "flash_fwd.cu", "fused_adamw.cu",
+            "expert_ffn_bwd.cu", "expert_ffn_bwd_defer.cu",
+            "expert_ffn_dgrad.cuh", "flash_fwd.cu", "fused_adamw.cu",
             "common.cuh"} <= set(srcs)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
@@ -280,8 +294,9 @@ def test_expert_ffn_bwd_kernel_matches_plain(cuda, T, D, H, E):
     _, w1, b1, w2, _, _ = _ffn_case(rs, T, D, H, E, torch.bfloat16, cuda)
     x = _rand(rs, T, D, dtype=torch.bfloat16, device=cuda)
     _, eidx = moe_ops.naive_topk_gate(_rand(rs, T, E, device=cuda), 2)
-    gather_idx, pair_slot, e_of_tile, w_slot = moe_ops.aligned_expert_layout(
-        eidx, E, gate_w=torch.ones(T, 2, device=cuda))
+    gather_idx, pair_slot, e_of_tile, w_slot, _ = \
+        moe_ops.aligned_expert_layout(eidx, E, gate_w=torch.ones(T, 2,
+                                                                 device=cuda))
     xs = moe_ops.dispatch_gather(x, gather_idx, pair_slot)
     dy = _rand(rs, xs.shape[0], D, dtype=torch.bfloat16, device=cuda) * \
         w_slot[:, None]
@@ -320,7 +335,9 @@ def test_train_step_runs_through_the_kernels(cuda):
         "fused_ln": 1, "fused_add_ln": 23, "fused_sum_ln": 1, "fused_mha": 12,
         "fused_expert_ffn": 12, "fused_ln_bwd": 1, "fused_add_ln_bwd": 23,
         "fused_sum_ln_bwd": 1, "fused_mha_bwd": 12, "fused_expert_ffn_bwd": 12,
-        "fused_adamw_ema": 0, "flash_attention": 0}
+        "fused_adamw_ema": 0, "flash_attention": 0,
+        "fused_expert_ffn_gather": 0, "fused_expert_ffn_gather_bwd": 0,
+        "fused_expert_ffn_bwd_defer": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -413,7 +430,9 @@ def test_resmoe_train_step_launch_counts(cuda):
         "fused_ln": 1, "fused_add_ln": 0, "fused_sum_ln": 24, "fused_mha": 12,
         "fused_expert_ffn": 12, "fused_ln_bwd": 1, "fused_add_ln_bwd": 0,
         "fused_sum_ln_bwd": 24, "fused_mha_bwd": 12, "fused_expert_ffn_bwd": 12,
-        "fused_adamw_ema": 1, "flash_attention": 0}
+        "fused_adamw_ema": 1, "flash_attention": 0,
+        "fused_expert_ffn_gather": 0, "fused_expert_ffn_gather_bwd": 0,
+        "fused_expert_ffn_bwd_defer": 0}
     for blk in model.blocks:
         blk.attn.use_flash = True
     ops.reset_launch_counts()
@@ -422,3 +441,145 @@ def test_resmoe_train_step_launch_counts(cuda):
     assert torch.isfinite(logits).all()
     counts = ops.launch_counts()
     assert (counts["flash_attention"], counts["fused_mha"]) == (12, 0)
+
+
+# ---------------------------------------------------------------------------
+# on the card: the gather-in-kernel FFN (K9) and the deferred-dW backward (K8)
+# ---------------------------------------------------------------------------
+
+def _routed_case(rs, T, D, H, E, capacity, device):
+    """Tokens routed with expert 0 favoured and expert E-1 starved (no
+    token: one all-padding tile dropless), the layout (with ``capacity``:
+    static regions, the overflow of expert 0 dropped), the expert weights,
+    and a cotangent zero at padding slots as the combine backward gives."""
+    x = _rand(rs, T, D, dtype=torch.bfloat16, device=device)
+    logits = _rand(rs, T, E, device=device)
+    logits[:, 0] += 1.0
+    logits[:, E - 1] = -1e9
+    gate_w, eidx = moe_ops.naive_topk_gate(logits, 2)
+    gather_idx, pair_slot, e_of_tile, w_slot, keep = \
+        moe_ops.aligned_expert_layout(eidx, E, gate_w=gate_w,
+                                      capacity=capacity)
+    w1 = _rand(rs, E, D, H, scale=D ** -0.5, dtype=torch.bfloat16,
+               device=device)
+    b1 = _rand(rs, E, H, scale=0.1, device=device)
+    w2 = _rand(rs, E, H, D, scale=H ** -0.5, dtype=torch.bfloat16,
+               device=device)
+    b2 = _rand(rs, E, D, scale=0.1, device=device)
+    dy = _rand(rs, gather_idx.shape[0], D, dtype=torch.bfloat16,
+               device=device) * w_slot[:, None]
+    return x, gather_idx, pair_slot, keep, (w1, b1, w2, b2), e_of_tile, dy
+
+
+# (T, D, H, E, capacity): dropless with a starved expert and odd tile
+# counts; capacity with dropped pairs (3 tiles an expert); ViT-Ti widths,
+# where the starved last expert also owns the layout's trailing slack tile
+# (2 tiles an expert: K8 flushes pairs only)
+ROUTED = [(600, 384, 1536, 4, None), (600, 384, 1536, 4, 520),
+          (300, 192, 768, 3, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,D,H,E,capacity", ROUTED)
+def test_gather_ffn_kernels_match_plain(cuda, T, D, H, E, capacity):
+    """K9 forward on the live slots within 1.6e-2 elementwise (padding
+    slots finite); K9 backward: dx in slot space elementwise, dW and db
+    within 1e-2 of max |ref|; the starved expert's dW exactly zero; one
+    launch each."""
+    rs = np.random.RandomState(13)
+    x, gidx, pslot, keep, (w1, b1, w2, b2), eot, dy = _routed_case(
+        rs, T, D, H, E, capacity, cuda)
+    if capacity is not None:
+        assert not keep.all()
+    ops.reset_launch_counts()
+    got = ffn_ops.fused_expert_ffn_gather(x, gidx, pslot, keep, w1, b1, w2,
+                                          b2, eot)
+    gb = ffn_ops.fused_expert_ffn_gather_bwd(x, gidx, w1, b1, w2, eot, dy)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert (counts["fused_expert_ffn_gather"],
+            counts["fused_expert_ffn_gather_bwd"],
+            counts["fused_expert_ffn"]) == (1, 1, 0)
+    xs = x.index_select(0, gidx)
+    want = ffn_ops.fused_expert_ffn_reference(xs, w1, b1, w2, b2, eot)
+    live = torch.zeros(gidx.shape[0], dtype=torch.bool, device=cuda)
+    live[pslot[keep]] = True
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got[live].float(), want[live].float(),
+                               atol=1.6e-2, rtol=1.6e-2)
+    wb = ffn_ops.reference_expert_ffn_bwd(xs, w1, b1, w2, eot, dy)
+    torch.testing.assert_close(gb[0].float(), wb[0].float(), atol=1.6e-2,
+                               rtol=1.6e-2)
+    for name, gt, w in zip(["dw1", "db1", "dw2", "db2"], gb[1:], wb[1:]):
+        assert gt.dtype == w.dtype and torch.isfinite(gt.float()).all(), name
+        _rel_close(gt, w, 1e-2, name)
+    assert gb[1][E - 1].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,D,H,E,capacity", ROUTED)
+def test_defer_dw_kernel_matches_plain(cuda, T, D, H, E, capacity):
+    """K8 against its plain version and against K4 on the same inputs: dx
+    elementwise within 1.6e-2, dW and db within 1e-2 of max |ref|, the
+    starved expert's dW exactly zero; one launch."""
+    rs = np.random.RandomState(14)
+    x, gidx, pslot, keep, (w1, b1, w2, _), eot, dy = _routed_case(
+        rs, T, D, H, E, capacity, cuda)
+    xs = moe_ops.dispatch_gather(x, gidx, pslot, keep)
+    flags = ffn_ops.bwd_flags(eot)
+    single = (flags & 1).bool() & ~(flags & 2).bool()
+    assert single.any() == (D == 384)  # single-tile flushes where odd
+    ops.reset_launch_counts()
+    got = ffn_ops.fused_expert_ffn_bwd_defer(xs, w1, b1, w2, eot, dy)
+    k4 = ffn_ops.fused_expert_ffn_bwd(xs, w1, b1, w2, eot, dy)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_expert_ffn_bwd_defer"] == 1
+    want = ffn_ops.reference_expert_ffn_bwd_defer(xs, w1, b1, w2, eot, dy)
+    for ref in (want, k4):
+        torch.testing.assert_close(got[0].float(), ref[0].float(),
+                                   atol=1.6e-2, rtol=1.6e-2)
+        for name, gt, w in zip(["dw1", "db1", "dw2", "db2"], got[1:],
+                               ref[1:]):
+            assert gt.dtype == w.dtype and torch.isfinite(gt.float()).all()
+            _rel_close(gt, w, 1e-2, name)
+    assert got[1][E - 1].abs().max().item() == 0.0
+    assert got[3][E - 1].abs().max().item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("knob,per_step", [
+    (None, {"fused_expert_ffn": 12, "fused_expert_ffn_bwd": 12}),
+    ("SSMV_GATHER_IN_KERNEL", {"fused_expert_ffn_gather": 12,
+                               "fused_expert_ffn_gather_bwd": 12}),
+    ("SSMV_DEFER_DW", {"fused_expert_ffn": 12,
+                       "fused_expert_ffn_bwd_defer": 12})])
+def test_capacity_train_step_launch_counts(cuda, knob, per_step, monkeypatch):
+    """A bf16 train step of a small ViT-S-width capacity_fused model at
+    factor 1.25: the expert-FFN launches of each knob form exactly, the
+    rest as the dropless step, a finite loss and a drop_fraction."""
+    from slim_switch_moe_vit_tpu_torch import create_model, losses, optim
+    from slim_switch_moe_vit_tpu_torch.engine import make_train_step
+    from slim_switch_moe_vit_tpu_torch.train_state import create_train_state
+
+    if knob:
+        monkeypatch.setenv(knob, "1")
+    model = create_model("moe_small_patch16_224_expert8", img_size=64,
+                         num_classes=10, dtype=torch.bfloat16,
+                         dispatch_mode="capacity_fused", capacity_factor=1.25)
+    opt_init, opt_update = optim.make_optimizer(weight_decay=0.05)
+    state = create_train_state(model, opt_init=opt_init, use_ema=True)
+    step = make_train_step(model, opt_update,
+                           losses.make_base_criterion(False, 0.1, False),
+                           ema_decay=0.99996)
+    rs = np.random.RandomState(15)
+    x = torch.from_numpy(rs.randn(4, 64, 64, 3).astype(np.float32))
+    y = torch.from_numpy(rs.randint(0, 10, 4))
+    ops.reset_launch_counts()
+    state, metrics = step(state, x, y, 1e-3, 1e-3)
+    assert torch.isfinite(metrics["loss"]).item()
+    assert 0.0 <= metrics["drop_fraction"].item() < 1.0
+    want = {"fused_ln": 1, "fused_add_ln": 23, "fused_sum_ln": 1,
+            "fused_mha": 12, "fused_ln_bwd": 1, "fused_add_ln_bwd": 23,
+            "fused_sum_ln_bwd": 1, "fused_mha_bwd": 12, **per_step}
+    assert ops.launch_counts() == {k: want.get(k, 0)
+                                   for k in ops.launch_counts()}

@@ -66,11 +66,12 @@ def test_aligned_layout_matches_jax(T, E):
     """Same slots, same gathered tokens, same tile owners; Tp and the
     one-tile-per-expert minimum included (T=5 leaves experts empty)."""
     eidx = np.random.RandomState(T).randint(0, E, (T, 2)).astype(np.int32)
-    gj, pj, ej, _, _ = jax.jit(jax_moe.aligned_expert_layout,
-                               static_argnums=1)(jnp.asarray(eidx), E)
-    gt, pt, et, wt = torch_moe.aligned_expert_layout(
+    gj, pj, ej, _, kj = jax.jit(jax_moe.aligned_expert_layout,
+                                static_argnums=1)(jnp.asarray(eidx), E)
+    gt, pt, et, wt, kt = torch_moe.aligned_expert_layout(
         torch.from_numpy(eidx).long(), E)
-    assert wt is None
+    assert wt is None and kt.all()
+    np.testing.assert_array_equal(kt.numpy(), np.asarray(kj))
     np.testing.assert_array_equal(gt.numpy(), np.asarray(gj))
     np.testing.assert_array_equal(pt.numpy(), np.asarray(pj))
     np.testing.assert_array_equal(et.numpy(), np.asarray(ej))
@@ -140,9 +141,12 @@ def jax_moe_mlp():
     return x, variables, jax.jit(jm.apply)(variables, jnp.asarray(x))
 
 
-@pytest.mark.parametrize("mode", ["auto", "fused", "ragged", "dense"])
+@pytest.mark.parametrize("mode", ["auto", "fused", "ragged", "dense",
+                                  "capacity", "capacity_fused",
+                                  "capacity_fused_a2a"])
 def test_moe_mlp_module_matches_jax(jax_moe_mlp, mode):
-    """The module with the JAX module's weights, every ported mode."""
+    """The module with the JAX module's weights, every ported mode (the
+    capacity modes at the default factor 2.0, which drops nothing here)."""
     x, variables, want = jax_moe_mlp
     m = MoEMlp(32, 64, num_experts=4, top_k=2, dispatch_mode=mode)
     m.load_state_dict(from_jax_params(variables["params"]))
@@ -152,8 +156,7 @@ def test_moe_mlp_module_matches_jax(jax_moe_mlp, mode):
                                rtol=1e-5)
 
 
-@pytest.mark.parametrize("mode", ["capacity", "capacity_fused",
-                                  "expert_choice"])
+@pytest.mark.parametrize("mode", ["expert_choice"])
 def test_unported_dispatch_modes_raise(mode):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         MoEMlp(32, 64, dispatch_mode=mode)
@@ -170,8 +173,8 @@ def test_w_slot_and_balance_loss_match_jax(dtype):
     _, _, _, wj, _ = jax_moe.aligned_expert_layout(
         ei, E, gate_w=gw, weight_dtype=jnp.dtype(dtype))
     tg, ti = torch_moe.naive_topk_gate(torch.from_numpy(logits), 2)
-    *_, wt = torch_moe.aligned_expert_layout(ti, E, gate_w=tg,
-                                             weight_dtype=getattr(torch, dtype))
+    *_, wt, _ = torch_moe.aligned_expert_layout(
+        ti, E, gate_w=tg, weight_dtype=getattr(torch, dtype))
     assert wt.dtype == getattr(torch, dtype)
     np.testing.assert_allclose(wt.float().numpy(), np.asarray(wj, np.float32),
                                rtol=1e-6)

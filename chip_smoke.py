@@ -86,12 +86,33 @@ Phases (any failure propagates and the script exits non-zero):
     form with the batch reversed) of the default form's, images/s and one
     step's profile. The knobs are set inside the phase and restored.
 
+12. Expert parallelism, its ranks sharing the one card over gloo (NCCL
+    takes one rank per card; the times are not NCCL exchange times): (a)
+    the permuted-tile expert FFN (K10) forward and backward against their
+    plain versions and the expert-major relayout + K3/K4 at the ep=4 layout
+    of cfg4's a2a form (16,384 rows a rank, 64 steps over 2 experts, a
+    permutation that is not the identity), timed beside their bounds; (b)
+    one MoE layer (T = 25,216) on 4 ranks in the psum, a2a relayout, a2a
+    K10 and sharded 'capacity' forms, against the single-rank
+    ``capacity_fused`` at factor 2.0 (no drops; y, dx, dW within the
+    kernel limits), and the two a2a forms against each other at 1.25;
+    (c) cfg4's step at ep=4 in the relayout and K10 forms, ``EP_STEPS``
+    steps with exact per-step launch counts on every rank (12 K10 forward
+    and 12 backward launches a step), losses within the cfg4 witness rule,
+    dense parameters bit-identical over the ranks; (d) the driver
+    (``python -m slim_switch_moe_vit_tpu_torch.main --expert-parallel 2
+    --moe-dispatch capacity_fused_a2a``, ``SSMV_A2A_PERMUTED=1``) on 4 ranks
+    (dp 2 x ep 2), then ``--resume``: every rank exits 0, the dense
+    parameters bit-identical over the ranks, the checkpoint restored on
+    one rank.
+
 The kernel phase (2) also holds K7 (the fused AdamW + EMA over every
 parameter of the ResMoE model) and K11 (the flash forward, at N = 197 and
 577) against their plain versions. Each kernel's ``launches`` in the JSON
 line is its count in the run of the path it belongs to: the 10 training
 steps of phase 6 for K1a-K6, the driver run for K7, the flash eval for K11,
-cfg4's steps in the K9 form for K9 and in the K8 form for K8 (phase 11).
+cfg4's steps in the K9 form for K9 and in the K8 form for K8 (phase 11),
+rank 0's count in cfg4's ep=4 steps in the K10 form for K10 (phase 12).
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -239,6 +260,23 @@ K7_ULPS = 4 * 2.0 ** -23
 # (1 - 0.999^t keeps up to ~3e-5/t of relative error, torch's are double),
 # so parameters and EMA also get 1e-4 * lr (tests/test_torch_fused_adamw.py)
 PATH_ULPS, BC_REL = 2.0 ** -20, 1e-4
+# expert parallelism (phase 12): EP_RANKS ranks sharing the one card over
+# gloo (NCCL takes one rank per card); cfg4's layout at ep=4; the K10 form
+# of the a2a dispatch launches K10 where the relayout form launches K3/K4
+EP_RANKS, EP_STEPS = 4, 3
+EP_LAYER_FORMS = ("psum", "a2a", "a2a_perm", "sharded")
+PER_EP_K10_STEP = {**PER_TRAIN_STEP, "fused_expert_ffn": 0,
+                   "fused_expert_ffn_bwd": 0, "fused_expert_ffn_permuted": 12,
+                   "fused_expert_ffn_permuted_bwd": 12}
+# the driver on dp 2 x ep 2: 1 task x 1 epoch x 3 steps at B=32 a data
+# shard (eval batches of 48: every token count splits over ep 2)
+EP_DRIVER_ARGS = ["--data-set", "SYNTH", "--synth-size", "512", "--model",
+                  RESMOE, "--batch-size", "32", "--expert-parallel", "2",
+                  "--moe-dispatch", "capacity_fused_a2a", "--fused-optimizer",
+                  "--warmup-epochs", "0", "--max-steps-per-epoch", "3",
+                  "--no-repeated-aug", "--mixup", "0", "--cutmix", "0",
+                  "--aa", "", "--color-jitter", "0", "--reprob", "0",
+                  "--num_workers", "2"]
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 SRC = "slim_switch_moe_vit_tpu_torch/"
@@ -259,6 +297,8 @@ KERNELS = [  # name, route, source, TPU kernel it replaces
     ("fused_expert_ffn_gather", "cuda", SRC + "csrc/expert_ffn_fwd.cu", JAX + "ops/fused_ffn.py:605"),
     ("fused_expert_ffn_gather_bwd", "cuda", SRC + "csrc/expert_ffn_bwd.cu", JAX + "ops/fused_ffn.py:658"),
     ("fused_expert_ffn_bwd_defer", "cuda", SRC + "csrc/expert_ffn_bwd_defer.cu", JAX + "ops/fused_ffn.py:312"),
+    ("fused_expert_ffn_permuted", "cuda", SRC + "csrc/expert_ffn_fwd.cu", JAX + "ops/fused_ffn.py:176"),
+    ("fused_expert_ffn_permuted_bwd", "cuda", SRC + "csrc/expert_ffn_bwd.cu", JAX + "ops/fused_ffn.py:374"),
 ]
 
 
@@ -1671,6 +1711,382 @@ def driver_phase(card: str, tmp: str) -> dict:
             "flash_attention": flash_counts["flash_attention"]}
 
 
+def shared(card: str) -> str:
+    """The tag of every time the EP phase prints."""
+    return (f"({EP_RANKS} ranks sharing one card over gloo, not NCCL "
+            f"exchange times; card {card})")
+
+
+def ep_kernel_phase(results: dict, card: str) -> None:
+    """K10 forward and backward against their plain versions at the ep=4
+    layout a rank receives in cfg4's a2a form (Tc 6,304, capacity 1,976,
+    Cp 2,048: 16,384 source-major rows, 64 steps over 2 local experts),
+    with a permutation that is not the identity; each timed beside its
+    bound and beside the expert-major relayout + K3 (K4) on the same
+    rows."""
+    import torch
+
+    from slim_switch_moe_vit_tpu_torch.ops import fused_ffn as ffn
+    from slim_switch_moe_vit_tpu_torch.ops import moe
+
+    gen = torch.Generator().manual_seed(5)
+
+    def rnd(*shape, std=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=gen) * std).to("cuda", dtype)
+
+    ep, E_local = EP_RANKS, EXPERTS // EP_RANKS
+    Tc = TRAIN_B * N_TOK // ep
+    cap = moe.compute_capacity(Tc, EXPERTS, 2, CAP_FACTOR)
+    Cp = moe.capacity_region_rows(cap)
+    n_per = Cp // ffn.TILE_ROWS
+    Tp = ep * E_local * Cp
+    xr, dy = rnd(Tp, DIM), rnd(Tp, DIM)
+    w1, b1 = rnd(E_local, DIM, HIDDEN, std=DIM ** -0.5), rnd(
+        E_local, HIDDEN, std=0.1, dtype=torch.float32)
+    w2, b2 = rnd(E_local, HIDDEN, DIM, std=HIDDEN ** -0.5), rnd(
+        E_local, DIM, std=0.1, dtype=torch.float32)
+    e_of_step = torch.arange(E_local, dtype=torch.int32,
+                             device="cuda").repeat_interleave(ep * n_per)
+    perm = torch.arange(ep * E_local * n_per, dtype=torch.int32,
+                        device="cuda").reshape(ep, E_local, n_per).transpose(
+                            0, 1).reshape(-1)
+    if torch.equal(perm, torch.arange(perm.numel(), device="cuda",
+                                      dtype=torch.int32)):
+        raise AssertionError("K10's permutation is the identity")
+    log(f"K10 layout (cfg4 a2a form, ep={ep}): Tc={Tc}, capacity {cap}, "
+        f"Cp={Cp} ({n_per} tiles), {Tp} rows a rank, "
+        f"{e_of_step.numel()} steps over {E_local} local experts")
+
+    def relayout(t):
+        return t.reshape(ep, E_local, Cp, DIM).transpose(0, 1).reshape(-1, DIM)
+
+    def back(t):
+        return t.reshape(E_local, ep, Cp, DIM).transpose(0, 1).reshape(-1, DIM)
+
+    def k3_relayout():
+        return back(ffn.fused_expert_ffn(relayout(xr), w1, b1, w2, b2,
+                                         e_of_step))
+
+    def k4_relayout():
+        dx, *g = ffn.fused_expert_ffn_bwd(relayout(xr), w1, b1, w2,
+                                          e_of_step, relayout(dy))
+        return (back(dx), *g)
+
+    w_bytes = 2 * E_local * DIM * HIDDEN * 2 + E_local * (HIDDEN + DIM) * 4
+    cases = {
+        "fused_expert_ffn_permuted": (
+            lambda: ffn.fused_expert_ffn_permuted(xr, w1, b1, w2, b2,
+                                                  e_of_step, perm),
+            lambda: ffn.reference_expert_ffn_permuted(xr, w1, b1, w2, b2,
+                                                      e_of_step, perm),
+            (2 * Tp * DIM * 2 + w_bytes, 4 * Tp * DIM * HIDDEN, BF16_FLOPS),
+            ("elem",), ("relayout + K3", k3_relayout)),
+        "fused_expert_ffn_permuted_bwd": (
+            lambda: ffn.fused_expert_ffn_permuted_bwd(xr, w1, b1, w2,
+                                                      e_of_step, perm, dy),
+            lambda: ffn.reference_expert_ffn_bwd_permuted(
+                xr, w1, b1, w2, e_of_step, perm, dy),
+            (3 * Tp * DIM * 2 + 2 * w_bytes, 10 * Tp * DIM * HIDDEN,
+             BF16_FLOPS),
+            ("elem", "sum", "sum", "sum", "sum"),
+            ("relayout + K4", k4_relayout))}
+    for name, (kernel, plain, cost, modes, (other, beside)) in cases.items():
+        got = kernel()
+        torch.cuda.synchronize()
+        err, peak, rel = compare(name, got, plain(), modes)
+        # the relayout + K3/K4 path computes the same rows in the same order
+        err_k, _, _ = compare(name, got, beside(), modes)
+        ms, beside_ms = median_ms(kernel), median_ms(beside)
+        bound_ms, bound_by = bound(*cost)
+        results[name] = {"max_abs_err": err, "ms": ms,
+                         "plain_ms": median_ms(plain, reps=3, warmup=1),
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "library_ms": None, "ms_relayout_k3_k4": beside_ms}
+        log(f"kernel {name} (ep={ep} layout, Tp={Tp}): max|d| {err:.3e} vs "
+            f"plain, {err_k:.3e} vs {other}, max|ref| {peak:.3e}, largest "
+            f"max|d|/max|ref| {rel:.2e}; kernel {ms:.4f} ms, {other} "
+            f"{beside_ms:.4f} ms, plain {results[name]['plain_ms']:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}); card {card}")
+    del cases, xr, dy, w1, w2
+    torch.cuda.empty_cache()
+
+
+def _read_ranks(out: str, n: int) -> tuple:
+    arrays = [dict(np.load(os.path.join(out, f"rank{r}.npz")))
+              for r in range(n)]
+    records = []
+    for r in range(n):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            records.append(json.load(f))
+    return arrays, records
+
+
+def ep_layer_check(card: str, tmp: str) -> None:
+    """One MoE layer (T = 25,216 tokens, D 384, H 1536, E 8, top-2) on
+    EP_RANKS ranks sharing the card (dp 1), bf16 activations, in the psum,
+    a2a relayout, a2a permuted (K10) and sharded 'capacity' forms: at
+    factor 2.0 (nothing drops) each against the single-rank
+    ``capacity_fused`` on the same tokens (y elementwise within the kernel
+    limit, dx, dW1 and dW2 within SUM_REL of max |ref|); at factor 1.25,
+    with a router skewed past the capacity, the two a2a forms against each
+    other (the same drops, more than a tenth of the pairs; y within the
+    kernel limit). Each rank's expert-FFN launches are exact."""
+    import torch
+
+    from slim_switch_moe_vit_tpu_torch.ops import moe
+    from slim_switch_moe_vit_tpu_torch.parallel import launch
+
+    rs = np.random.RandomState(6)
+    T = TRAIN_B * N_TOK
+    data = dict(
+        x=rs.randn(T, DIM).astype(np.float32),
+        c=rs.randn(T, DIM).astype(np.float32),
+        router_w=(rs.randn(DIM, EXPERTS) * DIM ** -0.5).astype(np.float32),
+        router_b=np.zeros(EXPERTS, np.float32),
+        w1=(rs.randn(EXPERTS, DIM, HIDDEN) * DIM ** -0.5).astype(np.float32),
+        b1=(rs.randn(EXPERTS, HIDDEN) * 0.1).astype(np.float32),
+        w2=(rs.randn(EXPERTS, HIDDEN, DIM) * HIDDEN ** -0.5).astype(
+            np.float32),
+        b2=(rs.randn(EXPERTS, DIM) * 0.1).astype(np.float32))
+    # a router skewed onto experts 0-1 past their capacity at 1.25
+    data["router_b_skewed"] = np.zeros(EXPERTS, np.float32)
+    data["router_b_skewed"][:2] = CAP_ROUTER_SKEW
+    out = os.path.join(tmp, "ep_layer")
+    os.makedirs(out)
+    path = os.path.join(out, "in.npz")
+    np.savez(path, top_k=2, **data)
+    runs = [(f, 2.0) for f in EP_LAYER_FORMS] + [
+        (f, CAP_FACTOR, "router_b_skewed") for f in ("a2a", "a2a_perm")]
+    t0 = time.perf_counter()
+    launch.spawn(launch.moe_layer_worker, EP_RANKS,
+                 (path, out, 1, EP_RANKS, runs, "bfloat16", "cuda", 2),
+                 init_file=os.path.join(out, "store"), device="cuda",
+                 env={"SSMV_DIST_BACKEND": "gloo"})
+    log(f"EP layer: {EP_RANKS} ranks ran {len(runs)} forms in "
+        f"{time.perf_counter() - t0:.1f} s {shared(card)}")
+    arrays, records = _read_ranks(out, EP_RANKS)
+
+    # the single-rank capacity_fused on the same tokens, factor 2.0
+    x = torch.from_numpy(data["x"]).to("cuda", torch.bfloat16).requires_grad_()
+    params = {k: torch.from_numpy(data[k]).cuda().requires_grad_()
+              for k in ("router_w", "router_b", "w1", "b1", "w2", "b2")}
+    y, aux = moe.moe_forward_fused(x, *params.values(), top_k=2,
+                                   capacity_factor=2.0)
+    c = torch.from_numpy(data["c"]).to("cuda", torch.bfloat16)
+    (y.float() * c.float()).sum().backward()
+    if aux["drop_fraction"].item() != 0.0:
+        raise AssertionError("the single-rank reference drops pairs at 2.0")
+    want = (y.detach(), x.grad, params["w1"].grad, params["w2"].grad)
+    launches = {"psum": {"fused_expert_ffn": 1, "fused_expert_ffn_bwd": 1},
+                "a2a": {"fused_expert_ffn": 1, "fused_expert_ffn_bwd": 1},
+                "a2a_perm": {"fused_expert_ffn_permuted": 1,
+                             "fused_expert_ffn_permuted_bwd": 1},
+                "sharded": {}}
+    for form, factor, *bias in runs:
+        key = f"{form}@{factor}" + (f"/{bias[0]}" if bias else "")
+        for r, rec in enumerate(records):
+            if rec[key]["launches"] != launches[form]:
+                raise AssertionError(f"EP layer {key} rank {r}: launches "
+                                     f"{rec[key]['launches']}")
+            if not np.array_equal(arrays[r][f"{key}/y"], arrays[0][f"{key}/y"]):
+                raise AssertionError(f"EP layer {key}: y differs on rank {r}")
+        ms = [rec[key]["fwd_bwd_ms"] for rec in records]
+        drop = float(arrays[0][f"{key}/drop_fraction"])
+        line = (f"EP layer {key}: drop_fraction {drop:.6f}, balance_loss "
+                f"{float(arrays[0][f'{key}/balance_loss']):.6f}, fwd+bwd per "
+                f"rank {[round(v, 3) for v in ms]} ms {shared(card)}")
+        if factor == 2.0:
+            if drop != 0.0:
+                raise AssertionError(f"EP layer {key}: drop_fraction {drop}")
+            got = (torch.from_numpy(arrays[0][f"{key}/y"]),
+                   torch.from_numpy(arrays[0][f"{key}/dx"]),
+                   torch.from_numpy(np.concatenate(
+                       [a[f"{key}/dw1"] for a in arrays])),
+                   torch.from_numpy(np.concatenate(
+                       [a[f"{key}/dw2"] for a in arrays])))
+            err = [compare(f"EP layer {key} {w}", g.cuda(), v, (m,))
+                   for w, g, v, m in zip(("y", "dx", "dW1", "dW2"), got, want,
+                                         ("elem", "sum", "sum", "sum"))]
+            line += ("; vs single-rank capacity_fused, max|d| / max|ref|: "
+                     + ", ".join(f"{w} {e[0]:.3e}/{e[1]:.3e}" for w, e in
+                                 zip(("y", "dx", "dW1", "dW2"), err)))
+        log(line)
+    a, b = (f"{f}@{CAP_FACTOR}/router_b_skewed" for f in ("a2a", "a2a_perm"))
+    drop = float(arrays[0][f"{a}/drop_fraction"])
+    if drop != float(arrays[0][f"{b}/drop_fraction"]) or not drop > 0.1:
+        raise AssertionError(f"the a2a forms at {CAP_FACTOR}: drop_fraction "
+                             f"{drop} vs {arrays[0][f'{b}/drop_fraction']}")
+    err = compare("EP layer a2a forms", torch.from_numpy(arrays[0][f"{b}/y"]),
+                  torch.from_numpy(arrays[0][f"{a}/y"]), ("elem",))
+    same = all(np.array_equal(arrays[0][f"{a}/{k}"], arrays[0][f"{b}/{k}"])
+               for k in ("y", "dx", "dw1", "dw2"))
+    log(f"EP layer at {CAP_FACTOR}, router bias +{CAP_ROUTER_SKEW} on "
+        f"experts 0-1: both a2a forms drop {drop:.6f} of the pairs; K10 vs "
+        f"relayout y max|d| {err[0]:.3e}; y, dx, dW1, dW2 bit-identical: "
+        f"{same}; peak memory "
+        f"per rank {[rec['max_memory_allocated'] / 2**30 for rec in records]}"
+        f" GiB")
+    del x, params, y, want
+    torch.cuda.empty_cache()
+
+
+def ep_train_check(card: str, tmp: str) -> dict:
+    """cfg4's model step at ep=EP_RANKS, dp=1 (moe_small, capacity_fused_a2a
+    at 1.25, B=128, EP_STEPS steps) in the relayout and the K10 form, and
+    the relayout form on the batch reversed (the witness), with exact
+    per-step launch counts on every rank; returns rank 0's K10 launches of
+    the K10 form."""
+    from slim_switch_moe_vit_tpu_torch.parallel import launch
+
+    out = os.path.join(tmp, "ep_train")
+    os.makedirs(out)
+    forms = {"relayout": ({"SSMV_A2A_PERMUTED": "0"}, False),
+             "K10": ({"SSMV_A2A_PERMUTED": "1"}, False),
+             "witness": ({"SSMV_A2A_PERMUTED": "0"}, True)}
+    kw = {"num_classes": 1000, "dispatch_mode": "capacity_fused_a2a",
+          "capacity_factor": CAP_FACTOR}
+    t0 = time.perf_counter()
+    launch.spawn(launch.train_steps_worker, EP_RANKS,
+                 (out, 1, EP_RANKS, MODEL, kw, TRAIN_B, EP_STEPS, forms,
+                  "cuda"),
+                 init_file=os.path.join(out, "store"), device="cuda",
+                 env={"SSMV_DIST_BACKEND": "gloo"})
+    _, records = _read_ranks(out, EP_RANKS)
+    per = {"relayout": PER_TRAIN_STEP, "witness": PER_TRAIN_STEP,
+           "K10": PER_EP_K10_STEP}
+    for form in forms:
+        want = {k: v for k, v in per[form].items() if v}
+        for r, rec in enumerate(records):
+            if any(c != want for c in rec[form]["launches"]):
+                raise AssertionError(f"cfg4 ep={EP_RANKS} {form} rank {r}: "
+                                     f"launches {rec[form]['launches']} != "
+                                     f"{want} a step")
+            if rec[form]["losses"] != records[0][form]["losses"]:
+                raise AssertionError(f"{form}: rank {r}'s losses differ")
+            if rec[form]["dense_digest"] != records[0][form]["dense_digest"]:
+                raise AssertionError(f"{form}: rank {r}'s dense parameters "
+                                     "differ")
+        if not all(np.isfinite(records[0][form]["losses"])):
+            raise AssertionError(f"cfg4 ep {form}: non-finite loss")
+        log(f"cfg4 step at ep={EP_RANKS}, dp=1, B={TRAIN_B}, {form} form: "
+            f"losses {records[0][form]['losses']}, ms per step (steps 2-"
+            f"{EP_STEPS}) per rank "
+            f"{[round(rec[form]['ms_per_step'], 1) for rec in records]}, "
+            f"peak memory per rank "
+            f"{[round(rec[form]['max_memory_allocated'] / 2**30, 2) for rec in records]}"
+            f" GiB; launches per step exact, dense parameters bit-identical "
+            f"over the ranks {shared(card)}")
+    ref = records[0]["relayout"]["losses"]
+
+    def gaps(a):
+        return [abs(u - w) / abs(w) for u, w in zip(a, ref)]
+
+    limit = [max(CAP_WITNESS * w, CAP_FLOOR)
+             for w in gaps(records[0]["witness"]["losses"])]
+    k10 = gaps(records[0]["K10"]["losses"])
+    log(f"cfg4 ep={EP_RANKS} K10 form's losses vs the relayout form's, "
+        f"relative per step: {k10}; limits {limit}; these steps took "
+        f"{time.perf_counter() - t0:.1f} s {shared(card)}")
+    if any(g > t for g, t in zip(k10, limit)):
+        raise AssertionError("the K10 form's losses part from the relayout "
+                             "form's beyond the limit")
+    k10_counts = records[0]["K10"]["launches"]
+    return {name: sum(c.get(name, 0) for c in k10_counts)
+            for name in ("fused_expert_ffn_permuted",
+                         "fused_expert_ffn_permuted_bwd")}
+
+
+def ep_driver_check(card: str, tmp: str) -> None:
+    """``python -m slim_switch_moe_vit_tpu_torch.main --expert-parallel 2
+    --moe-dispatch capacity_fused_a2a`` with ``SSMV_A2A_PERMUTED=1`` on 4
+    ranks (dp 2 x ep 2) sharing the card over gloo, at full width on SYNTH:
+    1 task x 1 epoch x 3 steps, then ``--resume`` for one step of a second
+    epoch. Every rank exits 0, the driver finds the dense parameters
+    bit-identical over the 4 ranks after each epoch, and the checkpoint
+    restores on a single rank to the same dense parameters."""
+    import argparse
+
+    import torch
+
+    from slim_switch_moe_vit_tpu_torch import config, optim
+    from slim_switch_moe_vit_tpu_torch import main as driver
+    from slim_switch_moe_vit_tpu_torch.train_state import create_train_state
+    from slim_switch_moe_vit_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    out = os.path.join(tmp, "ep_driver")
+    os.makedirs(out)
+    ckpt = os.path.join(out, "checkpoint")
+    digests = []
+    for i, extra in enumerate(
+            (["--epochs", "1"],
+             ["--epochs", "2", "--max-steps-per-epoch", "1", "--resume",
+              ckpt])):
+        env = {**os.environ, "SSMV_DIST_BACKEND": "gloo",
+               "SSMV_A2A_PERMUTED": "1", "WORLD_SIZE": "4",
+               "LOCAL_WORLD_SIZE": "4"}
+        store = os.path.join(out, f"store{i}")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "slim_switch_moe_vit_tpu_torch.main",
+             *EP_DRIVER_ARGS, *extra, "--output_dir", out, "--dist_url",
+             f"file://{store}"],
+            env={**env, "RANK": str(r), "LOCAL_RANK": str(r)},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(4)]
+        try:
+            outs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+        if bad:
+            raise AssertionError(f"EP driver run {i}: ranks {bad} failed:\n"
+                                 + outs[bad[0]][-3000:])
+        lines = [ln for ln in outs[0].splitlines()
+                 if "bit-identical over 4 rank(s)" in ln]
+        if not lines:
+            raise AssertionError(f"EP driver run {i}: no replica check")
+        digests.append(int(lines[-1].split()[-1]))
+        losses = [ln for ln in outs[0].splitlines()
+                  if "Averaged stats" in ln or "Training time" in ln]
+        log(f"EP driver run {i} (dp 2 x ep 2, {' '.join(extra)}): every rank "
+            f"exited 0 in {time.perf_counter() - t0:.1f} s; {lines[-1]}; "
+            f"{'; '.join(losses)} {shared(card)}")
+    # the checkpoint on a single rank: every expert, the same dense weights
+    args = argparse.ArgumentParser(parents=[config.get_args_parser()]) \
+        .parse_args(EP_DRIVER_ARGS)
+    model = driver.build_model(args, 10, args.seed)
+    opt_init, _ = optim.make_optimizer(weight_decay=args.weight_decay)
+    state = create_train_state(model, device="cuda", opt_init=opt_init,
+                               use_ema=True)
+    state, epoch = restore_checkpoint(ckpt, state)
+    if epoch != 1 or driver.dense_digest(model) != digests[-1]:
+        raise AssertionError(f"the EP checkpoint restored on one rank: epoch "
+                             f"{epoch}, dense digest "
+                             f"{driver.dense_digest(model)} != {digests[-1]}")
+    log(f"EP checkpoint (written by the {EP_RANKS} ranks sharing one card "
+        f"over gloo) restored on a single rank: epoch {epoch}, "
+        f"{model.blocks[1].mlp.w1.shape[0]} experts a block, dense digest "
+        f"{digests[-1]} as on the 4 ranks")
+    del model, state
+    torch.cuda.empty_cache()
+
+
+def ep_phase(results: dict, card: str, tmp: str) -> dict:
+    """Phase 12: K10 against its plain version, one MoE layer on EP_RANKS
+    ranks sharing the card in four forms, cfg4's step at ep=EP_RANKS in
+    two forms, and the driver on dp 2 x ep 2; returns K10's launches."""
+    t0 = time.perf_counter()
+    ep_kernel_phase(results, card)
+    log(f"[EP kernels: {time.perf_counter() - t0:.1f} s]")
+    ep_layer_check(card, tmp)
+    launched = ep_train_check(card, tmp)
+    ep_driver_check(card, tmp)
+    return launched
+
+
 def main() -> int:
     import torch
 
@@ -1731,11 +2147,18 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_done("driver phase")
+    tmp = tempfile.mkdtemp(prefix="ssmv_ep_")
+    try:
+        trained.update(ep_phase(results, card, tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_done("EP phase")
 
     # launches: K1a-K6 in the 10 training steps of phase 6, which run all
     # ten (the serving run's counts are checked in serving_phase); K7 in the
     # driver's training run, K11 in its flash eval; K9 and K8 in cfg4's
-    # steps in their forms (phase 11)
+    # steps in their forms (phase 11); K10 in rank 0's cfg4 steps at ep=4
+    # in the K10 form (phase 12)
     if any(trained[name] == 0 for name, *_ in KERNELS):
         raise AssertionError(f"a kernel never launched on its path: {trained}")
     summary = {"kernels": [

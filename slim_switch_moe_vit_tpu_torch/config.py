@@ -169,7 +169,9 @@ def get_args_parser():
                         help="activation compute dtype (params stay fp32); "
                              "in place of AMP (reference engine.py:52)")
     parser.add_argument("--expert-parallel", default=1, type=int,
-                        help="expert-parallel group size (not ported yet)")
+                        help="ranks of an expert group: the world splits "
+                             "into world / N data shards x N expert ranks "
+                             "(the capacity dispatch modes only)")
     parser.add_argument("--num-experts", default=8, type=int)
     parser.add_argument("--moe-top-k", default=2, type=int)
     parser.add_argument("--capacity-factor", default=2.0, type=float,
@@ -186,8 +188,10 @@ def get_args_parser():
                              "--capacity-factor slots, token-major drops; "
                              "plain), capacity_fused (the same drops through "
                              "the expert FFN kernel; capacity_fused_a2a is "
-                             "the same on one card); expert_choice is not "
-                             "ported yet. auto = fused")
+                             "the same on one card, the all-to-all form "
+                             "under --expert-parallel > 1); expert_choice is "
+                             "not ported yet. auto = fused, capacity under "
+                             "--expert-parallel > 1")
     parser.add_argument("--moe-balance-weight", default=0.0, type=float,
                         help="aux load-balance loss weight (0 = FastMoE naive-"
                              "gate parity)")

@@ -1,5 +1,6 @@
-// Per-expert FFN backward over the tile-aligned expert layout (K4), and its
-// gather-in-kernel form (K9 backward).
+// Per-expert FFN backward over the tile-aligned expert layout (K4), its
+// gather-in-kernel form (K9 backward) and its permuted-tile form (K10
+// backward).
 //
 // K4 replaces the Pallas kernel slim_switch_moe_vit_tpu/ops/fused_ffn.py
 // _bwd_kernel (:261) with _tile_dx (:237), reached through _bwd (:374) and
@@ -11,6 +12,17 @@
 // it is outside the TPU kernel. The TPU wrapper promotes this backward to
 // 512-row tiles when every pair of tiles shares an expert (:783-790), a
 // TPU tiling policy that is not ported: both forms run 256-row tiles.
+//
+// K10's backward replaces the tile_perm branch of _bwd (:374, :408-431,
+// :478-499), reached through fused_expert_ffn_permuted's VJP (:894): grid
+// step i visits row tile tile_perm[i] of xs and dy and writes dx to the
+// same tile, so dx keeps xs's row order; e_of_tile is indexed by step and
+// nondecreasing (kPerm in both kernels below). The dgrad kernel writes the
+// workspace and the dh partials in step order, so the wgrad kernel still
+// finds an expert's rows as one contiguous range of steps and sums its dW
+// over that expert's steps; only its x and dy row loads go through
+// tile_perm. The TPU kernel refuses the deferred-dW and 512-row forms with
+// a permutation (:408-412); so does this port (K8 takes no permutation).
 //
 // Rows of xs are sorted by expert and every 256-row layout tile belongs to
 // one expert, e = e_of_tile[tile] (nondecreasing). For the
@@ -65,10 +77,13 @@ constexpr int kWLD = kWT + kBPad;
 // (H/64) x (D/64) tiles of dW2[e], the H/64 column blocks of db1[e], the
 // D/64 column blocks of db2[e].
 // kGather: the dW1 jobs read x row gather_idx[r] for layout row r (K9).
-template <bool kGather>
+// kPerm: layout rows r are in step order; x and dy are read at r's row in
+// tile tile_perm[r / tile_rows] (K10); the workspace stays in step order.
+template <bool kGather, bool kPerm>
 __global__ void __launch_bounds__(kThreads)
 expert_ffn_wgrad_kernel(const bf16* __restrict__ xs,
                         const long long* __restrict__ gather_idx,
+                        const int* __restrict__ tile_perm,
                         const bf16* __restrict__ dy,
                         const bf16* __restrict__ ws_dh,
                         const bf16* __restrict__ ws_g,
@@ -84,8 +99,9 @@ expert_ffn_wgrad_kernel(const bf16* __restrict__ xs,
 
   const int e = blockIdx.y, job = blockIdx.x;
   const int tid = threadIdx.x, warp = tid >> 5;
-  // this expert's tiles: e_of_tile is nondecreasing, so they are the
-  // [#tiles with e_of_tile < e, + #tiles with e_of_tile == e) range
+  // this expert's tiles (steps, with kPerm): e_of_tile is nondecreasing,
+  // so they are the [#tiles with e_of_tile < e, + #tiles with
+  // e_of_tile == e) range
   int first = 0, count = 0;
   for (int t0 = 0; t0 < n_tiles; t0 += kThreads) {
     const int t = t0 + tid;
@@ -119,14 +135,20 @@ expert_ffn_wgrad_kernel(const bf16* __restrict__ xs,
     constexpr int V8 = kWT / 8;
     for (int r0 = r_begin; r0 < r_end; r0 += kWT) {
       __syncthreads();
+      // x (dW1's A) and dy (dW2's B) in xs's row order; the workspace in
+      // step order
+      const size_t prow =
+          (size_t)permuted_row<kPerm>(tile_perm, r0, tile_rows);
       for (int i = tid; i < kWT * V8; i += kThreads) {
         const int r = i / V8, v = i % V8;
         const size_t ar = (kGather && is_w1) ? (size_t)gather_idx[r0 + r]
+                          : is_w1            ? prow + r
                                              : (size_t)(r0 + r);
+        const size_t br = is_w1 ? (size_t)(r0 + r) : prow + r;
         *reinterpret_cast<uint4*>(As + r * kWLD + v * 8) =
             *reinterpret_cast<const uint4*>(A + ar * lda + a0 + v * 8);
         *reinterpret_cast<uint4*>(Bs + r * kWLD + v * 8) =
-            *reinterpret_cast<const uint4*>(Bsrc + (size_t)(r0 + r) * ldb + b0 + v * 8);
+            *reinterpret_cast<const uint4*>(Bsrc + br * ldb + b0 + v * 8);
       }
       __syncthreads();
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a;
@@ -161,7 +183,8 @@ expert_ffn_wgrad_kernel(const bf16* __restrict__ xs,
   } else {        // db2[e] = sum of dy over the expert's rows
     const int col = (jb - HT) * kWT + c;
     for (int r = r_begin + grp; r < r_end; r += 4)
-      s += __bfloat162float(dy[(size_t)r * D + col]);
+      s += __bfloat162float(
+          dy[(size_t)permuted_row<kPerm>(tile_perm, r, tile_rows) * D + col]);
   }
   red[tid] = s;
   __syncthreads();
@@ -174,20 +197,22 @@ expert_ffn_wgrad_kernel(const bf16* __restrict__ xs,
   }
 }
 
-template <int D, bool kGather>
-cudaError_t launch(const void* xs, const void* gather_idx, const void* dy,
-                   const void* w1, const void* b1, const void* w2,
-                   const void* e_of_tile, void* dxs, void* dw1, void* db1,
-                   void* dw2, void* db2, void* ws_dh, void* ws_g, void* ws_db1,
-                   int Tp, int H, int E, int tile_rows, cudaStream_t stream) {
-  cudaError_t err = launch_dgrad<D, kGather, true>(
+template <int D, bool kGather, bool kPerm>
+cudaError_t launch(const void* xs, const void* gather_idx,
+                   const void* tile_perm, const void* dy, const void* w1,
+                   const void* b1, const void* w2, const void* e_of_tile,
+                   void* dxs, void* dw1, void* db1, void* dw2, void* db2,
+                   void* ws_dh, void* ws_g, void* ws_db1, int Tp, int H, int E,
+                   int tile_rows, cudaStream_t stream) {
+  cudaError_t err = launch_dgrad<D, kGather, true, kPerm>(
       xs, gather_idx, dy, w1, b1, w2, e_of_tile, dxs, ws_dh, ws_g, ws_db1, Tp,
-      H, tile_rows, stream);
+      H, tile_rows, stream, tile_perm);
   if (err != cudaSuccess) return err;
   const int jobs = 2 * (D / kWT) * (H / kWT) + H / kWT + D / kWT;
-  expert_ffn_wgrad_kernel<kGather><<<dim3(jobs, E), kThreads, 0, stream>>>(
+  expert_ffn_wgrad_kernel<kGather, kPerm>
+      <<<dim3(jobs, E), kThreads, 0, stream>>>(
       static_cast<const bf16*>(xs), static_cast<const long long*>(gather_idx),
-      static_cast<const bf16*>(dy),
+      static_cast<const int*>(tile_perm), static_cast<const bf16*>(dy),
       static_cast<const bf16*>(ws_dh), static_cast<const bf16*>(ws_g),
       static_cast<const float*>(ws_db1), static_cast<const int*>(e_of_tile),
       Tp / tile_rows, tile_rows, static_cast<bf16*>(dw1),
@@ -196,9 +221,9 @@ cudaError_t launch(const void* xs, const void* gather_idx, const void* dy,
   return cudaGetLastError();
 }
 
-template <bool kGather>
-int dispatch(const void* xs, const void* gather_idx, const void* dy,
-             const void* w1, const void* b1, const void* w2,
+template <bool kGather, bool kPerm>
+int dispatch(const void* xs, const void* gather_idx, const void* tile_perm,
+             const void* dy, const void* w1, const void* b1, const void* w2,
              const void* e_of_tile, void* dxs, void* dw1, void* db1, void* dw2,
              void* db2, void* ws_dh, void* ws_g, void* ws_db1, int Tp, int D,
              int H, int E, int tile_rows, void* stream) {
@@ -207,13 +232,13 @@ int dispatch(const void* xs, const void* gather_idx, const void* dy,
       Tp % tile_rows || E < 1 || E > 65535)
     return (int)cudaErrorInvalidValue;
   if (D == 384)
-    return (int)launch<384, kGather>(xs, gather_idx, dy, w1, b1, w2,
-                                     e_of_tile, dxs, dw1, db1, dw2, db2, ws_dh,
-                                     ws_g, ws_db1, Tp, H, E, tile_rows, s);
+    return (int)launch<384, kGather, kPerm>(
+        xs, gather_idx, tile_perm, dy, w1, b1, w2, e_of_tile, dxs, dw1, db1,
+        dw2, db2, ws_dh, ws_g, ws_db1, Tp, H, E, tile_rows, s);
   if (D == 192)
-    return (int)launch<192, kGather>(xs, gather_idx, dy, w1, b1, w2,
-                                     e_of_tile, dxs, dw1, db1, dw2, db2, ws_dh,
-                                     ws_g, ws_db1, Tp, H, E, tile_rows, s);
+    return (int)launch<192, kGather, kPerm>(
+        xs, gather_idx, tile_perm, dy, w1, b1, w2, e_of_tile, dxs, dw1, db1,
+        dw2, db2, ws_dh, ws_g, ws_db1, Tp, H, E, tile_rows, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -232,9 +257,9 @@ extern "C" int ssmv_expert_ffn_bwd(const void* xs, const void* dy,
                                    void* db2, void* ws_dh, void* ws_g,
                                    void* ws_db1, int Tp, int D, int H, int E,
                                    int tile_rows, void* stream) {
-  return dispatch<false>(xs, nullptr, dy, w1, b1, w2, e_of_tile, dxs, dw1,
-                         db1, dw2, db2, ws_dh, ws_g, ws_db1, Tp, D, H, E,
-                         tile_rows, stream);
+  return dispatch<false, false>(xs, nullptr, nullptr, dy, w1, b1, w2,
+                                e_of_tile, dxs, dw1, db1, dw2, db2, ws_dh,
+                                ws_g, ws_db1, Tp, D, H, E, tile_rows, stream);
 }
 
 // K9 backward: x (T, D) bf16 tokens and gather_idx (Tp,) int64, each in
@@ -245,7 +270,21 @@ extern "C" int ssmv_expert_ffn_bwd_gather(
     const void* b1, const void* w2, const void* e_of_tile, void* dxs,
     void* dw1, void* db1, void* dw2, void* db2, void* ws_dh, void* ws_g,
     void* ws_db1, int Tp, int D, int H, int E, int tile_rows, void* stream) {
-  return dispatch<true>(x, gather_idx, dy, w1, b1, w2, e_of_tile, dxs, dw1,
-                        db1, dw2, db2, ws_dh, ws_g, ws_db1, Tp, D, H, E,
-                        tile_rows, stream);
+  return dispatch<true, false>(x, gather_idx, nullptr, dy, w1, b1, w2,
+                               e_of_tile, dxs, dw1, db1, dw2, db2, ws_dh,
+                               ws_g, ws_db1, Tp, D, H, E, tile_rows, stream);
+}
+
+// K10 backward: tile_perm (Tp / tile_rows,) int32, a permutation of the row
+// tiles, and e_of_step (Tp / tile_rows,) int32, the nondecreasing expert of
+// the tile visited at step i; xs, dy and the returned dxs in xs's own row
+// order; the workspace in step order; the rest as K4.
+extern "C" int ssmv_expert_ffn_bwd_perm(
+    const void* xs, const void* dy, const void* w1, const void* b1,
+    const void* w2, const void* e_of_step, const void* tile_perm, void* dxs,
+    void* dw1, void* db1, void* dw2, void* db2, void* ws_dh, void* ws_g,
+    void* ws_db1, int Tp, int D, int H, int E, int tile_rows, void* stream) {
+  return dispatch<false, true>(xs, nullptr, tile_perm, dy, w1, b1, w2,
+                               e_of_step, dxs, dw1, db1, dw2, db2, ws_dh,
+                               ws_g, ws_db1, Tp, D, H, E, tile_rows, stream);
 }

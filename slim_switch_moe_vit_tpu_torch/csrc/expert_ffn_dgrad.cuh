@@ -1,6 +1,7 @@
 // The dgrad kernel shared by the expert-FFN backward kernels: K4
-// (expert_ffn_bwd.cu), K9's backward (the same file, kGather) and K8
-// (expert_ffn_bwd_defer.cu, no workspace). See expert_ffn_bwd.cu for the
+// (expert_ffn_bwd.cu), K9's backward (the same file, kGather), K10's
+// backward (the same file, kPerm) and K8 (expert_ffn_bwd_defer.cu, no
+// workspace). See expert_ffn_bwd.cu for the
 // math and the design.
 //
 // One block per 64-row block of the layout (a quarter of a 256-row tile):
@@ -10,8 +11,13 @@
 // kGather: layout row s reads x row gather_idx[s] (K9); dy and dx stay in
 // layout (slot) space. kWorkspace: each chunk also writes bf16(dh) and
 // bf16(gelu(h)) to (Tp, H) workspaces and the block's f32 column sums of
-// dh to a (Tp / 64, H) table, for the wgrad kernel (K4, K9); K8 computes
-// its dW and db from x and dy itself and writes none of them.
+// dh to a (Tp / 64, H) table, for the wgrad kernel (K4, K9, K10); K8
+// computes its dW and db from x and dy itself and writes none of them.
+// kPerm (K10): block b is grid step b / 4 of the layout's tiles; it reads
+// x and dy of, and writes dx to, row tile tile_perm[step] (its quarter of
+// it), with the expert e_of_tile[step]; the workspace and the dh partials
+// stay in step order, so the wgrad kernel finds an expert's rows as a
+// contiguous range of steps.
 #pragma once
 
 #include "common.cuh"
@@ -58,7 +64,16 @@ __device__ __forceinline__ void gelu_pair(float h, float* g, float* dg) {
   *dg = cdf + h * expf(-0.5f * h * h) * 0.39894228040143268f;
 }
 
-template <int D, bool kGather, bool kWorkspace>
+// The first row of layout row block `row0` (in step order): itself, or
+// its row in the tile tile_perm[step] visits (kPerm).
+template <bool kPerm>
+__device__ __forceinline__ int permuted_row(const int* tile_perm, int row0,
+                                            int tile_rows) {
+  if (!kPerm) return row0;
+  return tile_perm[row0 / tile_rows] * tile_rows + row0 % tile_rows;
+}
+
+template <int D, bool kGather, bool kWorkspace, bool kPerm>
 __global__ void __launch_bounds__(kThreads, 1)
 expert_ffn_dgrad_kernel(const bf16* __restrict__ xs,
                         const long long* __restrict__ gather_idx,
@@ -66,6 +81,7 @@ expert_ffn_dgrad_kernel(const bf16* __restrict__ xs,
                         const bf16* __restrict__ w1, const float* __restrict__ b1,
                         const bf16* __restrict__ w2,
                         const int* __restrict__ e_of_tile,
+                        const int* __restrict__ tile_perm,
                         bf16* __restrict__ dxs, bf16* __restrict__ ws_dh,
                         bf16* __restrict__ ws_g, float* __restrict__ db1_part,
                         int H, int tile_rows) {
@@ -81,8 +97,9 @@ expert_ffn_dgrad_kernel(const bf16* __restrict__ xs,
   float* Red = reinterpret_cast<float*>(smem + L::Red);
   float* DXs = reinterpret_cast<float*>(smem + L::X);
 
-  const int row0 = blockIdx.x * kRows;
+  const int row0 = blockIdx.x * kRows;  // step order: workspace rows
   const int e = e_of_tile[row0 / tile_rows];
+  const int prow0 = permuted_row<kPerm>(tile_perm, row0, tile_rows);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const bf16* w1e = w1 + (size_t)e * D * H;
   const bf16* w2e = w2 + (size_t)e * H * D;
@@ -91,7 +108,7 @@ expert_ffn_dgrad_kernel(const bf16* __restrict__ xs,
   constexpr int XV = D / 8;  // 16-byte vectors per row of D
   for (int i = tid; i < kRows * XV; i += kThreads) {
     const int r = i / XV, v = i % XV;
-    const size_t g = (size_t)(row0 + r) * D + v * 8;
+    const size_t g = (size_t)(prow0 + r) * D + v * 8;
     const size_t src = kGather ? (size_t)gather_idx[row0 + r] * D + v * 8 : g;
     *reinterpret_cast<uint4*>(Xs + r * L::XLD + v * 8) =
         *reinterpret_cast<const uint4*>(xs + src);
@@ -195,22 +212,24 @@ expert_ffn_dgrad_kernel(const bf16* __restrict__ xs,
   __syncthreads();
   for (int i = tid; i < kRows * (D / 2); i += kThreads) {
     const int r = i / (D / 2), c = (i % (D / 2)) * 2;
-    *reinterpret_cast<__nv_bfloat162*>(dxs + (size_t)(row0 + r) * D + c) =
+    *reinterpret_cast<__nv_bfloat162*>(dxs + (size_t)(prow0 + r) * D + c) =
         __floats2bfloat162_rn(DXs[r * L::DXLD + c], DXs[r * L::DXLD + c + 1]);
   }
 }
 
 
 // Launch the dgrad kernel on Tp / 64 blocks; ws_dh, ws_g and db1_part are
-// used only with kWorkspace.
-template <int D, bool kGather, bool kWorkspace>
+// used only with kWorkspace, tile_perm only with kPerm.
+template <int D, bool kGather, bool kWorkspace, bool kPerm = false>
 cudaError_t launch_dgrad(const void* xs, const void* gather_idx,
                          const void* dy, const void* w1, const void* b1,
                          const void* w2, const void* e_of_tile, void* dxs,
                          void* ws_dh, void* ws_g, void* db1_part, int Tp,
-                         int H, int tile_rows, cudaStream_t stream) {
+                         int H, int tile_rows, cudaStream_t stream,
+                         const void* tile_perm = nullptr) {
+  static_assert(!(kGather && kPerm), "K9 and K10 do not compose");
   const size_t smem = DgradSmem<D>::bytes;
-  auto kernel = expert_ffn_dgrad_kernel<D, kGather, kWorkspace>;
+  auto kernel = expert_ffn_dgrad_kernel<D, kGather, kWorkspace, kPerm>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -218,7 +237,8 @@ cudaError_t launch_dgrad(const void* xs, const void* gather_idx,
       static_cast<const bf16*>(xs), static_cast<const long long*>(gather_idx),
       static_cast<const bf16*>(dy), static_cast<const bf16*>(w1),
       static_cast<const float*>(b1), static_cast<const bf16*>(w2),
-      static_cast<const int*>(e_of_tile), static_cast<bf16*>(dxs),
+      static_cast<const int*>(e_of_tile),
+      static_cast<const int*>(tile_perm), static_cast<bf16*>(dxs),
       static_cast<bf16*>(ws_dh), static_cast<bf16*>(ws_g),
       static_cast<float*>(db1_part), H, tile_rows);
   return cudaGetLastError();

@@ -1,5 +1,6 @@
-// Per-expert FFN forward over the tile-aligned expert layout (K3), and its
-// gather-in-kernel form (K9 forward).
+// Per-expert FFN forward over the tile-aligned expert layout (K3), its
+// gather-in-kernel form (K9 forward) and its permuted-tile form (K10
+// forward).
 //
 // K3 replaces the Pallas kernel slim_switch_moe_vit_tpu/ops/fused_ffn.py
 // _fwd_kernel (:166), reached through _fwd (:176) and fused_expert_ffn
@@ -10,7 +11,18 @@
 // kernel issues one DMA per 768-byte row, double-buffered a tile ahead
 // (and never lowered: Mosaic needs 8-row-aligned slices of device memory);
 // on the card an indexed row is 48 aligned 16-byte loads, so K9 is K3 with
-// each row's source address read from gather_idx (kGather). Rows of xs are
+// each row's source address read from gather_idx (kGather).
+//
+// K10's forward replaces the tile_perm branch of _fwd (:176-214), reached
+// through fused_expert_ffn_permuted (:865): grid step i of the layout's
+// 256-row tiles visits row tile tile_perm[i] of xs, reads it and writes the
+// same tile of y, with the expert e_of_tile[i] indexed by step. The a2a
+// expert-parallel form uses it to visit source-major rows expert-major
+// without a relayout copy. The TPU kernel does this through scalar-prefetch
+// block index maps; here a block reads one table entry and offsets its row
+// base (kPerm), so the permutation costs one indirection per row block.
+//
+// Rows of xs are
 // sorted by expert and every 256-row layout tile (TILE_ROWS) belongs to one
 // expert, e = e_of_tile[tile]; each row computes
 //   y = GELU(x . W1[e] + b1[e]) . W2[e] + b2[e]
@@ -75,10 +87,13 @@ struct Smem {
 };
 
 // kGather: row s of the layout is row gather_idx[s] of xs (K9); else row s.
-template <int D, bool kGather>
+// kPerm: block b is in step-order row block b, which lies in row tile
+// tile_perm[step] of xs and y (K10).
+template <int D, bool kGather, bool kPerm>
 __global__ void __launch_bounds__(kThreads, 1)
 expert_ffn_fwd_kernel(const bf16* __restrict__ xs,
                       const long long* __restrict__ gather_idx,
+                      const int* __restrict__ tile_perm,
                       const bf16* __restrict__ w1,
                       const float* __restrict__ b1, const bf16* __restrict__ w2,
                       const float* __restrict__ b2,
@@ -93,8 +108,11 @@ expert_ffn_fwd_kernel(const bf16* __restrict__ xs,
   bf16* Gs = reinterpret_cast<bf16*>(smem + L::Gs);
   float* Ys = reinterpret_cast<float*>(smem + L::W1);
 
-  const int row0 = blockIdx.x * kRows;
-  const int e = e_of_tile[row0 / tile_rows];
+  const int step_row0 = blockIdx.x * kRows;
+  const int e = e_of_tile[step_row0 / tile_rows];
+  const int row0 = kPerm ? tile_perm[step_row0 / tile_rows] * tile_rows +
+                               step_row0 % tile_rows
+                         : step_row0;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const bf16* w1e = w1 + (size_t)e * D * H;
@@ -194,39 +212,44 @@ expert_ffn_fwd_kernel(const bf16* __restrict__ xs,
   }
 }
 
-template <int D, bool kGather>
-cudaError_t launch(const void* xs, const void* gather_idx, const void* w1,
-                   const void* b1, const void* w2, const void* b2,
-                   const void* e_of_tile, void* y, int Tp, int H,
-                   int tile_rows, cudaStream_t stream) {
+template <int D, bool kGather, bool kPerm>
+cudaError_t launch(const void* xs, const void* gather_idx,
+                   const void* tile_perm, const void* w1, const void* b1,
+                   const void* w2, const void* b2, const void* e_of_tile,
+                   void* y, int Tp, int H, int tile_rows,
+                   cudaStream_t stream) {
   const size_t smem = Smem<D>::bytes;
+  auto kernel = expert_ffn_fwd_kernel<D, kGather, kPerm>;
   cudaError_t err = cudaFuncSetAttribute(
-      expert_ffn_fwd_kernel<D, kGather>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  expert_ffn_fwd_kernel<D, kGather><<<Tp / kRows, kThreads, smem, stream>>>(
+  kernel<<<Tp / kRows, kThreads, smem, stream>>>(
       static_cast<const bf16*>(xs),
-      static_cast<const long long*>(gather_idx), static_cast<const bf16*>(w1),
+      static_cast<const long long*>(gather_idx),
+      static_cast<const int*>(tile_perm), static_cast<const bf16*>(w1),
       static_cast<const float*>(b1), static_cast<const bf16*>(w2),
       static_cast<const float*>(b2), static_cast<const int*>(e_of_tile),
       static_cast<bf16*>(y), H, tile_rows);
   return cudaGetLastError();
 }
 
-template <bool kGather>
-int dispatch(const void* xs, const void* gather_idx, const void* w1,
-             const void* b1, const void* w2, const void* b2,
+template <bool kGather, bool kPerm>
+int dispatch(const void* xs, const void* gather_idx, const void* tile_perm,
+             const void* w1, const void* b1, const void* w2, const void* b2,
              const void* e_of_tile, void* y, int Tp, int D, int H,
              int tile_rows, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Tp < kRows || Tp % kRows || H < kHC || H % kHC || tile_rows % kRows)
+  if (Tp < kRows || Tp % kRows || H < kHC || H % kHC || tile_rows % kRows ||
+      (kPerm && Tp % tile_rows))
     return (int)cudaErrorInvalidValue;
   if (D == 384)
-    return (int)launch<384, kGather>(xs, gather_idx, w1, b1, w2, b2,
-                                     e_of_tile, y, Tp, H, tile_rows, s);
+    return (int)launch<384, kGather, kPerm>(xs, gather_idx, tile_perm, w1,
+                                            b1, w2, b2, e_of_tile, y, Tp, H,
+                                            tile_rows, s);
   if (D == 192)
-    return (int)launch<192, kGather>(xs, gather_idx, w1, b1, w2, b2,
-                                     e_of_tile, y, Tp, H, tile_rows, s);
+    return (int)launch<192, kGather, kPerm>(xs, gather_idx, tile_perm, w1,
+                                            b1, w2, b2, e_of_tile, y, Tp, H,
+                                            tile_rows, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -241,8 +264,8 @@ extern "C" int ssmv_expert_ffn_fwd(const void* xs, const void* w1,
                                    const void* b2, const void* e_of_tile,
                                    void* y, int Tp, int D, int H,
                                    int tile_rows, void* stream) {
-  return dispatch<false>(xs, nullptr, w1, b1, w2, b2, e_of_tile, y, Tp, D, H,
-                         tile_rows, stream);
+  return dispatch<false, false>(xs, nullptr, nullptr, w1, b1, w2, b2,
+                                e_of_tile, y, Tp, D, H, tile_rows, stream);
 }
 
 // K9 forward: x (T, D) bf16 tokens and gather_idx (Tp,) int64, each in
@@ -253,6 +276,20 @@ extern "C" int ssmv_expert_ffn_fwd_gather(const void* x, const void* gather_idx,
                                           const void* e_of_tile, void* y,
                                           int Tp, int D, int H, int tile_rows,
                                           void* stream) {
-  return dispatch<true>(x, gather_idx, w1, b1, w2, b2, e_of_tile, y, Tp, D, H,
-                        tile_rows, stream);
+  return dispatch<true, false>(x, gather_idx, nullptr, w1, b1, w2, b2,
+                               e_of_tile, y, Tp, D, H, tile_rows, stream);
+}
+
+// K10 forward: tile_perm (Tp / tile_rows,) int32, a permutation of the row
+// tiles; e_of_step (Tp / tile_rows,) int32, the expert of the tile visited
+// at step i; the rest as K3. Step i computes row tile tile_perm[i] of y
+// from the same tile of xs with the expert e_of_step[i].
+extern "C" int ssmv_expert_ffn_fwd_perm(const void* xs, const void* w1,
+                                        const void* b1, const void* w2,
+                                        const void* b2, const void* e_of_step,
+                                        const void* tile_perm, void* y,
+                                        int Tp, int D, int H, int tile_rows,
+                                        void* stream) {
+  return dispatch<false, true>(xs, nullptr, tile_perm, w1, b1, w2, b2,
+                               e_of_step, y, Tp, D, H, tile_rows, stream);
 }

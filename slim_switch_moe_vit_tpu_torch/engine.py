@@ -12,6 +12,13 @@ kernel: AdamW and the EMA in one pass), as the JAX step takes its
 ``fused_apply`` (engine.py:116-125). Images may come as uint8 batches with
 an ``augment_fn`` (``data/device_aug.py``) that runs on the device. Mixup
 is not ported yet (ROADMAP Queue 1 #3).
+
+Under a (data, expert) layout (``mesh``), each gradient is averaged over
+the data group after the backward, and the step's metrics too (the JAX
+step's loss and MoE metrics are means over the whole batch). The ranks of
+one expert group hold the same batch, so their dense gradients come out
+equal; the expert gradients are each rank's own experts'. The optimizer,
+K7 and the EMA then run on each rank's own parameters.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ import torch
 from .losses import accuracy_topk, cross_entropy, distillation_loss
 from .models.gates import TokenGate
 from .models.moe import MoEMlp
+from .parallel import collectives as coll
 from .train_state import TrainState
 from .utils.metrics import MetricLogger, SmoothedValue
 
@@ -85,7 +93,7 @@ def make_train_step(model: torch.nn.Module, update_fn: typ.Callable,
                     bce_loss: bool = False,
                     augment_fn: typ.Optional[typ.Callable] = None,
                     set_training_mode: bool = True,
-                    use_fused_optimizer: bool = False):
+                    use_fused_optimizer: bool = False, mesh=None):
     """Build the train step.
 
     Args:
@@ -93,6 +101,7 @@ def make_train_step(model: torch.nn.Module, update_fn: typ.Callable,
             lr_gate) -> None, one step on the gradients in ``p.grad``; with
             ``use_fused_optimizer``, its ``fused_apply`` (when it has one)
             takes the step and the EMA update in one kernel instead.
+        mesh: this rank's ``parallel.Mesh``, or None on one process.
         teacher_apply: fn(images) -> logits for distillation (no grad).
         augment_fn: fn(generator, images) -> images on the device (uint8
             NHWC in, normalized f32 out), drawing from the state's
@@ -111,6 +120,7 @@ def make_train_step(model: torch.nn.Module, update_fn: typ.Callable,
     moe_modules = _moe_modules(model)
     fused_apply = (getattr(update_fn, "fused_apply", None)
                    if use_fused_optimizer else None)
+    data_group = None if mesh is None else mesh.data_group
 
     def train_step(state: TrainState, images, targets, lr_base, lr_gate):
         device = next(model.parameters()).device
@@ -139,6 +149,7 @@ def make_train_step(model: torch.nn.Module, update_fn: typ.Callable,
 
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        coll.average_gradients(model.parameters(), data_group)
         ema_on = state.ema_params is not None and ema_decay is not None
         if fused_apply is not None:
             fused_apply(model, state.optimizer,
@@ -151,6 +162,10 @@ def make_train_step(model: torch.nn.Module, update_fn: typ.Callable,
         state.step += 1
         metrics = {"loss": loss.detach(),
                    **{k: v.detach() for k, v in moe_metrics.items()}}
+        if data_group is not None:
+            stacked = torch.stack([v.float() for v in metrics.values()])
+            means = coll.mean_value(stacked, data_group, 1.0)
+            metrics = dict(zip(metrics, means))
         return state, metrics
 
     return train_step

@@ -12,9 +12,23 @@ The run is on ``--device`` (``cuda`` unless ``cpu`` is passed; without a
 GPU it raises, never falling back). Flags whose machinery is not ported yet
 raise ``NotImplementedError`` naming the ROADMAP item that ports it.
 
+Data and expert parallelism (JAX :141-155): the ranks join the process
+group the environment describes (``parallel.init_distributed_mode``:
+torchrun's or SLURM's variables and ``--dist_url``), and
+``--expert-parallel N`` lays them out as (world / N) data shards x N expert
+ranks. The ranks of one expert group load the same batch (seed ``--seed``
++ the data index, the samplers over the data shards) and split the
+experts; the dense parameters stay replicated and are checked bit-identical
+over every rank after each epoch. The learning rate scales with the data
+shards, under EP ``--moe-dispatch auto`` becomes ``capacity`` (JAX
+:66-69), and checkpoints and logs are written by rank 0 alone.
+
 Run: ``python -m slim_switch_moe_vit_tpu_torch.main --data-set SYNTH
 --model resmoe_small_patch16_224_expert8 --epochs 2 --no-repeated-aug
---mixup 0 --cutmix 0 --aa '' --color-jitter 0 --reprob 0 ...``
+--mixup 0 --cutmix 0 --aa '' --color-jitter 0 --reprob 0 ...``; on 4 ranks,
+``torchrun --nproc-per-node 4 -m slim_switch_moe_vit_tpu_torch.main
+--expert-parallel 2 --moe-dispatch capacity_fused_a2a ...``
+(``SSMV_DIST_BACKEND=gloo`` where the ranks share a card).
 """
 from __future__ import annotations
 
@@ -41,6 +55,9 @@ from .data import (
     build_split_dataset,
 )
 from .models import create_model
+from .parallel import collectives
+from .parallel.distributed import init_distributed_mode, is_main_process
+from .parallel.sharding import is_expert_param, make_mesh, shard_params
 from .models.gates import (
     apply_epoch_anneal,
     build_anneal_plan,
@@ -72,8 +89,9 @@ def _refuse_unported(args) -> None:
                         "teacher)"))
     if args.finetune:
         refused.append(("--finetune", "Queue 1 #4 (the .pth importer)"))
-    if args.expert_parallel > 1 or args.world_size > 1:
-        refused.append(("--expert-parallel/--world_size > 1",
+    if args.expert_parallel > 1 and args.moe_dispatch in ("fused", "ragged",
+                                                          "dense"):
+        refused.append(("--expert-parallel with a dropless --moe-dispatch",
                         "Queue 1 #7 (parallelism)"))
     if args.async_checkpoint:
         refused.append(("--async-checkpoint", "Queue 1 #4 (checkpoints)"))
@@ -96,6 +114,9 @@ def build_model(args, nb_classes: int, seed: int):
         use_flash=args.use_flash_attention,
     )
     if "moe" in args.model:
+        dispatch = args.moe_dispatch
+        if dispatch == "auto" and args.expert_parallel > 1:
+            dispatch = "capacity"  # the JAX driver's EP default (:66-69)
         kwargs.update(
             starting_threshold=args.starting_threshold,
             target_threshold=args.target_threshold,
@@ -104,7 +125,7 @@ def build_model(args, nb_classes: int, seed: int):
             capacity_factor=args.capacity_factor,
             eval_capacity_factor=args.eval_capacity_factor,
             parity_dense=args.parity_dense_moe,
-            dispatch_mode=args.moe_dispatch,
+            dispatch_mode=dispatch,
             resmoe_mode=args.resmoe_mode,
             token_capacity=args.token_capacity,
         )
@@ -113,9 +134,12 @@ def build_model(args, nb_classes: int, seed: int):
                         **kwargs)
 
 
-def _make_loaders(args, dataset_train, dataset_val, task_dataset_val):
+def _make_loaders(args, dataset_train, dataset_val, task_dataset_val, mesh):
+    # the data shards: the ranks of one expert group load the same batches
+    replicas, shard = mesh.n_data, mesh.data_index
     if args.repeated_aug:
-        sampler_train = RASampler(len(dataset_train), 1, 0, shuffle=True)
+        sampler_train = RASampler(len(dataset_train), replicas, shard,
+                                  shuffle=True)
         if len(dataset_train) and not len(sampler_train):
             # RASampler truncates to floor(len/256)*256 (reference
             # samplers.py:37-38): below 256 samples an epoch has no step
@@ -123,10 +147,10 @@ def _make_loaders(args, dataset_train, dataset_val, task_dataset_val):
                   "samples (floor(len/256)*256 truncation); use "
                   "--no-repeated-aug for datasets smaller than 256 samples")
     else:
-        sampler_train = DistributedSampler(len(dataset_train), 1, 0,
-                                           shuffle=True)
+        sampler_train = DistributedSampler(len(dataset_train), replicas,
+                                           shard, shuffle=True)
     if args.dist_eval:
-        sampler_val = DistributedSampler(len(dataset_val), 1, 0,
+        sampler_val = DistributedSampler(len(dataset_val), replicas, shard,
                                          shuffle=False)
     else:
         sampler_val = SequentialSampler(len(dataset_val))
@@ -143,6 +167,30 @@ def _make_loaders(args, dataset_train, dataset_val, task_dataset_val):
     return sampler_train, loader_train, loader_val, loader_task_val
 
 
+def check_dense_replicas(model) -> int:
+    """Raise unless every rank of the process group holds bit-identical
+    dense parameters; returns their digest."""
+    digest = dense_digest(model)
+    t = torch.tensor([digest], dtype=torch.int64,
+                     device=next(model.parameters()).device)
+    everyone = collectives.gather_rows(t, torch.distributed.group.WORLD)
+    if (everyone != t).any():
+        raise RuntimeError(f"dense replicas differ over the ranks: digests "
+                           f"{everyone.tolist()}")
+    return digest
+
+
+def dense_digest(model) -> int:
+    """A digest of the dense (non-expert) parameters' exact bits: the sum
+    of their f32 bit patterns as integers."""
+    total = 0
+    for name, p in model.named_parameters():
+        if not is_expert_param(name):
+            bits = p.detach().float().contiguous().view(torch.int32)
+            total += int(bits.to(torch.int64).sum().item())
+    return total
+
+
 def main(args):
     """Train (or, with ``--eval``, evaluate); returns the final train
     state."""
@@ -154,9 +202,13 @@ def main(args):
                          f"supported: {optim.SUPPORTED_SCHEDULERS}")
     _refuse_unported(args)
     resolve_device(args.device)
+    init_distributed_mode(args)
     print(args)
+    mesh = make_mesh(n_data=-1, n_expert=args.expert_parallel)
 
-    seed = args.seed
+    # one seed per data shard: the ranks of an expert group draw the same
+    # augmentations and DropPath masks for the batch they share
+    seed = args.seed + mesh.data_index
     np.random.seed(seed)
     torch.manual_seed(seed)
 
@@ -164,7 +216,9 @@ def main(args):
     args.nb_classes = nb_classes
 
     print(f"Creating model: {args.model}")
-    model = build_model(args, nb_classes, seed)
+    model = build_model(args, nb_classes, args.seed)  # the same on every rank
+    if mesh.n_data * mesh.n_expert > 1:
+        shard_params(model, mesh)
 
     # on-device augmentation: the host ships uint8 crops
     device_augment = build_device_augment(
@@ -179,11 +233,14 @@ def main(args):
         eps=args.opt_eps, clip_grad=args.clip_grad)
     state = create_train_state(model, device=args.device, seed=seed,
                                opt_init=opt_init, use_ema=args.model_ema)
-    n_parameters = sum(p.numel() for p in model.parameters())
+    n_parameters = sum(  # the whole model's, every expert counted
+        p.numel() * (mesh.n_expert if is_expert_param(n) else 1)
+        for n, p in model.named_parameters())
     print("number of params:", n_parameters)
 
-    # linear lr scaling (reference main.py:615-617), one process
-    lr = optim.scaled_lr(args.lr, args.batch_size, 1, args.unscale_lr)
+    # linear lr scaling (reference main.py:615-617) by the data shards
+    lr = optim.scaled_lr(args.lr, args.batch_size, mesh.n_data,
+                         args.unscale_lr)
     base_criterion = losses.make_base_criterion(False, args.smoothing,
                                                 args.bce_loss)
     train_step_pre = engine.make_train_step(
@@ -191,7 +248,7 @@ def main(args):
         ema_decay=args.model_ema_decay if args.model_ema else None,
         moe_balance_weight=args.moe_balance_weight, bce_loss=args.bce_loss,
         augment_fn=device_augment, set_training_mode=args.train_mode,
-        use_fused_optimizer=args.fused_optimizer)
+        use_fused_optimizer=args.fused_optimizer, mesh=mesh)
     eval_step_pre = engine.make_eval_step(model, preprocess_fn=eval_normalize)
 
     output_dir_root = args.output_dir
@@ -199,13 +256,14 @@ def main(args):
     if output_dir_root:
         timestr = time.strftime("%Hh%Mm%Ss_on_%b_%d_%Y")
         tb_dir = os.path.join(output_dir_root, timestr)
-        os.makedirs(tb_dir, exist_ok=True)
-        writer = TensorboardTracker(tb_dir)
+        if is_main_process():
+            os.makedirs(tb_dir, exist_ok=True)
+            writer = TensorboardTracker(tb_dir)
     output_dir = Path(output_dir_root) if output_dir_root else None
 
     start_epoch = args.start_epoch
     if args.resume:
-        state, last_epoch = restore_checkpoint(args.resume, state)
+        state, last_epoch = restore_checkpoint(args.resume, state, mesh=mesh)
         if not args.eval:
             start_epoch = last_epoch + 1
         print(f"Resumed from {args.resume} at epoch {last_epoch}")
@@ -246,7 +304,8 @@ def main(args):
         task_dataset_val, _, _ = build_split_dataset(
             False, args, start_class=last_task_end, class_size=task_nb)
         sampler_train, loader_train, loader_val, loader_task_val = \
-            _make_loaders(args, dataset_train, dataset_val, task_dataset_val)
+            _make_loaders(args, dataset_train, dataset_val, task_dataset_val,
+                          mesh)
 
         if args.eval:
             test_stats = engine.evaluate(state, eval_step_pre, loader_val,
@@ -309,7 +368,12 @@ def main(args):
                 if hasattr(sched, "state_dict"):
                     extra["sched"] = sched.state_dict()
                 save_checkpoint(str(output_dir / "checkpoint"), state, epoch,
-                                extra=extra)
+                                extra=extra, is_main=is_main_process(),
+                                mesh=mesh)
+            if mesh.n_data * mesh.n_expert > 1:
+                print(f"dense parameters bit-identical over "
+                      f"{mesh.n_data * mesh.n_expert} rank(s), digest "
+                      f"{check_dense_replicas(model)}")
 
             test_stats = engine.evaluate(state, eval_step_pre, loader_val,
                                          max_steps=args.max_steps_per_epoch)
@@ -325,7 +389,7 @@ def main(args):
                 # plateau: feed the epoch's eval acc1, as timm's loop does;
                 # the sidecar saved above predates it, so rewrite it
                 sched.observe(epoch_in_task, test_stats["acc1"])
-                if output_dir:
+                if output_dir and is_main_process():
                     with open(output_dir / "checkpoint.sched.json", "w") as f:
                         json.dump(sched.state_dict(), f, indent=2)
 
@@ -339,7 +403,8 @@ def main(args):
                 max_accuracy = test_stats["acc1"]
                 if output_dir:
                     save_checkpoint(str(output_dir / "best_checkpoint"),
-                                    state, epoch, extra={"args": vars(args)})
+                                    state, epoch, extra={"args": vars(args)},
+                                    is_main=is_main_process(), mesh=mesh)
             print(f"Max accuracy: {max_accuracy:.2f}%")
             if writer:
                 writer.log_scalar("max_acc", max_accuracy, epoch)
@@ -350,7 +415,7 @@ def main(args):
                 "epoch": epoch,
                 "n_parameters": n_parameters,
             }
-            if output_dir:
+            if output_dir and is_main_process():
                 append_log_stats(str(output_dir), log_stats)
 
         # add task samples to rehearsal memory (reference main.py:964-972)
@@ -381,3 +446,5 @@ if __name__ == "__main__":
     if args.output_dir:
         Path(args.output_dir).mkdir(parents=True, exist_ok=True)
     main(args)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()

@@ -17,14 +17,23 @@ h) / (E, h), fc2 (E, h, d) / (E, d), all f32), dispatched by
   of the fused form);
 - ``'capacity_fused'``: the same drops and outputs through the counting-sort
   capacity layout and the expert-FFN kernels;
-- ``'capacity_fused_a2a'``: ``'capacity_fused'`` on one card (the JAX
-  module's all-to-all form applies only under an expert mesh).
+- ``'capacity_fused_a2a'``: ``'capacity_fused'`` on one card, the
+  all-to-all form under an expert group.
+
+Under a (data, expert) layout (``parallel.shard_params`` calls
+:meth:`MoEMlp.set_mesh` and keeps this rank's ``E / ep`` experts), the
+capacity modes run their expert-parallel forms (JAX :94-150):
+``'capacity_fused'`` the psum form (``ops/moe.py::moe_forward_fused_ep``),
+``'capacity_fused_a2a'`` the all-to-all form (``moe_forward_fused_ep_a2a``)
+and ``'capacity'`` the sharded scatter-buffer form
+(``moe_forward_sharded``). The dropless modes need every expert on every
+rank and raise under an expert group larger than 1.
 
 The capacity factor is ``capacity_factor`` in training mode and
 ``eval_capacity_factor`` otherwise (JAX :92). An odd hidden size sends
 ``'fused'`` to ``'ragged'`` and the fused capacity modes to ``'capacity'``
-(JAX :99-102). ``expert_choice``, expert dropout and expert parallelism are
-not ported yet and raise.
+(JAX :99-102). ``expert_choice`` and expert dropout are not ported yet and
+raise.
 
 Each forward keeps its dispatch's aux (``balance_loss``, ``drop_fraction``)
 in ``self.aux``, the last value per block as the JAX module's ``sow`` keeps
@@ -45,6 +54,9 @@ _MODES = {"fused": moe_ops.moe_forward_fused,
           "capacity_fused": moe_ops.moe_forward_fused,
           "capacity_fused_a2a": moe_ops.moe_forward_fused}
 _CAPACITY_MODES = ("capacity", "capacity_fused", "capacity_fused_a2a")
+_EP_MODES = {"capacity": moe_ops.moe_forward_sharded,
+             "capacity_fused": moe_ops.moe_forward_fused_ep,
+             "capacity_fused_a2a": moe_ops.moe_forward_fused_ep_a2a}
 
 
 class MoEMlp(nn.Module):
@@ -74,6 +86,21 @@ class MoEMlp(nn.Module):
         self.w2 = nn.Parameter(torch.empty(E, h, d))
         self.b2 = nn.Parameter(torch.zeros(E, d))
         self.aux = None
+        self.mesh = None
+
+    def set_mesh(self, mesh) -> None:
+        """Run the expert-parallel form of this module's dispatch mode over
+        ``mesh`` (``parallel.Mesh``); the expert parameters must already be
+        this rank's slice."""
+        if self.mode not in _EP_MODES:
+            if mesh.n_expert > 1:
+                raise NotImplementedError(
+                    f"dispatch_mode '{self.mode}' under expert parallelism: "
+                    "the dropless modes need every expert on every rank; "
+                    "use 'capacity', 'capacity_fused' or "
+                    "'capacity_fused_a2a'")
+            return
+        self.mesh = mesh
 
     def init_weights(self, generator: torch.Generator) -> None:
         for p in (self.router_weight, self.w1, self.w2):
@@ -88,12 +115,13 @@ class MoEMlp(nn.Module):
                 "the ragged and capacity ones' are not ported yet (ROADMAP "
                 "Queue 1 #8)")
         B, N, d = x.shape
-        kw = {}
+        kw, fn = {}, _MODES[self.mode]
         if self.mode in _CAPACITY_MODES:
             kw["capacity_factor"] = (self.capacity_factor if self.training
                                      else self.eval_capacity_factor)
-        y, self.aux = _MODES[self.mode](x.reshape(B * N, d), self.router_weight,
-                                        self.router_bias, self.w1, self.b1,
-                                        self.w2, self.b2, top_k=self.top_k,
-                                        **kw)
+        if self.mesh is not None:
+            fn, kw["mesh"] = _EP_MODES[self.mode], self.mesh
+        y, self.aux = fn(x.reshape(B * N, d), self.router_weight,
+                         self.router_bias, self.w1, self.b1, self.w2, self.b2,
+                         top_k=self.top_k, **kw)
         return y.reshape(B, N, d)

@@ -5,7 +5,8 @@ Each kernel wrapper counts its launches in an integer attribute,
 ``<wrapper>.launches``, incremented only where the kernel is launched: the
 five forwards, the five backward forms their autograd Functions call, the
 flash forward, the fused optimizer, and the expert FFN's gather-in-kernel
-forward and backward (K9) and deferred-dW backward (K8).
+forward and backward (K9), deferred-dW backward (K8) and permuted-tile
+forward and backward (K10).
 """
 from __future__ import annotations
 
@@ -19,7 +20,9 @@ KERNEL_WRAPPERS = (fused_ln.fused_ln, fused_ln.fused_add_ln,
                    fused_adamw.fused_adamw_ema, attention.flash_attention,
                    fused_ffn.fused_expert_ffn_gather,
                    fused_ffn.fused_expert_ffn_gather_bwd,
-                   fused_ffn.fused_expert_ffn_bwd_defer)
+                   fused_ffn.fused_expert_ffn_bwd_defer,
+                   fused_ffn.fused_expert_ffn_permuted,
+                   fused_ffn.fused_expert_ffn_permuted_bwd)
 
 
 def launch_counts() -> dict:

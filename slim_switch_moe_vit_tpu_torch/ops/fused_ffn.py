@@ -1,6 +1,6 @@
 """Per-expert FFN (fc1 -> GELU -> fc2) over the tile-aligned expert layout,
-forward (K3) and backward (K4), their gather-in-kernel forms (K9) and the
-deferred-dW backward (K8), for the H100.
+forward (K3) and backward (K4), their gather-in-kernel forms (K9), their
+permuted-tile forms (K10) and the deferred-dW backward (K8), for the H100.
 
 Replaces these Pallas kernels of ``slim_switch_moe_vit_tpu/ops/fused_ffn.py``:
 
@@ -11,7 +11,13 @@ Replaces these Pallas kernels of ``slim_switch_moe_vit_tpu/ops/fused_ffn.py``:
   ``fused_expert_ffn_gather`` (:763): the same sources, with each layout
   row's x read through ``gather_idx`` (``SSMV_GATHER_IN_KERNEL=1``);
 - K8 ``_bwd_kernel_defer`` (:312) with ``_bwd_flags`` (:285), the
-  ``SSMV_DEFER_DW=1`` branch of ``_ffn_bwd``: ``csrc/expert_ffn_bwd_defer.cu``.
+  ``SSMV_DEFER_DW=1`` branch of ``_ffn_bwd``: ``csrc/expert_ffn_bwd_defer.cu``;
+- K10, the ``tile_perm`` branches of ``_fwd`` (:176-214) and ``_bwd``
+  (:374, :408-431, :478-499) behind ``fused_expert_ffn_permuted`` (:865):
+  K3's and K4's sources with grid step i on row tile ``tile_perm[i]``
+  (``SSMV_A2A_PERMUTED=1`` in the a2a expert-parallel form). As in the JAX
+  package, its backward never defers (``SSMV_DEFER_DW`` does not apply)
+  and runs 256-row tiles.
 
 The sources' header notes say what bounds each kernel on the card and how
 its design answers that. In short: the FFN is FLOP-bound; the forward keeps
@@ -292,6 +298,67 @@ def fused_expert_ffn_gather_bwd(x, gather_idx, w1, b1, w2, e_of_tile, dy):
     return out
 
 
+def permuted_rows(tile_perm: torch.Tensor) -> torch.Tensor:
+    """(n_tiles * TILE_ROWS,) int64: the rows of xs in the order the grid
+    steps visit them, tile ``tile_perm[i]`` at step i."""
+    rows = torch.arange(TILE_ROWS, device=tile_perm.device)
+    return (tile_perm.long()[:, None] * TILE_ROWS + rows).reshape(-1)
+
+
+def reference_expert_ffn_permuted(xs, w1, b1, w2, b2, e_of_step, tile_perm):
+    """Plain version of K10's forward: the permuted tiles gathered into step
+    order, :func:`fused_expert_ffn_reference`, and the results written back
+    to their own tiles."""
+    rows = permuted_rows(tile_perm)
+    y = torch.empty_like(xs)
+    y[rows] = fused_expert_ffn_reference(xs.index_select(0, rows), w1, b1, w2,
+                                         b2, e_of_step)
+    return y
+
+
+def reference_expert_ffn_bwd_permuted(xs, w1, b1, w2, e_of_step, tile_perm,
+                                      dy):
+    """Plain version of K10's backward: :func:`reference_expert_ffn_bwd` on
+    the permuted tiles in step order, dx written back in xs's row order."""
+    rows = permuted_rows(tile_perm)
+    dxp, *grads = reference_expert_ffn_bwd(
+        xs.index_select(0, rows), w1, b1, w2, e_of_step,
+        dy.index_select(0, rows))
+    dx = torch.empty_like(xs)
+    dx[rows] = dxp
+    return (dx, *grads)
+
+
+def _check_perm(Tp, dev, tile_perm):
+    check_tensor(tile_perm, "tile_perm", (torch.int32,), device=dev,
+                 shape=(Tp // TILE_ROWS,))
+
+
+def fused_expert_ffn_permuted_bwd(xs, w1, b1, w2, e_of_step, tile_perm, dy):
+    """K10's backward: (dx in xs's row order, dw1, db1, dw2, db2) of
+    :func:`fused_expert_ffn_permuted`; each expert's dW sums over its
+    (consecutive) steps."""
+    if not xs.is_cuda:
+        return reference_expert_ffn_bwd_permuted(xs, w1, b1, w2, e_of_step,
+                                                 tile_perm, dy)
+    Tp, D, H, E = _check_ffn(xs, w1, b1, w2, None, e_of_step)
+    _check_perm(Tp, xs.device, tile_perm)
+    check_tensor(dy, "dy", (torch.bfloat16,), device=xs.device, shape=(Tp, D))
+    out = _bwd_outputs(Tp, D, H, E, xs, w1, w2)
+    ws_dh = torch.empty((Tp, H), dtype=xs.dtype, device=xs.device)
+    ws_g = torch.empty_like(ws_dh)
+    ws_db1 = torch.empty((Tp // 64, H), dtype=torch.float32, device=xs.device)
+    lib = _build.load_library()
+    err = lib.ssmv_expert_ffn_bwd_perm(
+        xs.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), e_of_step.data_ptr(), tile_perm.data_ptr(),
+        *(t.data_ptr() for t in out), ws_dh.data_ptr(), ws_g.data_ptr(),
+        ws_db1.data_ptr(), Tp, D, H, E, TILE_ROWS, _stream())
+    _build.check(err, "fused_expert_ffn_permuted_bwd")
+    fused_expert_ffn_permuted_bwd.launches += 1
+    return out
+
+
 def _defer_dw() -> bool:
     """``SSMV_DEFER_DW=1``: the fused FFN's backward launches K8 instead of
     K4. Read when the backward runs; off by default, as in the JAX
@@ -330,6 +397,23 @@ def _ffn_gather_forward(x, gather_idx, w1, b1, w2, b2, e_of_tile):
     return y
 
 
+def _ffn_perm_forward(xs, w1, b1, w2, b2, e_of_step, tile_perm):
+    if not xs.is_cuda:
+        return reference_expert_ffn_permuted(xs, w1, b1, w2, b2, e_of_step,
+                                             tile_perm)
+    Tp, D, H, _ = _check_ffn(xs, w1, b1, w2, b2, e_of_step)
+    _check_perm(Tp, xs.device, tile_perm)
+    y = torch.empty_like(xs)
+    lib = _build.load_library()
+    err = lib.ssmv_expert_ffn_fwd_perm(
+        xs.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), e_of_step.data_ptr(), tile_perm.data_ptr(),
+        y.data_ptr(), Tp, D, H, TILE_ROWS, _stream())
+    _build.check(err, "fused_expert_ffn_permuted")
+    fused_expert_ffn_permuted.launches += 1
+    return y
+
+
 class _FusedExpertFFN(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xs, w1, b1, w2, b2, e_of_tile):
@@ -359,6 +443,42 @@ def fused_expert_ffn(xs: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         (Tp, D) in xs's dtype.
     """
     return _FusedExpertFFN.apply(xs, w1, b1, w2, b2, e_of_tile)
+
+
+class _FusedExpertFFNPermuted(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xs, w1, b1, w2, b2, e_of_step, tile_perm):
+        ctx.save_for_backward(xs, w1, b1, w2, e_of_step, tile_perm)
+        return _ffn_perm_forward(xs, w1, b1, w2, b2, e_of_step, tile_perm)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xs, w1, b1, w2, e_of_step, tile_perm = ctx.saved_tensors
+        grads = fused_expert_ffn_permuted_bwd(
+            xs, w1, b1, w2, e_of_step, tile_perm, dy.to(xs.dtype).contiguous())
+        return (*grads, None, None)
+
+
+def fused_expert_ffn_permuted(xs: torch.Tensor, w1: torch.Tensor,
+                              b1: torch.Tensor, w2: torch.Tensor,
+                              b2: torch.Tensor, e_of_step: torch.Tensor,
+                              tile_perm: torch.Tensor) -> torch.Tensor:
+    """:func:`fused_expert_ffn` whose grid visits the row tiles in a
+    caller's order (K10): step i reads row tile ``tile_perm[i]`` of xs and
+    writes the same tile of y, so y keeps xs's row order.
+
+    Args:
+        xs: (Tp, D) rows in any tile-interleaved order, each TILE_ROWS tile
+            of one expert.
+        w1/b1/w2/b2: as :func:`fused_expert_ffn`.
+        e_of_step: (Tp // TILE_ROWS,) int32, the expert of the tile visited
+            at step i; nondecreasing (each expert's steps consecutive).
+        tile_perm: (Tp // TILE_ROWS,) int32, a permutation of the tiles.
+    Returns:
+        (Tp, D) in xs's dtype and row order.
+    """
+    return _FusedExpertFFNPermuted.apply(xs, w1, b1, w2, b2, e_of_step,
+                                         tile_perm)
 
 
 def gather_slots_to_tokens(dxs: torch.Tensor, pair_slot: torch.Tensor,
@@ -425,3 +545,5 @@ fused_expert_ffn_bwd.launches = 0
 fused_expert_ffn_gather.launches = 0
 fused_expert_ffn_gather_bwd.launches = 0
 fused_expert_ffn_bwd_defer.launches = 0
+fused_expert_ffn_permuted.launches = 0
+fused_expert_ffn_permuted_bwd.launches = 0

@@ -27,7 +27,16 @@ Port of the single-device pieces of ``slim_switch_moe_vit_tpu/ops/moe.py``:
   capacity; with ``SSMV_GATHER_IN_KERNEL=1`` the dispatch gather rides the
   FFN kernels' x loads (K9, ``fused_expert_ffn_gather``);
 - :func:`moe_forward_ragged` (:222-276) and :func:`moe_dense` (:902) as
-  plain oracles.
+  plain oracles;
+- the expert-parallel forms over a (data, expert) layout
+  (``parallel/sharding.py::Mesh``), each taking this rank's ``E / ep``
+  experts: :func:`moe_forward_fused_ep` (:629-723, the psum form),
+  :func:`moe_forward_fused_ep_a2a` (:725-856, the all-to-all form, with
+  ``SSMV_A2A_PERMUTED=1`` on the permuted-tile FFN K10) and
+  :func:`moe_forward_sharded` (the ``'capacity'`` mode, whose (E, C, d)
+  buffer GSPMD shards over the expert axis in the JAX package,
+  ``models/moe.py:136-150``). Their collectives are the autograd Functions
+  of ``parallel/collectives.py``.
 
 Each forward returns ``(y, aux)``, aux holding ``balance_loss`` and
 ``drop_fraction`` (0 for the dropless modes, ``1 - mean(keep)`` with a
@@ -41,8 +50,7 @@ Not ported here (TPU layout policies): the lane-major prefix count of
 table (``w_slot`` is one scatter into the activation dtype, the same values
 the JAX package's packing gives), the 512-row layout policy (the
 flagship's T*k = 50,432 takes the 256-row layout there too), and expert
-dropout in :func:`grouped_ffn`. The expert-parallel forms wait for their
-ROADMAP item.
+dropout in :func:`grouped_ffn`.
 """
 from __future__ import annotations
 
@@ -51,8 +59,11 @@ import typing as typ
 
 import torch
 
+from ..parallel import collectives as coll
+from ..parallel.sharding import EXPERT_AXIS, axis_index, mesh_axis_size
 from .fused_ffn import (TILE_ROWS, fused_expert_ffn, fused_expert_ffn_gather,
-                        gather_slots_to_tokens, gelu_exact, gelu_fast)
+                        fused_expert_ffn_permuted, gather_slots_to_tokens,
+                        gelu_exact, gelu_fast)
 
 
 def _gather_in_kernel() -> bool:
@@ -316,6 +327,12 @@ def _aux(logits, expert_idx, num_experts, keep=None):
             "drop_fraction": drop}
 
 
+def _kernel_weights(x, w1, b1, w2, b2):
+    """The expert tensors as the FFN kernels take them."""
+    return (w1.to(x.dtype).contiguous(), b1.float(),
+            w2.to(x.dtype).contiguous(), b2.float())
+
+
 def moe_forward_fused(x, router_w, router_b, w1, b1, w2, b2, *,
                       top_k: int = 2,
                       capacity_factor: typ.Optional[float] = None,
@@ -336,8 +353,7 @@ def moe_forward_fused(x, router_w, router_b, w1, b1, w2, b2, *,
         gate_eff, keep_in = gate_w, None
     else:
         gate_eff, keep_in = gate_w * keep.to(gate_w.dtype), keep
-    weights = (w1.to(x.dtype).contiguous(), b1.float(),
-               w2.to(x.dtype).contiguous(), b2.float(), e_of_tile)
+    weights = (*_kernel_weights(x, w1, b1, w2, b2), e_of_tile)
     if _gather_in_kernel():
         out = fused_expert_ffn_gather(x, gather_idx, pair_slot, keep_in,
                                       *weights)
@@ -346,6 +362,180 @@ def moe_forward_fused(x, router_w, router_b, w1, b1, w2, b2, *,
         out = fused_expert_ffn(xs, *weights)
     y = combine_slots(out, pair_slot, gate_eff, gather_idx, w_slot)
     return y.to(x.dtype), _aux(logits, expert_idx, E, keep_in)
+
+
+def _a2a_permuted() -> bool:
+    """``SSMV_A2A_PERMUTED=1``: the a2a form runs the permuted-tile FFN
+    (K10) over the received rows instead of relayouting them expert-major
+    around K3/K4. Read at call time, as the JAX package reads it at trace
+    time; off by default, as there."""
+    return os.environ.get("SSMV_A2A_PERMUTED", "0") == "1"
+
+
+def _expert_axis(mesh, w1):
+    """(ep, this rank's expert index, the expert group, E_local, E)."""
+    ep = mesh_axis_size(mesh, EXPERT_AXIS)
+    return (ep, axis_index(mesh, EXPERT_AXIS), mesh.expert_group, w1.shape[0],
+            w1.shape[0] * ep)
+
+
+def moe_forward_fused_ep(x, router_w, router_b, w1, b1, w2, b2, *, mesh,
+                         top_k: int = 2, capacity_factor: float = 2.0,
+                         capacity: typ.Optional[int] = None):
+    """Expert-parallel ``capacity_fused``, the psum form. ``x`` is this data
+    shard's (T, d) tokens, the same on every rank of the expert group; w1,
+    b1, w2, b2 this rank's E_local experts.
+
+    Every rank of the expert group routes all T tokens and builds the whole
+    capacity layout (replicated work), gathers the rows of its own static
+    region (E_local regions of Cp rows), runs the expert FFN on them,
+    combines its partial (T, d) output and sums it over the group. Capacity
+    priority is token-major per data shard. With one data shard the output
+    is the single-card :func:`moe_forward_fused`'s (the partial sums add
+    exact zeros where a token's two experts live on one rank).
+
+    Gradients: the psum's backward is the identity, and x (into the
+    dispatch) and the gate weights (into the combine) sum their partial
+    gradients over the group, so every rank ends with the full dx and
+    router gradient. ``balance_loss`` and ``drop_fraction`` are averaged
+    over the data group (JAX :702-705)."""
+    ep, j, group, E_local, E = _expert_axis(mesh, w1)
+    T = x.shape[0]
+    logits = _router_logits(x, router_w, router_b)
+    gate_w, expert_idx = naive_topk_gate(logits, top_k)
+    if capacity is None:
+        capacity = compute_capacity(T, E, top_k, capacity_factor)
+    gather_idx, pair_slot, _, w_slot, keep = aligned_expert_layout(
+        expert_idx, E, gate_w=gate_w, weight_dtype=x.dtype, capacity=capacity)
+    Cp = capacity_region_rows(capacity)
+    rows = E_local * Cp
+    start = j * rows
+    slot_local = pair_slot - start
+    valid = (slot_local >= 0) & (slot_local < rows) & keep
+    # pairs of other ranks' experts (and dropped ones) -> the region's last
+    # row, padding by construction (weight 0); ``valid`` zeroes their dx
+    # and gate gradients
+    slot_l = torch.where(valid, slot_local, rows - 1)
+    g_mine = gather_idx[start:start + rows]
+    xs = dispatch_gather(coll.sum_grad(x, group), g_mine, slot_l, valid)
+    e_of_tile = torch.arange(E_local, dtype=torch.int32,
+                             device=x.device).repeat_interleave(
+                                 Cp // TILE_ROWS)
+    out = fused_expert_ffn(xs, *_kernel_weights(x, w1, b1, w2, b2),
+                           e_of_tile)
+    gate_eff = coll.sum_grad(gate_w, group) * valid.to(gate_w.dtype)
+    y_part = combine_slots(out, slot_l, gate_eff, g_mine,
+                           w_slot[start:start + rows])
+    y = coll.psum(y_part, group)
+    aux = _aux(logits, expert_idx, E, keep)
+    return y.to(x.dtype), {k: coll.mean_value(v, mesh.data_group, 1.0)
+                           for k, v in aux.items()}
+
+
+def moe_forward_fused_ep_a2a(x, router_w, router_b, w1, b1, w2, b2, *, mesh,
+                             top_k: int = 2, capacity_factor: float = 2.0,
+                             capacity: typ.Optional[int] = None):
+    """Expert-parallel ``capacity_fused`` with an all-to-all row exchange
+    (FastMoE's global exchange). ``x`` is this data shard's (T, d) tokens,
+    the same on every rank of the expert group; w1, b1, w2, b2 this rank's
+    E_local experts.
+
+    Rank j of the expert group owns the token chunk ``x[j*Tc:(j+1)*Tc]``,
+    Tc = T / ep: it routes the chunk and builds the chunk's capacity layout
+    (expert-major, so each destination rank's rows are one contiguous
+    block), sends each rank its experts' regions (``all_to_all``), runs the
+    expert FFN on the rows from every source chunk bound for its experts,
+    sends the outputs back, combines its chunk and gathers the (T, d) batch
+    over the group. The received rows are source-major; the FFN's weight
+    gradient sums each expert over consecutive tiles, so they are either
+    relayouted expert-major around K3/K4 (the default) or visited
+    expert-major in place by K10 (``SSMV_A2A_PERMUTED=1``). Capacity
+    priority is per (data shard, chunk). ``balance_loss`` and
+    ``drop_fraction`` are averaged over the expert group, then over the data
+    group (JAX :836-841).
+
+    Gradients: the chunk's cotangents are gathered into the full dx, and the
+    router's partial gradients summed over the group; the final gather's
+    backward is this rank's slice."""
+    ep, j, group, E_local, E = _expert_axis(mesh, w1)
+    T, d = x.shape
+    if T % ep != 0:
+        raise ValueError(
+            f"a2a EP needs the per-data-shard token count ({T}) "
+            f"divisible by the expert axis ({ep}); pad the batch or use "
+            "dispatch_mode='capacity_fused' (psum form)")
+    Tc = T // ep
+    xc = coll.chunk_rows(x, group)
+    logits = _router_logits(xc, coll.sum_grad(router_w, group),
+                            coll.sum_grad(router_b, group))
+    gate_w, expert_idx = naive_topk_gate(logits, top_k)
+    if capacity is None:
+        capacity = compute_capacity(Tc, E, top_k, capacity_factor)
+    gather_idx, pair_slot, _, w_slot, keep = aligned_expert_layout(
+        expert_idx, E, gate_w=gate_w, weight_dtype=x.dtype, capacity=capacity)
+    Cp = capacity_region_rows(capacity)
+    n_per = Cp // TILE_ROWS  # tiles per (source, expert) region
+    xs = dispatch_gather(xc, gather_idx, pair_slot, keep)
+    # (ep source blocks) x (E_local experts) x (Cp rows)
+    xr = coll.all_to_all(xs, group)
+    e_of_step = torch.arange(E_local, dtype=torch.int32,
+                             device=x.device).repeat_interleave(ep * n_per)
+    weights = _kernel_weights(x, w1, b1, w2, b2)
+    if _a2a_permuted():
+        # step (e, src, t) visits source-major tile src*E_local*n_per +
+        # e*n_per + t; outputs land in their own tiles, source-major
+        perm = torch.arange(ep * E_local * n_per, dtype=torch.int32,
+                            device=x.device).reshape(
+                                ep, E_local, n_per).transpose(0, 1).reshape(-1)
+        out = fused_expert_ffn_permuted(xr, *weights, e_of_step, perm)
+    else:
+        xr = xr.reshape(ep, E_local, Cp, d).transpose(0, 1).reshape(-1, d)
+        out = fused_expert_ffn(xr, *weights, e_of_step)
+        out = out.reshape(E_local, ep, Cp, d).transpose(0, 1).reshape(-1, d)
+    out_back = coll.all_to_all(out, group)
+    gate_eff = gate_w * keep.to(gate_w.dtype)
+    yc = combine_slots(out_back, pair_slot, gate_eff, gather_idx, w_slot)
+    y = coll.all_gather_rows(yc, group)
+    aux = {k: coll.mean_value(coll.mean_value(v, group, 1.0 / ep),
+                              mesh.data_group, 1.0)
+           for k, v in _aux(logits, expert_idx, E, keep).items()}
+    return y.to(x.dtype), aux
+
+
+def moe_forward_sharded(x, router_w, router_b, w1, b1, w2, b2, *, mesh,
+                        top_k: int = 2, capacity_factor: float = 2.0,
+                        capacity: typ.Optional[int] = None):
+    """The ``'capacity'`` mode over a (data, expert) layout: the function of
+    :func:`moe_forward` over the whole batch, as GSPMD computes it in the
+    JAX package. ``x`` is this data shard's (T, d) tokens; w1, b1, w2, b2
+    this rank's E_local experts.
+
+    The data shards' tokens are gathered (dp > 1), every rank routes them
+    and fills the replicated (E, C, d) buffer, runs its E_local experts'
+    slice through :func:`grouped_ffn` and gathers the outputs over the
+    expert group before the combine; each rank keeps its own rows of y.
+    Capacity and drop priority are those of the whole batch. Plain
+    PyTorch, as in the JAX package, where no Pallas kernel runs here.
+
+    Gradients: x into the buffer sums its partial gradients over the expert
+    group; the token gather's backward sums over the data group and keeps
+    this rank's rows, which with the train step's average over the data
+    group gives the gradient of the mean of the shards' losses."""
+    ep, j, group, E_local, E = _expert_axis(mesh, w1)
+    T = x.shape[0]
+    x_all = coll.gather_rows_sum_grad(x, mesh.data_group)
+    logits = _router_logits(x_all, router_w, router_b)
+    gate_w, expert_idx = naive_topk_gate(logits, top_k)
+    if capacity is None:
+        capacity = compute_capacity(x_all.shape[0], E, top_k,
+                                    capacity_factor)
+    dest, keep = make_dispatch(expert_idx, E, capacity)
+    buf = dispatch_tokens(coll.sum_grad(x_all, group), dest, E, capacity)
+    out = grouped_ffn(buf[j * E_local:(j + 1) * E_local], w1, b1, w2, b2)
+    y = combine_tokens(coll.all_gather_rows(out, group), dest, keep, gate_w)
+    i = mesh.data_index
+    return (y[i * T:(i + 1) * T].to(x.dtype),
+            _aux(logits, expert_idx, E, keep))
 
 
 def moe_forward_ragged(x, router_w, router_b, w1, b1, w2, b2, *,

@@ -5,7 +5,12 @@ form of the JAX package's ``utils/checkpoint.py`` (:59-149): one
 ``torch.save`` file holding the model's ``state_dict`` (the gate buffers
 included), the optimizer's, the EMA, the generator's state, the step and
 the epoch, with the run's ``args`` and the scheduler's state in JSON files
-beside it (``<path>.args.json``, ``<path>.sched.json``), as there.
+beside it (``<path>.args.json``, ``<path>.sched.json``), as there. Under
+expert parallelism (a ``parallel.Mesh`` with an expert group) the save
+gathers every expert tensor (the parameters, their AdamW moments and their
+EMA) from the expert group, so the file has the format of a single-card
+file, and the restore slices this rank's experts out of it: a run saved at
+one expert-parallel size resumes at any other.
 
 :func:`from_jax_params` turns the flax param tree of a ViT / Switch-MoE ViT
 / ResMoE ViT (nested dicts of numpy arrays, as ``variables["params"]``,
@@ -143,19 +148,59 @@ def _write_json(path: str, record) -> None:
         json.dump(record, f, indent=2, default=str)
 
 
+def _expert_names(model) -> set:
+    from ..parallel.sharding import is_expert_param
+
+    return {n for n, _ in model.named_parameters() if is_expert_param(n)}
+
+
+def _optimizer_names(state) -> typ.List[str]:
+    """The parameter name of each index of the optimizer's state_dict."""
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    return [names[id(p)] for g in state.optimizer.param_groups
+            for p in g["params"]]
+
+
+def _map_experts(state, model_sd, opt_sd, ema, fn):
+    """(model, optimizer, EMA) dicts with ``fn`` applied to every expert
+    tensor: the parameters, their moments and their EMA."""
+    experts = _expert_names(state.model)
+    model_sd = {k: fn(v) if k in experts else v for k, v in model_sd.items()}
+    if opt_sd is not None:
+        names = _optimizer_names(state)
+        opt_sd = {**opt_sd, "state": {
+            i: {k: fn(v) if names[i] in experts and k != "step" else v
+                for k, v in st.items()}
+            for i, st in opt_sd["state"].items()}}
+    if ema is not None:
+        ema = {k: fn(v) if k in experts else v for k, v in ema.items()}
+    return model_sd, opt_sd, ema
+
+
 def save_checkpoint(path: str, state, epoch: int,
                     extra: typ.Optional[dict] = None,
-                    is_main: bool = True) -> None:
+                    is_main: bool = True, mesh=None) -> None:
     """Write the train state to ``path`` (rank 0 only), atomically.
     ``extra={"args": vars(args), "sched": sched.state_dict()}`` land in
-    the JSON files beside it."""
+    the JSON files beside it. Under an expert group (``mesh``) every rank
+    must call it: the expert tensors are gathered to a single-card
+    layout."""
+    model_sd = state.model.state_dict()
+    opt_sd = (state.optimizer.state_dict() if state.optimizer is not None
+              else None)
+    ema = state.ema_params
+    if mesh is not None and mesh.expert_group is not None:
+        from ..parallel.collectives import gather_rows
+
+        model_sd, opt_sd, ema = _map_experts(
+            state, model_sd, opt_sd, ema,
+            lambda t: gather_rows(t, mesh.expert_group))
     if not is_main:
         return
     payload = {
-        "model": state.model.state_dict(),
-        "optimizer": (state.optimizer.state_dict()
-                      if state.optimizer is not None else None),
-        "ema_params": state.ema_params,
+        "model": model_sd,
+        "optimizer": opt_sd,
+        "ema_params": ema,
         "generator": state.generator.get_state(),
         "step": state.step,
         "epoch": epoch,
@@ -189,20 +234,30 @@ def load_checkpoint_sched(path: str) -> typ.Optional[dict]:
     return _sidecar(path, "sched")
 
 
-def restore_checkpoint(path: str, state) -> typ.Tuple[typ.Any, int]:
+def restore_checkpoint(path: str, state, mesh=None) -> typ.Tuple[typ.Any,
+                                                                int]:
     """Restore into an existing state, in place (model, optimizer, EMA,
     generator, step); returns (state, epoch). Read onto the host, so the
     optimizer's ``step`` counts stay CPU tensors, as ``torch.optim.AdamW``
-    keeps them."""
+    keeps them. With ``mesh``, this rank's experts are sliced out of every
+    expert tensor of the (single-card layout) file."""
     payload = torch.load(os.path.abspath(path), map_location="cpu",
                          weights_only=True)
-    state.model.load_state_dict(payload["model"])
-    if state.optimizer is not None and payload["optimizer"] is not None:
-        state.optimizer.load_state_dict(payload["optimizer"])
-    if state.ema_params is not None and payload["ema_params"] is not None:
+    model_sd, opt_sd, ema = (payload["model"], payload["optimizer"],
+                             payload["ema_params"])
+    if mesh is not None:
+        from ..parallel.sharding import expert_slice
+
+        model_sd, opt_sd, ema = _map_experts(
+            state, model_sd, opt_sd, ema,
+            lambda t: t[expert_slice(mesh, t.shape[0])].clone())
+    state.model.load_state_dict(model_sd)
+    if state.optimizer is not None and opt_sd is not None:
+        state.optimizer.load_state_dict(opt_sd)
+    if state.ema_params is not None and ema is not None:
         with torch.no_grad():
             for name, t in state.ema_params.items():
-                t.copy_(payload["ema_params"][name])
+                t.copy_(ema[name])
     state.generator.set_state(payload["generator"])
     state.step = int(payload["step"])
     return state, int(payload["epoch"])

@@ -100,6 +100,14 @@ def test_cpu_tensors_take_the_plain_versions():
     for a, b in zip(ffn_ops.fused_expert_ffn_bwd_defer(*bwd_case),
                     ffn_ops.reference_expert_ffn_bwd_defer(*bwd_case)):
         assert torch.equal(a, b)
+    perm = torch.arange(case[5].shape[0], dtype=torch.int32).flip(0)
+    assert torch.equal(
+        ffn_ops.fused_expert_ffn_permuted(*case, perm),
+        ffn_ops.reference_expert_ffn_permuted(*case, perm))
+    perm_case = (*case[:4], case[5], perm, dy)
+    for a, b in zip(ffn_ops.fused_expert_ffn_permuted_bwd(*perm_case),
+                    ffn_ops.reference_expert_ffn_bwd_permuted(*perm_case)):
+        assert torch.equal(a, b)
     assert torch.equal(attn_ops.flash_attention(qkv, 2, 0.125),
                        attn_ops.flash_attention_reference(qkv, 2, 0.125))
     leaves = _adamw_case(rs, [(7, 3), (64,)], "cpu")
@@ -118,7 +126,8 @@ def test_cpu_tensors_take_the_plain_versions():
         "fused_sum_ln_bwd": 0, "fused_mha_bwd": 0, "fused_expert_ffn_bwd": 0,
         "fused_adamw_ema": 0, "flash_attention": 0,
         "fused_expert_ffn_gather": 0, "fused_expert_ffn_gather_bwd": 0,
-        "fused_expert_ffn_bwd_defer": 0}
+        "fused_expert_ffn_bwd_defer": 0, "fused_expert_ffn_permuted": 0,
+        "fused_expert_ffn_permuted_bwd": 0}
 
 
 def test_reference_add_ln_rounds_the_sum_first():
@@ -337,7 +346,8 @@ def test_train_step_runs_through_the_kernels(cuda):
         "fused_sum_ln_bwd": 1, "fused_mha_bwd": 12, "fused_expert_ffn_bwd": 12,
         "fused_adamw_ema": 0, "flash_attention": 0,
         "fused_expert_ffn_gather": 0, "fused_expert_ffn_gather_bwd": 0,
-        "fused_expert_ffn_bwd_defer": 0}
+        "fused_expert_ffn_bwd_defer": 0, "fused_expert_ffn_permuted": 0,
+        "fused_expert_ffn_permuted_bwd": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -432,7 +442,8 @@ def test_resmoe_train_step_launch_counts(cuda):
         "fused_sum_ln_bwd": 24, "fused_mha_bwd": 12, "fused_expert_ffn_bwd": 12,
         "fused_adamw_ema": 1, "flash_attention": 0,
         "fused_expert_ffn_gather": 0, "fused_expert_ffn_gather_bwd": 0,
-        "fused_expert_ffn_bwd_defer": 0}
+        "fused_expert_ffn_bwd_defer": 0, "fused_expert_ffn_permuted": 0,
+        "fused_expert_ffn_permuted_bwd": 0}
     for blk in model.blocks:
         blk.attn.use_flash = True
     ops.reset_launch_counts()
@@ -544,6 +555,70 @@ def test_defer_dw_kernel_matches_plain(cuda, T, D, H, E, capacity):
             _rel_close(gt, w, 1e-2, name)
     assert got[1][E - 1].abs().max().item() == 0.0
     assert got[3][E - 1].abs().max().item() == 0.0
+
+
+def _perm_case(rs, src, E, n_per, D, H, device):
+    """Source-major rows as the a2a expert-parallel form receives them:
+    src blocks of E experts x n_per tiles; the tile permutation that visits
+    them expert-major, and the expert of each step."""
+    tile = ffn_ops.TILE_ROWS
+    Tp = src * E * n_per * tile
+    xs = _rand(rs, Tp, D, dtype=torch.bfloat16, device=device)
+    dy = _rand(rs, Tp, D, dtype=torch.bfloat16, device=device)
+    w1 = _rand(rs, E, D, H, scale=D ** -0.5, dtype=torch.bfloat16,
+               device=device)
+    b1 = _rand(rs, E, H, scale=0.1, device=device)
+    w2 = _rand(rs, E, H, D, scale=H ** -0.5, dtype=torch.bfloat16,
+               device=device)
+    b2 = _rand(rs, E, D, scale=0.1, device=device)
+    perm = torch.arange(src * E * n_per, dtype=torch.int32).reshape(
+        src, E, n_per).transpose(0, 1).reshape(-1).to(device)
+    e_of_step = torch.arange(E, dtype=torch.int32).repeat_interleave(
+        src * n_per).to(device)
+    return xs, (w1, b1, w2, b2), e_of_step, perm, dy
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("src,E,n_per,D,H", [(4, 2, 2, 384, 1536),
+                                             (3, 3, 1, 192, 768)])
+def test_permuted_ffn_kernels_match_plain(cuda, src, E, n_per, D, H):
+    """K10 forward and backward against their plain versions and against
+    the expert-major relayout + K3/K4 on the same rows, with a permutation
+    that is not the identity: y and dx elementwise within 1.6e-2 (in xs's
+    row order), dW and db within 1e-2 of max |ref|; one launch each."""
+    rs = np.random.RandomState(15)
+    xs, (w1, b1, w2, b2), e_of_step, perm, dy = _perm_case(
+        rs, src, E, n_per, D, H, cuda)
+    assert not torch.equal(perm.cpu(), torch.arange(perm.shape[0],
+                                                    dtype=torch.int32))
+    ops.reset_launch_counts()
+    y = ffn_ops.fused_expert_ffn_permuted(xs, w1, b1, w2, b2, e_of_step, perm)
+    g = ffn_ops.fused_expert_ffn_permuted_bwd(xs, w1, b1, w2, e_of_step,
+                                              perm, dy)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert (counts["fused_expert_ffn_permuted"],
+            counts["fused_expert_ffn_permuted_bwd"]) == (1, 1)
+    rows = ffn_ops.permuted_rows(perm)
+    y_k3 = torch.empty_like(xs)
+    y_k3[rows] = ffn_ops.fused_expert_ffn(xs[rows], w1, b1, w2, b2, e_of_step)
+    k4 = ffn_ops.fused_expert_ffn_bwd(xs[rows], w1, b1, w2, e_of_step,
+                                      dy[rows].contiguous())
+    dx_k4 = torch.empty_like(xs)
+    dx_k4[rows] = k4[0]
+    plain = ffn_ops.reference_expert_ffn_permuted(xs, w1, b1, w2, b2,
+                                                  e_of_step, perm)
+    plain_bwd = ffn_ops.reference_expert_ffn_bwd_permuted(
+        xs, w1, b1, w2, e_of_step, perm, dy)
+    for ref_y, ref_g in ((plain, plain_bwd), (y_k3, (dx_k4, *k4[1:]))):
+        torch.testing.assert_close(y.float(), ref_y.float(), atol=1.6e-2,
+                                   rtol=1.6e-2)
+        torch.testing.assert_close(g[0].float(), ref_g[0].float(),
+                                   atol=1.6e-2, rtol=1.6e-2)
+        for name, gt, w in zip(["dw1", "db1", "dw2", "db2"], g[1:],
+                               ref_g[1:]):
+            assert gt.dtype == w.dtype and torch.isfinite(gt.float()).all()
+            _rel_close(gt, w, 1e-2, name)
 
 
 @pytest.mark.cuda

@@ -51,6 +51,9 @@
 // db1 is the column sum of the f32 dh, db2 of dy, both in f32, in the same
 // walk: the chunk's block takes db1[e, chunk], the first D / 32 blocks of
 // each expert db2[e, 32 columns each].
+//
+// f32 at every D, and bf16 at D = 768, take the SIMT forms: the SIMT dgrad
+// of expert_ffn_dgrad.cuh, then the SIMT deferred-dW kernel below.
 #include "expert_ffn_dgrad.cuh"
 
 namespace {
@@ -253,6 +256,173 @@ expert_ffn_dw_defer_kernel(const bf16* __restrict__ xs,
   }
 }
 
+// The SIMT deferred-dW kernel, beside the SIMT dgrad (f32 at every D,
+// bf16 at D = 768): one block per (16-column hidden chunk, expert), the
+// chunk's W1 (D x 17) and W2 (16 x D+1) columns on chip for the whole walk,
+// the same flag-directed walk over the expert's tiles in 16-row steps
+// (h and dy . W2^T recomputed, dh and g rounded to T), and dW1[:, chunk]
+// and dW2[chunk, :] accumulated in registers (D / 8 a thread) with f32
+// FMAs. db1 and, in the first D / 16 chunk blocks, db2 are summed per
+// (row, column) thread over the walk, then over the 16 rows in order.
+constexpr int kDHC = 16;  // hidden columns per SIMT deferred-dW block
+
+template <typename T>
+__host__ __device__ constexpr size_t simt_defer_smem(int d) {
+  return sizeof(T) * ((size_t)d * (kDHC + 1) + (size_t)kDHC * (d + 1) +
+                      2 * (size_t)kSRows * d + 8) +
+         sizeof(float) * (2 * kSRows * kDHC + 2 * kSRows * kDHC);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 1)
+expert_ffn_dw_defer_simt(const T* __restrict__ xs, const T* __restrict__ dy,
+                         const T* __restrict__ w1, const float* __restrict__ b1,
+                         const T* __restrict__ w2,
+                         const int* __restrict__ e_of_tile,
+                         const int* __restrict__ flags, int n_tiles,
+                         int tile_rows, T* __restrict__ dw1,
+                         float* __restrict__ db1, T* __restrict__ dw2,
+                         float* __restrict__ db2, int H) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* DHs = reinterpret_cast<float*>(smem);  // kSRows x kDHC, T(dh)
+  float* Gs = DHs + kSRows * kDHC;              // kSRows x kDHC, T(g)
+  float* R1 = Gs + kSRows * kDHC;               // db1 partials
+  float* R2 = R1 + kSRows * kDHC;               // db2 partials
+  T* W1s = reinterpret_cast<T*>(R2 + kSRows * kDHC);  // D x (kDHC + 1)
+  T* W2s = W1s + D * (kDHC + 1);                      // kDHC x (D + 1)
+  T* Xs = W2s + kDHC * (D + 1);                       // kSRows x D
+  T* DYs = Xs + kSRows * D;                           // kSRows x D
+
+  const int c0 = blockIdx.x * kDHC, e = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const bool has_db2 = c0 < D;
+  const T* w1e = w1 + (size_t)e * D * H;
+  const T* w2e = w2 + (size_t)e * H * D;
+
+  int first = 0, count = 0;
+  for (int t0 = 0; t0 < n_tiles; t0 += kThreads) {
+    const int t = t0 + tid;
+    const int et = t < n_tiles ? e_of_tile[t] : 0x7fffffff;
+    first += __syncthreads_count(et < e);
+    count += __syncthreads_count(et == e);
+  }
+  for (int i = tid; i < D * kDHC; i += kThreads) {
+    const int k = i / kDHC, c = i % kDHC;
+    W1s[k * (kDHC + 1) + c] = w1e[(size_t)k * H + c0 + c];
+  }
+  for (int i = tid; i < kDHC * D; i += kThreads) {
+    const int r = i / D, c = i % D;
+    W2s[r * (D + 1) + c] = w2e[(size_t)(c0 + r) * D + c];
+  }
+  // h / p / db: thread (hr, hc) = (tid / 16, tid % 16)
+  const int hr = tid / kDHC, hc = tid % kDHC;
+  const float bias = b1[(size_t)e * H + c0 + hc];
+  float db1_sum = 0.f, db2_sum = 0.f;
+  // dW1[k][c] for k = lane + 32 j, c = 2 warp + q; dW2[c][k] likewise
+  constexpr int NJ = D / 32;
+  float acc1[NJ][2], acc2[2][NJ];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) acc1[j][q] = acc2[q][j] = 0.f;
+  const int cq = warp * 2;
+
+  for (int t = first; t < first + count; ++t) {
+    const int f = flags[t];
+    if (!(f & 1)) continue;  // deferred: this tile joins the next flush
+    const int r_begin = (t - ((f & 2) ? 1 : 0)) * tile_rows;
+    const int r_end = (t + 1) * tile_rows;
+    for (int r0 = r_begin; r0 < r_end; r0 += kSRows) {
+      __syncthreads();  // the last step's readers are done (and W1s/W2s set)
+      for (int i = tid; i < kSRows * D; i += kThreads) {
+        const size_t g = (size_t)r0 * D + i;
+        Xs[i] = xs[g];
+        DYs[i] = dy[g];
+      }
+      __syncthreads();
+      float h = 0.f, p = 0.f;
+      for (int k = 0; k < D; ++k) {
+        h = fmaf(ssmv::to_f32(Xs[hr * D + k]),
+                 ssmv::to_f32(W1s[k * (kDHC + 1) + hc]), h);
+        p = fmaf(ssmv::to_f32(DYs[hr * D + k]),
+                 ssmv::to_f32(W2s[hc * (D + 1) + k]), p);
+      }
+      float g, dg;
+      gelu_pair(h + bias, &g, &dg);
+      const float dh = p * dg;
+      db1_sum += dh;
+      if (has_db2) db2_sum += ssmv::to_f32(DYs[hr * D + c0 + hc]);
+      DHs[hr * kDHC + hc] = ssmv::to_f32(ssmv::from_f32<T>(dh));
+      Gs[hr * kDHC + hc] = ssmv::to_f32(ssmv::from_f32<T>(g));
+      __syncthreads();
+      for (int r = 0; r < kSRows; ++r) {
+        const float d0 = DHs[r * kDHC + cq], d1 = DHs[r * kDHC + cq + 1];
+        const float g0 = Gs[r * kDHC + cq], g1 = Gs[r * kDHC + cq + 1];
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const float xv = ssmv::to_f32(Xs[r * D + lane + 32 * j]);
+          const float yv = ssmv::to_f32(DYs[r * D + lane + 32 * j]);
+          acc1[j][0] = fmaf(xv, d0, acc1[j][0]);
+          acc1[j][1] = fmaf(xv, d1, acc1[j][1]);
+          acc2[0][j] = fmaf(g0, yv, acc2[0][j]);
+          acc2[1][j] = fmaf(g1, yv, acc2[1][j]);
+        }
+      }
+    }
+  }
+
+  T* dw1e = dw1 + (size_t)e * D * H;
+  T* dw2e = dw2 + (size_t)e * H * D;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int k = lane + 32 * j, c = cq + q;
+      dw1e[(size_t)k * H + c0 + c] = ssmv::from_f32<T>(acc1[j][q]);
+      dw2e[(size_t)(c0 + c) * D + k] = ssmv::from_f32<T>(acc2[q][j]);
+    }
+  __syncthreads();  // the walk's readers of DHs / Gs are done
+  R1[hr * kDHC + hc] = db1_sum;
+  R2[hr * kDHC + hc] = db2_sum;
+  __syncthreads();
+  if (tid < kDHC) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int r = 0; r < kSRows; ++r) {
+      s1 += R1[r * kDHC + tid];
+      s2 += R2[r * kDHC + tid];
+    }
+    db1[(size_t)e * H + c0 + tid] = s1;
+    if (has_db2) db2[(size_t)e * D + c0 + tid] = s2;
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch_simt(const void* xs, const void* dy, const void* w1,
+                        const void* b1, const void* w2, const void* e_of_tile,
+                        const void* flags, void* dxs, void* dw1, void* db1,
+                        void* dw2, void* db2, int Tp, int H, int E,
+                        int tile_rows, cudaStream_t stream) {
+  cudaError_t err = launch_dgrad_simt<T, D, false, false>(
+      xs, nullptr, dy, w1, b1, w2, e_of_tile, dxs, nullptr, nullptr, nullptr,
+      Tp, H, tile_rows, stream);
+  if (err != cudaSuccess) return err;
+  const size_t smem = simt_defer_smem<T>(D);
+  if (smem > ssmv::kMaxSmemBytes) return cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(expert_ffn_dw_defer_simt<T, D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  expert_ffn_dw_defer_simt<T, D>
+      <<<dim3(H / kDHC, E), kThreads, smem, stream>>>(
+      static_cast<const T*>(xs), static_cast<const T*>(dy),
+      static_cast<const T*>(w1), static_cast<const float*>(b1),
+      static_cast<const T*>(w2), static_cast<const int*>(e_of_tile),
+      static_cast<const int*>(flags), Tp / tile_rows, tile_rows,
+      static_cast<T*>(dw1), static_cast<float*>(db1), static_cast<T*>(dw2),
+      static_cast<float*>(db2), H);
+  return cudaGetLastError();
+}
+
 template <int D>
 cudaError_t launch(const void* xs, const void* dy, const void* w1,
                    const void* b1, const void* w2, const void* e_of_tile,
@@ -280,28 +450,42 @@ cudaError_t launch(const void* xs, const void* dy, const void* w1,
 
 }  // namespace
 
-// K8: xs, dy (Tp, D) bf16; w1 (E, D, H) bf16, b1 (E, H) f32, w2 (E, H, D)
-// bf16; e_of_tile (Tp / tile_rows,) int32, nondecreasing; flags
-// (Tp / tile_rows,) int32 from e_of_tile as _bwd_flags gives them ->
-// dxs (Tp, D) bf16, dw1 (E, D, H) bf16, db1 (E, H) f32, dw2 (E, H, D) bf16,
-// db2 (E, D) f32. All contiguous and 16-byte aligned; D is 192 or 384, H a
-// multiple of 64 and at least D, tile_rows and Tp multiples of 64. No
-// workspace.
+// K8: xs, dy (Tp, D); w1 (E, D, H), b1 (E, H) f32, w2 (E, H, D); e_of_tile
+// (Tp / tile_rows,) int32, nondecreasing; flags (Tp / tile_rows,) int32 from
+// e_of_tile as _bwd_flags gives them -> dxs (Tp, D), dw1 (E, D, H), db1
+// (E, H) f32, dw2 (E, H, D), db2 (E, D) f32; xs, dy, w1, w2, dxs, dw1, dw2
+// of one activation dtype, bf16 (is_bf16 = 1) or f32. All contiguous and
+// 16-byte aligned; D is 192, 384 or 768 (bf16 at 192 and 384 on the tensor
+// cores, the rest in the SIMT form), H a multiple of 64 and at least D,
+// tile_rows and Tp multiples of 64. No workspace.
 extern "C" int ssmv_expert_ffn_bwd_defer(
     const void* xs, const void* dy, const void* w1, const void* b1,
     const void* w2, const void* e_of_tile, const void* flags, void* dxs,
     void* dw1, void* db1, void* dw2, void* db2, int Tp, int D, int H, int E,
-    int tile_rows, void* stream) {
+    int tile_rows, int is_bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // H >= D: the first D / 32 chunk blocks of each expert take db2
+  // H >= D: the first D / 32 (D / 16) chunk blocks of each expert take db2
   if (Tp < kRows || Tp % kRows || H < 64 || H % 64 || H < D ||
       tile_rows % kRows || Tp % tile_rows || E < 1 || E > 65535)
     return (int)cudaErrorInvalidValue;
-  if (D == 384)
+  if (is_bf16 && D == 384)
     return (int)launch<384>(xs, dy, w1, b1, w2, e_of_tile, flags, dxs, dw1,
                             db1, dw2, db2, Tp, H, E, tile_rows, s);
-  if (D == 192)
+  if (is_bf16 && D == 192)
     return (int)launch<192>(xs, dy, w1, b1, w2, e_of_tile, flags, dxs, dw1,
                             db1, dw2, db2, Tp, H, E, tile_rows, s);
+#define SSMV_SIMT_DEFER(TT, DD)                                            \
+  if (D == DD)                                                             \
+    return (int)launch_simt<TT, DD>(xs, dy, w1, b1, w2, e_of_tile, flags,  \
+                                    dxs, dw1, db1, dw2, db2, Tp, H, E,     \
+                                    tile_rows, s);
+  if (is_bf16) {
+    SSMV_SIMT_DEFER(bf16, 768)
+  } else {
+    SSMV_SIMT_DEFER(float, 192)
+    SSMV_SIMT_DEFER(float, 384)
+    SSMV_SIMT_DEFER(float, 768)
+  }
+#undef SSMV_SIMT_DEFER
   return (int)cudaErrorInvalidValue;
 }

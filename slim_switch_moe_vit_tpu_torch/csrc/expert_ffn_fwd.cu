@@ -51,6 +51,9 @@
 //
 // Layout padding slots gather token 0 (in both forms) and yield finite rows
 // that the combine never reads.
+//
+// f32 at every D, and bf16 at D = 768, take the SIMT form at the end of
+// this file (expert_ffn_fwd_simt), with the same three entry points.
 #include <mma.h>
 
 #include "common.cuh"
@@ -233,51 +236,199 @@ cudaError_t launch(const void* xs, const void* gather_idx,
   return cudaGetLastError();
 }
 
+// The SIMT form: f32 at every D, and bf16 at D = 768.
+//
+// The WMMA layout above keeps a full-D x tile, a D-row W1 chunk and a
+// full-D W2 chunk on chip: about 335 KB at D = 768, over the 232,448-byte
+// cap, and 24 y fragments a warp. f32 has no exact tensor-core product
+// (single-pass TF32 keeps 10 mantissa bits), so f32 runs on the CUDA
+// cores. This kernel takes kSRows = 16 rows a block and streams H in
+// 32-wide chunks through one weight buffer, which holds the W1 chunk
+// (D x 33) for h and then the W2 chunk (32 x D+1) for y; y accumulates in
+// registers (2 rows x D/32 columns a thread). All products are f32 FMAs on
+// the activation-dtype operands, in the order of the WMMA form: h in f32
+// (+ b1), the exact erf GELU, g rounded to T, y += g . W2 in f32, + b2, one
+// rounding to T. A first, correct kernel: tensor-core tiling for D = 768
+// and faster f32 are kernel-speed work.
+using ssmv::kSHC;
+using ssmv::kSRows;
+using ssmv::simt_wbuf;
+
+template <typename T>
+__host__ __device__ constexpr size_t simt_fwd_smem(int d) {
+  return sizeof(T) * ((size_t)kSRows * d + simt_wbuf(d)) +
+         sizeof(float) * kSRows * kSHC;
+}
+
+template <typename T, int D, bool kGather, bool kPerm>
+__global__ void __launch_bounds__(kThreads, 1)
+expert_ffn_fwd_simt(const T* __restrict__ xs,
+                    const long long* __restrict__ gather_idx,
+                    const int* __restrict__ tile_perm,
+                    const T* __restrict__ w1, const float* __restrict__ b1,
+                    const T* __restrict__ w2, const float* __restrict__ b2,
+                    const int* __restrict__ e_of_tile, T* __restrict__ y,
+                    int H, int tile_rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Xs = reinterpret_cast<T*>(smem);      // kSRows x D
+  T* Wb = Xs + kSRows * D;                 // W1 chunk, then W2 chunk
+  float* Gs = reinterpret_cast<float*>(Wb + simt_wbuf(D));  // kSRows x kSHC
+
+  const int step_row0 = blockIdx.x * kSRows;
+  const int e = e_of_tile[step_row0 / tile_rows];
+  const int row0 = kPerm ? tile_perm[step_row0 / tile_rows] * tile_rows +
+                               step_row0 % tile_rows
+                         : step_row0;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const T* w1e = w1 + (size_t)e * D * H;
+  const T* w2e = w2 + (size_t)e * H * D;
+  const float* b1e = b1 + (size_t)e * H;
+  const float* b2e = b2 + (size_t)e * D;
+
+  for (int i = tid; i < kSRows * D; i += kThreads) {
+    const int r = i / D, c = i % D;
+    const size_t src = kGather ? (size_t)gather_idx[step_row0 + r]
+                               : (size_t)(row0 + r);
+    Xs[i] = xs[src * D + c];
+  }
+
+  constexpr int NJ = D / 32;  // y columns lane + 32 j of rows 2 warp + i
+  const int r0 = warp * 2;
+  float yacc[2][NJ];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) yacc[i][j] = 0.f;
+
+  for (int c0 = 0; c0 < H; c0 += kSHC) {
+    __syncthreads();  // last chunk's readers of Wb are done
+    for (int i = tid; i < D * kSHC; i += kThreads) {
+      const int k = i / kSHC, c = i % kSHC;
+      Wb[k * (kSHC + 1) + c] = w1e[(size_t)k * H + c0 + c];
+    }
+    __syncthreads();
+    float h0 = 0.f, h1 = 0.f;  // h of rows r0, r0 + 1 at chunk column lane
+    for (int k = 0; k < D; ++k) {
+      const float wv = ssmv::to_f32(Wb[k * (kSHC + 1) + lane]);
+      h0 = fmaf(ssmv::to_f32(Xs[r0 * D + k]), wv, h0);
+      h1 = fmaf(ssmv::to_f32(Xs[(r0 + 1) * D + k]), wv, h1);
+    }
+    const float bias = b1e[c0 + lane];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float hv = (i ? h1 : h0) + bias;
+      const float g = 0.5f * hv * (1.f + erff(hv * 0.70710678118654752f));
+      Gs[(r0 + i) * kSHC + lane] = ssmv::to_f32(ssmv::from_f32<T>(g));
+    }
+    __syncthreads();  // every warp is done with the W1 chunk
+    for (int i = tid; i < kSHC * D; i += kThreads) {
+      const int r = i / D, c = i % D;
+      Wb[r * (D + 1) + c] = w2e[(size_t)(c0 + r) * D + c];
+    }
+    __syncthreads();
+    for (int k = 0; k < kSHC; ++k) {
+      const float g0 = Gs[r0 * kSHC + k], g1 = Gs[(r0 + 1) * kSHC + k];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float wv = ssmv::to_f32(Wb[k * (D + 1) + lane + 32 * j]);
+        yacc[0][j] = fmaf(g0, wv, yacc[0][j]);
+        yacc[1][j] = fmaf(g1, wv, yacc[1][j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int c = lane + 32 * j;
+      y[(size_t)(row0 + r0 + i) * D + c] =
+          ssmv::from_f32<T>(yacc[i][j] + b2e[c]);
+    }
+}
+
+template <typename T, int D, bool kGather, bool kPerm>
+cudaError_t launch_simt(const void* xs, const void* gather_idx,
+                        const void* tile_perm, const void* w1, const void* b1,
+                        const void* w2, const void* b2, const void* e_of_tile,
+                        void* y, int Tp, int H, int tile_rows,
+                        cudaStream_t stream) {
+  const size_t smem = simt_fwd_smem<T>(D);
+  if (smem > ssmv::kMaxSmemBytes) return cudaErrorInvalidValue;
+  auto kernel = expert_ffn_fwd_simt<T, D, kGather, kPerm>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<Tp / kSRows, kThreads, smem, stream>>>(
+      static_cast<const T*>(xs), static_cast<const long long*>(gather_idx),
+      static_cast<const int*>(tile_perm), static_cast<const T*>(w1),
+      static_cast<const float*>(b1), static_cast<const T*>(w2),
+      static_cast<const float*>(b2), static_cast<const int*>(e_of_tile),
+      static_cast<T*>(y), H, tile_rows);
+  return cudaGetLastError();
+}
+
 template <bool kGather, bool kPerm>
 int dispatch(const void* xs, const void* gather_idx, const void* tile_perm,
              const void* w1, const void* b1, const void* w2, const void* b2,
              const void* e_of_tile, void* y, int Tp, int D, int H,
-             int tile_rows, void* stream) {
+             int tile_rows, int is_bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Tp < kRows || Tp % kRows || H < kHC || H % kHC || tile_rows % kRows ||
       (kPerm && Tp % tile_rows))
     return (int)cudaErrorInvalidValue;
-  if (D == 384)
+  if (is_bf16 && D == 384)
     return (int)launch<384, kGather, kPerm>(xs, gather_idx, tile_perm, w1,
                                             b1, w2, b2, e_of_tile, y, Tp, H,
                                             tile_rows, s);
-  if (D == 192)
+  if (is_bf16 && D == 192)
     return (int)launch<192, kGather, kPerm>(xs, gather_idx, tile_perm, w1,
                                             b1, w2, b2, e_of_tile, y, Tp, H,
                                             tile_rows, s);
+#define SSMV_SIMT_FWD(TT, DD)                                              \
+  if (D == DD)                                                             \
+    return (int)launch_simt<TT, DD, kGather, kPerm>(                       \
+        xs, gather_idx, tile_perm, w1, b1, w2, b2, e_of_tile, y, Tp, H,    \
+        tile_rows, s);
+  if (is_bf16) {
+    SSMV_SIMT_FWD(bf16, 768)
+  } else {
+    SSMV_SIMT_FWD(float, 192)
+    SSMV_SIMT_FWD(float, 384)
+    SSMV_SIMT_FWD(float, 768)
+  }
+#undef SSMV_SIMT_FWD
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// K3: xs (Tp, D) bf16, w1 (E, D, H) bf16, b1 (E, H) f32, w2 (E, H, D) bf16,
-// b2 (E, D) f32, e_of_tile (Tp / tile_rows,) int32 -> y (Tp, D) bf16; all
-// contiguous and 16-byte aligned. D is 192 or 384; H a multiple of 64;
+// K3: xs (Tp, D), w1 (E, D, H), w2 (E, H, D) of one activation dtype, bf16
+// (is_bf16 = 1) or f32 (is_bf16 = 0); b1 (E, H) f32, b2 (E, D) f32,
+// e_of_tile (Tp / tile_rows,) int32 -> y (Tp, D) in the activation dtype;
+// all contiguous and 16-byte aligned. D is 192, 384 or 768 (bf16 at 192 and
+// 384 on the tensor cores, the rest in the SIMT form); H a multiple of 64;
 // tile_rows and Tp multiples of 64.
 extern "C" int ssmv_expert_ffn_fwd(const void* xs, const void* w1,
                                    const void* b1, const void* w2,
                                    const void* b2, const void* e_of_tile,
                                    void* y, int Tp, int D, int H,
-                                   int tile_rows, void* stream) {
+                                   int tile_rows, int is_bf16, void* stream) {
   return dispatch<false, false>(xs, nullptr, nullptr, w1, b1, w2, b2,
-                                e_of_tile, y, Tp, D, H, tile_rows, stream);
+                                e_of_tile, y, Tp, D, H, tile_rows, is_bf16,
+                                stream);
 }
 
-// K9 forward: x (T, D) bf16 tokens and gather_idx (Tp,) int64, each in
-// [0, T); the rest as K3. Layout row s computes from x[gather_idx[s]].
+// K9 forward: x (T, D) tokens and gather_idx (Tp,) int64, each in [0, T);
+// the rest as K3. Layout row s computes from x[gather_idx[s]].
 extern "C" int ssmv_expert_ffn_fwd_gather(const void* x, const void* gather_idx,
                                           const void* w1, const void* b1,
                                           const void* w2, const void* b2,
                                           const void* e_of_tile, void* y,
                                           int Tp, int D, int H, int tile_rows,
-                                          void* stream) {
+                                          int is_bf16, void* stream) {
   return dispatch<true, false>(x, gather_idx, nullptr, w1, b1, w2, b2,
-                               e_of_tile, y, Tp, D, H, tile_rows, stream);
+                               e_of_tile, y, Tp, D, H, tile_rows, is_bf16,
+                               stream);
 }
 
 // K10 forward: tile_perm (Tp / tile_rows,) int32, a permutation of the row
@@ -289,7 +440,8 @@ extern "C" int ssmv_expert_ffn_fwd_perm(const void* xs, const void* w1,
                                         const void* b2, const void* e_of_step,
                                         const void* tile_perm, void* y,
                                         int Tp, int D, int H, int tile_rows,
-                                        void* stream) {
+                                        int is_bf16, void* stream) {
   return dispatch<false, true>(xs, nullptr, tile_perm, w1, b1, w2, b2,
-                               e_of_step, y, Tp, D, H, tile_rows, stream);
+                               e_of_step, y, Tp, D, H, tile_rows, is_bf16,
+                               stream);
 }

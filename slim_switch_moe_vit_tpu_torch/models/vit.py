@@ -1,15 +1,18 @@
 """Vision Transformer backbone (DeiT family), in PyTorch.
 
 Port of ``slim_switch_moe_vit_tpu/models/vit.py``: :class:`Attention`
-(:36-107) over the packed-qkv MHA kernel, :class:`Block` with its plain and
-residual-deferred forms (:146-168), and :class:`VisionTransformer` with the
-residual-deferred chain and the ``block_factory`` hook (:199-310). The
-distilled and pre-logits heads are not ported yet.
+(:36-107) over the packed-qkv MHA kernels with the JAX rule for when they
+run (:func:`attention_route`), :class:`Block` with its plain and
+residual-deferred forms (:146-168), :class:`VisionTransformer` with the
+residual-deferred chain and the ``block_factory`` hook (:199-310), and
+:func:`resize_pos_embed` (:334-346). The distilled and pre-logits heads are
+not ported yet.
 
 Training runs the same chain in ``model.train()``: every kernel wrapper is
 an autograd Function with its backward kernel. Stochastic depth draws from
-the ``generator`` passed to ``forward``; attention dropout and expert
-dropout raise (no kernel has a dropout path).
+the ``generator`` passed to ``forward``; attention dropout takes the plain
+attention with dropout on the probabilities, as the JAX XLA branch does;
+expert dropout raises.
 
 Residual-deferred chain: each block leaves its last branch output
 (``pending``) un-added; the next LayerNorm folds the add into its kernel.
@@ -19,26 +22,95 @@ the class token.
 """
 from __future__ import annotations
 
+import collections
+import math
 import typing as typ
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import flash_attention, fused_mha, fused_mha_reference
+from ..ops.attention import (MAX_N, flash_attention, fused_mha,
+                             fused_mha_reference)
 from .layers import Dense, DropPath, LayerNorm, Mlp, PatchEmbed, trunc_normal_
+
+# every attention forward's route, counted by name (see attention_route)
+ROUTE_COUNTS: collections.Counter = collections.Counter()
+
+
+def attention_route(N: int, training: bool, attn_drop: float,
+                    use_flash: bool) -> str:
+    """The path of one attention forward, chosen before any launch, by the
+    JAX package's rule (``Attention._fused_ok`` and its branches,
+    models/vit.py:50-101):
+
+    - ``"plain_dropout"``: training with ``attn_drop > 0``, the plain
+      attention with dropout on the probabilities (JAX's XLA branch);
+    - ``"flash"``: K11, for ``use_flash`` in eval;
+    - ``"plain"``: the plain attention through autograd for ``use_flash``
+      in training and for N > ``MAX_N`` = 1024 (JAX's XLA branch both);
+    - ``"k5"``: K5 in eval;
+    - ``"k5_k6"``: K5 and its backward K6 in training.
+
+    The kernels take head_dim 64 (every model of the port) and K11 takes
+    bf16; other shapes raise on the card."""
+    if training and attn_drop > 0.0:
+        return "plain_dropout"
+    if use_flash:
+        return "plain" if training else "flash"
+    if N > MAX_N:
+        return "plain"
+    return "k5_k6" if training else "k5"
+
+
+def plain_attention(qkv: torch.Tensor, num_heads: int, scale: float,
+                    attn_drop: float = 0.0) -> torch.Tensor:
+    """softmax(Q K^T * scale) V over packed qkv through autograd, as the JAX
+    XLA branch (vit.py:88-101): f32 scores and softmax, dropout on the
+    probabilities when ``attn_drop > 0`` (global generator), then cast to
+    v's dtype for the PV product."""
+    if attn_drop <= 0.0:
+        return fused_mha_reference(qkv, num_heads, scale)
+    B, N, C3 = qkv.shape
+    C = C3 // 3
+    q, k, v = (t.reshape(B, N, num_heads, C // num_heads).transpose(1, 2)
+               for t in qkv.split(C, dim=-1))
+    attn = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    attn = F.dropout(torch.softmax(attn, dim=-1), attn_drop, training=True)
+    out = torch.matmul(attn.to(v.dtype).float(), v.float())
+    return out.transpose(1, 2).reshape(B, N, C).to(qkv.dtype)
+
+
+def resize_pos_embed(pos_embed: torch.Tensor, num_extra_tokens: int,
+                     new_grid: int) -> torch.Tensor:
+    """Bicubic resize of the position embedding's patch grid to
+    ``new_grid`` x ``new_grid`` (the extra tokens kept), as the JAX
+    package's ``resize_pos_embed`` (models/vit.py:334-346).
+    ``jax.image.resize(..., "bicubic")`` is the Keys kernel with a = -0.5
+    and antialiasing; torch's plain bicubic uses a = -0.75, its antialiased
+    form the JAX one, so that is the form taken here."""
+    extra = pos_embed[:, :num_extra_tokens]
+    grid = pos_embed[:, num_extra_tokens:]
+    orig = int(math.sqrt(grid.shape[1]))
+    D = grid.shape[-1]
+    grid = grid.reshape(1, orig, orig, D).permute(0, 3, 1, 2).float()
+    grid = F.interpolate(grid, size=(new_grid, new_grid), mode="bicubic",
+                         align_corners=False, antialias=True)
+    grid = grid.permute(0, 2, 3, 1).reshape(1, new_grid * new_grid, D)
+    return torch.cat([extra, grid.to(pos_embed.dtype)], dim=1)
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention: qkv GEMM, the packed-qkv MHA kernel, proj
+    """Multi-head self-attention: qkv GEMM, the packed-qkv attention on the
+    route :func:`attention_route` picks (counted in ``ROUTE_COUNTS``), proj
     GEMM.
 
     With ``use_flash``, an eval forward takes the online-softmax kernel
-    (K11) and a training forward the plain attention of
-    ``fused_mha_reference`` (autograd through f32 scores and softmax): the
-    JAX package's own choice, whose ``_fused_ok`` turns the fused kernel off
-    under ``use_flash`` and whose flash call is for deterministic forwards
-    only (vit.py:50-101)."""
+    (K11) and a training forward the plain attention (autograd through f32
+    scores and softmax): the JAX package's own choice, whose ``_fused_ok``
+    turns the fused kernel off under ``use_flash`` and whose flash call is
+    for deterministic forwards only (vit.py:50-101)."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  attn_drop: float = 0.0, proj_drop: float = 0.0,
@@ -52,18 +124,20 @@ class Attention(nn.Module):
         self.proj_drop = nn.Dropout(proj_drop)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and self.attn_drop > 0.0:
-            raise NotImplementedError(
-                "attention dropout: the MHA kernels have no dropout path")
-        C = x.shape[-1]
+        _, N, C = x.shape
         scale = (C // self.num_heads) ** -0.5
         qkv = self.qkv(x)
-        if not self.use_flash:
+        route = attention_route(N, self.training, self.attn_drop,
+                                self.use_flash)
+        ROUTE_COUNTS[route] += 1
+        if route in ("k5", "k5_k6"):
             out = fused_mha(qkv, self.num_heads, scale)
-        elif self.training:
-            out = fused_mha_reference(qkv, self.num_heads, scale)
-        else:
+        elif route == "flash":
             out = flash_attention(qkv, self.num_heads, scale)
+        else:
+            out = plain_attention(
+                qkv, self.num_heads, scale,
+                self.attn_drop if route == "plain_dropout" else 0.0)
         return self.proj_drop(self.proj(out))
 
 

@@ -33,19 +33,25 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _D = ctypes.c_double
+_L = ctypes.c_longlong
 # C signatures of the entry points (argtypes, restype int = cudaError_t)
 _SIGNATURES = {
     "ssmv_mha_fwd": (_P, _P, _I, _I, _I, _I, _F, _I, _P),
-    "ssmv_expert_ffn_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "ssmv_mha_bwd": (_P, _P, _P, _I, _I, _I, _I, _F, _P),
-    "ssmv_expert_ffn_bwd": (_P,) * 14 + (_I, _I, _I, _I, _I, _P),
-    "ssmv_expert_ffn_fwd_gather": (_P,) * 8 + (_I, _I, _I, _I, _P),
-    "ssmv_expert_ffn_bwd_gather": (_P,) * 15 + (_I, _I, _I, _I, _I, _P),
-    "ssmv_expert_ffn_bwd_defer": (_P,) * 12 + (_I, _I, _I, _I, _I, _P),
-    "ssmv_expert_ffn_fwd_perm": (_P,) * 8 + (_I, _I, _I, _I, _P),
-    "ssmv_expert_ffn_bwd_perm": (_P,) * 15 + (_I, _I, _I, _I, _I, _P),
+    "ssmv_expert_ffn_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _P),
+    "ssmv_mha_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    "ssmv_expert_ffn_bwd": (_P,) * 14 + (_I, _I, _I, _I, _I, _I, _P),
+    "ssmv_expert_ffn_fwd_gather": (_P,) * 8 + (_I, _I, _I, _I, _I, _P),
+    "ssmv_expert_ffn_bwd_gather": (_P,) * 15 + (_I, _I, _I, _I, _I, _I, _P),
+    "ssmv_expert_ffn_bwd_defer": (_P,) * 12 + (_I, _I, _I, _I, _I, _I, _P),
+    "ssmv_expert_ffn_fwd_perm": (_P,) * 8 + (_I, _I, _I, _I, _I, _P),
+    "ssmv_expert_ffn_bwd_perm": (_P,) * 15 + (_I, _I, _I, _I, _I, _I, _P),
     "ssmv_flash_fwd": (_P, _P, _I, _I, _I, _I, _F, _P),
     "ssmv_fused_adamw": (_P, _I) + (_F,) * 9 + (_D, _D, _D, _P),
+    "ssmv_mha_proj_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    "ssmv_mha_proj_max_n": (_I,),
+    "ssmv_gather_rows": (_P, _P, _I, _P, _L, _I, _I, _P),
+    "ssmv_scatter_add_rows": (_P, _P, _P, _P, _L, _I, _I, _P),
 }
 
 

@@ -1,12 +1,14 @@
 """Multi-head attention over the packed qkv tensor, forward (K5) and
-backward (K6), and the online-softmax forward (K11), for the H100.
+backward (K6), the online-softmax forward (K11) and the forward with the
+output projection folded in (K12), for the H100.
 
-Replaces three Pallas kernels of ``slim_switch_moe_vit_tpu/ops/attention.py``:
+Replaces four Pallas kernels of ``slim_switch_moe_vit_tpu/ops/attention.py``:
 ``_mha_fwd_kernel`` (:168) behind ``_mha_fwd_call`` (:279) and ``fused_mha``
-(:296), ``_mha_bwd_kernel`` (:203) behind ``_fused_mha_bwd`` (:312), and
-``_flash_kernel`` (:35) behind ``flash_attention`` (:120). The CUDA C++
-kernels are ``csrc/mha_fwd.cu``, ``csrc/mha_bwd.cu`` and
-``csrc/flash_fwd.cu``; their
+(:296), ``_mha_bwd_kernel`` (:203) behind ``_fused_mha_bwd`` (:312),
+``_flash_kernel`` (:35) behind ``flash_attention`` (:120), and
+``_mha_fwd_proj_kernel`` (:335) behind ``fused_mha_proj`` (:393). The CUDA
+C++ kernels are ``csrc/mha_fwd.cu``, ``csrc/mha_bwd.cu``,
+``csrc/flash_fwd.cu`` and ``csrc/mha_proj_fwd.cu``; their
 header notes say what bounds them on the card and how their designs answer
 that. In short: at ViT lengths the whole score matrix of a (sample, head)
 pair fits on chip, so the forward reads the packed (B, N, 3C) qkv once and
@@ -21,7 +23,16 @@ raises. The autograd Functions save qkv, as the JAX VJPs do
 (attention.py:308-310, :125-127). The flash forward's backward recomputes
 through the plain version with ``torch.matmul``, as the JAX package's
 ``_fa_bwd`` differentiates its XLA oracle outside any kernel
-("correctness-first", :129-133).
+("correctness-first", :129-133); so does K12's, as the JAX VJP
+(:421-428) differentiates its unfused reference.
+
+Shapes: every kernel takes head_dim 64, the width of every model of the
+port. K5 and K6 take N <= ``MAX_N`` = 1024, the lengths the JAX package
+runs its kernels at (``Attention._fused_ok``), in bf16 and f32; K11 takes
+bf16 at any N; K12 takes N up to :func:`mha_proj_max_n` (its layout holds
+the whole score row: 416 in bf16, 272 in f32) and C <= 768. Outside these a
+CUDA tensor raises; ``models/vit.py::attention_route`` chooses a path
+before any launch.
 """
 from __future__ import annotations
 
@@ -29,6 +40,17 @@ import torch
 
 from . import _build
 from ._checks import check_tensor
+
+HEAD_DIM = 64       # the head width every attention kernel takes
+MAX_N = 1024        # K5 and K6 take N up to the JAX package's kernel rule
+K12_MAX_C = 768     # K12's f32 accumulator: QT / 8 rows x C / 32 a thread
+
+
+def mha_proj_max_n(dtype: torch.dtype) -> int:
+    """Largest N K12 takes in ``dtype``, as its CUDA source computes it from
+    its shared-memory layout (one source of truth)."""
+    lib = _build.load_library()
+    return lib.ssmv_mha_proj_max_n(int(dtype == torch.bfloat16))
 
 
 def fused_mha_reference(qkv: torch.Tensor, num_heads: int,
@@ -84,9 +106,14 @@ def _check_qkv(qkv, num_heads, dtypes):
                          f"{num_heads} heads, got {tuple(qkv.shape)}")
     B, N, C3 = qkv.shape
     d = C3 // 3 // num_heads
-    if d != 64:
-        raise ValueError(f"the MHA kernels take head_dim 64, got {d}")
+    if d != HEAD_DIM:
+        raise ValueError(f"the MHA kernels take head_dim {HEAD_DIM}, got {d}")
     return B, N, C3 // 3, d
+
+
+def _check_n(N, cap, what):
+    if N > cap:
+        raise ValueError(f"{what}: the kernel takes N <= {cap}, got {N}")
 
 
 def fused_mha_bwd(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
@@ -94,15 +121,17 @@ def fused_mha_bwd(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
     """d(qkv) of softmax(Q K^T * scale) V (K6), in the packed layout."""
     if not qkv.is_cuda:
         return reference_mha_bwd(qkv, do, num_heads, scale)
-    B, N, C, d = _check_qkv(qkv, num_heads, (torch.bfloat16,))
-    if N > 208:
-        raise ValueError(f"the MHA backward kernel takes N <= 208, got {N}")
-    check_tensor(do, "do", (torch.bfloat16,), device=qkv.device,
-                 shape=(B, N, C))
+    B, N, C, d = _check_qkv(qkv, num_heads, (torch.bfloat16, torch.float32))
+    _check_n(N, MAX_N, "fused_mha_bwd")
+    check_tensor(do, "do", (qkv.dtype,), device=qkv.device, shape=(B, N, C))
     dqkv = torch.empty_like(qkv)
+    # the row statistics of the long form (N > 208), unused below
+    stats = torch.empty(B * num_heads * N * 3, dtype=torch.float32,
+                        device=qkv.device)
     lib = _build.load_library()
-    err = lib.ssmv_mha_bwd(qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(), B,
-                           N, num_heads, d, float(scale),
+    err = lib.ssmv_mha_bwd(qkv.data_ptr(), do.data_ptr(), dqkv.data_ptr(),
+                           stats.data_ptr(), B, N, num_heads, d, float(scale),
+                           int(qkv.dtype == torch.bfloat16),
                            torch.cuda.current_stream().cuda_stream)
     _build.check(err, "fused_mha_bwd")
     fused_mha_bwd.launches += 1
@@ -113,6 +142,7 @@ def _mha_forward(qkv, num_heads, scale):
     if not qkv.is_cuda:
         return fused_mha_reference(qkv, num_heads, scale)
     B, N, C, d = _check_qkv(qkv, num_heads, (torch.bfloat16, torch.float32))
+    _check_n(N, MAX_N, "fused_mha")
     out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
     lib = _build.load_library()
     err = lib.ssmv_mha_fwd(qkv.data_ptr(), out.data_ptr(), B, N, num_heads, d,
@@ -192,10 +222,87 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(qkv: torch.Tensor, num_heads: int,
                     scale: float) -> torch.Tensor:
     """Online-softmax attention (K11) over packed qkv: the same function as
-    :func:`fused_mha`, for any N (K5 keeps the whole score row on chip)."""
+    :func:`fused_mha`, for any N (K5 keeps the whole score row on chip);
+    bf16 only on the card."""
     return _FlashAttention.apply(qkv, num_heads, scale)
+
+
+def fused_mha_proj_reference(qkv: torch.Tensor, wp: torch.Tensor,
+                             bp: torch.Tensor, num_heads: int,
+                             scale: float) -> torch.Tensor:
+    """Plain version of K12, as the JAX package's ``_mha_proj_ref``:
+    :func:`fused_mha_reference`, its output times Wp (cast to qkv's dtype)
+    with f32 sums, rounded to qkv's dtype, plus bp rounded to qkv's
+    dtype."""
+    dt = qkv.dtype
+    o = fused_mha_reference(qkv, num_heads, scale)
+    y = torch.matmul(o.float(), wp.to(dt).float()).to(dt)
+    return y + bp.to(dt)
+
+
+def _check_proj(qkv, wp, bp, num_heads):
+    B, N, C, d = _check_qkv(qkv, num_heads, (torch.bfloat16, torch.float32))
+    _check_n(N, mha_proj_max_n(qkv.dtype), "fused_mha_proj")
+    if C > K12_MAX_C:
+        raise ValueError(f"fused_mha_proj: the kernel takes C <= {K12_MAX_C}, "
+                         f"got {C}")
+    check_tensor(wp, "wp", (qkv.dtype,), device=qkv.device, shape=(C, C))
+    check_tensor(bp, "bp", (torch.float32,), device=qkv.device, shape=(C,))
+    return B, N, C, d
+
+
+def _mha_proj_forward(qkv, wp, bp, num_heads, scale):
+    if not qkv.is_cuda:
+        return fused_mha_proj_reference(qkv, wp, bp, num_heads, scale)
+    wp, bp = wp.to(qkv.dtype), bp.float()  # the JAX wrapper's casts (:391)
+    B, N, C, d = _check_proj(qkv, wp, bp, num_heads)
+    y = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
+    lib = _build.load_library()
+    err = lib.ssmv_mha_proj_fwd(qkv.data_ptr(), wp.data_ptr(), bp.data_ptr(),
+                                y.data_ptr(), B, N, num_heads, d, float(scale),
+                                int(qkv.dtype == torch.bfloat16),
+                                torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "fused_mha_proj")
+    fused_mha_proj.launches += 1
+    return y
+
+
+class _FusedMHAProj(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, qkv, wp, bp, num_heads, scale):
+        ctx.num_heads, ctx.scale = num_heads, scale
+        ctx.save_for_backward(qkv, wp, bp)
+        return _mha_proj_forward(qkv, wp, bp, num_heads, scale)
+
+    @staticmethod
+    def backward(ctx, dy):
+        qkv, wp, bp = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in (qkv, wp, bp)]
+            y = fused_mha_proj_reference(*leaves, ctx.num_heads, ctx.scale)
+            grads = torch.autograd.grad(y, leaves, dy.to(qkv.dtype))
+        return (*grads, None, None)
+
+
+def fused_mha_proj(qkv: torch.Tensor, wp: torch.Tensor, bp: torch.Tensor,
+                   num_heads: int, scale: float) -> torch.Tensor:
+    """softmax(Q K^T * scale) V @ Wp + bp over packed qkv in one kernel
+    (K12): y = sum over heads of o_h Wp[h*d:(h+1)*d] + bp, each o_h rounded
+    to qkv's dtype, f32 sums. An op, as in the JAX package: no model path
+    calls it (the JAX ``Attention`` keeps the unfused proj, measured faster
+    on the TPU). Its backward differentiates :func:`fused_mha_proj_reference`.
+
+    Args:
+        qkv: (B, N, 3C), as :func:`fused_mha`.
+        wp: (C, C), y = o @ wp; cast to qkv's dtype.
+        bp: (C,); cast to f32.
+    Returns:
+        (B, N, C) in qkv's dtype.
+    """
+    return _FusedMHAProj.apply(qkv, wp, bp, num_heads, scale)
 
 
 fused_mha.launches = 0
 fused_mha_bwd.launches = 0
 flash_attention.launches = 0
+fused_mha_proj.launches = 0

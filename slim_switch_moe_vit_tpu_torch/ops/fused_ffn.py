@@ -31,6 +31,14 @@ Layout contract (``ops/moe.py::aligned_expert_layout``): rows are sorted by
 expert and every ``TILE_ROWS``-row tile belongs to one expert,
 ``e_of_tile[tile]``.
 
+Shapes and types: D in ``KERNEL_DIMS`` (192, 384, 768), H a multiple of
+64, activations and expert weights in one dtype, bf16 or f32 (the biases
+f32). bf16 at D 192 and 384 runs on the tensor cores (WMMA); f32 at every
+D and bf16 at D = 768 run in each source's SIMT form (f32 FMAs on the CUDA
+cores: the WMMA layouts' full-D tiles exceed shared memory at D = 768, and
+f32 has no exact tensor-core product), with the same arithmetic. Anything
+else raises on a CUDA tensor.
+
 GELU and its derivative are the exact erf forms at every dtype. The JAX
 package evaluates them for bf16 with odd polynomials (``gelu_fast``, within
 5.7e-4 of exact; gelu' within 1.5e-3), a TPU VPU policy that is not ported.
@@ -177,18 +185,23 @@ def reference_expert_ffn_bwd_defer(xs, w1, b1, w2, e_of_tile, dy):
                       bwd_flags(e_of_tile).tolist())
 
 
-def _check_weights(Tp, D, dev, w1, b1, w2, b2, e_of_tile):
+KERNEL_DIMS = (192, 384, 768)  # the D the expert-FFN kernels take
+KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _check_weights(Tp, D, dt, dev, w1, b1, w2, b2, e_of_tile):
     if w1.dim() != 3:
         raise ValueError(f"w1 must be (E, D, H), got {tuple(w1.shape)}")
     E, _, H = w1.shape
-    if D not in (192, 384):
-        raise ValueError(f"the expert-FFN kernels take D 192 or 384, got {D}")
+    if D not in KERNEL_DIMS:
+        raise ValueError(f"the expert-FFN kernels take D in {KERNEL_DIMS}, "
+                         f"got {D}")
     if H % 64 or Tp % TILE_ROWS:
         raise ValueError(f"H ({H}) must be a multiple of 64 and Tp ({Tp}) of "
                          f"{TILE_ROWS}")
-    check_tensor(w1, "w1", (torch.bfloat16,), device=dev, shape=(E, D, H))
+    check_tensor(w1, "w1", (dt,), device=dev, shape=(E, D, H))
     check_tensor(b1, "b1", (torch.float32,), device=dev, shape=(E, H))
-    check_tensor(w2, "w2", (torch.bfloat16,), device=dev, shape=(E, H, D))
+    check_tensor(w2, "w2", (dt,), device=dev, shape=(E, H, D))
     if b2 is not None:
         check_tensor(b2, "b2", (torch.float32,), device=dev, shape=(E, D))
     check_tensor(e_of_tile, "e_of_tile", (torch.int32,), device=dev,
@@ -197,22 +210,22 @@ def _check_weights(Tp, D, dev, w1, b1, w2, b2, e_of_tile):
 
 
 def _check_ffn(xs, w1, b1, w2, b2, e_of_tile):
-    check_tensor(xs, "xs", (torch.bfloat16,))
+    check_tensor(xs, "xs", KERNEL_DTYPES)
     if xs.dim() != 2:
         raise ValueError(f"xs must be (Tp, D), got {tuple(xs.shape)}")
     Tp, D = xs.shape
-    return (Tp, D, *_check_weights(Tp, D, xs.device, w1, b1, w2, b2,
-                                   e_of_tile))
+    return (Tp, D, *_check_weights(Tp, D, xs.dtype, xs.device, w1, b1, w2,
+                                   b2, e_of_tile))
 
 
 def _check_gather(x, gather_idx, w1, b1, w2, b2, e_of_tile):
-    check_tensor(x, "x", (torch.bfloat16,))
+    check_tensor(x, "x", KERNEL_DTYPES)
     if x.dim() != 2 or gather_idx.dim() != 1:
         raise ValueError(f"x must be (T, D) and gather_idx (Tp,), got "
                          f"{tuple(x.shape)} and {tuple(gather_idx.shape)}")
     Tp, D = gather_idx.shape[0], x.shape[1]
     check_tensor(gather_idx, "gather_idx", (torch.int64,), device=x.device)
-    return (Tp, D, *_check_weights(Tp, D, x.device, w1, b1, w2, b2,
+    return (Tp, D, *_check_weights(Tp, D, x.dtype, x.device, w1, b1, w2, b2,
                                    e_of_tile))
 
 
@@ -230,23 +243,35 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
+def _is_bf16(t) -> int:
+    return int(t.dtype == torch.bfloat16)
+
+
+def _workspace(Tp, H, like):
+    """(ws_dh, ws_g, ws_db1) of the backward kernels: (Tp, H) in the
+    activation dtype twice, and the dh partials, one f32 row per 16 rows
+    (the WMMA form fills one per 64)."""
+    ws_dh = torch.empty((Tp, H), dtype=like.dtype, device=like.device)
+    return (ws_dh, torch.empty_like(ws_dh),
+            torch.empty((Tp // 16, H), dtype=torch.float32,
+                        device=like.device))
+
+
 def fused_expert_ffn_bwd(xs, w1, b1, w2, e_of_tile, dy):
     """(dx, dw1, db1, dw2, db2) of :func:`fused_expert_ffn` (K4) for the
     cotangent dy (zero at padding slots, as the combine backward gives)."""
     if not xs.is_cuda:
         return reference_expert_ffn_bwd(xs, w1, b1, w2, e_of_tile, dy)
     Tp, D, H, E = _check_ffn(xs, w1, b1, w2, None, e_of_tile)
-    check_tensor(dy, "dy", (torch.bfloat16,), device=xs.device, shape=(Tp, D))
+    check_tensor(dy, "dy", (xs.dtype,), device=xs.device, shape=(Tp, D))
     out = _bwd_outputs(Tp, D, H, E, xs, w1, w2)
-    ws_dh = torch.empty((Tp, H), dtype=xs.dtype, device=xs.device)
-    ws_g = torch.empty_like(ws_dh)
-    ws_db1 = torch.empty((Tp // 64, H), dtype=torch.float32, device=xs.device)
+    ws_dh, ws_g, ws_db1 = _workspace(Tp, H, xs)
     lib = _build.load_library()
     err = lib.ssmv_expert_ffn_bwd(
         xs.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), e_of_tile.data_ptr(), *(t.data_ptr() for t in out),
         ws_dh.data_ptr(), ws_g.data_ptr(), ws_db1.data_ptr(), Tp, D, H, E,
-        TILE_ROWS, _stream())
+        TILE_ROWS, _is_bf16(xs), _stream())
     _build.check(err, "fused_expert_ffn_bwd")
     fused_expert_ffn_bwd.launches += 1
     return out
@@ -259,7 +284,7 @@ def fused_expert_ffn_bwd_defer(xs, w1, b1, w2, e_of_tile, dy):
     if not xs.is_cuda:
         return reference_expert_ffn_bwd_defer(xs, w1, b1, w2, e_of_tile, dy)
     Tp, D, H, E = _check_ffn(xs, w1, b1, w2, None, e_of_tile)
-    check_tensor(dy, "dy", (torch.bfloat16,), device=xs.device, shape=(Tp, D))
+    check_tensor(dy, "dy", (xs.dtype,), device=xs.device, shape=(Tp, D))
     if H < D:
         raise ValueError(f"the deferred-dW kernel needs H ({H}) >= D ({D})")
     flags = bwd_flags(e_of_tile)
@@ -268,7 +293,8 @@ def fused_expert_ffn_bwd_defer(xs, w1, b1, w2, e_of_tile, dy):
     err = lib.ssmv_expert_ffn_bwd_defer(
         xs.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), e_of_tile.data_ptr(), flags.data_ptr(),
-        *(t.data_ptr() for t in out), Tp, D, H, E, TILE_ROWS, _stream())
+        *(t.data_ptr() for t in out), Tp, D, H, E, TILE_ROWS, _is_bf16(xs),
+        _stream())
     _build.check(err, "fused_expert_ffn_bwd_defer")
     fused_expert_ffn_bwd_defer.launches += 1
     return out
@@ -282,17 +308,15 @@ def fused_expert_ffn_gather_bwd(x, gather_idx, w1, b1, w2, e_of_tile, dy):
         return reference_expert_ffn_bwd(x.index_select(0, gather_idx), w1, b1,
                                         w2, e_of_tile, dy)
     Tp, D, H, E = _check_gather(x, gather_idx, w1, b1, w2, None, e_of_tile)
-    check_tensor(dy, "dy", (torch.bfloat16,), device=x.device, shape=(Tp, D))
+    check_tensor(dy, "dy", (x.dtype,), device=x.device, shape=(Tp, D))
     out = _bwd_outputs(Tp, D, H, E, x, w1, w2)
-    ws_dh = torch.empty((Tp, H), dtype=x.dtype, device=x.device)
-    ws_g = torch.empty_like(ws_dh)
-    ws_db1 = torch.empty((Tp // 64, H), dtype=torch.float32, device=x.device)
+    ws_dh, ws_g, ws_db1 = _workspace(Tp, H, x)
     lib = _build.load_library()
     err = lib.ssmv_expert_ffn_bwd_gather(
         x.data_ptr(), gather_idx.data_ptr(), dy.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), e_of_tile.data_ptr(),
         *(t.data_ptr() for t in out), ws_dh.data_ptr(), ws_g.data_ptr(),
-        ws_db1.data_ptr(), Tp, D, H, E, TILE_ROWS, _stream())
+        ws_db1.data_ptr(), Tp, D, H, E, TILE_ROWS, _is_bf16(x), _stream())
     _build.check(err, "fused_expert_ffn_gather_bwd")
     fused_expert_ffn_gather_bwd.launches += 1
     return out
@@ -343,17 +367,15 @@ def fused_expert_ffn_permuted_bwd(xs, w1, b1, w2, e_of_step, tile_perm, dy):
                                                  tile_perm, dy)
     Tp, D, H, E = _check_ffn(xs, w1, b1, w2, None, e_of_step)
     _check_perm(Tp, xs.device, tile_perm)
-    check_tensor(dy, "dy", (torch.bfloat16,), device=xs.device, shape=(Tp, D))
+    check_tensor(dy, "dy", (xs.dtype,), device=xs.device, shape=(Tp, D))
     out = _bwd_outputs(Tp, D, H, E, xs, w1, w2)
-    ws_dh = torch.empty((Tp, H), dtype=xs.dtype, device=xs.device)
-    ws_g = torch.empty_like(ws_dh)
-    ws_db1 = torch.empty((Tp // 64, H), dtype=torch.float32, device=xs.device)
+    ws_dh, ws_g, ws_db1 = _workspace(Tp, H, xs)
     lib = _build.load_library()
     err = lib.ssmv_expert_ffn_bwd_perm(
         xs.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), e_of_step.data_ptr(), tile_perm.data_ptr(),
         *(t.data_ptr() for t in out), ws_dh.data_ptr(), ws_g.data_ptr(),
-        ws_db1.data_ptr(), Tp, D, H, E, TILE_ROWS, _stream())
+        ws_db1.data_ptr(), Tp, D, H, E, TILE_ROWS, _is_bf16(xs), _stream())
     _build.check(err, "fused_expert_ffn_permuted_bwd")
     fused_expert_ffn_permuted_bwd.launches += 1
     return out
@@ -375,7 +397,7 @@ def _ffn_forward(xs, w1, b1, w2, b2, e_of_tile):
     err = lib.ssmv_expert_ffn_fwd(
         xs.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), e_of_tile.data_ptr(), y.data_ptr(), Tp, D, H,
-        TILE_ROWS, _stream())
+        TILE_ROWS, _is_bf16(xs), _stream())
     _build.check(err, "fused_expert_ffn")
     fused_expert_ffn.launches += 1
     return y
@@ -391,7 +413,7 @@ def _ffn_gather_forward(x, gather_idx, w1, b1, w2, b2, e_of_tile):
     err = lib.ssmv_expert_ffn_fwd_gather(
         x.data_ptr(), gather_idx.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), b2.data_ptr(), e_of_tile.data_ptr(), y.data_ptr(), Tp,
-        D, H, TILE_ROWS, _stream())
+        D, H, TILE_ROWS, _is_bf16(x), _stream())
     _build.check(err, "fused_expert_ffn_gather")
     fused_expert_ffn_gather.launches += 1
     return y
@@ -408,7 +430,7 @@ def _ffn_perm_forward(xs, w1, b1, w2, b2, e_of_step, tile_perm):
     err = lib.ssmv_expert_ffn_fwd_perm(
         xs.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), e_of_step.data_ptr(), tile_perm.data_ptr(),
-        y.data_ptr(), Tp, D, H, TILE_ROWS, _stream())
+        y.data_ptr(), Tp, D, H, TILE_ROWS, _is_bf16(xs), _stream())
     _build.check(err, "fused_expert_ffn_permuted")
     fused_expert_ffn_permuted.launches += 1
     return y

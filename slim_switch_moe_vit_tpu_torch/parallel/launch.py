@@ -97,13 +97,16 @@ def moe_layer_worker(in_path: str, out_dir: str, dp: int, ep: int,
     key]) of ``runs`` (forms of :data:`EP_FORMS`) on a dp x ep layout.
     Inputs (``in_path``): x (T, d), the cotangent weights c (T, d),
     router_w, router_b (or the array the run names) and the full expert
-    tensors, and ``top_k``. Each rank takes its data shard of x and
-    c and its experts, computes y and the aux metrics, and backpropagates
-    sum(y * c). Saved per run: y, dx (this data shard), the aux values, the
-    router gradients and this rank's expert gradients, each summed over the
-    data group (the gradient of the whole batch's loss), the launch counts
-    of the checked call, its fwd+bwd time over ``timing_reps`` more calls
-    and the rank's peak memory."""
+    tensors, ``top_k`` and optionally ``balance_weight`` (0 without it).
+    Each rank takes its data shard of x and c and its experts, computes y
+    and the aux metrics, and backpropagates its share of the whole batch's
+    loss sum(y * c) + balance_weight * balance_loss: its rows' sum(y * c)
+    and balance_weight / dp times the balance loss (every data shard holds
+    the batch's value). Saved per run: y, dx (this data shard), the aux
+    values, the router gradients and this rank's expert gradients, each
+    summed over the data group (the gradient of the whole batch's loss),
+    the launch counts of the checked call, its fwd+bwd time over
+    ``timing_reps`` more calls and the rank's peak memory."""
     from .. import ops
     from ..ops import moe as moe_ops
 
@@ -121,6 +124,8 @@ def moe_layer_worker(in_path: str, out_dir: str, dp: int, ep: int,
 
     act = getattr(torch, dtype)
     c = tensor("c", rows, act)
+    balance_weight = (float(data["balance_weight"])
+                      if "balance_weight" in data.files else 0.0)
     arrays, record = {}, {}
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -137,7 +142,10 @@ def moe_layer_worker(in_path: str, out_dir: str, dp: int, ep: int,
         def step():
             y, aux = fn(x, *params.values(), mesh=mesh,
                         top_k=int(data["top_k"]), capacity_factor=factor)
-            (y.float() * c.float()).sum().backward()
+            loss = (y.float() * c.float()).sum()
+            if balance_weight:
+                loss = loss + balance_weight / dp * aux["balance_loss"]
+            loss.backward()
             return y, aux
 
         ops.reset_launch_counts()

@@ -18,6 +18,13 @@ A request carries raw uint8 NHWC images; the serving forward normalizes
 them on the device, runs the model in its compute dtype (bf16 by default)
 and returns f32 logits.
 
+The CLI (:func:`main`) takes the weights from ``--checkpoint``: this
+package's ``utils/checkpoint.py::save_checkpoint`` output (the driver's
+checkpoint, the gates' buffers included), with ``--use-ema`` its EMA, or a
+``.npz`` of the JAX package's param tree; a ``pos_embed`` trained at
+another resolution is resized to ``--img-size`` (:func:`checkpoint_state`,
+as the JAX CLI, :258-311 there).
+
 Every entry point takes its device explicitly and defaults to ``cuda``:
 where CUDA is unavailable and ``cpu`` was not asked for, it raises instead
 of running on the CPU. The manifest records the device the artifact was
@@ -201,8 +208,13 @@ def _cli_parser():
     p.add_argument("--model", required=True)
     p.add_argument("--output", required=True)
     p.add_argument("--checkpoint", default="",
-                   help=".npz of the JAX package's param tree, keys joined "
-                        "by '/' (random weights from seed 0 when empty)")
+                   help="a checkpoint written by the training driver "
+                        "(utils/checkpoint.py::save_checkpoint), or an .npz "
+                        "of the JAX package's param tree, keys joined by "
+                        "'/' (random weights from seed 0 when empty)")
+    p.add_argument("--use-ema", action="store_true",
+                   help="serve the checkpoint's EMA of the parameters; "
+                        "refuses a checkpoint without one")
     p.add_argument("--num-classes", type=int, default=1000)
     p.add_argument("--img-size", type=int, default=224)
     p.add_argument("--dtype", default="bfloat16",
@@ -214,6 +226,45 @@ def _cli_parser():
     return p
 
 
+def checkpoint_state(path: str, model: torch.nn.Module,
+                     use_ema: bool = False) -> dict:
+    """The ``state_dict`` to serve ``model`` with, from ``path``: the
+    training driver's checkpoint (its model state, the gates' buffers
+    included; with ``use_ema`` its EMA in place of the parameters), or a
+    ``.npz`` of the JAX package's param tree. A ``pos_embed`` whose grid
+    differs from the model's is resized bicubically (``resize_pos_embed``),
+    as the JAX CLI serves a checkpoint at another resolution."""
+    from ..models.vit import resize_pos_embed
+
+    if path.endswith(".npz"):
+        from ..utils.checkpoint import from_jax_params, load_npz_tree
+
+        if use_ema:
+            raise ValueError("--use-ema: a .npz param tree has no EMA "
+                             "shadow; refusing to silently serve the raw "
+                             "weights")
+        state = from_jax_params(load_npz_tree(path))
+    else:
+        payload = torch.load(os.path.abspath(path), map_location="cpu",
+                             weights_only=True)
+        state = dict(payload["model"])
+        if use_ema:
+            ema = payload.get("ema_params")
+            if ema is None:
+                raise ValueError(
+                    "--use-ema: checkpoint has no EMA shadow (trained "
+                    "without --model-ema?); refusing to silently serve the "
+                    "raw weights")
+            state.update(ema)
+    want = getattr(model, "pos_embed", None)
+    got = state.get("pos_embed")
+    if want is not None and got is not None and got.shape != want.shape:
+        num_patches = model.patch_embed.num_patches
+        state["pos_embed"] = resize_pos_embed(
+            got, want.shape[1] - num_patches, int(round(num_patches ** 0.5)))
+    return state
+
+
 def main(argv=None):
     args = _cli_parser().parse_args(argv)
     resolve_device(args.device)  # refuse before building the model
@@ -221,14 +272,14 @@ def main(argv=None):
                          img_size=args.img_size,
                          dtype=getattr(torch, args.dtype))
     if args.checkpoint:
-        from ..utils.checkpoint import from_jax_params, load_npz_tree
-
-        model.load_state_dict(from_jax_params(load_npz_tree(args.checkpoint)))
+        model.load_state_dict(checkpoint_state(args.checkpoint, model,
+                                               args.use_ema))
     batch_sizes = [int(b) for b in args.batch_sizes.split(",") if b]
     manifest = export_model(
         model, args.output, model_name=args.model, batch_sizes=batch_sizes,
         with_preprocess=not args.no_preprocess, device=args.device,
-        manifest_extra={"checkpoint": args.checkpoint})
+        manifest_extra={"checkpoint": args.checkpoint,
+                        "use_ema": bool(args.use_ema)})
     print(json.dumps(manifest))
     return manifest
 

@@ -7,8 +7,9 @@ permuted-tile (``SSMV_A2A_PERMUTED=1``, K10's plain version) forms
 (``moe_forward`` under GSPMD). The same numpy weights (E=8, D=16, H=32,
 top-2) and tokens go to both, at a capacity factor of 0.75 so that pairs
 drop. y, ``balance_loss``, ``drop_fraction`` and the gradients of
-sum(y * c) by x and by every parameter agree within 2e-5 (f32), and every
-rank of the expert group holds the same y, dx and router gradient.
+sum(y * c) + 0.5 * balance_loss by x and by every parameter agree within
+2e-5 (f32), and every rank of the expert group holds the same y, dx and
+router gradient.
 """
 import numpy as np
 import pytest
@@ -28,12 +29,25 @@ def port(tmp_path_factory):
 
 @pytest.mark.parametrize("form", FORMS)
 def test_ep_form_matches_jax_mesh(port, form, monkeypatch):
+    """y, the aux values and the gradients of sum(y * c) + balance_weight *
+    balance_loss equal the JAX mesh's."""
     data, out = port
     key = f"{form}@{FACTOR}"
     want = common.run_jax(form, DP, EP, data, FACTOR, monkeypatch)
     common.assert_matches(out[key], want, key)
     common.assert_expert_group_replicated(out["ranks"], EP, key)
     assert out[key]["drop_fraction"] > 0.02  # real drops exercised
+
+
+def test_balance_term_moves_the_gradients(monkeypatch):
+    """The balance term the parity cases differentiate is not lost in
+    their tolerance: it moves JAX's router and x gradients far beyond it."""
+    data = common.inputs(T, seed=3)
+    with_term = common.run_jax("psum", DP, EP, data, FACTOR, monkeypatch)
+    without = common.run_jax("psum", DP, EP, data, FACTOR, monkeypatch,
+                             balance_weight=0.0)
+    for k in ("drouter_w", "drouter_b", "dx"):
+        assert np.abs(with_term[k] - without[k]).max() > 10 * common.TOL, k
 
 
 def test_a2a_forms_agree_bit_for_bit(port):

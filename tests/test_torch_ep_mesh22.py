@@ -31,6 +31,8 @@ def port(tmp_path_factory):
 
 @pytest.mark.parametrize("form", FORMS)
 def test_ep_form_matches_jax_mesh(port, form, monkeypatch):
+    """y, the aux values and the gradients of sum(y * c) + balance_weight *
+    balance_loss equal the JAX mesh's."""
     data, out = port
     key = f"{form}@{FACTOR}"
     want = common.run_jax(form, DP, EP, data, FACTOR, monkeypatch)

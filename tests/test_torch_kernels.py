@@ -127,7 +127,8 @@ def test_cpu_tensors_take_the_plain_versions():
         "fused_adamw_ema": 0, "flash_attention": 0,
         "fused_expert_ffn_gather": 0, "fused_expert_ffn_gather_bwd": 0,
         "fused_expert_ffn_bwd_defer": 0, "fused_expert_ffn_permuted": 0,
-        "fused_expert_ffn_permuted_bwd": 0}
+        "fused_expert_ffn_permuted_bwd": 0, "fused_mha_proj": 0,
+        "gather_rows": 0, "scatter_add_rows": 0}
 
 
 def test_reference_add_ln_rounds_the_sum_first():
@@ -189,7 +190,8 @@ def test_ln_kernels_match_plain(cuda, dtype, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 1.6e-2)])
-@pytest.mark.parametrize("N,H,d", [(197, 6, 64), (50, 3, 64), (1, 2, 64)])
+@pytest.mark.parametrize("N,H,d", [(197, 6, 64), (50, 3, 64), (1, 2, 64),
+                                   (577, 6, 64), (705, 2, 64), (1024, 2, 64)])
 def test_mha_kernel_matches_plain(cuda, dtype, tol, N, H, d):
     rs = np.random.RandomState(3)
     qkv = _rand(rs, 3, N, 3 * H * d, dtype=dtype, device=cuda)
@@ -219,12 +221,28 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="head_dim"):
         attn_ops.fused_mha(qkv, 2, 0.1)  # d = 32
     case = list(_ffn_case(rs, 20, 192, 128, 2, torch.bfloat16, cuda))
-    case[0] = case[0].float()
-    with pytest.raises(TypeError):
+    case[0] = case[0].half()
+    with pytest.raises(TypeError):  # bf16 and f32 only
         ffn_ops.fused_expert_ffn(*case)
-    with pytest.raises(TypeError):  # the MHA backward kernel is bf16 only
-        attn_ops.fused_mha_bwd(_rand(rs, 2, 10, 3 * 128, device=cuda),
-                               _rand(rs, 2, 10, 128, device=cuda), 2, 0.125)
+    case = _ffn_case(rs, 20, 256, 128, 2, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="D in"):  # D in (192, 384, 768)
+        ffn_ops.fused_expert_ffn(*case)
+    case = list(_ffn_case(rs, 20, 192, 128, 2, torch.float32, cuda))
+    case[1] = case[1].bfloat16()
+    with pytest.raises(TypeError):  # weights in the activation dtype
+        ffn_ops.fused_expert_ffn(*case)
+    with pytest.raises(TypeError):  # the MHA backward kernel: bf16 and f32
+        attn_ops.fused_mha_bwd(_rand(rs, 2, 10, 3 * 128, device=cuda).half(),
+                               _rand(rs, 2, 10, 128, device=cuda).half(), 2,
+                               0.125)
+    for dtype in (torch.bfloat16, torch.float32):  # N <= 1024, as JAX's rule
+        with pytest.raises(ValueError, match="N <= 1024"):
+            attn_ops.fused_mha_bwd(
+                _rand(rs, 1, 1025, 3 * 64, dtype=dtype, device=cuda),
+                _rand(rs, 1, 1025, 64, dtype=dtype, device=cuda), 1, 0.125)
+        with pytest.raises(ValueError, match="N <= 1024"):
+            attn_ops.fused_mha(_rand(rs, 1, 1025, 3 * 64, dtype=dtype,
+                                     device=cuda), 1, 0.125)
     # a CPU tensor that requires grad goes through the plain backward
     ops.reset_launch_counts()
     x = _rand(rs, 4, 64).requires_grad_()
@@ -277,12 +295,13 @@ def test_ln_bwd_kernels_match_plain(cuda, dtype, tol, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N", [197, 50, 17])
+@pytest.mark.parametrize("N", [197, 50, 17, 209, 577, 1024])
 def test_mha_bwd_kernel_matches_plain(cuda, N):
     """K6, bf16: e, ds and do*linv round to bf16 on both sides in other
     summation orders, so a flipped rounding moves a term by one ulp. The
     outputs are ~0.07 an element, so elementwise within one bf16 ulp at
-    0.5-1 (4e-3) + 1.6e-2 |ref|, the smoke's limit for K6."""
+    0.5-1 (4e-3) + 1.6e-2 |ref|, the smoke's limit for K6. N > 208 takes
+    the long form (two SIMT kernels)."""
     rs = np.random.RandomState(7)
     qkv = _rand(rs, 3, N, 3 * 6 * 64, dtype=torch.bfloat16, device=cuda)
     do = _rand(rs, 3, N, 6 * 64, dtype=torch.bfloat16, device=cuda)
@@ -347,7 +366,8 @@ def test_train_step_runs_through_the_kernels(cuda):
         "fused_adamw_ema": 0, "flash_attention": 0,
         "fused_expert_ffn_gather": 0, "fused_expert_ffn_gather_bwd": 0,
         "fused_expert_ffn_bwd_defer": 0, "fused_expert_ffn_permuted": 0,
-        "fused_expert_ffn_permuted_bwd": 0}
+        "fused_expert_ffn_permuted_bwd": 0, "fused_mha_proj": 0,
+        "gather_rows": 0, "scatter_add_rows": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -443,7 +463,8 @@ def test_resmoe_train_step_launch_counts(cuda):
         "fused_adamw_ema": 1, "flash_attention": 0,
         "fused_expert_ffn_gather": 0, "fused_expert_ffn_gather_bwd": 0,
         "fused_expert_ffn_bwd_defer": 0, "fused_expert_ffn_permuted": 0,
-        "fused_expert_ffn_permuted_bwd": 0}
+        "fused_expert_ffn_permuted_bwd": 0, "fused_mha_proj": 0,
+        "gather_rows": 0, "scatter_add_rows": 0}
     for blk in model.blocks:
         blk.attn.use_flash = True
     ops.reset_launch_counts()
@@ -658,3 +679,198 @@ def test_capacity_train_step_launch_counts(cuda, knob, per_step, monkeypatch):
             "fused_sum_ln_bwd": 1, "fused_mha_bwd": 12, **per_step}
     assert ops.launch_counts() == {k: want.get(k, 0)
                                    for k in ops.launch_counts()}
+
+
+# ---------------------------------------------------------------------------
+# on the card: f32 and D = 768 (the SIMT forms), K12 and K13
+# ---------------------------------------------------------------------------
+
+# f32 kernels vs their plain versions, which are exact f32 on the card
+# (TF32 off): the same function in other summation orders,
+# |d| <= 1e-4 + 1e-4 |ref| elementwise, sums over rows included
+F32_TOL = (1e-4, 1e-4)
+
+
+def _close(got, want, dtype, what, sums=False):
+    """f32: F32_TOL elementwise; bf16: 1.6e-2 elementwise, or for f32 sums
+    over rows in other orders (``sums``) 1e-2 of max |ref|."""
+    assert got.dtype == want.dtype and torch.isfinite(got.float()).all(), what
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=F32_TOL[0],
+                                   rtol=F32_TOL[1], msg=what)
+    elif sums:
+        _rel_close(got, want, 1e-2, what)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=1.6e-2,
+                                   rtol=1.6e-2, msg=what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [197, 50, 208, 209, 577, 1024])
+def test_mha_bwd_f32_kernel_matches_plain(cuda, N):
+    """K6's f32 form (the long form beyond N = 208) against the exact-f32
+    plain backward, within F32_TOL."""
+    rs = np.random.RandomState(16)
+    qkv = _rand(rs, 2, N, 3 * 3 * 64, device=cuda)
+    do = _rand(rs, 2, N, 3 * 64, device=cuda)
+    ops.reset_launch_counts()
+    got = attn_ops.fused_mha_bwd(qkv, do, 3, 0.125)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_mha_bwd"] == 1
+    _close(got, attn_ops.reference_mha_bwd(qkv, do, 3, 0.125), torch.float32,
+           "dqkv")
+
+
+# (dtype, T, D, H, E): f32 at each width, bf16 at D = 768
+WIDE = [(torch.float32, 300, 384, 1536, 4),
+        (torch.float32, 200, 192, 768, 3),
+        (torch.float32, 150, 768, 1024, 3),
+        (torch.bfloat16, 300, 768, 3072, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,T,D,H,E", WIDE)
+def test_expert_ffn_family_f32_and_d768(cuda, dtype, T, D, H, E):
+    """K3, K4, K8, K9 and K10 in their SIMT forms against their plain
+    versions on one routed layout (a favoured and a starved expert): y and
+    dx elementwise, dW and db elementwise in f32 and within 1e-2 of max
+    |ref| in bf16; one launch each."""
+    rs = np.random.RandomState(17)
+    x, gidx, pslot, keep, (w1, b1, w2, b2), eot, dy = _routed_case(
+        rs, T, D, H, E, None, cuda)
+    x, w1, w2, dy = (t.to(dtype) for t in (x, w1, w2, dy))
+    xs = moe_ops.dispatch_gather(x, gidx, pslot, keep)
+    n_tiles = eot.shape[0]
+    perm = torch.arange(n_tiles, dtype=torch.int32, device=cuda).flip(0)
+    ops.reset_launch_counts()
+    got = {
+        "fwd": ffn_ops.fused_expert_ffn(xs, w1, b1, w2, b2, eot),
+        "bwd": ffn_ops.fused_expert_ffn_bwd(xs, w1, b1, w2, eot, dy),
+        "defer": ffn_ops.fused_expert_ffn_bwd_defer(xs, w1, b1, w2, eot, dy),
+        "gather": ffn_ops.fused_expert_ffn_gather(x, gidx, pslot, keep, w1,
+                                                  b1, w2, b2, eot),
+        "gather_bwd": ffn_ops.fused_expert_ffn_gather_bwd(x, gidx, w1, b1, w2,
+                                                          eot, dy),
+        "perm": ffn_ops.fused_expert_ffn_permuted(xs, w1, b1, w2, b2, eot,
+                                                  perm),
+        "perm_bwd": ffn_ops.fused_expert_ffn_permuted_bwd(xs, w1, b1, w2, eot,
+                                                          perm, dy)}
+    torch.cuda.synchronize()
+    assert all(v == 1 for k, v in ops.launch_counts().items()
+               if k.startswith("fused_expert_ffn")), ops.launch_counts()
+    xg = x.index_select(0, gidx)
+    want = {
+        "fwd": ffn_ops.fused_expert_ffn_reference(xs, w1, b1, w2, b2, eot),
+        "bwd": ffn_ops.reference_expert_ffn_bwd(xs, w1, b1, w2, eot, dy),
+        "defer": ffn_ops.reference_expert_ffn_bwd_defer(xs, w1, b1, w2, eot,
+                                                        dy),
+        "gather": ffn_ops.fused_expert_ffn_reference(xg, w1, b1, w2, b2, eot),
+        "gather_bwd": ffn_ops.reference_expert_ffn_bwd(xg, w1, b1, w2, eot,
+                                                       dy),
+        "perm": ffn_ops.reference_expert_ffn_permuted(xs, w1, b1, w2, b2, eot,
+                                                      perm),
+        "perm_bwd": ffn_ops.reference_expert_ffn_bwd_permuted(
+            xs, w1, b1, w2, eot, perm, dy)}
+    live = torch.zeros(gidx.shape[0], dtype=torch.bool, device=cuda)
+    live[pslot[keep]] = True
+    for name in got:
+        g, w = got[name], want[name]
+        if not isinstance(g, tuple):
+            rows = live if name == "gather" else slice(None)
+            _close(g[rows], w[rows], dtype, name)
+            continue
+        _close(g[0], w[0], dtype, name + " dx")
+        for part, gt, wt in zip(["dw1", "db1", "dw2", "db2"], g[1:], w[1:]):
+            _close(gt, wt, dtype, f"{name} {part}", sums=True)
+        if name != "perm_bwd":  # the flipped steps give it real rows
+            assert g[1][E - 1].abs().max().item() == 0.0  # starved expert
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,N,H", [(4, 197, 3), (2, 197, 6), (2, 50, 12),
+                                   (1, 272, 2)])
+def test_mha_proj_kernel_matches_plain(cuda, dtype, B, N, H):
+    """K12 against its plain version (K5's function, then the proj product
+    rounded as the JAX reference): bf16 within 1.6e-2 + 1.6e-2 |ref| (the
+    plain side rounds o.Wp and adds bp in bf16, the kernel rounds once),
+    f32 within F32_TOL; one launch, and its autograd backward is the plain
+    version's."""
+    rs = np.random.RandomState(18)
+    C = H * 64
+    qkv = _rand(rs, B, N, 3 * C, dtype=dtype, device=cuda)
+    wp = _rand(rs, C, C, scale=C ** -0.5, dtype=dtype, device=cuda)
+    bp = _rand(rs, C, scale=0.1, device=cuda)
+    ops.reset_launch_counts()
+    got = attn_ops.fused_mha_proj(qkv, wp, bp, H, 0.125)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_mha_proj"] == 1
+    _close(got, attn_ops.fused_mha_proj_reference(qkv, wp, bp, H, 0.125),
+           dtype, "y")
+
+
+@pytest.mark.cuda
+def test_mha_proj_refuses_what_it_does_not_take(cuda):
+    rs = np.random.RandomState(19)
+    assert attn_ops.mha_proj_max_n(torch.bfloat16) == 416
+    assert attn_ops.mha_proj_max_n(torch.float32) == 272
+    for B, N, H, dtype in ((1, 417, 2, torch.bfloat16),
+                           (1, 273, 2, torch.float32),
+                           (1, 20, 13, torch.float32)):  # C = 832 > 768
+        C = H * 64
+        qkv = _rand(rs, B, N, 3 * C, dtype=dtype, device=cuda)
+        wp = _rand(rs, C, C, dtype=dtype, device=cuda)
+        with pytest.raises(ValueError):
+            attn_ops.fused_mha_proj(qkv, wp, torch.zeros(C, device=cuda), H,
+                                    0.125)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("N,D,M,idx_dtype", [(1000, 192, 2048, torch.int32),
+                                             (500, 384, 1700, torch.int64),
+                                             (300, 7, 999, torch.int64)])
+def test_gather_scatter_kernels_match_plain(cuda, dtype, N, D, M, idx_dtype):
+    """K13: the gather equals index_select bit for bit (16-byte vectors, and
+    the scalar path where a row is not a multiple of 16 bytes); the
+    scatter-add equals its plain version (index-order f32 sums, one
+    rounding) bit for bit, in f32 also np.add.at's sum; their autograd
+    directions launch each other."""
+    from slim_switch_moe_vit_tpu_torch.ops import gather as gops
+
+    rs = np.random.RandomState(20)
+    x = _rand(rs, N, D, dtype=dtype, device=cuda)
+    idx = torch.from_numpy(rs.randint(0, N, M)).to(cuda, idx_dtype)
+    g = _rand(rs, M, D, dtype=dtype, device=cuda)
+    ops.reset_launch_counts()
+    out = gops.gather_rows(x, idx)
+    acc = gops.scatter_add_rows(g, idx, N)
+    torch.cuda.synchronize()
+    assert torch.equal(out, gops.reference_gather_rows(x, idx))
+    assert torch.equal(acc, gops.reference_scatter_add_rows(g, idx, N))
+    if dtype == torch.float32:
+        ref = np.zeros((N, D), np.float32)
+        np.add.at(ref, idx.cpu().numpy(), g.cpu().numpy())
+        assert np.array_equal(acc.cpu().numpy(), ref)
+    xl = x.detach().requires_grad_()
+    gops.gather_rows(xl, idx).backward(g)
+    gl = g.detach().requires_grad_()
+    gops.scatter_add_rows(gl, idx, N).backward(x)
+    assert torch.equal(xl.grad, acc)
+    assert torch.equal(gl.grad, out)
+    counts = ops.launch_counts()  # two forwards each, one backward each
+    assert (counts["gather_rows"], counts["scatter_add_rows"]) == (3, 3)
+
+
+@pytest.mark.cuda
+def test_gather_scatter_refuse_what_they_do_not_take(cuda):
+    from slim_switch_moe_vit_tpu_torch.ops import gather as gops
+
+    x = torch.zeros(10, 8, device=cuda, dtype=torch.float16)
+    idx = torch.zeros(4, dtype=torch.int64, device=cuda)
+    with pytest.raises(TypeError):
+        gops.gather_rows(x, idx)
+    with pytest.raises(TypeError):  # index dtype
+        gops.gather_rows(x.float(), idx.to(torch.int16))
+    with pytest.raises(ValueError):  # idx one per row of g
+        gops.scatter_add_rows(torch.zeros(5, 8, device=cuda), idx, 10)

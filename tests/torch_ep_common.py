@@ -14,6 +14,11 @@ from slim_switch_moe_vit_tpu_torch.parallel import launch
 E, D, H, K = 8, 16, 32, 2  # as tests/test_ep_a2a.py:22
 PARAMS = ("router_w", "router_b", "w1", "b1", "w2", "b2")
 TOL = 2e-5  # f32, as the JAX package's EP tests
+# the loss differentiated on both sides: sum(y * c) + BALANCE_WEIGHT *
+# balance_loss; at 0.5 the balance term moves the router and x gradients
+# by more than 10 x TOL (tests/test_torch_ep.py checks it), so a wrong
+# scale of its cotangent under EP shows
+BALANCE_WEIGHT = 0.5
 
 
 def inputs(T: int, seed: int) -> dict:
@@ -28,13 +33,15 @@ def inputs(T: int, seed: int) -> dict:
         w2=(rs.randn(E, H, D) * 0.1).astype(np.float32),
         b2=(rs.randn(E, D) * 0.1).astype(np.float32),
         x=rs.randn(T, D).astype(np.float32),
-        c=rs.randn(T, D).astype(np.float32))
+        c=rs.randn(T, D).astype(np.float32),
+        balance_weight=np.float32(BALANCE_WEIGHT))
 
 
 def run_port(tmp_path, dp: int, ep: int, data: dict, runs) -> dict:
     """The port's forms on dp x ep gloo ranks: {run key: {y, dx, aux values,
-    gradients}} assembled over the ranks, each the whole batch's, and the
-    ranks' own arrays under "ranks"."""
+    gradients of sum(y * c) + balance_weight * balance_loss}} assembled
+    over the ranks, each the whole batch's, and the ranks' own arrays under
+    "ranks"."""
     path = str(tmp_path / "in.npz")
     np.savez(path, top_k=K, **data)
     launch.spawn(launch.moe_layer_worker, dp * ep,
@@ -57,9 +64,10 @@ def run_port(tmp_path, dp: int, ep: int, data: dict, runs) -> dict:
 
 
 def run_jax(form: str, dp: int, ep: int, data: dict, factor: float,
-            monkeypatch) -> dict:
+            monkeypatch, balance_weight=None) -> dict:
     """The JAX package's form on a dp x ep mesh: y, the aux values and the
-    gradients of sum(y * c) by x and every parameter."""
+    gradients of sum(y * c) + balance_weight * balance_loss (the data's
+    weight unless given) by x and every parameter."""
     monkeypatch.setenv("SSMV_A2A_PERMUTED", "1" if form == "a2a_perm" else "0")
     fn = {"psum": jax_moe.moe_forward_fused_ep,
           "a2a": jax_moe.moe_forward_fused_ep_a2a,
@@ -69,11 +77,13 @@ def run_jax(form: str, dp: int, ep: int, data: dict, factor: float,
                   b, (EXPERT_AXIS, None, None)))}[form]
     w = {k: jnp.asarray(data[k]) for k in PARAMS}
     x, c = jnp.asarray(data["x"]), jnp.asarray(data["c"])
+    bw = float(data["balance_weight"] if balance_weight is None
+               else balance_weight)
 
     def loss(x, w):
         y, aux = fn(x, *(w[k] for k in PARAMS), top_k=K,
                     capacity_factor=factor)
-        return jnp.sum(y * c), (y, aux)
+        return jnp.sum(y * c) + bw * aux["balance_loss"], (y, aux)
 
     with jax.set_mesh(make_mesh(n_data=dp, n_expert=ep)):
         (_, (y, aux)), (dx, dw) = jax.jit(jax.value_and_grad(

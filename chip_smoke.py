@@ -23,7 +23,9 @@ Phases (any failure propagates and the script exits non-zero):
    sub-millisecond kernel's time. Elementwise outputs must be
    within ``ELEM_TOL`` (default ``ATOL``/``RTOL``); f32 sums over all rows
    (dgamma, dbeta, dW, db) within ``SUM_REL`` of their largest |ref|. K6's
-   limit must reject planted faults in its plain form.
+   limit must reject planted faults in its plain form; K5 and K6 may be no
+   less accurate against the exact f32 function than their plain versions
+   (``EXACT_RATIO``).
 3. Serving: ``moe_small_patch16_224_expert8`` at full width (ViT-S/16, 12
    blocks, 8 experts top-2), bf16, seeded random weights, exported through
    the export CLI with buckets 1, 8 and 32, loaded, and served over HTTP on
@@ -32,7 +34,8 @@ Phases (any failure propagates and the script exits non-zero):
    launch counters must rise by 25 LN (1 no-add, 23 add, 1 slim), 12 MHA
    and 12 expert-FFN launches per forward.
 4. Cross-check: the same weights and 8 images through the port's plain
-   path on the CPU in f32, against the card's bf16 logits (``XCHECK_*``).
+   path on the CPU in f32, with the card's expert choices imposed on it
+   (``pinned_routing``), against the card's bf16 logits (``XCHECK_*``).
 5. Speed: serving images/s at bucket 32, p50 latency at batch 1, device
    time per forward at B = 32 and 128, and the device-time breakdown of one
    B = 128 forward by kernel.
@@ -113,9 +116,11 @@ Phases (any failure propagates and the script exits non-zero):
     25,216 tokens) bit for bit against their plain versions (the
     scatter-add in bf16 and f32), beside ``index_select`` / ``index_add_``;
     K3, K4, K8, K9 and K10 at D = 768 (moe_base_patch16_224_expert32's
-    layout at B = 32) and in f32 at D = 384, K6 in f32, and K5 and K6 in
-    their long forms at N = 577 in bf16 and f32, against their plain
-    versions (f32 within ``F32_TOL``).
+    layout at B = 32) and in f32 at D = 384, K6 in f32, K5 and K6 at
+    N = 577 in bf16 and f32, K5, K6 and K11 at vit_huge_patch14_224's head
+    (16 heads of 80, N = 257, ``HUGE``), K11 in f32 and K12 at N = 577 and
+    C = 1024 (``K12_LONG``), against their plain versions (f32 within
+    ``F32_TOL``).
 14. D = 768: ``resmoe_base_patch16_224_expert8`` trains ``WIDE_STEPS`` steps
     at B = 32 on the kernels (exact launch counts, every attention on the
     K5 + K6 route); ``moe_base_patch16_224_expert32`` evaluates B = 32
@@ -126,8 +131,8 @@ Phases (any failure propagates and the script exits non-zero):
     kernels, against the same steps on the plain versions, within
     ``F32_WITNESS`` times a batch-reversed witness (or ``F32_FLOOR``).
 16. N = 577 (the flagship at 384 px): an eval at B = 8 on the K5 route,
-    one train step at B = 4 on the K5 + K6 route (their long forms), each
-    held to the card's plain path.
+    one train step at B = 4 on the K5 + K6 route, each held to the card's
+    plain path.
 17. Export: the driver's checkpoint (phase 10) through the export CLI with
     ``--use-ema`` at ``--img-size`` 256, serving one request. Then the op
     path: K12 and K13 as a user calls these ops (no model path calls them,
@@ -185,6 +190,13 @@ ATOL = RTOL = 1.6e-2
 # (e*linv*sum(e*dp)) dropped or off by 5% or 2% (PLANTED_DELTA).
 ELEM_TOL = {"fused_mha_bwd": (4e-3, 1.6e-2)}
 PLANTED_DELTA = (0.0, 0.95, 0.98)
+# K5 and K6 against the exact f32 function (their plain versions on the
+# f32-cast inputs, no rounding to bf16 inside): the kernel's mean |d| may
+# exceed its bf16 plain version's by at most this factor. Both round the
+# same values at the same points, in other summation orders, so their mean
+# errors agree closely; a kernel that rounds once more, or loses the f32
+# sums, reads well above it.
+EXACT_RATIO = 1.1
 # f32 sums over all ~25k (LN) or an expert's ~6k (FFN) rows, in other
 # orders on the two sides, of products that differ by an ulp where a bf16
 # rounding flips; dW is rounded to bf16 on both sides (2^-9 relative):
@@ -193,7 +205,11 @@ SUM_REL = 1e-2
 # card bf16 logits vs CPU f32 logits: max |d| within 5% of max |ref| (a
 # CPU-only bf16 run of this model differs by 1.4%), cosine >= 0.999 per
 # image, and the same top-1 wherever the f32 top-1 margin exceeds twice
-# the largest |d|
+# the largest |d|. The serving cross-check imposes the card's expert
+# choices on the f32 run: with random weights a near tie among the
+# router's logits flips under any bf16 rounding (the unpinned gaps are
+# printed: on the smoke's 8 images the card's plain path in bf16 is 30.2%
+# of max |ref| from f32 on one of them; NVIDIA H100 80GB HBM3 at 700 W)
 XCHECK_REL, XCHECK_COS = 5e-2, 0.999
 # where the kernels' expert choices are imposed on a bf16 plain run
 # (pinned_routing), the most of its gated tokens whose own top-k may differ
@@ -358,8 +374,11 @@ PER_RESMOE_BASE_STEP = dict(PER_RESMOE_STEP, fused_adamw_ema=0)
 # F32_FLOOR, and the step-1 gradient at cosine >= F32_COS
 F32_B, F32_STEPS, F32_WITNESS, F32_FLOOR, F32_COS = 16, 2, 3.0, 1e-5, 0.9999
 # N = 577: moe_small at 384 px; eval at B = 8 (K5 route), one train step
-# at B = 4 (K5 + K6 route, their long forms)
+# at B = 4 (K5 + K6 route)
 LONG_IMG, LONG_EVAL_B, LONG_TRAIN_B = 384, 8, 4
+# vit_huge_patch14_224's attention (16 heads of 80, N = 257) at B = 8, and
+# K12 at N = 577 and C = 1024 (16 heads of 64) at B = 2: (B, N, heads, d)
+HUGE, K12_LONG = (8, 257, 16, 80), (2, 577, 16, 64)
 # the driver checkpoint served through the export CLI at this size
 EXPORT_IMG = 256
 
@@ -726,6 +745,24 @@ def check_planted_faults(qkv, do, plain_out) -> None:
                                  f"form with delta x{delta}")
 
 
+def exact_error(name: str, got, want, qkv, do) -> None:
+    """K5's or K6's mean |d| from the exact f32 function beside its bf16
+    plain version's, held to ``EXACT_RATIO``."""
+    from slim_switch_moe_vit_tpu_torch.ops import attention
+
+    scale = (DIM // HEADS) ** -0.5
+    exact = (attention.fused_mha_reference(qkv.float(), HEADS, scale)
+             if name == "fused_mha" else
+             attention.reference_mha_bwd(qkv.float(), do.float(), HEADS,
+                                         scale))
+    err = [(t.float() - exact).abs().mean().item() for t in (got, want)]
+    log(f"  {name} vs the exact f32 function: mean |d| kernel {err[0]:.4e}, "
+        f"plain version {err[1]:.4e} (ratio {err[0] / err[1]:.4f}, limit "
+        f"{EXACT_RATIO}; mean |exact| {exact.abs().mean().item():.4e})")
+    if err[0] > EXACT_RATIO * err[1]:
+        raise AssertionError(f"{name}: less accurate than its plain version")
+
+
 def kernel_phase(results: dict) -> None:
     """Each kernel against its plain version at B = 32 and 128; times, the
     bound and the library call's time at B = 128 (the training path's
@@ -745,6 +782,8 @@ def kernel_phase(results: dict) -> None:
             err, peak, rel = compare(name, got, want, modes)
             if name == "fused_mha_bwd":
                 check_planted_faults(*mha_inputs, want)
+            if name in ("fused_mha", "fused_mha_bwd") and B == 128:
+                exact_error(name, got, want, *mha_inputs)
             # the plain versions are timed at B = 128 only, the batch of
             # the training path (they are no yardstick of speed)
             ms = median_ms(kernel)
@@ -864,9 +903,25 @@ def cross_check(artifact: str, pred, images: np.ndarray) -> None:
     model = create_model(MODEL, dtype=torch.float32).eval()
     model.load_state_dict(torch.load(os.path.join(artifact, "params.pt"),
                                      weights_only=True))
-    ref = make_serve_fn(model)(torch.from_numpy(images)).numpy()
-    _xcheck(pred.predict(images), ref,
-            "cross-check: card bf16 serving vs the CPU f32 plain path")
+    serve = make_serve_fn(model)
+    routes: list = []
+    with pinned_routing(routes, replay=False):
+        got = pred.predict(images)
+    with pinned_routing(routes, replay=True) as moved:
+        ref = serve(torch.from_numpy(images)).numpy()
+    _xcheck(got, ref, "cross-check: card bf16 serving vs the CPU f32 plain "
+            "path (the card's expert choices on both; "
+            + check_moved(moved, "cross-check") + ")")
+    # unpinned, printed beside the card's plain path in bf16 (the witness of
+    # what bf16 rounding alone does to these weights' near ties)
+    free = serve(torch.from_numpy(images)).numpy()
+    with plain_versions():
+        witness = pred.predict(images)
+    top = np.abs(free).max()
+    log("  unpinned, max |d| / max |ref| per image: kernels "
+        + " ".join(f"{v:.4f}" for v in np.abs(got - free).max(1) / top)
+        + "; the card's plain path in bf16 "
+        + " ".join(f"{v:.4f}" for v in np.abs(witness - free).max(1) / top))
 
 
 def speed_phase(pred, card: str) -> None:
@@ -1021,11 +1076,15 @@ def train_cross_check() -> None:
     the CPU plain path in bf16 (the same precision, other summation
     orders), again with the batch's samples in reverse order (the same
     math in other summation orders: the witness of what bf16 rounding
-    alone does to the run), and in f32. Every pair is printed before any
-    limit is checked."""
+    alone does to the run), and in f32. The card's expert choices at every
+    step are imposed on the CPU runs (``pinned_routing``; reordered for the
+    reversed batch): with random weights a near tie among the router's
+    logits flips under any change of summation order, and after an Adam
+    step that moves the loss far more than the arithmetic does. Every pair
+    is printed before any limit is checked."""
     import torch
 
-    runs = {}
+    runs, routes = {}, []
     for device, dtype, rev in (("cuda", torch.bfloat16, False),
                                ("cpu", torch.bfloat16, False),
                                ("cpu", torch.bfloat16, True),
@@ -1034,18 +1093,24 @@ def train_cross_check() -> None:
         x, y = _batch(XTRAIN_B, 2, device)
         if rev:
             x, y = x.flip(0), y.flip(0)
+        replay = device == "cpu"
+        pinned = routes if not (replay and rev) else [
+            idx.view(XTRAIN_B, -1, idx.shape[-1]).flip(0).reshape(idx.shape)
+            for idx in routes]
         losses, grads = [], None
         t0 = time.perf_counter()
-        for _ in range(XTRAIN_STEPS):
-            state, m = step(state, x, y, XTRAIN_LR, XTRAIN_LR)
-            losses.append(m["loss"].item())
-            if grads is None:
-                grads = {n: p.grad.detach().float().cpu()
-                         for n, p in model.named_parameters()}
+        with pinned_routing(pinned, replay=replay) as moved:
+            for _ in range(XTRAIN_STEPS):
+                state, m = step(state, x, y, XTRAIN_LR, XTRAIN_LR)
+                losses.append(m["loss"].item())
+                if grads is None:
+                    grads = {n: p.grad.detach().float().cpu()
+                             for n, p in model.named_parameters()}
         key = f"{device} {str(dtype)[6:]}" + (" reversed" if rev else "")
         runs[key] = (losses, grads)
         log(f"cross-check {key}: losses {[round(v, 5) for v in losses]} in "
-            f"{time.perf_counter() - t0:.1f} s")
+            f"{time.perf_counter() - t0:.1f} s"
+            + (f"; {check_moved(moved, key)}" if replay else ""))
         del model, state, step
     failed = []
     for a, b, limits in XTRAIN_PAIRS:
@@ -2238,7 +2303,7 @@ def pinned_routing(routes: list, replay: bool):
             weights, idx = real(logits, top_k)
             routes.append(idx)
             return weights, idx
-        idx = next(recorded)
+        idx = next(recorded).to(logits.device)
         own = real(logits, top_k)[1]
         moved["tokens"] += idx.shape[0]
         moved["moved"] += int((own.sort(-1).values != idx.sort(-1).values)
@@ -2487,17 +2552,50 @@ def coverage_kernel_phase(results: dict) -> None:
                 (7 * n * 4, 10 * B * HEADS * N_TOK * N_TOK * hd, F32_FLOPS),
                 ("elem",), "_f32", tol=F32_TOL)
     long_attention_cases(results, gen)
+    head_and_k12_cases(results, gen)
 
 
-def long_attention_cases(results: dict, gen) -> None:
-    """K5 and K6 in their long forms at N = 577 (the flagship at 384 px):
-    K5 at phase 16's eval shape (B = 8) and K6 at its step's (B = 4) in
-    bf16, and both at B = 4 in f32, against their plain versions, beside
-    SDPA forward and backward."""
+def _mha_calls(name: str, qkv, do, H: int, d: int, peak: float) -> tuple:
+    """(kernel, plain, library, cost) of K5 (``fused_mha``), K6
+    (``fused_mha_bwd``) or K11 (``flash_attention``) on qkv (B, N, 3 H d)
+    and do, beside SDPA forward or backward."""
     import torch
     import torch.nn.functional as F
 
     from slim_switch_moe_vit_tpu_torch.ops import attention
+
+    B, N, _ = qkv.shape
+    scale = d ** -0.5
+    leaf = qkv.detach().requires_grad_()
+    q4 = leaf.view(B, N, 3, H, d).permute(2, 0, 3, 1, 4)
+    n, prod = B * N * H * d, 2 * B * H * N * N * d
+    item = qkv.element_size()
+    if name == "fused_mha_bwd":
+        sdpa = F.scaled_dot_product_attention(q4[0], q4[1], q4[2],
+                                              scale=scale)
+        do4 = do.view(B, N, H, d).transpose(1, 2)
+        return (lambda: attention.fused_mha_bwd(qkv, do, H, scale),
+                lambda: attention.reference_mha_bwd(qkv, do, H, scale),
+                lambda: torch.autograd.grad(sdpa, leaf, do4,
+                                            retain_graph=True),
+                (7 * n * item, 5 * prod, peak))
+    fn, plain = ((attention.fused_mha, attention.fused_mha_reference)
+                 if name == "fused_mha" else
+                 (attention.flash_attention,
+                  attention.flash_attention_reference))
+    q4 = q4.detach()
+    return (lambda: fn(qkv, H, scale), lambda: plain(qkv, H, scale),
+            lambda: F.scaled_dot_product_attention(q4[0], q4[1], q4[2],
+                                                   scale=scale),
+            (4 * n * item, 2 * prod, peak))
+
+
+def long_attention_cases(results: dict, gen) -> None:
+    """K5 and K6 at N = 577 (the flagship at 384 px): K5 at phase 16's eval
+    shape (B = 8) and K6 at its step's (B = 4) in bf16, and both at B = 4
+    in f32, against their plain versions, beside SDPA forward and
+    backward."""
+    import torch
 
     N, hd = 577, DIM // HEADS
     for dt, B_fwd, B_bwd, sfx, peak, tol in (
@@ -2505,34 +2603,59 @@ def long_attention_cases(results: dict, gen) -> None:
              None),
             (torch.float32, LONG_TRAIN_B, LONG_TRAIN_B, "_n577_f32",
              F32_FLOPS, F32_TOL)):
-        item = torch.empty((), dtype=dt).element_size()
         for name, B in (("fused_mha", B_fwd), ("fused_mha_bwd", B_bwd)):
             qkv = torch.randn(B, N, 3 * DIM, generator=gen).to("cuda", dt)
             do = torch.randn(B, N, DIM, generator=gen).to("cuda", dt)
-            leaf = qkv.detach().requires_grad_()
-            q4 = leaf.view(B, N, 3, HEADS, hd).permute(2, 0, 3, 1, 4)
-            sdpa = F.scaled_dot_product_attention(q4[0], q4[1], q4[2],
-                                                  scale=hd ** -0.5)
-            do4 = do.view(B, N, HEADS, hd).transpose(1, 2)
-            n, prod = B * N * DIM, 2 * B * HEADS * N * N * hd
-            if name == "fused_mha":
-                calls = (lambda: attention.fused_mha(qkv, HEADS, hd ** -0.5),
-                         lambda: attention.fused_mha_reference(
-                             qkv, HEADS, hd ** -0.5),
-                         lambda: F.scaled_dot_product_attention(
-                             q4[0].detach(), q4[1].detach(), q4[2].detach(),
-                             scale=hd ** -0.5),
-                         (4 * n * item, 2 * prod, peak))
-            else:
-                calls = (lambda: attention.fused_mha_bwd(qkv, do, HEADS,
-                                                         hd ** -0.5),
-                         lambda: attention.reference_mha_bwd(
-                             qkv, do, HEADS, hd ** -0.5),
-                         lambda: torch.autograd.grad(sdpa, leaf, do4,
-                                                     retain_graph=True),
-                         (7 * n * item, 5 * prod, peak))
-            _timed_case(results, name, *calls, ("elem",), sfx, tol=tol)
-            del qkv, do, leaf, sdpa
+            _timed_case(results, name, *_mha_calls(name, qkv, do, HEADS, hd,
+                                                   peak),
+                        ("elem",), sfx, tol=tol)
+            del qkv, do
+    torch.cuda.empty_cache()
+
+
+def head_and_k12_cases(results: dict, gen) -> None:
+    """K5, K6 and K11 at vit_huge_patch14_224's head (HUGE: 16 heads of 80,
+    N = 257) in bf16 (``_d80``); K11 in f32 at the flagship's shape at
+    B = 32 (``_f32``); K12 at N = 577 and C = 1024 (K12_LONG: 16 heads of
+    64, ``_n577_c1024``) beside SDPA + ``F.linear``: each against its plain
+    version."""
+    import torch
+    import torch.nn.functional as F
+
+    from slim_switch_moe_vit_tpu_torch.ops import attention
+
+    B, N, H, d = HUGE
+    qkv = torch.randn(B, N, 3 * H * d, generator=gen).to("cuda",
+                                                          torch.bfloat16)
+    do = torch.randn(B, N, H * d, generator=gen).to("cuda", torch.bfloat16)
+    for name in ("fused_mha", "fused_mha_bwd", "flash_attention"):
+        _timed_case(results, name, *_mha_calls(name, qkv, do, H, d,
+                                               BF16_FLOPS),
+                    ("elem",), "_d80")
+    qkv = torch.randn(32, N_TOK, 3 * DIM, generator=gen).cuda()
+    _timed_case(results, "flash_attention",
+                *_mha_calls("flash_attention", qkv, None, HEADS,
+                            DIM // HEADS, F32_FLOPS),
+                ("elem",), "_f32", tol=F32_TOL)
+    B, N, H, d = K12_LONG
+    C, scale = H * d, d ** -0.5
+    qkv = torch.randn(B, N, 3 * C, generator=gen).to("cuda", torch.bfloat16)
+    wp = (torch.randn(C, C, generator=gen) * C ** -0.5).to("cuda",
+                                                           torch.bfloat16)
+    bp = (torch.randn(C, generator=gen) * 0.1).cuda()
+    w_lin, b_lin = wp.t().contiguous(), bp.to(torch.bfloat16)
+    q4 = qkv.view(B, N, 3, H, d).permute(2, 0, 3, 1, 4)
+    _timed_case(
+        results, "fused_mha_proj",
+        lambda: attention.fused_mha_proj(qkv, wp, bp, H, scale),
+        lambda: attention.fused_mha_proj_reference(qkv, wp, bp, H, scale),
+        lambda: F.linear(F.scaled_dot_product_attention(
+            q4[0], q4[1], q4[2], scale=scale).transpose(1, 2).reshape(
+                B, N, C), w_lin, b_lin),
+        ((B * N * 4 * C + C * C) * 2 + C * 4,
+         4 * B * H * N * N * d + 2 * B * N * C * C, BF16_FLOPS),
+        ("elem",), "_n577_c1024", reps=5)
+    del qkv, do, wp, q4
     torch.cuda.empty_cache()
 
 
@@ -2747,7 +2870,7 @@ def f32_phase(card: str) -> None:
 
 def long_phase(card: str) -> None:
     """Phase 16, N = 577: the flagship at 384 px. An eval at B = 8 and one
-    train step at B = 4, on K5 and K5 + K6 (their long forms) with the
+    train step at B = 4, on K5 and K5 + K6 with the
     rest of the kernels; each held to the card's plain path with the
     kernels' expert choices imposed on it (``_eval_vs_plain``; the step's
     loss and gradient within XTRAIN's first-step limits)."""

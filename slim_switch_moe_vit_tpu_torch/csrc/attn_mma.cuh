@@ -1,0 +1,199 @@
+// Tensor-core building blocks of the bf16 attention kernels (K5, K6; K11
+// takes its tile loads):
+// mma.sync m16n8k16 (bf16 in, f32 sums), ldmatrix fragment loads from
+// shared memory, and cp.async copies of head tiles from the packed layout.
+//
+// Fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16"), with
+// g = lane / 4 and t = lane % 4:
+//   A (16 x 16, row-major), 4 registers of 2 bf16: a0 = (g, 2t..2t+1),
+//     a1 = (g+8, 2t..), a2 = (g, 8+2t..), a3 = (g+8, 8+2t..);
+//   B (16 x 8), 2 registers: b0 = (k 2t..2t+1, n g), b1 = (k 8+2t.., n g);
+//   C (16 x 8, f32), 4 floats: c0, c1 = (g, 2t..2t+1), c2, c3 = (g+8, 2t..).
+// So the C tiles of two neighbouring 8-column n-tiles, rounded to bf16 and
+// paired, are the A fragment of a 16-deep k-chunk (``pack_a``): a score
+// tile feeds the next product from registers, with no shared-memory trip.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+namespace ssmv {
+namespace attn {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kT = 64;        // query rows a block, key rows a tile
+constexpr int kThreads = 128; // 4 warps of 16 rows
+
+// bf16 rows of a head tile in shared memory: HD + 8 elements, so the eight
+// 16-byte rows one ldmatrix phase reads fall in distinct bank groups
+__host__ __device__ constexpr int tile_ld(int hd) { return hd + 8; }
+__host__ __device__ constexpr size_t tile_bytes(int hd) {
+  return sizeof(bf16) * kT * tile_ld(hd);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid (src
+// is then not read, but must be a mapped address)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+// 4 bytes global -> shared, asynchronously; zero-filled when !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c += a . b (16 x 16 by 16 x 8, f32 sums)
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to bf16 (nearest even), lo in the low half
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the A fragment of a 16-deep k-chunk from the C tiles of its two n-tiles
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c)[2][4]) {
+  a[0] = pack2(c[0][0], c[0][1]);
+  a[1] = pack2(c[0][2], c[0][3]);
+  a[2] = pack2(c[1][0], c[1][1]);
+  a[3] = pack2(c[1][2], c[1][3]);
+}
+
+// A fragment: rows [0, 16) x columns [k0, k0 + 16) of a row-major tile
+__device__ __forceinline__ void ld_a(uint32_t (&a)[4], const bf16* tile,
+                                     int ld, int k0) {
+  const int lane = threadIdx.x & 31, j = lane >> 3;
+  ldsm_x4(a, tile + ((lane & 7) + (j & 1) * 8) * ld + k0 + (j >> 1) * 8);
+}
+
+// B fragments of the n-tiles [n0, n0 + 8) (b[0], b[1]) and [n0 + 8, n0 + 16)
+// (b[2], b[3]) over k in [k0, k0 + 16), from a tile stored n-major (row n
+// holds B's column n: K for q . k^T)
+__device__ __forceinline__ void ld_b_nk(uint32_t (&b)[4], const bf16* tile,
+                                        int ld, int n0, int k0) {
+  const int lane = threadIdx.x & 31, j = lane >> 3;
+  ldsm_x4(b, tile + (n0 + (lane & 7) + (j >> 1) * 8) * ld + k0 + (j & 1) * 8);
+}
+
+// the same fragments from a tile stored k-major (row k holds B's row k: V
+// for p . v), through the transposing load
+__device__ __forceinline__ void ld_b_kn(uint32_t (&b)[4], const bf16* tile,
+                                        int ld, int k0, int n0) {
+  const int lane = threadIdx.x & 31, j = lane >> 3;
+  ldsm_x4_t(b, tile + (k0 + (lane & 7) + (j & 1) * 8) * ld + n0 + (j >> 1) * 8);
+}
+
+// Rows [r0, r0 + kT) of a head's d columns (src: the head's first column of
+// row 0, row stride ld elements) into a tile_ld(HD)-strided shared tile;
+// rows >= n_rows and columns >= d are zero. With vec (d % 8 == 0, so every
+// row starts 16-byte aligned) by cp.async in the caller's commit group;
+// otherwise by plain loads and stores, complete when the call returns.
+template <int HD>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
+                                          size_t ld, int r0, int n_rows, int d,
+                                          bool vec) {
+  constexpr int LD = tile_ld(HD);
+  if (vec) {
+    constexpr int V = HD / 8;  // 16-byte vectors a row
+    for (int i = threadIdx.x; i < kT * V; i += kThreads) {
+      const int r = i / V, c = (i % V) * 8;
+      const bool ok = r0 + r < n_rows && c < d;
+      cp_async16(dst + r * LD + c, ok ? src + (size_t)(r0 + r) * ld + c : src,
+                 ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kT * HD; i += kThreads) {
+      const int r = i / HD, c = i % HD;
+      dst[r * LD + c] = r0 + r < n_rows && c < d
+                            ? src[(size_t)(r0 + r) * ld + c]
+                            : __float2bfloat16(0.f);
+    }
+  }
+}
+
+// Write a warp's 16 x HD f32 accumulator (HD / 8 C tiles), times the row
+// factors f[0] (row g) and f[1] (row g + 8), as bf16 to rows [r0, r0 + 16)
+// of a global head block (dst: the head's first column of row 0, row stride
+// ld), rows >= n_rows and columns >= d dropped. The rows pass through
+// ``stage``, the warp's own 16 rows of a tile_ld(HD)-strided shared tile,
+// and leave in 16-byte stores where d % 8 == 0.
+template <int HD>
+__device__ __forceinline__ void store_rows(const float (&acc)[HD / 8][4],
+                                           const float (&f)[2], bf16* stage,
+                                           bf16* dst, size_t ld, int r0,
+                                           int n_rows, int d, bool vec) {
+  constexpr int LD = tile_ld(HD);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    const int c = j * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(stage + g * LD + c) =
+        pack2(acc[j][0] * f[0], acc[j][1] * f[0]);
+    *reinterpret_cast<uint32_t*>(stage + (g + 8) * LD + c) =
+        pack2(acc[j][2] * f[1], acc[j][3] * f[1]);
+  }
+  __syncwarp();
+  if (vec) {
+    constexpr int V = HD / 8;
+    for (int i = lane; i < 16 * V; i += 32) {
+      const int r = i / V, c = (i % V) * 8;
+      if (r0 + r < n_rows && c < d)
+        *reinterpret_cast<uint4*>(dst + (size_t)(r0 + r) * ld + c) =
+            *reinterpret_cast<const uint4*>(stage + r * LD + c);
+    }
+  } else {
+    for (int i = lane; i < 16 * HD; i += 32) {
+      const int r = i / HD, c = i % HD;
+      if (r0 + r < n_rows && c < d)
+        dst[(size_t)(r0 + r) * ld + c] = stage[r * LD + c];
+    }
+  }
+  __syncwarp();
+}
+
+}  // namespace attn
+}  // namespace ssmv

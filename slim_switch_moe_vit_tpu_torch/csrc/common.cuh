@@ -60,6 +60,14 @@ __device__ __forceinline__ void store_frag_bf16(const Frag& f, float* stg,
   __syncwarp();
 }
 
+// The attention kernels' head-width instances: the smallest of 32, 64, 96
+// and 128 that holds a head of d columns (the rest zero on chip), or 0
+// beyond 128.
+inline int head_instance(int d) {
+  return d <= 0 ? 0 : d <= 32 ? 32 : d <= 64 ? 64 : d <= 96 ? 96
+                                                  : d <= 128 ? 128 : 0;
+}
+
 // Largest dynamic shared memory one block may use on sm_90.
 constexpr size_t kMaxSmemBytes = 232448;
 

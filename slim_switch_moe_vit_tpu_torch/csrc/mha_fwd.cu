@@ -5,220 +5,264 @@
 // (:296). Input qkv is (B, N, 3C) with q of head h at columns [h*d, h*d+d),
 // k at [C + h*d, ...) and v at [2C + h*d, ...); the output is (B, N, C),
 // ready for the proj GEMM. No host-side transposes or padding. N <= 1024,
-// the lengths the JAX package runs its kernel at (models/vit.py:50-59).
+// the lengths the JAX package runs its kernel at (models/vit.py:50-59);
+// head_dim d <= 128, run on the smallest instance HD in {32, 64, 96, 128}
+// >= d with columns d..HD-1 zero on chip (they add nothing to q.k^T and
+// their o columns are never written).
 //
-// What bounds it on the H100: at ViT lengths (N = 197, d = 64) the whole
-// score row of a query fits on chip, so device-memory traffic is qkv in and
-// o out (~1 MB per sample at ViT-S, K and V re-read once per query tile);
-// the work is the two N x N x d products. This first kernel does them with
-// f32 FMAs on the CUDA cores (no tensor cores), so it is bound by
-// shared-memory loads and FMA throughput, not by bytes. Tensor-core
-// (wgmma / mma.sync) products are later work.
+// What bounds it on the H100: bytes. qkv is read once and o written once
+// (77 MB at B = 128, N = 197, C = 384: 0.023 ms at 3.35 TB/s) against two
+// N x N x d products (7.6 GFLOP, 0.008 ms at the bf16 tensor-core peak) and
+// N x N exponentials. The PR 1-6 kernel took both products as f32 FMAs on
+// the CUDA cores with the score tile in shared memory, 42x its bound.
 //
-// Design: one block per (QT-row q tile, head, sample), 256 threads. K and V
-// of the head stream through one shared-memory buffer in tiles of 128 rows
-// (rows >= N zero-filled): first K (stored transposed) for the scores, then
-// V for the PV product. The QT x NP score tile stays in shared memory in
-// f32, so the softmax is exact over all N columns (no online rescaling).
-// QT is 64 where that tile fits (NP <= 704 in f32, 768 in bf16) and 32
-// beyond, up to N = 1024. The arithmetic keeps the TPU kernel's order
-// (attention.py:186-200):
-//   1. q is scaled in f32 before the QK^T product,
-//   2. score columns >= N are set to -inf,
-//   3. p = exp(s - max) in f32, the row sum taken from that f32 p,
-//   4. p rounded to the activation dtype for the PV product (f32 sums),
-//   5. the output scaled by 1/sum afterwards.
-#include <math_constants.h>
-
-#include "common.cuh"
+// Design (bf16): one block per (64-query tile, head, sample), 4 warps of 16
+// query rows. Each warp's q fragments are loaded once with ldmatrix and
+// stay in registers. K and V tiles of 64 rows pass through a ring of
+// shared-memory stages filled by cp.async (3 stages at HD <= 64, 2 above;
+// pad rows zero), read by stride from the packed layout. The products are
+// mma.sync.m16n8k16 (bf16 in, f32 sums), S in registers. The softmax takes
+// the exact row maximum before any exponent, by a first pass over the K
+// tiles that computes only row maxima; the second pass recomputes
+// S = q.k^T (the same instructions, so the same values) and forms
+// e = exp(S - m) in f32 in registers, sums l from that f32 e, and packs e
+// rounded to bf16 straight from the S accumulators into the A operand of
+// e.V. o is scaled by 1/l and written once, through the warp's own rows of
+// the q tile, in 16-byte stores (d % 8 == 0; scalar stores otherwise).
+// The recomputed q.k^T costs ~0.004 ms a layer at B = 128 on the tensor
+// cores, below the byte bound.
+//
+// Arithmetic, in the JAX kernel's order (attention.py:186-200) but for the
+// scale: S = (q.k^T) * scale with f32 sums of the bf16 q and k (the JAX
+// kernel scales q in f32 first: at d = 64 the scale is a power of two and
+// the two are the same numbers, at other d they differ by f32 rounding);
+// columns >= N are -inf; m the exact row max; e = exp(S - m) in f32, l the
+// sum of that f32 e; e rounded to bf16 for e.V (f32 sums); o = (e.V) / l.
+//
+// The f32 form keeps the SIMT design of mha_simt.cuh (exact f32 FMAs: the
+// tensor cores have no exact f32 product), 64 query rows a block where the
+// score tile fits and 32 beyond, q scaled in f32 first as the JAX kernel.
+#include "attn_mma.cuh"
+#include "mha_simt.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kColChunk = 128; // score columns per register pass (16 lanes x 8)
-                               // and K / V rows per shared-memory tile
+using namespace ssmv::attn;
+
 constexpr int kMaxN = 1024;
 
-__host__ __device__ constexpr int q_ld(int hd) { return hd + 4; }
-__host__ __device__ constexpr int s_ld(int np) { return np + 4; }
+template <int HD>
+struct Fwd {
+  static constexpr int LD = tile_ld(HD);
+  static constexpr int NST = HD <= 64 ? 3 : 2;  // K / V ring stages
+  static constexpr size_t kTile = tile_bytes(HD);
+  static constexpr size_t bytes = kTile * (1 + 2 * NST);  // Q, K ring, V ring
+};
 
-__host__ __device__ constexpr size_t smem_bytes(int qt, int hd, int np,
-                                                size_t tsize) {
-  return sizeof(float) * ((size_t)qt * q_ld(hd) + (size_t)qt * s_ld(np) + qt) +
-         tsize * (size_t)kColChunk * hd;
-}
-static_assert(smem_bytes(32, 64, kMaxN, 4) <= ssmv::kMaxSmemBytes,
-              "K5 must take N = 1024 at 32 query rows");
-
-template <typename T, int HD, int QT>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-mha_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int N, int NP,
-               int H, float scale) {
-  constexpr int RPT = QT / 16;  // score / PV rows a thread
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int C = H * HD;
-  const int C3 = 3 * C;
-  const int q0 = blockIdx.x * QT;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int QLD = q_ld(HD);
-  const int SLD = s_ld(NP);
+mha_fwd_bf16_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
+                    int N, int H, int d, float scale, int vec) {
+  constexpr int LD = Fwd<HD>::LD, NST = Fwd<HD>::NST;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = Qs + kT * LD;
+  bf16* Vs = Ks + NST * kT * LD;
 
-  float* Qs = reinterpret_cast<float*>(smem_raw);  // QT x QLD, scaled q
-  float* S = Qs + QT * QLD;                        // QT x SLD, scores then p
-  float* linv = S + QT * SLD;                      // QT
-  T* Tile = reinterpret_cast<T*>(linv + QT);       // HD x 128 K^T, 128 x HD V
+  const int q0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
+  const int C = H * d;
+  const size_t C3 = 3 * (size_t)C;
+  const bf16* base = qkv + (size_t)b * N * C3 + (size_t)h * d;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int nkt = (N + kT - 1) / kT;
+  const int T = 2 * nkt;  // pass 1: K tiles (row maxima); pass 2: K and V
 
-  const T* base = qkv + (size_t)b * N * C3;
-  const int tid = threadIdx.x;
-
-  for (int i = tid; i < QT * HD; i += kThreads) {
-    const int r = i / HD, c = i % HD;
-    const int n = q0 + r;
-    Qs[r * QLD + c] =
-        n < N ? ssmv::to_f32(base[(size_t)n * C3 + h * HD + c]) * scale : 0.f;
-  }
-
-  // Scores: thread (rg, cl) owns rows rg*RPT.. and columns cb + cl + 16*j
-  // of each 128-column K tile.
-  const int rg = tid >> 4, cl = tid & 15;
-  for (int cb = 0; cb < NP; cb += kColChunk) {
-    __syncthreads();  // the last tile's readers are done
-    for (int i = tid; i < kColChunk * HD; i += kThreads) {
-      const int n = i / HD, c = i % HD;
-      T kv = ssmv::from_f32<T>(0.f);
-      if (cb + n < N) kv = base[(size_t)(cb + n) * C3 + C + h * HD + c];
-      Tile[c * kColChunk + n] = kv;
+  // tile t of the sequence into its stage, as one commit group (empty past
+  // the end, so the group count stays uniform)
+  auto issue = [&](int t) {
+    if (t < T) {
+      const int st = t % NST, kt = t < nkt ? t : t - nkt;
+      load_rows<HD>(Ks + st * kT * LD, base + C, C3, kt * kT, N, d, vec);
+      if (t >= nkt)
+        load_rows<HD>(Vs + st * kT * LD, base + 2 * C, C3, kt * kT, N, d, vec);
     }
-    __syncthreads();
-    float acc[RPT][8];
+    cp_async_commit();
+  };
+  load_rows<HD>(Qs, base, C3, q0, N, d, vec);  // joins tile 0's group
+  for (int s = 0; s < NST - 1; ++s) issue(s);
+
+  uint32_t qa[HD / 16][4];
+  float o[HD / 8][4];
 #pragma unroll
-    for (int i = 0; i < RPT; ++i)
+  for (int j = 0; j < HD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < T; ++t) {
+    cp_async_wait<NST - 2>();  // tile t (and q) landed, for this thread
+    __syncthreads();           // ... for every thread; tile t-1 is done
+    issue(t + NST - 1);        // into the stage tile t-1 used
+    if (t == 0) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    for (int kk = 0; kk < HD; ++kk) {
-      float qv[RPT];
+      for (int kd = 0; kd < HD / 16; ++kd)
+        ld_a(qa[kd], Qs + warp * 16 * LD, LD, kd * 16);
+    }
+    const bool pass2 = t >= nkt;
+    const int k0 = (pass2 ? t - nkt : t) * kT;
+    const bf16* Kt = Ks + (t % NST) * kT * LD;
+    const bf16* Vt = Vs + (t % NST) * kT * LD;
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) qv[i] = Qs[(rg * RPT + i) * QLD + kk];
+    for (int kc = 0; kc < kT / 16; ++kc) {  // 16 keys at a time
+      float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float kv = ssmv::to_f32(Tile[kk * kColChunk + cl + 16 * j]);
+      for (int kd = 0; kd < HD / 16; ++kd) {
+        uint32_t kb[4];
+        ld_b_nk(kb, Kt, LD, kc * 16, kd * 16);
+        mma(s[0], qa[kd], kb[0], kb[1]);
+        mma(s[1], qa[kd], kb[2], kb[3]);
+      }
 #pragma unroll
-        for (int i = 0; i < RPT; ++i) acc[i][j] = fmaf(qv[i], kv, acc[i][j]);
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + kc * 16 + j * 8 + 2 * tq + (e & 1);
+          s[j][e] = col < N ? s[j][e] * scale : -CUDART_INF_F;
+        }
+      if (!pass2) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          m[0] = fmaxf(m[0], fmaxf(s[j][0], s[j][1]));
+          m[1] = fmaxf(m[1], fmaxf(s[j][2], s[j][3]));
+        }
+        continue;
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = expf(s[j][e] - m[e >> 1]);  // masked columns give 0
+          l[e >> 1] += s[j][e];
+        }
+      uint32_t pa[4];
+      pack_a(pa, s);
+#pragma unroll
+      for (int nd = 0; nd < HD / 16; ++nd) {
+        uint32_t vb[4];
+        ld_b_kn(vb, Vt, LD, kc * 16, nd * 16);
+        mma(o[2 * nd], pa, vb[0], vb[1]);
+        mma(o[2 * nd + 1], pa, vb[2], vb[3]);
       }
     }
+    if (t == nkt - 1) {  // the quad of lanes holding a row share its max
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = cb + cl + 16 * j;
-      if (c < NP) {
-#pragma unroll
-        for (int i = 0; i < RPT; ++i)
-          S[(rg * RPT + i) * SLD + c] = c < N ? acc[i][j] : -CUDART_INF_F;
-      }
-    }
-  }
-  __syncthreads();
-
-  // Softmax numerator: each warp takes QT / 8 rows.
-  const int warp = tid >> 5, lane = tid & 31;
-  for (int rr = 0; rr < QT / 8; ++rr) {
-    const int r = warp * (QT / 8) + rr;
-    float* srow = S + r * SLD;
-    float m = -CUDART_INF_F;
-    for (int c = lane; c < NP; c += 32) m = fmaxf(m, srow[c]);
-    m = ssmv::warp_max(m);
-    float l = 0.f;
-    for (int c = lane; c < NP; c += 32) {
-      const float p = expf(srow[c] - m);  // masked columns give exactly 0
-      l += p;
-      srow[c] = ssmv::to_f32(ssmv::from_f32<T>(p));
-    }
-    l = ssmv::warp_sum(l);
-    if (lane == 0) linv[r] = 1.f / l;
-  }
-
-  // o = p . v over 128-row V tiles, then scaled by 1/sum; thread (rg, cl)
-  // owns rows rg*RPT.. and columns cl + 16*j.
-  constexpr int CJ = HD / 16;
-  float o[RPT][CJ];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int j = 0; j < CJ; ++j) o[i][j] = 0.f;
-  for (int cb = 0; cb < NP; cb += kColChunk) {
-    __syncthreads();  // p is complete; the last tile's readers are done
-    for (int i = tid; i < kColChunk * HD; i += kThreads) {
-      const int n = i / HD, c = i % HD;
-      T vv = ssmv::from_f32<T>(0.f);  // pad rows zero: 0 * garbage never
-      if (cb + n < N) vv = base[(size_t)(cb + n) * C3 + 2 * C + h * HD + c];
-      Tile[n * HD + c] = vv;          // reaches o
-    }
-    __syncthreads();
-    const int nt = min(kColChunk, NP - cb);
-    for (int n = 0; n < nt; ++n) {
-      float pv[RPT];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) pv[i] = S[(rg * RPT + i) * SLD + cb + n];
-#pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        const float vv = ssmv::to_f32(Tile[n * HD + cl + 16 * j]);
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) o[i][j] = fmaf(pv[i], vv, o[i][j]);
+      for (int i = 0; i < 2; ++i) {
+        m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 1));
+        m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 2));
       }
     }
   }
+  float linv[2];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = rg * RPT + i;
-    const int n = q0 + r;
-    if (n < N) {
-      const float li = linv[r];
-      T* orow = out + ((size_t)b * N + n) * C + h * HD;
-#pragma unroll
-      for (int j = 0; j < CJ; ++j)
-        orow[cl + 16 * j] = ssmv::from_f32<T>(o[i][j] * li);
-    }
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    linv[i] = 1.f / l[i];
   }
+  // the warp's own q rows are free (its fragments are in registers)
+  store_rows<HD>(o, linv, Qs + warp * 16 * LD,
+                 out + (size_t)b * N * C + (size_t)h * d, C, q0 + warp * 16,
+                 N, d, vec);
 }
 
-template <typename T, int HD, int QT>
-cudaError_t launch(const void* qkv, void* out, int B, int N, int H,
-                   float scale, cudaStream_t stream) {
-  const int NP = (N + 15) / 16 * 16;
-  const size_t smem = smem_bytes(QT, HD, NP, sizeof(T));
+template <int HD>
+cudaError_t launch_bf16(const void* qkv, void* out, int B, int N, int H, int d,
+                        float scale, cudaStream_t s) {
+  const size_t smem = Fwd<HD>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      mha_fwd_kernel<T, HD, QT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mha_fwd_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + QT - 1) / QT, H, B);
-  mha_fwd_kernel<T, HD, QT><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), N, NP, H, scale);
+  mha_fwd_bf16_kernel<HD><<<dim3((N + kT - 1) / kT, H, B), kThreads, smem,
+                            s>>>(static_cast<const bf16*>(qkv),
+                                 static_cast<bf16*>(out), N, H, d, scale,
+                                 int(d % 8 == 0));
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const void* qkv, void* out, int B, int N, int H,
-                     float scale, cudaStream_t s) {
+// ---------------------------------------------------------------------------
+// f32: the SIMT form
+// ---------------------------------------------------------------------------
+
+template <int HD, int QT>
+__global__ void __launch_bounds__(ssmv::simt::kThreads)
+mha_fwd_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out,
+                   int N, int NP, int H, int d, float scale) {
+  namespace sm = ssmv::simt;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const sm::Smem<float> L = sm::carve<float>(smem_raw, QT, HD, NP);
+  const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
+  const int C = H * d;
+  const size_t C3 = 3 * (size_t)C;
+  float o[QT / 16][HD / 16];
+  sm::head_attention<float, HD, QT>(qkv + (size_t)b * N * C3 + (size_t)h * d,
+                                    C3, C, N, NP, q0, d, scale, L, o);
+  const int rg = threadIdx.x >> 4, cl = threadIdx.x & 15;
+#pragma unroll
+  for (int i = 0; i < QT / 16; ++i) {
+    const int r = rg * (QT / 16) + i, n = q0 + r;
+    if (n < N) {
+      const float li = L.linv[r];
+      float* orow = out + ((size_t)b * N + n) * C + (size_t)h * d;
+#pragma unroll
+      for (int j = 0; j < HD / 16; ++j)
+        if (cl + 16 * j < d) orow[cl + 16 * j] = o[i][j] * li;
+    }
+  }
+}
+
+template <int HD>
+cudaError_t launch_f32(const void* qkv, void* out, int B, int N, int H, int d,
+                       float scale, cudaStream_t s) {
+  namespace sm = ssmv::simt;
   const int NP = (N + 15) / 16 * 16;
-  if (smem_bytes(64, 64, NP, sizeof(T)) <= ssmv::kMaxSmemBytes)
-    return launch<T, 64, 64>(qkv, out, B, N, H, scale, s);
-  return launch<T, 64, 32>(qkv, out, B, N, H, scale, s);
+  const bool wide = sm::smem_bytes(64, HD, NP, 4) <= ssmv::kMaxSmemBytes;
+  const size_t smem = sm::smem_bytes(wide ? 64 : 32, HD, NP, 4);
+  auto kernel = wide ? mha_fwd_f32_kernel<HD, 64> : mha_fwd_f32_kernel<HD, 32>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int qt = wide ? 64 : 32;
+  kernel<<<dim3((N + qt - 1) / qt, H, B), sm::kThreads, smem, s>>>(
+      static_cast<const float*>(qkv), static_cast<float*>(out), N, NP, H, d,
+      scale);
+  return cudaGetLastError();
+}
+static_assert(ssmv::simt::smem_bytes(32, 128, kMaxN, 4) <= ssmv::kMaxSmemBytes,
+              "K5's f32 form must take N = 1024 at head_dim 128");
+
+template <int HD>
+cudaError_t launch(const void* qkv, void* out, int B, int N, int H, int d,
+                   float scale, int is_bf16, cudaStream_t s) {
+  return is_bf16 ? launch_bf16<HD>(qkv, out, B, N, H, d, scale, s)
+                 : launch_f32<HD>(qkv, out, B, N, H, d, scale, s);
 }
 
 }  // namespace
 
-// qkv (B, N, 3*H*head_dim) -> out (B, N, H*head_dim), both contiguous, of
-// bf16 (is_bf16 = 1) or f32 (is_bf16 = 0). head_dim is 64, the width of
-// every model of the port; N <= 1024.
+// qkv (B, N, 3*H*head_dim) -> out (B, N, H*head_dim), both contiguous and
+// 16-byte aligned, of bf16 (is_bf16 = 1) or f32 (is_bf16 = 0);
+// head_dim <= 128, N <= 1024.
 extern "C" int ssmv_mha_fwd(const void* qkv, void* out, int B, int N, int H,
                             int head_dim, float scale, int is_bf16,
                             void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B < 1 || N < 1 || H < 1 || B > 65535 || H > 65535 || head_dim != 64 ||
-      N > kMaxN)
+  if (B < 1 || N < 1 || H < 1 || B > 65535 || H > 65535 || N > kMaxN)
     return (int)cudaErrorInvalidValue;
-  const cudaError_t err =
-      is_bf16 ? dispatch<__nv_bfloat16>(qkv, out, B, N, H, scale, s)
-              : dispatch<float>(qkv, out, B, N, H, scale, s);
-  return (int)err;
+  switch (ssmv::head_instance(head_dim)) {
+    case 32: return (int)launch<32>(qkv, out, B, N, H, head_dim, scale, is_bf16, s);
+    case 64: return (int)launch<64>(qkv, out, B, N, H, head_dim, scale, is_bf16, s);
+    case 96: return (int)launch<96>(qkv, out, B, N, H, head_dim, scale, is_bf16, s);
+    case 128: return (int)launch<128>(qkv, out, B, N, H, head_dim, scale, is_bf16, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

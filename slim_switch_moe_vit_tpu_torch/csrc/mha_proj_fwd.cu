@@ -3,68 +3,58 @@
 // Replaces the Pallas kernel slim_switch_moe_vit_tpu/ops/attention.py
 // _mha_fwd_proj_kernel (:335), reached through _mha_proj_fwd_call (:377)
 // and fused_mha_proj (:393):
-//   y = sum over heads h of bf16(softmax(q_h k_h^T * scale) v_h) . Wp[h] + bp
+//   y = sum over heads h of T(softmax(q_h k_h^T * scale) v_h) . Wp[h] + bp
 // over the packed qkv (B, N, 3C), with Wp[h] = Wp[h*d : (h+1)*d, :] (Wp is
-// (C, C), in qkv's dtype; bp (C,) f32) and y (B, N, C) in qkv's dtype.
+// (C, C), in qkv's dtype T; bp (C,) f32) and y (B, N, C) in T. N <= 1024,
+// C <= 1280, head_dim d <= 128 (on the smallest instance HD in {32, 64,
+// 96, 128} >= d).
 //
 // What bounds it on the H100: per (sample, head) pair the work and traffic
 // of K5 (mha_fwd.cu), plus the proj product (2 N C^2 flops a sample); the
-// (B, N, C) attention output never goes to device memory. Like K5, this
-// first kernel does every product with f32 FMAs on the CUDA cores, so it is
-// bound by shared-memory loads and FMA throughput.
+// (B, N, C) attention output never goes to device memory. This kernel does
+// every product with f32 FMAs on the CUDA cores, so it is bound by
+// shared-memory loads and FMA throughput. It is an op on no model path, as
+// in the JAX package; correct and simple first.
 //
-// Design: K5 runs one block per (query tile, head, sample); the fold has to
-// sum over the heads, so K12 runs one block per (query tile, sample) that
-// loops over the heads. Each head runs K5's body on the tile (q scaled in
-// f32, K^T and V of the head in shared memory for all N rows, the exact
-// softmax over the whole score row, p rounded to the activation dtype for
-// the PV product, the output scaled by 1/sum), rounds o_h to the activation
-// dtype as the TPU kernel does (attention.py:364), and adds o_h . Wp[h]
-// into an f32 (rows x C) accumulator held in registers (QT / 8 rows x
-// C / 32 columns a thread, at most 48). The query tile is sized by C so
-// that the accumulator fits: QT = 64 rows for C <= 192, 32 for C <= 384,
-// 16 for C <= 768. Wp is read from device memory through the cache (each
-// block reads all of it once a head). Shared memory is K5's layout at
-// QT <= 64 rows, so K12 takes N up to that layout's caps at 64 rows (416
-// in bf16, 272 in f32; ssmv_mha_proj_max_n).
-#include <math_constants.h>
-
-#include "common.cuh"
+// Design: the fold sums over the heads, so one block runs per (query tile,
+// sample) and loops over the heads. Each head runs the SIMT attention of
+// mha_simt.cuh on the tile (q scaled in f32, K and V streamed through one
+// 128-row shared tile, the exact softmax over the whole score row held in
+// shared memory, p rounded to T for the PV product, the output scaled by
+// 1/sum), rounds o_h to T as the TPU kernel does (attention.py:364), and
+// adds o_h . Wp[h] into an f32 (rows x C) accumulator held in registers:
+// thread (warp, lane) owns rows warp + 8 i and columns lane + 32 j, the C
+// columns tiled over the lanes (at most 80 accumulators a thread). The
+// query tile is 64 rows for C <= 320, 32 for C <= 640 and 16 above (up to
+// C = 1280), smaller wherever its score tile does not fit in shared
+// memory. Wp is
+// read from device memory through the cache (each block reads all of it
+// once a head).
+#include "mha_simt.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kHD = 64;        // head dim
-constexpr int kColChunk = 128; // score columns per register pass
-constexpr int kQLD = kHD + 4;
+namespace sm = ssmv::simt;
 
-__host__ __device__ constexpr size_t smem_bytes(int qt, int np, size_t tsize) {
-  return sizeof(float) * ((size_t)qt * kQLD + (size_t)qt * (np + 4) + qt) +
-         tsize * 2 * (size_t)kHD * np;
-}
+constexpr int kMaxN = 1024;
+constexpr int kMaxC = 1280;
+constexpr int kYCols = 640;  // QT * NJ: y rows a thread (QT / 8) x NJ = 80
 
-// QT query rows a block; NJ = the most C / 32 columns a thread accumulates
-template <typename T, int QT>
-__global__ void __launch_bounds__(kThreads, 1)
+template <typename T, int HD, int QT>
+__global__ void __launch_bounds__(sm::kThreads, 1)
 mha_proj_fwd_kernel(const T* __restrict__ qkv, const T* __restrict__ wp,
                     const float* __restrict__ bp, T* __restrict__ y, int N,
-                    int NP, int H, float scale) {
-  constexpr int RPT = QT / 16;         // score / PV rows a thread
-  constexpr int YR = QT / 8;           // y rows a thread
-  constexpr int NJ = 24 * 16 / QT;     // y column groups a thread, at most
+                    int NP, int H, int d, float scale) {
+  constexpr int RPT = QT / 16, CJ = HD / 16;  // o rows and columns a thread
+  constexpr int YR = QT / 8;                  // y rows a thread
+  constexpr int NJ = kYCols / QT;             // y column groups, at most
+  constexpr int QLD = sm::q_ld(HD);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int C = H * kHD, C3 = 3 * C;
-  const int nj = C / 32;
-  const int q0 = blockIdx.x * QT;
-  const int b = blockIdx.y;
-  const int SLD = NP + 4;
-
-  float* Qs = reinterpret_cast<float*>(smem_raw);  // QT x kQLD; then o_h
-  float* S = Qs + QT * kQLD;                       // QT x SLD
-  float* linv = S + QT * SLD;                      // QT
-  T* Kt = reinterpret_cast<T*>(linv + QT);         // kHD x NP
-  T* Vs = Kt + kHD * NP;                           // NP x kHD
-
+  const sm::Smem<T> L = sm::carve<T>(smem_raw, QT, HD, NP);
+  const int C = H * d;
+  const size_t C3 = 3 * (size_t)C;
+  const int nj = (C + 31) / 32;
+  const int q0 = blockIdx.x * QT, b = blockIdx.y;
   const T* base = qkv + (size_t)b * N * C3;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int rg = tid >> 4, cl = tid & 15;
@@ -76,117 +66,32 @@ mha_proj_fwd_kernel(const T* __restrict__ qkv, const T* __restrict__ wp,
     for (int j = 0; j < NJ; ++j) yacc[i][j] = 0.f;
 
   for (int h = 0; h < H; ++h) {
-    __syncthreads();  // the last head's readers of Qs (o_h), Kt, Vs are done
-    for (int i = tid; i < QT * kHD; i += kThreads) {
-      const int r = i / kHD, c = i % kHD;
-      const int n = q0 + r;
-      Qs[r * kQLD + c] =
-          n < N ? ssmv::to_f32(base[(size_t)n * C3 + h * kHD + c]) * scale
-                : 0.f;
-    }
-    for (int i = tid; i < NP * kHD; i += kThreads) {
-      const int n = i / kHD, c = i % kHD;
-      T kv = ssmv::from_f32<T>(0.f), vv = ssmv::from_f32<T>(0.f);
-      if (n < N) {
-        const T* row = base + (size_t)n * C3 + h * kHD + c;
-        kv = row[C];
-        vv = row[2 * C];
-      }
-      Kt[c * NP + n] = kv;
-      Vs[n * kHD + c] = vv;
+    __syncthreads();  // the last head's readers of Qs (o_h) are done
+    float o[RPT][CJ];
+    sm::head_attention<T, HD, QT>(base + (size_t)h * d, C3, C, N, NP, q0, d,
+                                  scale, L, o);
+    // o_h rounded to T, into Qs (no thread reads q after the score pass)
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int r = rg * RPT + i;
+      const float li = L.linv[r];
+#pragma unroll
+      for (int j = 0; j < CJ; ++j)
+        L.Qs[r * QLD + cl + 16 * j] = ssmv::to_f32(ssmv::from_f32<T>(o[i][j] * li));
     }
     __syncthreads();
 
-    // scores: thread (rg, cl) owns rows rg*RPT.. and columns cl + 16*j
-    for (int cb = 0; cb < NP; cb += kColChunk) {
-      float acc[RPT][8];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-      for (int kk = 0; kk < kHD; ++kk) {
-        float qv[RPT];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) qv[i] = Qs[(rg * RPT + i) * kQLD + kk];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int c = cb + cl + 16 * j;
-          const float kv = c < NP ? ssmv::to_f32(Kt[kk * NP + c]) : 0.f;
-#pragma unroll
-          for (int i = 0; i < RPT; ++i) acc[i][j] = fmaf(qv[i], kv, acc[i][j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = cb + cl + 16 * j;
-        if (c < NP) {
-#pragma unroll
-          for (int i = 0; i < RPT; ++i)
-            S[(rg * RPT + i) * SLD + c] = c < N ? acc[i][j] : -CUDART_INF_F;
-        }
-      }
-    }
-    __syncthreads();
-
-    // softmax numerator: each warp takes QT / 8 rows
-    for (int rr = 0; rr < QT / 8; ++rr) {
-      const int r = warp * (QT / 8) + rr;
-      float* srow = S + r * SLD;
-      float m = -CUDART_INF_F;
-      for (int c = lane; c < NP; c += 32) m = fmaxf(m, srow[c]);
-      m = ssmv::warp_max(m);
-      float l = 0.f;
-      for (int c = lane; c < NP; c += 32) {
-        const float p = expf(srow[c] - m);
-        l += p;
-        srow[c] = ssmv::to_f32(ssmv::from_f32<T>(p));
-      }
-      l = ssmv::warp_sum(l);
-      if (lane == 0) linv[r] = 1.f / l;
-    }
-    __syncthreads();
-
-    // o_h = p . v scaled by 1/sum, rounded to T, into Qs (q is no longer read)
-    {
-      float o[RPT][4];
-#pragma unroll
-      for (int i = 0; i < RPT; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) o[i][j] = 0.f;
-      for (int n = 0; n < NP; ++n) {
-        float pv[RPT];
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) pv[i] = S[(rg * RPT + i) * SLD + n];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float vv = ssmv::to_f32(Vs[n * kHD + cl + 16 * j]);
-#pragma unroll
-          for (int i = 0; i < RPT; ++i) o[i][j] = fmaf(pv[i], vv, o[i][j]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const int r = rg * RPT + i;
-        const float li = linv[r];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          Qs[r * kQLD + cl + 16 * j] =
-              ssmv::to_f32(ssmv::from_f32<T>(o[i][j] * li));
-      }
-    }
-    __syncthreads();
-
-    // y += o_h . Wp[h]: thread (warp, lane) owns rows warp + 8 i and
-    // columns lane + 32 j
-    const T* wph = wp + (size_t)h * kHD * C;
-    for (int k = 0; k < kHD; ++k) {
+    // y += o_h . Wp[h]
+    const T* wph = wp + (size_t)h * d * C;
+    for (int k = 0; k < d; ++k) {
       float ov[YR];
 #pragma unroll
-      for (int i = 0; i < YR; ++i) ov[i] = Qs[(warp + 8 * i) * kQLD + k];
+      for (int i = 0; i < YR; ++i) ov[i] = L.Qs[(warp + 8 * i) * QLD + k];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
-        if (j < nj) {
-          const float wv = ssmv::to_f32(wph[(size_t)k * C + lane + 32 * j]);
+        const int c = lane + 32 * j;
+        if (j < nj && c < C) {
+          const float wv = ssmv::to_f32(wph[(size_t)k * C + c]);
 #pragma unroll
           for (int i = 0; i < YR; ++i) yacc[i][j] = fmaf(ov[i], wv, yacc[i][j]);
         }
@@ -201,68 +106,74 @@ mha_proj_fwd_kernel(const T* __restrict__ qkv, const T* __restrict__ wp,
       T* yrow = y + ((size_t)b * N + n) * C;
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
-        if (j < nj) {
-          const int c = lane + 32 * j;
-          yrow[c] = ssmv::from_f32<T>(yacc[i][j] + bp[c]);
-        }
+        const int c = lane + 32 * j;
+        if (j < nj && c < C) yrow[c] = ssmv::from_f32<T>(yacc[i][j] + bp[c]);
       }
     }
   }
 }
 
-// The largest N taken: the layout at 64 query rows must fit (the caps of
-// K5's whole-row layout, 416 in bf16 and 272 in f32).
-int max_n(size_t tsize) {
-  int np = 16;
-  while (smem_bytes(64, np + 16, tsize) <= ssmv::kMaxSmemBytes) np += 16;
-  return np;
-}
-
-template <typename T, int QT>
+template <typename T, int HD, int QT>
 cudaError_t launch(const void* qkv, const void* wp, const void* bp, void* y,
-                   int B, int N, int H, float scale, cudaStream_t stream) {
-  const int NP = (N + 15) / 16 * 16;
-  if (N > max_n(sizeof(T))) return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(QT, NP, sizeof(T));
+                   int B, int N, int NP, int H, int d, float scale,
+                   cudaStream_t stream) {
+  const size_t smem = sm::smem_bytes(QT, HD, NP, sizeof(T));
   cudaError_t err = cudaFuncSetAttribute(
-      mha_proj_fwd_kernel<T, QT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      mha_proj_fwd_kernel<T, HD, QT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + QT - 1) / QT, B);
-  mha_proj_fwd_kernel<T, QT><<<grid, kThreads, smem, stream>>>(
+  mha_proj_fwd_kernel<T, HD, QT><<<dim3((N + QT - 1) / QT, B), sm::kThreads,
+                                   smem, stream>>>(
       static_cast<const T*>(qkv), static_cast<const T*>(wp),
-      static_cast<const float*>(bp), static_cast<T*>(y), N, NP, H, scale);
+      static_cast<const float*>(bp), static_cast<T*>(y), N, NP, H, d, scale);
   return cudaGetLastError();
+}
+static_assert(sm::smem_bytes(16, 128, kMaxN, 4) <= ssmv::kMaxSmemBytes,
+              "K12 must take N = 1024 at head_dim 128 in f32");
+
+// the largest query tile whose y accumulator holds C columns (QT / 8 rows x
+// kYCols / QT groups of 32 a thread) and whose score tile fits
+template <typename T, int HD>
+cudaError_t dispatch(const void* qkv, const void* wp, const void* bp, void* y,
+                     int B, int N, int H, int d, float scale, cudaStream_t s) {
+  const int NP = (N + 15) / 16 * 16, C = H * d;
+  auto fits = [&](int qt) {
+    return C <= kYCols / qt * 32 &&
+           sm::smem_bytes(qt, HD, NP, sizeof(T)) <= ssmv::kMaxSmemBytes;
+  };
+  if (fits(64)) return launch<T, HD, 64>(qkv, wp, bp, y, B, N, NP, H, d, scale, s);
+  if (fits(32)) return launch<T, HD, 32>(qkv, wp, bp, y, B, N, NP, H, d, scale, s);
+  return launch<T, HD, 16>(qkv, wp, bp, y, B, N, NP, H, d, scale, s);
 }
 
 template <typename T>
 cudaError_t dispatch(const void* qkv, const void* wp, const void* bp, void* y,
-                     int B, int N, int H, float scale, cudaStream_t s) {
-  const int C = H * kHD;
-  if (C <= 192) return launch<T, 64>(qkv, wp, bp, y, B, N, H, scale, s);
-  if (C <= 384) return launch<T, 32>(qkv, wp, bp, y, B, N, H, scale, s);
-  return launch<T, 16>(qkv, wp, bp, y, B, N, H, scale, s);
+                     int B, int N, int H, int d, float scale, cudaStream_t s) {
+  switch (ssmv::head_instance(d)) {
+    case 32: return dispatch<T, 32>(qkv, wp, bp, y, B, N, H, d, scale, s);
+    case 64: return dispatch<T, 64>(qkv, wp, bp, y, B, N, H, d, scale, s);
+    case 96: return dispatch<T, 96>(qkv, wp, bp, y, B, N, H, d, scale, s);
+    case 128: return dispatch<T, 128>(qkv, wp, bp, y, B, N, H, d, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // qkv (B, N, 3C), wp (C, C) of qkv's dtype, bp (C,) f32 -> y (B, N, C) of
-// qkv's dtype, bf16 (is_bf16 = 1) or f32; C = H * 64 <= 768;
-// N <= ssmv_mha_proj_max_n(is_bf16). All contiguous.
+// qkv's dtype, bf16 (is_bf16 = 1) or f32; C = H * head_dim <= 1280,
+// head_dim <= 128, N <= 1024. All contiguous.
 extern "C" int ssmv_mha_proj_fwd(const void* qkv, const void* wp,
                                  const void* bp, void* y, int B, int N, int H,
                                  int head_dim, float scale, int is_bf16,
                                  void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (B < 1 || N < 1 || H < 1 || B > 65535 || head_dim != kHD ||
-      H * kHD > 768)
+  if (B < 1 || N < 1 || H < 1 || B > 65535 || N > kMaxN ||
+      H * head_dim > kMaxC)
     return (int)cudaErrorInvalidValue;
   const cudaError_t err =
-      is_bf16 ? dispatch<__nv_bfloat16>(qkv, wp, bp, y, B, N, H, scale, s)
-              : dispatch<float>(qkv, wp, bp, y, B, N, H, scale, s);
+      is_bf16 ? dispatch<__nv_bfloat16>(qkv, wp, bp, y, B, N, H, head_dim,
+                                        scale, s)
+              : dispatch<float>(qkv, wp, bp, y, B, N, H, head_dim, scale, s);
   return (int)err;
-}
-
-extern "C" int ssmv_mha_proj_max_n(int is_bf16) {
-  return max_n(is_bf16 ? sizeof(__nv_bfloat16) : sizeof(float));
 }

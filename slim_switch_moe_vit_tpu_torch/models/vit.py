@@ -53,8 +53,9 @@ def attention_route(N: int, training: bool, attn_drop: float,
     - ``"k5"``: K5 in eval;
     - ``"k5_k6"``: K5 and its backward K6 in training.
 
-    The kernels take head_dim 64 (every model of the port) and K11 takes
-    bf16; other shapes raise on the card."""
+    The kernels take bf16 and f32 and head_dim up to 128
+    (``ops.attention.MAX_HEAD_DIM``; the widest head of either zoo is 80);
+    a wider head raises on the card, naming the cap."""
     if training and attn_drop > 0.0:
         return "plain_dropout"
     if use_flash:

@@ -10,11 +10,13 @@ Replaces four Pallas kernels of ``slim_switch_moe_vit_tpu/ops/attention.py``:
 C++ kernels are ``csrc/mha_fwd.cu``, ``csrc/mha_bwd.cu``,
 ``csrc/flash_fwd.cu`` and ``csrc/mha_proj_fwd.cu``; their
 header notes say what bounds them on the card and how their designs answer
-that. In short: at ViT lengths the whole score matrix of a (sample, head)
-pair fits on chip, so the forward reads the packed (B, N, 3C) qkv once and
+that. In short: the forward reads the packed (B, N, 3C) qkv once and
 writes the (B, N, C) output once, and the backward recomputes the softmax
-and writes d(qkv) in the packed layout, the normalized probabilities never
-in device memory.
+and writes d(qkv) in the packed layout, the probabilities never in device
+memory. In bf16, K5 and K6 take their products on the tensor cores
+(``mma.sync``) with the scores in registers, and stream K and V through
+``cp.async`` rings; the exact row maximum comes first, from a pass that
+computes only row maxima.
 
 Dispatch: a CPU tensor takes the plain versions
 (:func:`fused_mha_reference`, :func:`reference_mha_bwd`,
@@ -26,13 +28,14 @@ through the plain version with ``torch.matmul``, as the JAX package's
 ("correctness-first", :129-133); so does K12's, as the JAX VJP
 (:421-428) differentiates its unfused reference.
 
-Shapes: every kernel takes head_dim 64, the width of every model of the
-port. K5 and K6 take N <= ``MAX_N`` = 1024, the lengths the JAX package
-runs its kernels at (``Attention._fused_ok``), in bf16 and f32; K11 takes
-bf16 at any N; K12 takes N up to :func:`mha_proj_max_n` (its layout holds
-the whole score row: 416 in bf16, 272 in f32) and C <= 768. Outside these a
-CUDA tensor raises; ``models/vit.py::attention_route`` chooses a path
-before any launch.
+Shapes: every kernel takes bf16 and f32 and any head_dim d up to
+``MAX_HEAD_DIM`` = 128 (the widest head of either package's zoo is 80),
+each on the smallest compiled width of 32, 64, 96 and 128 that holds d,
+the extra columns zero on chip. K5, K6 and K12 take N <= ``MAX_N`` = 1024,
+the lengths the JAX package runs its kernels at (``Attention._fused_ok``);
+K11 takes any N; K12 takes C <= ``K12_MAX_C`` = 1280 (``vit_huge``'s
+width). Outside these a CUDA tensor raises, naming the cap;
+``models/vit.py::attention_route`` chooses a path before any launch.
 """
 from __future__ import annotations
 
@@ -41,16 +44,9 @@ import torch
 from . import _build
 from ._checks import check_tensor
 
-HEAD_DIM = 64       # the head width every attention kernel takes
-MAX_N = 1024        # K5 and K6 take N up to the JAX package's kernel rule
-K12_MAX_C = 768     # K12's f32 accumulator: QT / 8 rows x C / 32 a thread
-
-
-def mha_proj_max_n(dtype: torch.dtype) -> int:
-    """Largest N K12 takes in ``dtype``, as its CUDA source computes it from
-    its shared-memory layout (one source of truth)."""
-    lib = _build.load_library()
-    return lib.ssmv_mha_proj_max_n(int(dtype == torch.bfloat16))
+MAX_HEAD_DIM = 128  # the widest head the attention kernels take
+MAX_N = 1024        # K5, K6 and K12 take N up to the JAX package's kernel rule
+K12_MAX_C = 1280    # K12's f32 accumulator: QT / 8 rows x C / 32 a thread
 
 
 def fused_mha_reference(qkv: torch.Tensor, num_heads: int,
@@ -106,8 +102,9 @@ def _check_qkv(qkv, num_heads, dtypes):
                          f"{num_heads} heads, got {tuple(qkv.shape)}")
     B, N, C3 = qkv.shape
     d = C3 // 3 // num_heads
-    if d != HEAD_DIM:
-        raise ValueError(f"the MHA kernels take head_dim {HEAD_DIM}, got {d}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"the attention kernels take head_dim <= "
+                         f"{MAX_HEAD_DIM}, got {d}")
     return B, N, C3 // 3, d
 
 
@@ -125,7 +122,8 @@ def fused_mha_bwd(qkv: torch.Tensor, do: torch.Tensor, num_heads: int,
     _check_n(N, MAX_N, "fused_mha_bwd")
     check_tensor(do, "do", (qkv.dtype,), device=qkv.device, shape=(B, N, C))
     dqkv = torch.empty_like(qkv)
-    # the row statistics of the long form (N > 208), unused below
+    # the rows kernel's per-row statistics (m, linv, linv * delta), read
+    # by the cols kernel
     stats = torch.empty(B * num_heads * N * 3, dtype=torch.float32,
                         device=qkv.device)
     lib = _build.load_library()
@@ -191,11 +189,11 @@ def flash_attention_reference(qkv: torch.Tensor, num_heads: int,
 def _flash_forward(qkv, num_heads, scale):
     if not qkv.is_cuda:
         return flash_attention_reference(qkv, num_heads, scale)
-    B, N, C, d = _check_qkv(qkv, num_heads, (torch.bfloat16,))
+    B, N, C, d = _check_qkv(qkv, num_heads, (torch.bfloat16, torch.float32))
     out = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
     lib = _build.load_library()
     err = lib.ssmv_flash_fwd(qkv.data_ptr(), out.data_ptr(), B, N, num_heads,
-                             d, float(scale),
+                             d, float(scale), int(qkv.dtype == torch.bfloat16),
                              torch.cuda.current_stream().cuda_stream)
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
@@ -222,8 +220,7 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(qkv: torch.Tensor, num_heads: int,
                     scale: float) -> torch.Tensor:
     """Online-softmax attention (K11) over packed qkv: the same function as
-    :func:`fused_mha`, for any N (K5 keeps the whole score row on chip);
-    bf16 only on the card."""
+    :func:`fused_mha`, for any N (K5 takes N <= 1024), bf16 or f32."""
     return _FlashAttention.apply(qkv, num_heads, scale)
 
 
@@ -242,7 +239,7 @@ def fused_mha_proj_reference(qkv: torch.Tensor, wp: torch.Tensor,
 
 def _check_proj(qkv, wp, bp, num_heads):
     B, N, C, d = _check_qkv(qkv, num_heads, (torch.bfloat16, torch.float32))
-    _check_n(N, mha_proj_max_n(qkv.dtype), "fused_mha_proj")
+    _check_n(N, MAX_N, "fused_mha_proj")
     if C > K12_MAX_C:
         raise ValueError(f"fused_mha_proj: the kernel takes C <= {K12_MAX_C}, "
                          f"got {C}")

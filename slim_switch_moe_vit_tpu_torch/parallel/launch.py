@@ -43,9 +43,10 @@ _PARAMS = ("router_w", "router_b", "w1", "b1", "w2", "b2")
 
 
 def spawn(fn: typ.Callable, world: int, args: tuple = (), *, init_file: str,
-          device: str = "cpu", env: typ.Optional[dict] = None) -> None:
+          device: str = "cuda", env: typ.Optional[dict] = None) -> None:
     """Run ``fn(*args)`` on ``world`` ranks of one process group, one
-    process each; returns when all have ended, raises if one failed.
+    process each, on ``device`` (the card unless the caller passes
+    ``"cpu"``); returns when all have ended, raises if one failed.
     ``init_file`` must not exist yet (the rendezvous creates it)."""
     torch.multiprocessing.start_processes(
         _rank_main, args=(fn, world, init_file, device, dict(env or {}), args),

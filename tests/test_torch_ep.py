@@ -58,3 +58,15 @@ def test_a2a_forms_agree_bit_for_bit(port):
     a, b = out[f"a2a@{FACTOR}"], out[f"a2a_perm@{FACTOR}"]
     for k in a:
         assert np.array_equal(a[k], b[k]), k
+
+
+def test_spawn_runs_on_the_card_unless_cpu_is_passed():
+    """``launch.spawn`` is an entry point: its ranks run on the card unless
+    the caller passes ``device="cpu"``, as the CPU helpers here do."""
+    import inspect
+
+    from slim_switch_moe_vit_tpu_torch.parallel import launch
+
+    device = inspect.signature(launch.spawn).parameters["device"]
+    assert device.kind is inspect.Parameter.KEYWORD_ONLY
+    assert device.default == "cuda"

@@ -70,7 +70,7 @@ def test_moe_tiny_forward_matches_one_device(one_device, mode, tmp_path):
     launch.spawn(launch.model_forward_worker, DP * EP,
                  (str(path), str(tmp_path), DP, EP, MODEL,
                   {**MODEL_KW, "dispatch_mode": mode}, "cpu"),
-                 init_file=str(tmp_path / "store"))
+                 init_file=str(tmp_path / "store"), device="cpu")
     logits = [np.load(tmp_path / f"rank{r}.npz")["logits"]
               for r in range(DP * EP)]
     for r in range(DP * EP):  # the expert group's ranks agree exactly

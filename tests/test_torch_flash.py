@@ -82,3 +82,20 @@ def test_flash_backward_matches_the_jax_oracle():
     attention.flash_attention(leaf, H, scale).backward(torch.from_numpy(do))
     np.testing.assert_allclose(leaf.grad.numpy(), want, rtol=0,
                                atol=1e-5 * np.abs(want).max())
+
+
+def test_flash_f32_at_head_dim_80_matches_jax_kernel():
+    """K11 in f32 at vit_huge's head width (d = 80; the JAX wrapper pads it
+    to 128 lanes), H = 2, N = 197: the port's plain version against the
+    interpreted JAX kernel, within 2e-6 as at d = 64."""
+    B, N, h, d = 2, 197, 2, 80
+    rs = np.random.RandomState(3)
+    qkv = rs.randn(B, N, 3 * h * d).astype(np.float32)
+    q, k, v = (jnp.asarray(t.reshape(B, N, h, d))
+               for t in np.split(qkv, 3, axis=-1))
+    want = np.asarray(jax_attn._flash_forward(q, k, v, d ** -0.5,
+                                              interpret=True)).reshape(
+        B, N, h * d)
+    got = attention.flash_attention(torch.from_numpy(qkv), h, d ** -0.5)
+    assert got.dtype == torch.float32 and got.shape == (B, N, h * d)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-6)

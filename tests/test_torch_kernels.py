@@ -187,16 +187,31 @@ def test_ln_kernels_match_plain(cuda, dtype, tol):
             counts["fused_sum_ln"]) == (1, 1, 1)
 
 
+# the attention kernels' head widths and lengths on the card: each compiled
+# width (32, 64, 128), a width between two (80, vit_huge's), one that is not
+# a multiple of 8 (20: scalar loads and stores), and N at 1, a ragged tile,
+# ViT-S/16 at 224 px (197), either side of a 16-row step (208, 209), 384 px
+# (577) and the JAX kernel rule's cap (1024)
+HEAD_DIMS = [32, 64, 80, 128, 20]
+LENGTHS = [1, 17, 197, 208, 209, 577, 1024]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 1.6e-2)])
-@pytest.mark.parametrize("N,H,d", [(197, 6, 64), (50, 3, 64), (1, 2, 64),
-                                   (577, 6, 64), (705, 2, 64), (1024, 2, 64)])
-def test_mha_kernel_matches_plain(cuda, dtype, tol, N, H, d):
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("N", LENGTHS)
+def test_mha_kernel_matches_plain(cuda, dtype, tol, N, d):
+    """K5 against its plain version: bf16 on the tensor cores (e rounds
+    to bf16 before e.V, the plain version rounds the normalized
+    probabilities), f32 on the CUDA cores; one launch."""
+    H = 3
     rs = np.random.RandomState(3)
-    qkv = _rand(rs, 3, N, 3 * H * d, dtype=dtype, device=cuda)
+    qkv = _rand(rs, 2, N, 3 * H * d, dtype=dtype, device=cuda)
+    ops.reset_launch_counts()
     got = attn_ops.fused_mha(qkv, H, d ** -0.5)
     torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_mha"] == 1
     want = attn_ops.fused_mha_reference(qkv, H, d ** -0.5)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
@@ -217,9 +232,17 @@ def test_expert_ffn_kernel_matches_plain(cuda, T, D, H, E):
 @pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     rs = np.random.RandomState(5)
-    qkv = _rand(rs, 2, 10, 3 * 64, device=cuda)
-    with pytest.raises(ValueError, match="head_dim"):
-        attn_ops.fused_mha(qkv, 2, 0.1)  # d = 32
+    for dtype in (torch.bfloat16, torch.float32):  # head_dim <= 128
+        qkv = _rand(rs, 2, 10, 3 * 2 * 144, dtype=dtype, device=cuda)
+        do = _rand(rs, 2, 10, 2 * 144, dtype=dtype, device=cuda)
+        for call in (lambda: attn_ops.fused_mha(qkv, 2, 0.1),
+                     lambda: attn_ops.fused_mha_bwd(qkv, do, 2, 0.1),
+                     lambda: attn_ops.flash_attention(qkv, 2, 0.1),
+                     lambda: attn_ops.fused_mha_proj(
+                         qkv, _rand(rs, 288, 288, dtype=dtype, device=cuda),
+                         torch.zeros(288, device=cuda), 2, 0.1)):
+            with pytest.raises(ValueError, match="head_dim <= 128"):
+                call()
     case = list(_ffn_case(rs, 20, 192, 128, 2, torch.bfloat16, cuda))
     case[0] = case[0].half()
     with pytest.raises(TypeError):  # bf16 and f32 only
@@ -295,19 +318,23 @@ def test_ln_bwd_kernels_match_plain(cuda, dtype, tol, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N", [197, 50, 17, 209, 577, 1024])
-def test_mha_bwd_kernel_matches_plain(cuda, N):
-    """K6, bf16: e, ds and do*linv round to bf16 on both sides in other
-    summation orders, so a flipped rounding moves a term by one ulp. The
-    outputs are ~0.07 an element, so elementwise within one bf16 ulp at
-    0.5-1 (4e-3) + 1.6e-2 |ref|, the smoke's limit for K6. N > 208 takes
-    the long form (two SIMT kernels)."""
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("N", LENGTHS + [50])
+def test_mha_bwd_kernel_matches_plain(cuda, N, d):
+    """K6, bf16 (the rows and cols kernels on the tensor cores): e, ds and
+    do*linv round to bf16 on both sides in other summation orders, so a
+    flipped rounding moves a term by one ulp. The outputs are ~0.07 an
+    element, so elementwise within one bf16 ulp at 0.5-1 (4e-3) + 1.6e-2
+    |ref|, the smoke's limit for K6."""
+    H = 3
     rs = np.random.RandomState(7)
-    qkv = _rand(rs, 3, N, 3 * 6 * 64, dtype=torch.bfloat16, device=cuda)
-    do = _rand(rs, 3, N, 6 * 64, dtype=torch.bfloat16, device=cuda)
-    got = attn_ops.fused_mha_bwd(qkv, do, 6, 0.125)
+    qkv = _rand(rs, 2, N, 3 * H * d, dtype=torch.bfloat16, device=cuda)
+    do = _rand(rs, 2, N, H * d, dtype=torch.bfloat16, device=cuda)
+    ops.reset_launch_counts()
+    got = attn_ops.fused_mha_bwd(qkv, do, H, d ** -0.5)
     torch.cuda.synchronize()
-    want = attn_ops.reference_mha_bwd(qkv, do, 6, 0.125)
+    assert ops.launch_counts()["fused_mha_bwd"] == 1
+    want = attn_ops.reference_mha_bwd(qkv, do, H, d ** -0.5)
     assert torch.isfinite(got.float()).all()
     torch.testing.assert_close(got.float(), want.float(), atol=4e-3,
                                rtol=1.6e-2, msg="dqkv")
@@ -429,6 +456,29 @@ def test_flash_kernel_matches_plain(cuda, B, N):
         torch.testing.assert_close(got.float(),
                                    attn_ops.fused_mha(qkv, 6, 0.125).float(),
                                    atol=1.6e-2, rtol=1.6e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.float32, 80),
+                                     (torch.float32, 20),
+                                     (torch.bfloat16, 80),
+                                     (torch.bfloat16, 128),
+                                     (torch.bfloat16, 20)])
+@pytest.mark.parametrize("N", [197, 577, 1])
+def test_flash_kernel_head_dims_and_f32(cuda, dtype, d, N):
+    """K11 beyond head_dim 64 and in f32 (the JAX kernel's online softmax
+    on the CUDA cores): f32 within F32_TOL of the exact-f32 plain version
+    (the same function, the softmax rescaled tile by tile), bf16 within
+    the global limit."""
+    H = 3
+    rs = np.random.RandomState(21)
+    qkv = _rand(rs, 2, N, 3 * H * d, dtype=dtype, device=cuda)
+    ops.reset_launch_counts()
+    got = attn_ops.flash_attention(qkv, H, d ** -0.5)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention"] == 1
+    _close(got, attn_ops.flash_attention_reference(qkv, H, d ** -0.5), dtype,
+           "out")
 
 
 @pytest.mark.cuda
@@ -706,19 +756,21 @@ def _close(got, want, dtype, what, sums=False):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N", [197, 50, 208, 209, 577, 1024])
-def test_mha_bwd_f32_kernel_matches_plain(cuda, N):
-    """K6's f32 form (the long form beyond N = 208) against the exact-f32
-    plain backward, within F32_TOL."""
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("N", LENGTHS + [50])
+def test_mha_bwd_f32_kernel_matches_plain(cuda, N, d):
+    """K6's f32 forms (one block per (head, sample) at N <= 208 and
+    d <= 64, the rows and cols kernels beyond) against the exact-f32 plain
+    backward, within F32_TOL."""
     rs = np.random.RandomState(16)
-    qkv = _rand(rs, 2, N, 3 * 3 * 64, device=cuda)
-    do = _rand(rs, 2, N, 3 * 64, device=cuda)
+    qkv = _rand(rs, 2, N, 3 * 3 * d, device=cuda)
+    do = _rand(rs, 2, N, 3 * d, device=cuda)
     ops.reset_launch_counts()
-    got = attn_ops.fused_mha_bwd(qkv, do, 3, 0.125)
+    got = attn_ops.fused_mha_bwd(qkv, do, 3, d ** -0.5)
     torch.cuda.synchronize()
     assert ops.launch_counts()["fused_mha_bwd"] == 1
-    _close(got, attn_ops.reference_mha_bwd(qkv, do, 3, 0.125), torch.float32,
-           "dqkv")
+    _close(got, attn_ops.reference_mha_bwd(qkv, do, 3, d ** -0.5),
+           torch.float32, "dqkv")
 
 
 # (dtype, T, D, H, E): f32 at each width, bf16 at D = 768
@@ -788,35 +840,37 @@ def test_expert_ffn_family_f32_and_d768(cuda, dtype, T, D, H, E):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("B,N,H", [(4, 197, 3), (2, 197, 6), (2, 50, 12),
-                                   (1, 272, 2)])
-def test_mha_proj_kernel_matches_plain(cuda, dtype, B, N, H):
+@pytest.mark.parametrize("B,N,H,d", [(4, 197, 3, 64), (2, 197, 6, 64),
+                                     (2, 50, 12, 64), (1, 272, 2, 64),
+                                     (1, 417, 16, 64), (1, 577, 16, 64),
+                                     (1, 417, 20, 64), (1, 577, 16, 80),
+                                     (1, 1024, 16, 64), (1, 1024, 20, 64),
+                                     (2, 33, 3, 20)])
+def test_mha_proj_kernel_matches_plain(cuda, dtype, B, N, H, d):
     """K12 against its plain version (K5's function, then the proj product
     rounded as the JAX reference): bf16 within 1.6e-2 + 1.6e-2 |ref| (the
     plain side rounds o.Wp and adds bp in bf16, the kernel rounds once),
     f32 within F32_TOL; one launch, and its autograd backward is the plain
     version's."""
     rs = np.random.RandomState(18)
-    C = H * 64
+    C = H * d
     qkv = _rand(rs, B, N, 3 * C, dtype=dtype, device=cuda)
     wp = _rand(rs, C, C, scale=C ** -0.5, dtype=dtype, device=cuda)
     bp = _rand(rs, C, scale=0.1, device=cuda)
     ops.reset_launch_counts()
-    got = attn_ops.fused_mha_proj(qkv, wp, bp, H, 0.125)
+    got = attn_ops.fused_mha_proj(qkv, wp, bp, H, d ** -0.5)
     torch.cuda.synchronize()
     assert ops.launch_counts()["fused_mha_proj"] == 1
-    _close(got, attn_ops.fused_mha_proj_reference(qkv, wp, bp, H, 0.125),
+    _close(got, attn_ops.fused_mha_proj_reference(qkv, wp, bp, H, d ** -0.5),
            dtype, "y")
 
 
 @pytest.mark.cuda
 def test_mha_proj_refuses_what_it_does_not_take(cuda):
     rs = np.random.RandomState(19)
-    assert attn_ops.mha_proj_max_n(torch.bfloat16) == 416
-    assert attn_ops.mha_proj_max_n(torch.float32) == 272
-    for B, N, H, dtype in ((1, 417, 2, torch.bfloat16),
-                           (1, 273, 2, torch.float32),
-                           (1, 20, 13, torch.float32)):  # C = 832 > 768
+    for B, N, H, dtype in ((1, 1025, 2, torch.bfloat16),  # N <= 1024
+                           (1, 1025, 2, torch.float32),
+                           (1, 20, 21, torch.float32)):  # C = 1344 > 1280
         C = H * 64
         qkv = _rand(rs, B, N, 3 * C, dtype=dtype, device=cuda)
         wp = _rand(rs, C, C, dtype=dtype, device=cuda)

@@ -72,3 +72,20 @@ def test_mha_proj_grads_match_jax():
         w = np.asarray(w)
         np.testing.assert_allclose(leaf.grad.numpy(), w, rtol=0,
                                    atol=1e-5 * np.abs(w).max(), err_msg=name)
+
+
+def test_mha_proj_at_vit_huge_width_matches_jax_kernel():
+    """K12 at C = 1280 (vit_huge's width: 16 heads of 80), N = 197, B = 1,
+    f32: the port's plain version against the interpreted JAX kernel, within
+    2e-5 + 2e-5 |ref| as above."""
+    B, N, H, d = 1, 197, 16, 80
+    qkv, wp, bp = _inputs(B, N, H, d, seed=5)
+    wp = wp * (64 / 1280) ** 0.5  # keep y's scale near the cases above
+    want = np.asarray(jax_fused_mha_proj(
+        jnp.asarray(qkv), jnp.asarray(wp), jnp.asarray(bp), H, d ** -0.5,
+        True))
+    got = attention.fused_mha_proj(torch.from_numpy(qkv),
+                                   torch.from_numpy(wp),
+                                   torch.from_numpy(bp), H, d ** -0.5)
+    assert got.shape == (B, N, H * d)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=2e-5)

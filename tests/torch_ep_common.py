@@ -46,7 +46,7 @@ def run_port(tmp_path, dp: int, ep: int, data: dict, runs) -> dict:
     np.savez(path, top_k=K, **data)
     launch.spawn(launch.moe_layer_worker, dp * ep,
                  (path, str(tmp_path), dp, ep, runs, "float32", "cpu"),
-                 init_file=str(tmp_path / "store"))
+                 init_file=str(tmp_path / "store"), device="cpu")
     ranks = [dict(np.load(tmp_path / f"rank{r}.npz"))
              for r in range(dp * ep)]
     out = {"ranks": ranks}

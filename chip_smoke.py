@@ -23,9 +23,9 @@ Phases (any failure propagates and the script exits non-zero):
    sub-millisecond kernel's time. Elementwise outputs must be
    within ``ELEM_TOL`` (default ``ATOL``/``RTOL``); f32 sums over all rows
    (dgamma, dbeta, dW, db) within ``SUM_REL`` of their largest |ref|. K6's
-   limit must reject planted faults in its plain form; K5 and K6 may be no
-   less accurate against the exact f32 function than their plain versions
-   (``EXACT_RATIO``).
+   limit must reject planted faults in its plain form; K5, K6 and K11 (and
+   K12 in phase 13) may be no less accurate against the exact f32 function
+   than their plain versions (``EXACT_RATIO``).
 3. Serving: ``moe_small_patch16_224_expert8`` at full width (ViT-S/16, 12
    blocks, 8 experts top-2), bf16, seeded random weights, exported through
    the export CLI with buckets 1, 8 and 32, loaded, and served over HTTP on
@@ -111,7 +111,8 @@ Phases (any failure propagates and the script exits non-zero):
 
 13. Coverage kernels: K12 (attention with the proj folded in) at deit-tiny
     (B = 256, 3 heads) and ViT-S (B = 128, 6 heads) eval shapes against its
-    plain version, beside K5 + the proj GEMM and SDPA + ``F.linear``; K13's
+    plain version and the exact f32 function, beside K5 + the proj GEMM and
+    SDPA + ``F.linear``; K13's
     gather and scatter-add on the dropless B = 128 layout (52,480 rows of
     25,216 tokens) bit for bit against their plain versions (the
     scatter-add in bf16 and f32), beside ``index_select`` / ``index_add_``;
@@ -190,13 +191,15 @@ ATOL = RTOL = 1.6e-2
 # (e*linv*sum(e*dp)) dropped or off by 5% or 2% (PLANTED_DELTA).
 ELEM_TOL = {"fused_mha_bwd": (4e-3, 1.6e-2)}
 PLANTED_DELTA = (0.0, 0.95, 0.98)
-# K5 and K6 against the exact f32 function (their plain versions on the
-# f32-cast inputs, no rounding to bf16 inside): the kernel's mean |d| may
-# exceed its bf16 plain version's by at most this factor. Both round the
-# same values at the same points, in other summation orders, so their mean
-# errors agree closely; a kernel that rounds once more, or loses the f32
-# sums, reads well above it.
+# the bf16 tensor-core kernels K5, K6, K11 and K12 against the exact f32
+# function (their plain versions on the f32-cast inputs, no rounding to
+# bf16 inside): the kernel's mean |d| may exceed its bf16 plain version's
+# by at most this factor. Both round the same values at the same points,
+# in other summation orders, so their mean errors agree closely; a kernel
+# that rounds once more, or loses the f32 sums, reads well above it. K12
+# is checked at each of its shapes (``proj_case``), the rest at B = 128.
 EXACT_RATIO = 1.1
+EXACT_CHECKED = ("fused_mha", "fused_mha_bwd", "flash_attention")
 # f32 sums over all ~25k (LN) or an expert's ~6k (FFN) rows, in other
 # orders on the two sides, of products that differ by an ulp where a bf16
 # rounding flips; dW is rounded to bf16 on both sides (2^-9 relative):
@@ -745,16 +748,21 @@ def check_planted_faults(qkv, do, plain_out) -> None:
                                  f"form with delta x{delta}")
 
 
-def exact_error(name: str, got, want, qkv, do) -> None:
-    """K5's or K6's mean |d| from the exact f32 function beside its bf16
-    plain version's, held to ``EXACT_RATIO``."""
+def exact_attention(name: str, qkv, do):
+    """The exact f32 function of K5, K6 or K11 at the flagship's heads: its
+    plain version on the f32-cast inputs, nothing rounded to bf16 inside."""
     from slim_switch_moe_vit_tpu_torch.ops import attention
 
     scale = (DIM // HEADS) ** -0.5
-    exact = (attention.fused_mha_reference(qkv.float(), HEADS, scale)
-             if name == "fused_mha" else
-             attention.reference_mha_bwd(qkv.float(), do.float(), HEADS,
-                                         scale))
+    if name == "fused_mha_bwd":
+        return attention.reference_mha_bwd(qkv.float(), do.float(), HEADS,
+                                           scale)
+    return attention.fused_mha_reference(qkv.float(), HEADS, scale)
+
+
+def exact_error(name: str, got, want, exact) -> None:
+    """A bf16 kernel's mean |d| from the exact f32 function beside its bf16
+    plain version's, held to ``EXACT_RATIO``."""
     err = [(t.float() - exact).abs().mean().item() for t in (got, want)]
     log(f"  {name} vs the exact f32 function: mean |d| kernel {err[0]:.4e}, "
         f"plain version {err[1]:.4e} (ratio {err[0] / err[1]:.4f}, limit "
@@ -782,8 +790,9 @@ def kernel_phase(results: dict) -> None:
             err, peak, rel = compare(name, got, want, modes)
             if name == "fused_mha_bwd":
                 check_planted_faults(*mha_inputs, want)
-            if name in ("fused_mha", "fused_mha_bwd") and B == 128:
-                exact_error(name, got, want, *mha_inputs)
+            if name in EXACT_CHECKED and B == 128:
+                exact_error(name, got, want,
+                            exact_attention(name, *mha_inputs))
             # the plain versions are timed at B = 128 only, the batch of
             # the training path (they are no yardstick of speed)
             ms = median_ms(kernel)
@@ -2363,6 +2372,44 @@ def _timed_case(results, name, kernel, plain, library, cost, modes, sfx,
     return err
 
 
+def proj_case(results: dict, qkv, wp, bp, H: int, sfx: str) -> None:
+    """K12 on (qkv, wp, bp) in bf16 against its plain version, beside SDPA +
+    ``F.linear`` (its library call) and K5 + ``F.linear`` (``k5_gemm_ms``:
+    the two launches K12 folds into one); then its mean |d| from the exact
+    f32 function beside the plain version's (``exact_error``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from slim_switch_moe_vit_tpu_torch.ops import attention
+
+    B, N, C3 = qkv.shape
+    C = C3 // 3
+    d = C // H
+    scale = d ** -0.5
+    w_lin, b_lin = wp.t().contiguous(), bp.to(torch.bfloat16)
+    q4 = qkv.view(B, N, 3, H, d).permute(2, 0, 3, 1, 4)
+
+    def kernel():
+        return attention.fused_mha_proj(qkv, wp, bp, H, scale)
+
+    def plain():
+        return attention.fused_mha_proj_reference(qkv, wp, bp, H, scale)
+
+    _timed_case(
+        results, "fused_mha_proj", kernel, plain,
+        lambda: F.linear(F.scaled_dot_product_attention(
+            q4[0], q4[1], q4[2], scale=scale).transpose(1, 2).reshape(
+                B, N, C), w_lin, b_lin),
+        ((B * N * 4 * C + C * C) * 2 + C * 4,
+         4 * B * H * N * N * d + 2 * B * N * C * C, BF16_FLOPS),
+        ("elem",), sfx,
+        extra={"k5_gemm_ms": lambda: F.linear(
+            attention.fused_mha(qkv, H, scale), w_lin, b_lin)})
+    exact_error(f"fused_mha_proj{sfx}", kernel(), plain(),
+                attention.fused_mha_proj_reference(qkv.float(), wp.float(),
+                                                   bp, H, scale))
+
+
 def proj_and_rows_kernel_phase(results: dict) -> None:
     """K12 at deit-tiny and ViT-S eval shapes against its plain version,
     beside K5 + the proj GEMM and SDPA + ``F.linear``; K13's gather and
@@ -2370,9 +2417,8 @@ def proj_and_rows_kernel_phase(results: dict) -> None:
     52,480 layout rows) against their plain versions (bit for bit) beside
     ``index_select`` and ``index_add_``, the scatter-add also in f32."""
     import torch
-    import torch.nn.functional as F
 
-    from slim_switch_moe_vit_tpu_torch.ops import attention, gather, moe
+    from slim_switch_moe_vit_tpu_torch.ops import gather, moe
 
     gen = torch.Generator().manual_seed(6)
 
@@ -2381,25 +2427,10 @@ def proj_and_rows_kernel_phase(results: dict) -> None:
 
     hd = 64
     for label, (B, N, H) in K12_SHAPES.items():
-        C, scale = H * hd, hd ** -0.5
-        qkv = rnd(B, N, 3 * C)
-        wp = rnd(C, C, std=C ** -0.5)
-        bp = rnd(C, std=0.1, dtype=torch.float32)
-        w_lin, b_lin = wp.t().contiguous(), bp.to(torch.bfloat16)
-        q4 = qkv.view(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
-        _timed_case(
-            results, "fused_mha_proj",
-            lambda: attention.fused_mha_proj(qkv, wp, bp, H, scale),
-            lambda: attention.fused_mha_proj_reference(qkv, wp, bp, H, scale),
-            lambda: F.linear(F.scaled_dot_product_attention(
-                q4[0], q4[1], q4[2], scale=scale).transpose(1, 2).reshape(
-                    B, N, C), w_lin, b_lin),
-            ((B * N * 4 * C + C * C) * 2 + C * 4,
-             4 * B * H * N * N * hd + 2 * B * N * C * C, BF16_FLOPS),
-            ("elem",), "" if label == "deit_tiny" else "_vit_s",
-            extra={"k5_gemm_ms": lambda: F.linear(
-                attention.fused_mha(qkv, H, scale), w_lin, b_lin)})
-        del qkv, q4
+        C = H * hd
+        proj_case(results, rnd(B, N, 3 * C), rnd(C, C, std=C ** -0.5),
+                  rnd(C, std=0.1, dtype=torch.float32), H,
+                  "" if label == "deit_tiny" else "_vit_s")
 
     T = TRAIN_B * N_TOK
     x = rnd(T, DIM)
@@ -2617,12 +2648,8 @@ def head_and_k12_cases(results: dict, gen) -> None:
     """K5, K6 and K11 at vit_huge_patch14_224's head (HUGE: 16 heads of 80,
     N = 257) in bf16 (``_d80``); K11 in f32 at the flagship's shape at
     B = 32 (``_f32``); K12 at N = 577 and C = 1024 (K12_LONG: 16 heads of
-    64, ``_n577_c1024``) beside SDPA + ``F.linear``: each against its plain
-    version."""
+    64, ``_n577_c1024``, ``proj_case``): each against its plain version."""
     import torch
-    import torch.nn.functional as F
-
-    from slim_switch_moe_vit_tpu_torch.ops import attention
 
     B, N, H, d = HUGE
     qkv = torch.randn(B, N, 3 * H * d, generator=gen).to("cuda",
@@ -2638,24 +2665,14 @@ def head_and_k12_cases(results: dict, gen) -> None:
                             DIM // HEADS, F32_FLOPS),
                 ("elem",), "_f32", tol=F32_TOL)
     B, N, H, d = K12_LONG
-    C, scale = H * d, d ** -0.5
-    qkv = torch.randn(B, N, 3 * C, generator=gen).to("cuda", torch.bfloat16)
-    wp = (torch.randn(C, C, generator=gen) * C ** -0.5).to("cuda",
-                                                           torch.bfloat16)
-    bp = (torch.randn(C, generator=gen) * 0.1).cuda()
-    w_lin, b_lin = wp.t().contiguous(), bp.to(torch.bfloat16)
-    q4 = qkv.view(B, N, 3, H, d).permute(2, 0, 3, 1, 4)
-    _timed_case(
-        results, "fused_mha_proj",
-        lambda: attention.fused_mha_proj(qkv, wp, bp, H, scale),
-        lambda: attention.fused_mha_proj_reference(qkv, wp, bp, H, scale),
-        lambda: F.linear(F.scaled_dot_product_attention(
-            q4[0], q4[1], q4[2], scale=scale).transpose(1, 2).reshape(
-                B, N, C), w_lin, b_lin),
-        ((B * N * 4 * C + C * C) * 2 + C * 4,
-         4 * B * H * N * N * d + 2 * B * N * C * C, BF16_FLOPS),
-        ("elem",), "_n577_c1024", reps=5)
-    del qkv, do, wp, q4
+    C = H * d
+    proj_case(results,
+              torch.randn(B, N, 3 * C, generator=gen).to("cuda",
+                                                         torch.bfloat16),
+              (torch.randn(C, C, generator=gen) * C ** -0.5).to(
+                  "cuda", torch.bfloat16),
+              (torch.randn(C, generator=gen) * 0.1).cuda(), H, "_n577_c1024")
+    del qkv, do
     torch.cuda.empty_cache()
 
 

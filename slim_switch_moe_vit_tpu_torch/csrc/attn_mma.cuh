@@ -1,7 +1,8 @@
-// Tensor-core building blocks of the bf16 attention kernels (K5, K6; K11
-// takes its tile loads):
-// mma.sync m16n8k16 (bf16 in, f32 sums), ldmatrix fragment loads from
-// shared memory, and cp.async copies of head tiles from the packed layout.
+// Tensor-core building blocks of the bf16 attention kernels (K5, K6, K11,
+// K12): mma.sync m16n8k16 (bf16 in, f32 sums), ldmatrix fragment loads
+// from shared memory, cp.async copies of head tiles from the packed layout,
+// and ``head_fwd``, the exact-softmax attention of one head over a 64-row
+// query tile that K5 writes out and K12 feeds to its output projection.
 //
 // Fragment layouts (PTX ISA, "Matrix Fragments for mma.m16n8k16"), with
 // g = lane / 4 and t = lane % 4:
@@ -31,6 +32,13 @@ constexpr int kThreads = 128; // 4 warps of 16 rows
 __host__ __device__ constexpr int tile_ld(int hd) { return hd + 8; }
 __host__ __device__ constexpr size_t tile_bytes(int hd) {
   return sizeof(bf16) * kT * tile_ld(hd);
+}
+
+// K12 runs a block as 1-3 teams of kThreads threads (one head each at a
+// time): a team's barrier is the named barrier team + 1 (__syncthreads is
+// barrier 0)
+__device__ __forceinline__ void team_sync(int team) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(team + 1), "n"(kThreads) : "memory");
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -96,11 +104,25 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
 }
 
 // the A fragment of a 16-deep k-chunk from the C tiles of its two n-tiles
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c0)[4],
+                                       const float (&c1)[4]) {
+  a[0] = pack2(c0[0], c0[1]);
+  a[1] = pack2(c0[2], c0[3]);
+  a[2] = pack2(c1[0], c1[1]);
+  a[3] = pack2(c1[2], c1[3]);
+}
 __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c)[2][4]) {
-  a[0] = pack2(c[0][0], c[0][1]);
-  a[1] = pack2(c[0][2], c[0][3]);
-  a[2] = pack2(c[1][0], c[1][1]);
-  a[3] = pack2(c[1][2], c[1][3]);
+  pack_a(a, c[0], c[1]);
+}
+
+// the sum (or max) of the quad of lanes that holds a row of a C tile
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
 // A fragment: rows [0, 16) x columns [k0, k0 + 16) of a row-major tile
@@ -128,31 +150,38 @@ __device__ __forceinline__ void ld_b_kn(uint32_t (&b)[4], const bf16* tile,
 }
 
 // Rows [r0, r0 + kT) of a head's d columns (src: the head's first column of
-// row 0, row stride ld elements) into a tile_ld(HD)-strided shared tile;
-// rows >= n_rows and columns >= d are zero. With vec (d % 8 == 0, so every
+// row 0, row stride ld elements) into a tile_ld(HD)-strided shared tile, by
+// the kThreads threads of ranks tid (threadIdx.x by default); rows >=
+// n_rows and columns >= d are zero. With vec (d % 8 == 0, so every
 // row starts 16-byte aligned) by cp.async in the caller's commit group;
 // otherwise by plain loads and stores, complete when the call returns.
 template <int HD>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
                                           size_t ld, int r0, int n_rows, int d,
-                                          bool vec) {
+                                          bool vec, int tid) {
   constexpr int LD = tile_ld(HD);
   if (vec) {
     constexpr int V = HD / 8;  // 16-byte vectors a row
-    for (int i = threadIdx.x; i < kT * V; i += kThreads) {
+    for (int i = tid; i < kT * V; i += kThreads) {
       const int r = i / V, c = (i % V) * 8;
       const bool ok = r0 + r < n_rows && c < d;
       cp_async16(dst + r * LD + c, ok ? src + (size_t)(r0 + r) * ld + c : src,
                  ok);
     }
   } else {
-    for (int i = threadIdx.x; i < kT * HD; i += kThreads) {
+    for (int i = tid; i < kT * HD; i += kThreads) {
       const int r = i / HD, c = i % HD;
       dst[r * LD + c] = r0 + r < n_rows && c < d
                             ? src[(size_t)(r0 + r) * ld + c]
                             : __float2bfloat16(0.f);
     }
   }
+}
+template <int HD>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
+                                          size_t ld, int r0, int n_rows, int d,
+                                          bool vec) {
+  load_rows<HD>(dst, src, ld, r0, n_rows, d, vec, threadIdx.x);
 }
 
 // Write a warp's 16 x HD f32 accumulator (HD / 8 C tiles), times the row
@@ -193,6 +222,133 @@ __device__ __forceinline__ void store_rows(const float (&acc)[HD / 8][4],
     }
   }
   __syncwarp();
+}
+
+// Shared-memory layout of ``head_fwd``: the q tile, then NST K and NST V
+// stages, each kT rows of tile_ld(HD) bf16.
+template <int HD, int NST>
+struct Fwd {
+  static constexpr int LD = tile_ld(HD);
+  static constexpr size_t bytes = tile_bytes(HD) * (1 + 2 * NST);
+};
+
+// The attention of one head over the block's query rows [q0, q0 + kT), by
+// 4 warps of 16 rows (K5's body; K12 runs it once per head, in teams):
+// the threads of ranks tid in [0, kThreads), whose barrier is sync().
+// base: the sample's row 0 at the head's q column (k at +C, v at +2C), row
+// stride C3; smem: Fwd<HD, NST>::bytes. Returns the warp's unnormalized
+// f32 o = e.V (rows g and g + 8 of its 16, HD / 8 C tiles) and
+// linv = 1 / rowsum(e) for rows g and g + 8, every lane of a quad holding
+// its rows' values. On return the warp's own 16 rows of the q tile (smem)
+// are free.
+//
+// q's fragments are loaded once by ldmatrix and stay in registers. K and
+// V tiles of kT rows stream through a ring of NST stages filled by
+// cp.async (pad rows zero), one commit group a tile, so the next tiles'
+// copies overlap this tile's products. The first pass over the K tiles
+// computes only the exact row maxima m; the second recomputes
+// S = (q.k^T) * scale (the same instructions, so the same values), forms
+// e = exp(S - m) in f32 in registers, sums l from that f32 e, and packs e
+// rounded to bf16 straight from the S accumulators into the A operand of
+// e.V (f32 sums). Columns >= N are -inf before the max.
+template <int HD, int NST, typename Sync>
+__device__ __forceinline__ void head_fwd(const bf16* base, size_t C3, int C,
+                                         int N, int q0, int d, float scale,
+                                         bool vec, bf16* smem, int tid,
+                                         Sync sync, float (&o)[HD / 8][4],
+                                         float (&linv)[2]) {
+  constexpr int LD = tile_ld(HD);
+  bf16* Qs = smem;
+  bf16* Ks = Qs + kT * LD;
+  bf16* Vs = Ks + NST * kT * LD;
+  const int warp = tid >> 5, lane = threadIdx.x & 31;
+  const int tq = lane & 3;
+  const int nkt = (N + kT - 1) / kT;
+  const int T = 2 * nkt;  // pass 1: K tiles (row maxima); pass 2: K and V
+
+  // tile t of the sequence into its stage, as one commit group (empty past
+  // the end, so the group count stays uniform)
+  auto issue = [&](int t) {
+    if (t < T) {
+      const int st = t % NST, kt = t < nkt ? t : t - nkt;
+      load_rows<HD>(Ks + st * kT * LD, base + C, C3, kt * kT, N, d, vec, tid);
+      if (t >= nkt)
+        load_rows<HD>(Vs + st * kT * LD, base + 2 * C, C3, kt * kT, N, d, vec,
+                      tid);
+    }
+    cp_async_commit();
+  };
+  sync();  // a previous call's readers of the stages are done
+  load_rows<HD>(Qs, base, C3, q0, N, d, vec, tid);  // joins tile 0's group
+  for (int s = 0; s < NST - 1; ++s) issue(s);
+
+  uint32_t qa[HD / 16][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < T; ++t) {
+    cp_async_wait<NST - 2>();  // tile t (and q) landed, for this thread
+    sync();                    // ... for every thread; tile t-1 is done
+    issue(t + NST - 1);        // into the stage tile t-1 used
+    if (t == 0) {
+#pragma unroll
+      for (int kd = 0; kd < HD / 16; ++kd)
+        ld_a(qa[kd], Qs + warp * 16 * LD, LD, kd * 16);
+    }
+    const bool pass2 = t >= nkt;
+    const int k0 = (pass2 ? t - nkt : t) * kT;
+    const bf16* Kt = Ks + (t % NST) * kT * LD;
+    const bf16* Vt = Vs + (t % NST) * kT * LD;
+#pragma unroll
+    for (int kc = 0; kc < kT / 16; ++kc) {  // 16 keys at a time
+      float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+      for (int kd = 0; kd < HD / 16; ++kd) {
+        uint32_t kb[4];
+        ld_b_nk(kb, Kt, LD, kc * 16, kd * 16);
+        mma(s[0], qa[kd], kb[0], kb[1]);
+        mma(s[1], qa[kd], kb[2], kb[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + kc * 16 + j * 8 + 2 * tq + (e & 1);
+          s[j][e] = col < N ? s[j][e] * scale : -CUDART_INF_F;
+        }
+      if (!pass2) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          m[0] = fmaxf(m[0], fmaxf(s[j][0], s[j][1]));
+          m[1] = fmaxf(m[1], fmaxf(s[j][2], s[j][3]));
+        }
+        continue;
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = expf(s[j][e] - m[e >> 1]);  // masked columns give 0
+          l[e >> 1] += s[j][e];
+        }
+      uint32_t pa[4];
+      pack_a(pa, s);
+#pragma unroll
+      for (int nd = 0; nd < HD / 16; ++nd) {
+        uint32_t vb[4];
+        ld_b_kn(vb, Vt, LD, kc * 16, nd * 16);
+        mma(o[2 * nd], pa, vb[0], vb[1]);
+        mma(o[2 * nd + 1], pa, vb[2], vb[3]);
+      }
+    }
+    if (t == nkt - 1) {  // the quad of lanes holding a row share its max
+      m[0] = quad_max(m[0]);
+      m[1] = quad_max(m[1]);
+    }
+  }
+  linv[0] = 1.f / quad_sum(l[0]);
+  linv[1] = 1.f / quad_sum(l[1]);
 }
 
 }  // namespace attn

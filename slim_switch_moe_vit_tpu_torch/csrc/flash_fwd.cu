@@ -12,20 +12,34 @@
 //
 // What bounds it on the H100: at ViT lengths, device-memory bytes (qkv read
 // once, the output written once: 0.023 ms at B = 128, N = 197) against two
-// N x N x d products per (sample, head) on the tensor cores; neither
-// N x N matrix touches device memory.
+// N x N x d products per (sample, head) on the tensor cores (0.008 ms
+// there); neither N x N matrix touches device memory. The WMMA form this
+// replaces kept S, P and the f32 output accumulator in shared memory,
+// walked S and rescaled the accumulator in scalar loops, loaded and stored
+// the accumulator once per head-column group in every key tile, and loaded
+// K and V in a single stage behind a full wait: 12x its bound.
 //
-// Design (bf16): one block of 4 warps per (64-query tile, head, sample);
-// each warp owns 16 query rows, its q fragments held in registers for the
-// whole loop. K and V pass through shared memory in tiles of 64 rows (rows
-// >= N are zero). Per tile:
-//   S = q . k^T on the tensor cores (WMMA bf16 16x16x16, f32 sums), then
-//   scaled by `scale` in f32; columns >= N set to -inf;
-//   the online softmax in f32: m' = max(m, rowmax S), alpha = exp(m - m'),
-//   P = exp(S - m'), l' = l*alpha + rowsum P, the f32 output accumulator
-//   (in shared memory) scaled by alpha;
-//   P rounded to bf16, acc += P . V on the tensor cores (f32 sums).
-// At the end out = acc / max(l, 1e-30), rounded once to bf16.
+// Design (bf16), on the parts of attn_mma.cuh that K5 is built from, in
+// one pass over the keys (the JAX kernel's online softmax, where K5 takes
+// a first pass for the exact row max): one block per (64-query tile, head,
+// sample), 4 warps of 16 query rows. Each warp's q fragments are loaded
+// once with ldmatrix and stay in registers. K and V tiles of 64 rows pass
+// together through a ring of shared-memory stages filled by cp.async
+// (3 stages at HD <= 64, 2 above; pad rows zero), read by stride from the
+// packed layout, so the next tile's copies overlap this tile's products.
+// Per tile, everything in registers:
+//   S = q . k^T on mma.sync.m16n8k16 (f32 sums), times `scale`; columns
+//   >= N set to -inf;
+//   m' = max(m, rowmax S), the quad of lanes holding a row reduced by
+//   shfl_xor; alpha = exp(m - m'); P = exp(S - m') in f32;
+//   l' = l * alpha + rowsum P, summed from the f32 P (each lane keeps its
+//   columns' part; the quad's parts are added at the end);
+//   the f32 output accumulator (HD / 2 floats a thread) scaled by alpha;
+//   P rounded to bf16 straight from the S accumulators as the A operand of
+//   P . V, the V fragments loaded by the transposing ldmatrix.
+// At the end out = acc / max(l, 1e-30), rounded once to bf16 and written
+// through the warp's own rows of the q tile in 16-byte stores (d % 8 == 0;
+// scalar stores otherwise).
 // The JAX kernel keeps q*scale and P in f32 (attention.py:43, :60); P is
 // rounded to bf16 here, as K5 and the JAX package's fused_mha do, so both
 // tensor-core operands are bf16. For scale = 64^-1/2, a power of two,
@@ -45,156 +59,130 @@
 
 namespace {
 
-using namespace nvcuda;
-using ssmv::attn::bf16;
-using ssmv::attn::kThreads;  // 4 warps, 16 query rows each
-using ssmv::attn::kT;        // query rows per block, key rows per tile
+using namespace ssmv::attn;
 
-constexpr int kPLD = kT + 8;    // bf16 rows of P
-constexpr int kSLD = kT + 4;    // f32 rows of S
-
+// K / V ring stages: 3 up to HD = 64, 2 above; the layout is head_fwd's
 template <int HD>
-struct Flash {
-  static constexpr int LD = ssmv::attn::tile_ld(HD);  // rows of Q, K, V
-  static constexpr int OLD = HD + 4;  // f32 rows of the accumulator
-  static constexpr size_t Q = 0;
-  static constexpr size_t K = Q + sizeof(bf16) * kT * LD;
-  static constexpr size_t V = K + sizeof(bf16) * kT * LD;
-  static constexpr size_t P = V + sizeof(bf16) * kT * LD;
-  static constexpr size_t S = P + sizeof(bf16) * kT * kPLD;
-  static constexpr size_t O = S + sizeof(float) * kT * kSLD;
-  static constexpr size_t bytes = O + sizeof(float) * kT * OLD;
-};
+constexpr int kStages = HD <= 64 ? 3 : 2;
+template <int HD>
+using Flash = Fwd<HD, kStages<HD>>;
 
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N,
                  int H, int d, float scale, int vec) {
-  using L = Flash<HD>;
-  constexpr int LD = L::LD, OLD = L::OLD;
+  constexpr int LD = Flash<HD>::LD, NST = kStages<HD>;
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::Q);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::K);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::V);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L::P);
-  float* S = reinterpret_cast<float*>(smem + L::S);
-  float* O = reinterpret_cast<float*>(smem + L::O);
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Ks = Qs + kT * LD;
+  bf16* Vs = Ks + NST * kT * LD;
 
   const int q0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
   const int C = H * d;
   const size_t C3 = 3 * (size_t)C;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const bf16* base = qkv + (size_t)b * N * C3 + (size_t)h * d;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tq = lane & 3;
+  const int nkt = (N + kT - 1) / kT;
 
-  ssmv::attn::load_rows<HD>(Qs, base, C3, q0, N, d, vec);
-  ssmv::attn::cp_async_commit();
-  for (int i = threadIdx.x; i < kT * OLD; i += kThreads) O[i] = 0.f;
-  ssmv::attn::cp_async_wait<0>();
-  __syncthreads();
+  // K and V tile t into stage t % NST, as one commit group (empty past the
+  // end, so the group count stays uniform)
+  auto issue = [&](int t) {
+    if (t < nkt) {
+      const int st = t % NST;
+      load_rows<HD>(Ks + st * kT * LD, base + C, C3, t * kT, N, d, vec);
+      load_rows<HD>(Vs + st * kT * LD, base + 2 * C, C3, t * kT, N, d, vec);
+    }
+    cp_async_commit();
+  };
+  load_rows<HD>(Qs, base, C3, q0, N, d, vec);  // joins tile 0's group
+  for (int s = 0; s < NST - 1; ++s) issue(s);
 
-  const int w0 = warp * 16;  // this warp's first row in the tile
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qf[HD / 16];
+  uint32_t qa[HD / 16][4];
+  float o[HD / 8][4];
 #pragma unroll
-  for (int kd = 0; kd < HD / 16; ++kd)
-    wmma::load_matrix_sync(qf[kd], Qs + w0 * LD + kd * 16, LD);
+  for (int j = 0; j < HD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  // rows g and g + 8 of the warp's 16: the running max (the quad's), and
+  // this lane's part of the running sum
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
 
-  // softmax bookkeeping: lane owns row w0 + lane/2, key columns
-  // [half*32, +32) and accumulator columns [half*HD/2, +HD/2)
-  const int r = w0 + (lane >> 1), c0 = (lane & 1) * 32;
-  const int oc0 = (lane & 1) * (HD / 2);
-  float m = -CUDART_INF_F, l = 0.f;
-
-  for (int k0 = 0; k0 < N; k0 += kT) {
-    __syncthreads();  // every warp is done with the last K and V tiles
-    ssmv::attn::load_rows<HD>(Ks, base + C, C3, k0, N, d, vec);
-    ssmv::attn::load_rows<HD>(Vs, base + 2 * C, C3, k0, N, d, vec);
-    ssmv::attn::cp_async_commit();
-    ssmv::attn::cp_async_wait<0>();
-    __syncthreads();
-
+  for (int t = 0; t < nkt; ++t) {
+    cp_async_wait<NST - 2>();  // tile t (and q) landed, for this thread
+    __syncthreads();           // ... for every thread; tile t-1 is done
+    issue(t + NST - 1);        // into the stage tile t-1 used
+    if (t == 0) {
 #pragma unroll
-    for (int j = 0; j < kT / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> s;
-      wmma::fill_fragment(s, 0.f);
+      for (int kd = 0; kd < HD / 16; ++kd)
+        ld_a(qa[kd], Qs + warp * 16 * LD, LD, kd * 16);
+    }
+    const int k0 = t * kT;
+    const bf16* Kt = Ks + (t % NST) * kT * LD;
+    const bf16* Vt = Vs + (t % NST) * kT * LD;
+
+    float s[kT / 8][4];  // the tile's 8 n-tiles of 8 keys
 #pragma unroll
-      for (int kd = 0; kd < HD / 16; ++kd) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, Ks + j * 16 * LD + kd * 16, LD);
-        wmma::mma_sync(s, qf[kd], kf, s);
+    for (int j = 0; j < kT / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < HD / 16; ++kd)
+#pragma unroll
+      for (int kc = 0; kc < kT / 16; ++kc) {
+        uint32_t kb[4];
+        ld_b_nk(kb, Kt, LD, kc * 16, kd * 16);
+        mma(s[2 * kc], qa[kd], kb[0], kb[1]);
+        mma(s[2 * kc + 1], qa[kd], kb[2], kb[3]);
       }
-      wmma::store_matrix_sync(S + w0 * kSLD + j * 16, s, kSLD,
-                              wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    float* srow = S + r * kSLD + c0;
-    float tmax = -CUDART_INF_F;
+    float mt[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const float v = k0 + c0 + c < N ? srow[c] * scale : -CUDART_INF_F;
-      srow[c] = v;
-      tmax = fmaxf(tmax, v);
-    }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    const float m_new = fmaxf(m, tmax);  // finite: column k0 < N is valid
-    const float alpha = expf(m - m_new);  // 0 on the first tile
-    float psum = 0.f;
-    bf16* prow = Ps + r * kPLD + c0;
+    for (int j = 0; j < kT / 8; ++j)
 #pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const float p = expf(srow[c] - m_new);  // masked columns give 0
-      psum += p;
-      prow[c] = __float2bfloat16(p);
-    }
-    psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-    l = l * alpha + psum;
-    m = m_new;
-    float* orow = O + r * OLD + oc0;
-#pragma unroll
-    for (int c = 0; c < HD / 2; ++c) orow[c] *= alpha;
-    __syncwarp();
-
-#pragma unroll
-    for (int j = 0; j < HD / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, O + w0 * OLD + j * 16, OLD,
-                             wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < kT / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-        wmma::load_matrix_sync(pf, Ps + w0 * kPLD + kk * 16, kPLD);
-        wmma::load_matrix_sync(vf, Vs + kk * 16 * LD + j * 16, LD);
-        wmma::mma_sync(acc, pf, vf, acc);
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + j * 8 + 2 * tq + (e & 1);
+        s[j][e] = col < N ? s[j][e] * scale : -CUDART_INF_F;
+        mt[e >> 1] = fmaxf(mt[e >> 1], s[j][e]);
       }
-      wmma::store_matrix_sync(O + w0 * OLD + j * 16, acc, OLD,
-                              wmma::mem_row_major);
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m[i], quad_max(mt[i]));  // finite: k0 < N
+      alpha[i] = expf(m[i] - m_new);                     // 0 on the first tile
+      m[i] = m_new;
     }
-    __syncwarp();
-  }
-
-  const int n = q0 + r;
-  if (n < N) {
-    const float linv = 1.f / fmaxf(l, 1e-30f);
-    const float* orow = O + r * OLD + oc0;
-    bf16* dst = out + ((size_t)b * N + n) * C + (size_t)h * d + oc0;
-    if (vec && oc0 < d) {  // d % 8 == 0: whole 16-byte vectors below d
+    float ls[2] = {0.f, 0.f};
 #pragma unroll
-      for (int v = 0; v < HD / 16; ++v) {
-        if (oc0 + v * 8 < d) {
-          __align__(16) bf16 vals[8];
+    for (int j = 0; j < kT / 8; ++j)
 #pragma unroll
-          for (int e = 0; e < 8; ++e)
-            vals[e] = __float2bfloat16(orow[v * 8 + e] * linv);
-          *reinterpret_cast<uint4*>(dst + v * 8) =
-              *reinterpret_cast<const uint4*>(vals);
-        }
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = expf(s[j][e] - m[e >> 1]);  // masked columns give 0
+        ls[e >> 1] += s[j][e];
       }
-    } else if (!vec) {
-      for (int c = 0; c < HD / 2 && oc0 + c < d; ++c)
-        dst[c] = __float2bfloat16(orow[c] * linv);
+    l[0] = l[0] * alpha[0] + ls[0];
+    l[1] = l[1] * alpha[1] + ls[1];
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int kc = 0; kc < kT / 16; ++kc) {  // P . V, 16 keys at a time
+      uint32_t pa[4];
+      pack_a(pa, s[2 * kc], s[2 * kc + 1]);
+#pragma unroll
+      for (int nd = 0; nd < HD / 16; ++nd) {
+        uint32_t vb[4];
+        ld_b_kn(vb, Vt, LD, kc * 16, nd * 16);
+        mma(o[2 * nd], pa, vb[0], vb[1]);
+        mma(o[2 * nd + 1], pa, vb[2], vb[3]);
+      }
     }
   }
+  const float linv[2] = {1.f / fmaxf(quad_sum(l[0]), 1e-30f),
+                         1.f / fmaxf(quad_sum(l[1]), 1e-30f)};
+  // the warp's own q rows are free (its fragments are in registers)
+  store_rows<HD>(o, linv, Qs + warp * 16 * LD,
+                 out + (size_t)b * N * C + (size_t)h * d, C, q0 + warp * 16,
+                 N, d, vec);
 }
 
 // ---------------------------------------------------------------------------

@@ -17,7 +17,8 @@
 // the CUDA cores with the score tile in shared memory, 42x its bound.
 //
 // Design (bf16): one block per (64-query tile, head, sample), 4 warps of 16
-// query rows. Each warp's q fragments are loaded once with ldmatrix and
+// query rows, running the head body ``head_fwd`` of attn_mma.cuh (which
+// K12 shares). Each warp's q fragments are loaded once with ldmatrix and
 // stay in registers. K and V tiles of 64 rows pass through a ring of
 // shared-memory stages filled by cp.async (3 stages at HD <= 64, 2 above;
 // pad rows zero), read by stride from the packed layout. The products are
@@ -51,123 +52,25 @@ using namespace ssmv::attn;
 
 constexpr int kMaxN = 1024;
 
+// K / V ring stages: 3 up to HD = 64, 2 above
 template <int HD>
-struct Fwd {
-  static constexpr int LD = tile_ld(HD);
-  static constexpr int NST = HD <= 64 ? 3 : 2;  // K / V ring stages
-  static constexpr size_t kTile = tile_bytes(HD);
-  static constexpr size_t bytes = kTile * (1 + 2 * NST);  // Q, K ring, V ring
-};
+constexpr int kStages = HD <= 64 ? 3 : 2;
 
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
 mha_fwd_bf16_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
                     int N, int H, int d, float scale, int vec) {
-  constexpr int LD = Fwd<HD>::LD, NST = Fwd<HD>::NST;
+  constexpr int LD = tile_ld(HD);
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + kT * LD;
-  bf16* Vs = Ks + NST * kT * LD;
-
   const int q0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
   const int C = H * d;
   const size_t C3 = 3 * (size_t)C;
-  const bf16* base = qkv + (size_t)b * N * C3 + (size_t)h * d;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-  const int nkt = (N + kT - 1) / kT;
-  const int T = 2 * nkt;  // pass 1: K tiles (row maxima); pass 2: K and V
-
-  // tile t of the sequence into its stage, as one commit group (empty past
-  // the end, so the group count stays uniform)
-  auto issue = [&](int t) {
-    if (t < T) {
-      const int st = t % NST, kt = t < nkt ? t : t - nkt;
-      load_rows<HD>(Ks + st * kT * LD, base + C, C3, kt * kT, N, d, vec);
-      if (t >= nkt)
-        load_rows<HD>(Vs + st * kT * LD, base + 2 * C, C3, kt * kT, N, d, vec);
-    }
-    cp_async_commit();
-  };
-  load_rows<HD>(Qs, base, C3, q0, N, d, vec);  // joins tile 0's group
-  for (int s = 0; s < NST - 1; ++s) issue(s);
-
-  uint32_t qa[HD / 16][4];
-  float o[HD / 8][4];
-#pragma unroll
-  for (int j = 0; j < HD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
-
-  for (int t = 0; t < T; ++t) {
-    cp_async_wait<NST - 2>();  // tile t (and q) landed, for this thread
-    __syncthreads();           // ... for every thread; tile t-1 is done
-    issue(t + NST - 1);        // into the stage tile t-1 used
-    if (t == 0) {
-#pragma unroll
-      for (int kd = 0; kd < HD / 16; ++kd)
-        ld_a(qa[kd], Qs + warp * 16 * LD, LD, kd * 16);
-    }
-    const bool pass2 = t >= nkt;
-    const int k0 = (pass2 ? t - nkt : t) * kT;
-    const bf16* Kt = Ks + (t % NST) * kT * LD;
-    const bf16* Vt = Vs + (t % NST) * kT * LD;
-#pragma unroll
-    for (int kc = 0; kc < kT / 16; ++kc) {  // 16 keys at a time
-      float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-      for (int kd = 0; kd < HD / 16; ++kd) {
-        uint32_t kb[4];
-        ld_b_nk(kb, Kt, LD, kc * 16, kd * 16);
-        mma(s[0], qa[kd], kb[0], kb[1]);
-        mma(s[1], qa[kd], kb[2], kb[3]);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + kc * 16 + j * 8 + 2 * tq + (e & 1);
-          s[j][e] = col < N ? s[j][e] * scale : -CUDART_INF_F;
-        }
-      if (!pass2) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          m[0] = fmaxf(m[0], fmaxf(s[j][0], s[j][1]));
-          m[1] = fmaxf(m[1], fmaxf(s[j][2], s[j][3]));
-        }
-        continue;
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[j][e] = expf(s[j][e] - m[e >> 1]);  // masked columns give 0
-          l[e >> 1] += s[j][e];
-        }
-      uint32_t pa[4];
-      pack_a(pa, s);
-#pragma unroll
-      for (int nd = 0; nd < HD / 16; ++nd) {
-        uint32_t vb[4];
-        ld_b_kn(vb, Vt, LD, kc * 16, nd * 16);
-        mma(o[2 * nd], pa, vb[0], vb[1]);
-        mma(o[2 * nd + 1], pa, vb[2], vb[3]);
-      }
-    }
-    if (t == nkt - 1) {  // the quad of lanes holding a row share its max
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 1));
-        m[i] = fmaxf(m[i], __shfl_xor_sync(0xffffffffu, m[i], 2));
-      }
-    }
-  }
-  float linv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    linv[i] = 1.f / l[i];
-  }
+  const int warp = threadIdx.x >> 5;
+  float o[HD / 8][4], linv[2];
+  head_fwd<HD, kStages<HD>>(qkv + (size_t)b * N * C3 + (size_t)h * d, C3, C,
+                            N, q0, d, scale, vec, Qs, threadIdx.x,
+                            [] { __syncthreads(); }, o, linv);
   // the warp's own q rows are free (its fragments are in registers)
   store_rows<HD>(o, linv, Qs + warp * 16 * LD,
                  out + (size_t)b * N * C + (size_t)h * d, C, q0 + warp * 16,
@@ -177,7 +80,7 @@ mha_fwd_bf16_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
 template <int HD>
 cudaError_t launch_bf16(const void* qkv, void* out, int B, int N, int H, int d,
                         float scale, cudaStream_t s) {
-  const size_t smem = Fwd<HD>::bytes;
+  const size_t smem = Fwd<HD, kStages<HD>>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       mha_fwd_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

@@ -1,5 +1,5 @@
-// The SIMT attention of one head over a query tile, shared by K5's f32
-// form (mha_fwd.cu) and K12 in both dtypes (mha_proj_fwd.cu).
+// The SIMT attention of one head over a query tile, shared by the f32
+// forms of K5 (mha_fwd.cu) and K12 (mha_proj_fwd.cu).
 //
 // 256 threads; QT query rows (16, 32 or 64), head width HD (a multiple of
 // 16; the head's d <= HD columns are read, the rest are zero). K and V

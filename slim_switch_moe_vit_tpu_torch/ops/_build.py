@@ -48,7 +48,8 @@ _SIGNATURES = {
     "ssmv_expert_ffn_bwd_perm": (_P,) * 15 + (_I, _I, _I, _I, _I, _I, _P),
     "ssmv_flash_fwd": (_P, _P, _I, _I, _I, _I, _F, _I, _P),
     "ssmv_fused_adamw": (_P, _I) + (_F,) * 9 + (_D, _D, _D, _P),
-    "ssmv_mha_proj_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    "ssmv_mha_proj_groups": (_I, _I, _I, _I, _I),
+    "ssmv_mha_proj_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
     "ssmv_gather_rows": (_P, _P, _I, _P, _L, _I, _I, _P),
     "ssmv_scatter_add_rows": (_P, _P, _P, _P, _L, _I, _I, _P),
 }

@@ -13,10 +13,14 @@ header notes say what bounds them on the card and how their designs answer
 that. In short: the forward reads the packed (B, N, 3C) qkv once and
 writes the (B, N, C) output once, and the backward recomputes the softmax
 and writes d(qkv) in the packed layout, the probabilities never in device
-memory. In bf16, K5 and K6 take their products on the tensor cores
-(``mma.sync``) with the scores in registers, and stream K and V through
-``cp.async`` rings; the exact row maximum comes first, from a pass that
-computes only row maxima.
+memory. In bf16 all four take their products on the tensor cores
+(``mma.sync``, ``csrc/attn_mma.cuh``) with the scores in registers, and
+stream K and V through ``cp.async`` rings. K5, K6 and K12 take the exact
+row maximum first, from a pass that computes only row maxima (K12 runs
+K5's head body for each head, then its projection as one tile GEMM on
+the tensor cores, the attention output never in device memory); K11 takes
+one pass with the JAX kernel's online softmax. The f32 forms run on the
+CUDA cores (exact f32 FMAs).
 
 Dispatch: a CPU tensor takes the plain versions
 (:func:`fused_mha_reference`, :func:`reference_mha_bwd`,
@@ -46,7 +50,7 @@ from ._checks import check_tensor
 
 MAX_HEAD_DIM = 128  # the widest head the attention kernels take
 MAX_N = 1024        # K5, K6 and K12 take N up to the JAX package's kernel rule
-K12_MAX_C = 1280    # K12's f32 accumulator: QT / 8 rows x C / 32 a thread
+K12_MAX_C = 1280    # K12's f32 form: QT / 8 rows x C / 32 accumulators a thread
 
 
 def fused_mha_reference(qkv: torch.Tensor, num_heads: int,
@@ -254,10 +258,19 @@ def _mha_proj_forward(qkv, wp, bp, num_heads, scale):
     wp, bp = wp.to(qkv.dtype), bp.float()  # the JAX wrapper's casts (:391)
     B, N, C, d = _check_proj(qkv, wp, bp, num_heads)
     y = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
+    is_bf16 = int(qkv.dtype == torch.bfloat16)
     lib = _build.load_library()
+    # where the batch is too small to fill the card, the bf16 kernel splits
+    # the heads over blocks and sums their f32 partials here
+    groups = lib.ssmv_mha_proj_groups(B, N, num_heads, d, is_bf16)
+    if groups < 0:
+        raise RuntimeError("fused_mha_proj: cannot read the CUDA device")
+    part = (torch.empty(groups * B * N * C, dtype=torch.float32,
+                        device=qkv.device) if groups else None)
     err = lib.ssmv_mha_proj_fwd(qkv.data_ptr(), wp.data_ptr(), bp.data_ptr(),
-                                y.data_ptr(), B, N, num_heads, d, float(scale),
-                                int(qkv.dtype == torch.bfloat16),
+                                y.data_ptr(),
+                                None if part is None else part.data_ptr(),
+                                B, N, num_heads, d, float(scale), is_bf16,
                                 torch.cuda.current_stream().cuda_stream)
     _build.check(err, "fused_mha_proj")
     fused_mha_proj.launches += 1

@@ -439,7 +439,12 @@ def test_fused_adamw_kernel_matches_plain(cuda, with_ema, t):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,N", [(3, 197), (2, 577), (2, 77), (1, 1)])
+@pytest.mark.parametrize("B,N", [(3, 197), (2, 577), (2, 77), (1, 1),
+                                 # either side of one and two 64-key
+                                 # tiles, and lengths where the K / V
+                                 # ring wraps many times
+                                 (2, 63), (2, 64), (2, 65), (2, 128),
+                                 (1, 1025), (1, 2000)])
 def test_flash_kernel_matches_plain(cuda, B, N):
     """K11, bf16: P rounds to bf16 before P.V (the plain version rounds the
     normalized probabilities), within the global bf16 limit 1.6e-2."""
@@ -845,13 +850,26 @@ def test_expert_ffn_family_f32_and_d768(cuda, dtype, T, D, H, E):
                                      (1, 417, 16, 64), (1, 577, 16, 64),
                                      (1, 417, 20, 64), (1, 577, 16, 80),
                                      (1, 1024, 16, 64), (1, 1024, 20, 64),
-                                     (2, 33, 3, 20)])
+                                     (2, 33, 3, 20),
+                                     # C = 1280 at B = 1: the bf16 form
+                                     # splits the heads over blocks (so do
+                                     # the cases above, where fewer than
+                                     # 132 query tiles leave SMs idle)
+                                     (1, 577, 20, 64),
+                                     # 160 query tiles: one group of 6 heads
+                                     (40, 197, 6, 64),
+                                     # C = 1280 at head_dim 128: the o
+                                     # tile holds 8 of the 10 heads at most
+                                     # (groups of 8 and 2)
+                                     (1, 197, 10, 128), (40, 197, 10, 128),
+                                     # an odd head width and C
+                                     (3, 70, 5, 13)])
 def test_mha_proj_kernel_matches_plain(cuda, dtype, B, N, H, d):
     """K12 against its plain version (K5's function, then the proj product
     rounded as the JAX reference): bf16 within 1.6e-2 + 1.6e-2 |ref| (the
     plain side rounds o.Wp and adds bp in bf16, the kernel rounds once),
-    f32 within F32_TOL; one launch, and its autograd backward is the plain
-    version's."""
+    f32 within F32_TOL; one launch counted (in bf16, a head split adds a
+    second kernel that sums the groups)."""
     rs = np.random.RandomState(18)
     C = H * d
     qkv = _rand(rs, B, N, 3 * C, dtype=dtype, device=cuda)

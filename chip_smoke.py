@@ -23,8 +23,9 @@ Phases (any failure propagates and the script exits non-zero):
    sub-millisecond kernel's time. Elementwise outputs must be
    within ``ELEM_TOL`` (default ``ATOL``/``RTOL``); f32 sums over all rows
    (dgamma, dbeta, dW, db) within ``SUM_REL`` of their largest |ref|. K6's
-   limit must reject planted faults in its plain form; K5, K6 and K11 (and
-   K12 in phase 13) may be no less accurate against the exact f32 function
+   limit must reject planted faults in its plain form; K4 (dx, dW1, dW2;
+   at B = 32 and 128, and at D = 768 in phase 13), K5, K6 and K11 (and K12
+   in phase 13) may be no less accurate against the exact f32 function
    than their plain versions (``EXACT_RATIO``).
 3. Serving: ``moe_small_patch16_224_expert8`` at full width (ViT-S/16, 12
    blocks, 8 experts top-2), bf16, seeded random weights, exported through
@@ -117,7 +118,8 @@ Phases (any failure propagates and the script exits non-zero):
     25,216 tokens) bit for bit against their plain versions (the
     scatter-add in bf16 and f32), beside ``index_select`` / ``index_add_``;
     K3, K4, K8, K9 and K10 at D = 768 (moe_base_patch16_224_expert32's
-    layout at B = 32) and in f32 at D = 384, K6 in f32, K5 and K6 at
+    layout at B = 32; K4 also against the exact f32 function) and in f32
+    at D = 384, K6 in f32, K5 and K6 at
     N = 577 in bf16 and f32, K5, K6 and K11 at vit_huge_patch14_224's head
     (16 heads of 80, N = 257, ``HUGE``), K11 in f32 and K12 at N = 577 and
     C = 1024 (``K12_LONG``), against their plain versions (f32 within
@@ -191,13 +193,15 @@ ATOL = RTOL = 1.6e-2
 # (e*linv*sum(e*dp)) dropped or off by 5% or 2% (PLANTED_DELTA).
 ELEM_TOL = {"fused_mha_bwd": (4e-3, 1.6e-2)}
 PLANTED_DELTA = (0.0, 0.95, 0.98)
-# the bf16 tensor-core kernels K5, K6, K11 and K12 against the exact f32
-# function (their plain versions on the f32-cast inputs, no rounding to
+# the bf16 tensor-core kernels K4, K5, K6, K11 and K12 against the exact
+# f32 function (their plain versions on the f32-cast inputs, no rounding to
 # bf16 inside): the kernel's mean |d| may exceed its bf16 plain version's
 # by at most this factor. Both round the same values at the same points,
 # in other summation orders, so their mean errors agree closely; a kernel
 # that rounds once more, or loses the f32 sums, reads well above it. K12
-# is checked at each of its shapes (``proj_case``), the rest at B = 128.
+# is checked at each of its shapes (``proj_case``), K4 (dx, dW1, dW2) at
+# each of its layouts in ``kernel_phase`` and at D = 768, the rest at
+# B = 128.
 EXACT_RATIO = 1.1
 EXACT_CHECKED = ("fused_mha", "fused_mha_bwd", "flash_attention")
 # f32 sums over all ~25k (LN) or an expert's ~6k (FFN) rows, in other
@@ -466,8 +470,8 @@ def bound(nbytes: float, flops: float, peak: float) -> tuple:
 
 def kernel_cases(B: int, gen):
     """({name: (kernel call, plain call, one-call library equivalent or
-    None, (bytes, flops, peak), per-output comparison modes)}, (qkv, do))
-    on random inputs at batch B. A mode is "elem" (ELEM_TOL elementwise) or
+    None, (bytes, flops, peak), per-output comparison modes)}, (qkv, do),
+    K4's arguments) on random inputs at batch B. A mode is "elem" (ELEM_TOL elementwise) or
     "sum" (SUM_REL of max |ref|)."""
     import torch
     import torch.nn.functional as F
@@ -569,7 +573,7 @@ def kernel_cases(B: int, gen):
                             lambda: F.scaled_dot_product_attention(
                                 q4[0], q4[1], q4[2], scale=scale),
                             (4 * n * 2, 2 * mha_f, BF16_FLOPS), ("elem",)),
-    }, (qkv, do))
+    }, (qkv, do), ffn_bwd)
 
 
 def flash_long_case(gen) -> tuple:
@@ -760,6 +764,19 @@ def exact_attention(name: str, qkv, do):
     return attention.fused_mha_reference(qkv.float(), HEADS, scale)
 
 
+def exact_ffn_bwd(name: str, got, want, args) -> None:
+    """``exact_error`` for K4's (or K9's, K10's) dx, dW1 and dW2: the exact
+    f32 function is the plain backward on f32 copies of ``args`` (xs, w1,
+    b1, w2, e_of_tile, dy)."""
+    from slim_switch_moe_vit_tpu_torch.ops import fused_ffn
+
+    xs, w1, b1, w2, eot, dy = args
+    exact = fused_ffn.reference_expert_ffn_bwd(xs.float(), w1.float(), b1,
+                                               w2.float(), eot, dy.float())
+    for part, i in (("dx", 0), ("dw1", 1), ("dw2", 3)):
+        exact_error(f"{name} {part}", got[i], want[i], exact[i])
+
+
 def exact_error(name: str, got, want, exact) -> None:
     """A bf16 kernel's mean |d| from the exact f32 function beside its bf16
     plain version's, held to ``EXACT_RATIO``."""
@@ -780,7 +797,7 @@ def kernel_phase(results: dict) -> None:
     gen = torch.Generator().manual_seed(0)
     for B in (32, 128):
         t_batch = time.perf_counter()
-        cases, mha_inputs = kernel_cases(B, gen)
+        cases, mha_inputs, ffn_bwd_inputs = kernel_cases(B, gen)
         for name, (kernel, plain, library, cost, modes) in cases.items():
             t0 = time.perf_counter()
             got = kernel()
@@ -793,6 +810,8 @@ def kernel_phase(results: dict) -> None:
             if name in EXACT_CHECKED and B == 128:
                 exact_error(name, got, want,
                             exact_attention(name, *mha_inputs))
+            if name == "fused_expert_ffn_bwd":
+                exact_ffn_bwd(f"{name} B={B}", got, want, ffn_bwd_inputs)
             # the plain versions are timed at B = 128 only, the batch of
             # the training path (they are no yardstick of speed)
             ms = median_ms(kernel)
@@ -820,7 +839,7 @@ def kernel_phase(results: dict) -> None:
         log(f"kernel flash_attention vs fused_mha B={B}: max|d| {err:.3e} "
             f"(max|ref| {peak:.3e}); [kernels at B={B}: "
             f"{time.perf_counter() - t_batch:.1f} s]")
-        del cases, mha_inputs
+        del cases, mha_inputs, ffn_bwd_inputs
         torch.cuda.empty_cache()
     kernel, plain, library, cost, modes = flash_long_case(gen)
     err, peak, _ = compare("flash_attention", kernel(), plain(), modes)
@@ -2545,6 +2564,10 @@ def _ffn_family(results, label, dtype, T, D, H, E, peak, gen):
     for name, (kernel, plain, cost, mode) in cases.items():
         _timed_case(results, name, kernel, plain, None, cost, mode,
                     "_" + label, tol=tol, reps=5)
+    if dtype == torch.bfloat16:
+        exact_ffn_bwd(f"fused_expert_ffn_bwd_{label}",
+                      cases["fused_expert_ffn_bwd"][0](),
+                      cases["fused_expert_ffn_bwd"][1](), bwd)
 
 
 def coverage_kernel_phase(results: dict) -> None:

@@ -1,8 +1,9 @@
 """Compare the port's kernel times on the card between two source trees.
 
-Runs ``chip_smoke.py``'s kernel phase and coverage kernel phase (every
-kernel wrapper against its plain version, timed with CUDA events) in each
-tree, in the order A, B, B, A on one card, and prints each timed key of
+Runs ``chip_smoke.py``'s kernel, capacity kernel, EP kernel and coverage
+kernel phases (every kernel wrapper against its plain version, timed with
+CUDA events; K8 and K9 at cfg4's and the dropless layouts, K10 at ep=4's)
+in each tree, in the order A, B, B, A on one card, and prints each timed key of
 each kernel as the four runs and B's change against A (the mean of B's two
 runs over the mean of A's). Each run is a fresh process that builds its
 tree's kernels. Usage, from the repository root on a machine with one GPU:
@@ -29,6 +30,8 @@ torch.backends.cudnn.allow_tf32 = False
 _build.load_library()
 r = {}
 s.kernel_phase(r)
+s.capacity_kernel_phase(r)
+s.ep_kernel_phase(r, s.card_line())
 s.coverage_kernel_phase(r)
 json.dump(r, open(sys.argv[1], "w"))
 """

@@ -29,8 +29,8 @@
 //    VMEM scratch from one step to the next. Blocks on the card run in no
 //    order, and a block cannot hold both a row block's dx (all of H) and a
 //    hidden chunk's dW (all of an expert's rows). So K8 is two kernels: the
-//    dgrad kernel of K4 without its workspace (expert_ffn_dgrad.cuh: dx
-//    only), and the deferred-dW kernel below, one block per (32-column
+//    WMMA dgrad of expert_ffn_dgrad.cuh (dx only, no workspace), and the
+//    deferred-dW kernel below, one block per (32-column
 //    hidden chunk, expert), which walks its expert's tiles in order as the
 //    TPU grid does and follows the flags: at each flush it recomputes h and
 //    dh of the pair's 512 (or the single tile's 256) rows, 64 rows at a
@@ -429,9 +429,9 @@ cudaError_t launch(const void* xs, const void* dy, const void* w1,
                    const void* flags, void* dxs, void* dw1, void* db1,
                    void* dw2, void* db2, int Tp, int H, int E, int tile_rows,
                    cudaStream_t stream) {
-  cudaError_t err = launch_dgrad<D, false, false>(
-      xs, nullptr, dy, w1, b1, w2, e_of_tile, dxs, nullptr, nullptr, nullptr,
-      Tp, H, tile_rows, stream);
+  cudaError_t err =
+      launch_dgrad<D>(xs, dy, w1, b1, w2, e_of_tile, dxs, Tp, H, tile_rows,
+                      stream);
   if (err != cudaSuccess) return err;
   const size_t smem = DeferSmem<D>::bytes;
   err = cudaFuncSetAttribute(expert_ffn_dw_defer_kernel<D>,

@@ -1,32 +1,35 @@
-// The dgrad kernel shared by the expert-FFN backward kernels: K4
-// (expert_ffn_bwd.cu), K9's backward (the same file, kGather), K10's
-// backward (the same file, kPerm) and K8 (expert_ffn_bwd_defer.cu, no
-// workspace). See expert_ffn_bwd.cu for the
-// math and the design.
+// The dgrad kernels that K8 (expert_ffn_bwd_defer.cu) and the f32 forms
+// of K4, K9's and K10's backward (expert_ffn_bwd.cu) share: dx of the
+// expert FFN, with h and dy . W2^T recomputed on chip (expert_ffn_bwd.cu
+// has the math). The bf16 forms of K4, K9's and K10's backward at every D
+// run the tensor-core design of expert_ffn_bwd.cu instead.
 //
-// One block per 64-row block of the layout (a quarter of a 256-row tile):
-// x and dy of the block stay in shared memory, H is streamed in 32-wide
-// chunks of W1 / W2, and each chunk's h and dy . W2^T stay on chip; dx
-// accumulates in registers over the chunks and is rounded to bf16 once.
-// kGather: layout row s reads x row gather_idx[s] (K9); dy and dx stay in
-// layout (slot) space. kWorkspace: each chunk also writes bf16(dh) and
-// bf16(gelu(h)) to (Tp, H) workspaces and the block's f32 column sums of
-// dh to a (Tp / 64, H) table, for the wgrad kernel (K4, K9, K10); K8
-// computes its dW and db from x and dy itself and writes none of them.
-// kPerm (K10): block b is grid step b / 4 of the layout's tiles; it reads
-// x and dy of, and writes dx to, row tile tile_perm[step] (its quarter of
-// it), with the expert e_of_tile[step]; the workspace and the dh partials
-// stay in step order, so the wgrad kernel finds an expert's rows as a
-// contiguous range of steps. The SIMT form at the end of this file takes
-// f32 at every D and bf16 at D = 768.
+// (a) The WMMA dgrad, K8's at bf16 D = 192 and 384: one block of 8 warps
+//     per 64-row block of the layout (a quarter of a 256-row tile); x and
+//     dy of the block stay in shared memory, H is streamed in 32-wide
+//     chunks of W1 / W2, and each chunk's h and dy . W2^T pass through
+//     shared f32 tiles; dx accumulates in WMMA fragments over the chunks and
+//     is rounded to bf16 once. K8 computes its dW and db from x and dy
+//     itself, so this form writes dx only.
+// (b) The SIMT dgrad: f32 at every D, and K8's bf16 at D = 768 (the WMMA
+//     layout's full-D x and dy tiles with a D-row W1 chunk exceed shared
+//     memory there). kWorkspace: it also writes T(dh) and T(gelu(h)) to
+//     (Tp, H) workspaces and the block's f32 column sums of dh to a
+//     (Tp / 16, H) table, for the SIMT wgrad of expert_ffn_bwd.cu (K4,
+//     K9, K10 in f32). kGather: layout row s reads x row gather_idx[s]
+//     (K9); dy and dx stay in layout (slot) space. kPerm (K10): block b
+//     reads x and dy of, and writes dx to, its rows of row tile
+//     tile_perm[step], with the expert e_of_tile[step]; the workspace and
+//     the dh partials stay in step order.
 #pragma once
 
 #include "common.cuh"
+#include "mma_sync.cuh"
 
 namespace ssmv_ffn {
 
 using namespace nvcuda;
-using bf16 = __nv_bfloat16;
+using ssmv::tc::bf16;
 
 constexpr int kRows = 64;      // rows per dgrad block
 constexpr int kHC = 32;        // hidden chunk
@@ -49,8 +52,7 @@ struct DgradSmem {
   static constexpr size_t Hs = W2 + sizeof(bf16) * kHC * XLD;
   static constexpr size_t Ps = Hs + sizeof(float) * kRows * HLD;
   static constexpr size_t Gs = Ps + sizeof(float) * kRows * HLD;
-  static constexpr size_t Red = Gs + sizeof(bf16) * kRows * GLD;
-  static constexpr size_t bytes = Red + sizeof(float) * kWarps * kHC;
+  static constexpr size_t bytes = Gs + sizeof(bf16) * kRows * GLD;
   // dx is staged over the x and dy tiles once the hidden loop is done
   static_assert(sizeof(float) * kRows * DXLD <= W1, "dx staging overflow");
   static_assert(DY % 32 == 0 && W1 % 32 == 0 && W2 % 32 == 0 &&
@@ -74,18 +76,14 @@ __device__ __forceinline__ int permuted_row(const int* tile_perm, int row0,
   return tile_perm[row0 / tile_rows] * tile_rows + row0 % tile_rows;
 }
 
-template <int D, bool kGather, bool kWorkspace, bool kPerm>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 expert_ffn_dgrad_kernel(const bf16* __restrict__ xs,
-                        const long long* __restrict__ gather_idx,
                         const bf16* __restrict__ dy,
                         const bf16* __restrict__ w1, const float* __restrict__ b1,
                         const bf16* __restrict__ w2,
                         const int* __restrict__ e_of_tile,
-                        const int* __restrict__ tile_perm,
-                        bf16* __restrict__ dxs, bf16* __restrict__ ws_dh,
-                        bf16* __restrict__ ws_g, float* __restrict__ db1_part,
-                        int H, int tile_rows) {
+                        bf16* __restrict__ dxs, int H, int tile_rows) {
   using L = DgradSmem<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Xs = reinterpret_cast<bf16*>(smem + L::X);
@@ -95,12 +93,10 @@ expert_ffn_dgrad_kernel(const bf16* __restrict__ xs,
   float* Hs = reinterpret_cast<float*>(smem + L::Hs);
   float* Ps = reinterpret_cast<float*>(smem + L::Ps);
   bf16* Gs = reinterpret_cast<bf16*>(smem + L::Gs);
-  float* Red = reinterpret_cast<float*>(smem + L::Red);
   float* DXs = reinterpret_cast<float*>(smem + L::X);
 
-  const int row0 = blockIdx.x * kRows;  // step order: workspace rows
+  const int row0 = blockIdx.x * kRows;
   const int e = e_of_tile[row0 / tile_rows];
-  const int prow0 = permuted_row<kPerm>(tile_perm, row0, tile_rows);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const bf16* w1e = w1 + (size_t)e * D * H;
   const bf16* w2e = w2 + (size_t)e * H * D;
@@ -109,10 +105,9 @@ expert_ffn_dgrad_kernel(const bf16* __restrict__ xs,
   constexpr int XV = D / 8;  // 16-byte vectors per row of D
   for (int i = tid; i < kRows * XV; i += kThreads) {
     const int r = i / XV, v = i % XV;
-    const size_t g = (size_t)(prow0 + r) * D + v * 8;
-    const size_t src = kGather ? (size_t)gather_idx[row0 + r] * D + v * 8 : g;
+    const size_t g = (size_t)(row0 + r) * D + v * 8;
     *reinterpret_cast<uint4*>(Xs + r * L::XLD + v * 8) =
-        *reinterpret_cast<const uint4*>(xs + src);
+        *reinterpret_cast<const uint4*>(xs + g);
     *reinterpret_cast<uint4*>(DYs + r * L::XLD + v * 8) =
         *reinterpret_cast<const uint4*>(dy + g);
   }
@@ -160,35 +155,16 @@ expert_ffn_dgrad_kernel(const bf16* __restrict__ xs,
     }
     __syncthreads();
 
-    // dh = p * gelu'(h + b1), g = gelu(h + b1); thread (warp, lane) takes
-    // column lane of rows warp, warp + 8, ... and sums its f32 dh
-    float dsum = 0.f;
+    // dh = p * gelu'(h + b1); thread (warp, lane) takes column lane of
+    // rows warp, warp + 8, ...
     const float bias = b1e[c0 + lane];
     for (int r = warp; r < kRows; r += kWarps) {
       float g, dg;
       gelu_pair(Hs[r * L::HLD + lane] + bias, &g, &dg);
-      const float dh = Ps[r * L::HLD + lane] * dg;
-      const bf16 dhb = __float2bfloat16(dh);
-      Gs[r * L::GLD + lane] = dhb;
-      if (kWorkspace) {
-        dsum += dh;
-        const size_t o = (size_t)(row0 + r) * H + c0 + lane;
-        ws_dh[o] = dhb;
-        ws_g[o] = __float2bfloat16(g);
-      }
+      (void)g;
+      Gs[r * L::GLD + lane] = __float2bfloat16(Ps[r * L::HLD + lane] * dg);
     }
-    if (kWorkspace) {
-      Red[warp * kHC + lane] = dsum;
-      __syncthreads();
-      if (warp == 0) {
-        float s = 0.f;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) s += Red[w * kHC + lane];
-        db1_part[(size_t)blockIdx.x * H + c0 + lane] = s;
-      }
-    } else {
-      __syncthreads();  // Gs is complete before the dx product reads it
-    }
+    __syncthreads();  // Gs is complete before the dx product reads it
 
     {  // dx += bf16(dh) . W1[:, chunk]^T; this warp: rows rs*16, its half
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
@@ -213,46 +189,39 @@ expert_ffn_dgrad_kernel(const bf16* __restrict__ xs,
   __syncthreads();
   for (int i = tid; i < kRows * (D / 2); i += kThreads) {
     const int r = i / (D / 2), c = (i % (D / 2)) * 2;
-    *reinterpret_cast<__nv_bfloat162*>(dxs + (size_t)(prow0 + r) * D + c) =
+    *reinterpret_cast<__nv_bfloat162*>(dxs + (size_t)(row0 + r) * D + c) =
         __floats2bfloat162_rn(DXs[r * L::DXLD + c], DXs[r * L::DXLD + c + 1]);
   }
 }
 
 
-// Launch the dgrad kernel on Tp / 64 blocks; ws_dh, ws_g and db1_part are
-// used only with kWorkspace, tile_perm only with kPerm.
-template <int D, bool kGather, bool kWorkspace, bool kPerm = false>
-cudaError_t launch_dgrad(const void* xs, const void* gather_idx,
-                         const void* dy, const void* w1, const void* b1,
-                         const void* w2, const void* e_of_tile, void* dxs,
-                         void* ws_dh, void* ws_g, void* db1_part, int Tp,
-                         int H, int tile_rows, cudaStream_t stream,
-                         const void* tile_perm = nullptr) {
-  static_assert(!(kGather && kPerm), "K9 and K10 do not compose");
+// Launch the WMMA dgrad kernel on Tp / 64 blocks (K8, bf16 at D = 192 and
+// 384).
+template <int D>
+cudaError_t launch_dgrad(const void* xs, const void* dy, const void* w1,
+                         const void* b1, const void* w2,
+                         const void* e_of_tile, void* dxs, int Tp, int H,
+                         int tile_rows, cudaStream_t stream) {
   const size_t smem = DgradSmem<D>::bytes;
-  auto kernel = expert_ffn_dgrad_kernel<D, kGather, kWorkspace, kPerm>;
+  auto kernel = expert_ffn_dgrad_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   kernel<<<Tp / kRows, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(xs), static_cast<const long long*>(gather_idx),
-      static_cast<const bf16*>(dy), static_cast<const bf16*>(w1),
-      static_cast<const float*>(b1), static_cast<const bf16*>(w2),
-      static_cast<const int*>(e_of_tile),
-      static_cast<const int*>(tile_perm), static_cast<bf16*>(dxs),
-      static_cast<bf16*>(ws_dh), static_cast<bf16*>(ws_g),
-      static_cast<float*>(db1_part), H, tile_rows);
+      static_cast<const bf16*>(xs), static_cast<const bf16*>(dy),
+      static_cast<const bf16*>(w1), static_cast<const float*>(b1),
+      static_cast<const bf16*>(w2), static_cast<const int*>(e_of_tile),
+      static_cast<bf16*>(dxs), H, tile_rows);
   return cudaGetLastError();
 }
 
-// The SIMT dgrad: f32 at every D, and bf16 at D = 768 (the WMMA layout's
-// full-D x and dy tiles with a D-row W1 chunk exceed shared memory there).
-// kSRows = 16 rows a block; H streamed in 32-wide chunks through one
-// weight buffer: the W2 chunk (32 x D+1) for p = dy . W2^T first, then the
-// W1 chunk (D x 33) for h and for dx += T(dh) . W1^T. dx accumulates in
-// registers (2 rows x D/32 columns a thread). The same math and roundings
-// as the WMMA form (T in place of bf16); with kWorkspace the dh partials
-// table holds one row per 16-row block, (Tp / 16, H).
+// The SIMT dgrad, (b) above: kSRows = 16 rows a block; H streamed in
+// 32-wide chunks through one weight buffer: the W2 chunk (32 x D+1) for
+// p = dy . W2^T first, then the W1 chunk (D x 33) for h and for
+// dx += T(dh) . W1^T. dx accumulates in registers (2 rows x D/32 columns a
+// thread). The same math and roundings as the WMMA form (T in place of
+// bf16); with kWorkspace the dh partials table holds one row per 16-row
+// block, (Tp / 16, H).
 using ssmv::kSHC;
 using ssmv::kSRows;
 using ssmv::simt_wbuf;

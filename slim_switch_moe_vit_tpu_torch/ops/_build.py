@@ -40,18 +40,18 @@ _SIGNATURES = {
     "ssmv_expert_ffn_fwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _P),
     "ssmv_mha_bwd": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
-    "ssmv_expert_ffn_bwd": (_P,) * 14 + (_I, _I, _I, _I, _I, _I, _P),
+    "ssmv_expert_ffn_bwd": (_P,) * 15 + (_I,) * 7 + (_P,),
     "ssmv_expert_ffn_fwd_gather": (_P,) * 8 + (_I, _I, _I, _I, _I, _P),
-    "ssmv_expert_ffn_bwd_gather": (_P,) * 15 + (_I, _I, _I, _I, _I, _I, _P),
+    "ssmv_expert_ffn_bwd_gather": (_P,) * 16 + (_I,) * 7 + (_P,),
     "ssmv_expert_ffn_bwd_defer": (_P,) * 12 + (_I, _I, _I, _I, _I, _I, _P),
     "ssmv_expert_ffn_fwd_perm": (_P,) * 8 + (_I, _I, _I, _I, _I, _P),
-    "ssmv_expert_ffn_bwd_perm": (_P,) * 15 + (_I, _I, _I, _I, _I, _I, _P),
+    "ssmv_expert_ffn_bwd_perm": (_P,) * 16 + (_I,) * 7 + (_P,),
     "ssmv_flash_fwd": (_P, _P, _I, _I, _I, _I, _F, _I, _P),
     "ssmv_fused_adamw": (_P, _I) + (_F,) * 9 + (_D, _D, _D, _P),
     "ssmv_mha_proj_groups": (_I, _I, _I, _I, _I),
     "ssmv_mha_proj_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
     "ssmv_gather_rows": (_P, _P, _I, _P, _L, _I, _I, _P),
-    "ssmv_scatter_add_rows": (_P, _P, _P, _P, _L, _I, _I, _P),
+    "ssmv_scatter_add_rows": (_P, _P, _P, _P, _L, _I, _L, _I, _P),
 }
 
 

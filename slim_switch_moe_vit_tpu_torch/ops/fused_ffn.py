@@ -22,10 +22,11 @@ Replaces these Pallas kernels of ``slim_switch_moe_vit_tpu/ops/fused_ffn.py``:
 The sources' header notes say what bounds each kernel on the card and how
 its design answers that. In short: the FFN is FLOP-bound; the forward keeps
 the (rows, H) hidden activation out of device memory by streaming H in
-chunks, and the backward recomputes it the same way for dx, then sums
-dW1/dW2 per expert over its consecutive tiles in a second kernel (K4, K9
-through a (Tp, H) workspace; K8 over same-expert tile pairs, recomputing dh
-on chip).
+chunks; the backward recomputes it as GEMM tiles that write bf16(dh) and
+bf16(gelu(h)) to a (Tp, H) workspace, then takes dx and each expert's
+dW1/dW2 over its consecutive tiles as GEMMs over that workspace (K4, K9,
+K10), or recomputes dh on chip for dx and for dW over same-expert tile
+pairs (K8).
 
 Layout contract (``ops/moe.py::aligned_expert_layout``): rows are sorted by
 expert and every ``TILE_ROWS``-row tile belongs to one expert,
@@ -33,11 +34,15 @@ expert and every ``TILE_ROWS``-row tile belongs to one expert,
 
 Shapes and types: D in ``KERNEL_DIMS`` (192, 384, 768), H a multiple of
 64, activations and expert weights in one dtype, bf16 or f32 (the biases
-f32). bf16 at D 192 and 384 runs on the tensor cores (WMMA); f32 at every
-D and bf16 at D = 768 run in each source's SIMT form (f32 FMAs on the CUDA
-cores: the WMMA layouts' full-D tiles exceed shared memory at D = 768, and
-f32 has no exact tensor-core product), with the same arithmetic. Anything
-else raises on a CUDA tensor.
+f32). In bf16, K4 and the backward forms of K9 and K10 run on the tensor
+cores at every D (``mma.sync`` with ``cp.async`` rings: a dh kernel, then
+one GEMM launch for dx, dW and db, the dW products split over an expert's
+rows by :func:`wgrad_splits` where their tiles would not fill the card);
+K3, K9's forward and K8 run on WMMA at D 192 and 384. f32 at every D, and
+bf16 at D = 768 for K3, K9's forward and K8, run in each source's SIMT form
+(f32 FMAs on the CUDA cores: those WMMA layouts' full-D tiles exceed shared
+memory at D = 768, and f32 has no exact tensor-core product), with the
+same arithmetic. Anything else raises on a CUDA tensor.
 
 GELU and its derivative are the exact erf forms at every dtype. The JAX
 package evaluates them for bf16 with odd polynomials (``gelu_fast``, within
@@ -247,14 +252,38 @@ def _is_bf16(t) -> int:
     return int(t.dtype == torch.bfloat16)
 
 
-def _workspace(Tp, H, like):
-    """(ws_dh, ws_g, ws_db1) of the backward kernels: (Tp, H) in the
-    activation dtype twice, and the dh partials, one f32 row per 16 rows
-    (the WMMA form fills one per 64)."""
+# the card's SMs: the bf16 backward splits its dW products over the rows
+# where their 128 x 256 tiles would fill fewer than two waves of them
+_SMS = 132
+
+
+def wgrad_splits(Tp: int, D: int, H: int, E: int, dtype) -> int:
+    """How many row splits the bf16 backward kernels take for their dW
+    products (1 in f32): enough for two waves of 128 x 256 dW tiles (one
+    block an SM), at most 8, and no more than the layout's 256-row tiles
+    per expert."""
+    if dtype != torch.bfloat16:
+        return 1
+    tiles = 2 * E * math.ceil(D / 128) * math.ceil(H / 256)
+    return max(1, min(8, math.ceil(2 * _SMS / tiles), Tp // TILE_ROWS // E))
+
+
+def _workspace(Tp, D, H, E, like):
+    """(ws_dh, ws_g, ws_db1, ws_dw, splits) of the backward kernels: (Tp, H)
+    in the activation dtype twice; the dh partials, one f32 row per 16 rows
+    (the bf16 kernels fill one per 128); and, where the dW products split
+    over the rows, their f32 partials (splits, 2, E, D * H), else None."""
     ws_dh = torch.empty((Tp, H), dtype=like.dtype, device=like.device)
+    splits = wgrad_splits(Tp, D, H, E, like.dtype)
+    ws_dw = (torch.empty((splits, 2, E, D * H), dtype=torch.float32,
+                         device=like.device) if splits > 1 else None)
     return (ws_dh, torch.empty_like(ws_dh),
             torch.empty((Tp // 16, H), dtype=torch.float32,
-                        device=like.device))
+                        device=like.device), ws_dw, splits)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def fused_expert_ffn_bwd(xs, w1, b1, w2, e_of_tile, dy):
@@ -265,13 +294,13 @@ def fused_expert_ffn_bwd(xs, w1, b1, w2, e_of_tile, dy):
     Tp, D, H, E = _check_ffn(xs, w1, b1, w2, None, e_of_tile)
     check_tensor(dy, "dy", (xs.dtype,), device=xs.device, shape=(Tp, D))
     out = _bwd_outputs(Tp, D, H, E, xs, w1, w2)
-    ws_dh, ws_g, ws_db1 = _workspace(Tp, H, xs)
+    ws_dh, ws_g, ws_db1, ws_dw, splits = _workspace(Tp, D, H, E, xs)
     lib = _build.load_library()
     err = lib.ssmv_expert_ffn_bwd(
         xs.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), e_of_tile.data_ptr(), *(t.data_ptr() for t in out),
-        ws_dh.data_ptr(), ws_g.data_ptr(), ws_db1.data_ptr(), Tp, D, H, E,
-        TILE_ROWS, _is_bf16(xs), _stream())
+        ws_dh.data_ptr(), ws_g.data_ptr(), ws_db1.data_ptr(), _ptr(ws_dw),
+        splits, Tp, D, H, E, TILE_ROWS, _is_bf16(xs), _stream())
     _build.check(err, "fused_expert_ffn_bwd")
     fused_expert_ffn_bwd.launches += 1
     return out
@@ -310,13 +339,14 @@ def fused_expert_ffn_gather_bwd(x, gather_idx, w1, b1, w2, e_of_tile, dy):
     Tp, D, H, E = _check_gather(x, gather_idx, w1, b1, w2, None, e_of_tile)
     check_tensor(dy, "dy", (x.dtype,), device=x.device, shape=(Tp, D))
     out = _bwd_outputs(Tp, D, H, E, x, w1, w2)
-    ws_dh, ws_g, ws_db1 = _workspace(Tp, H, x)
+    ws_dh, ws_g, ws_db1, ws_dw, splits = _workspace(Tp, D, H, E, x)
     lib = _build.load_library()
     err = lib.ssmv_expert_ffn_bwd_gather(
         x.data_ptr(), gather_idx.data_ptr(), dy.data_ptr(), w1.data_ptr(),
         b1.data_ptr(), w2.data_ptr(), e_of_tile.data_ptr(),
         *(t.data_ptr() for t in out), ws_dh.data_ptr(), ws_g.data_ptr(),
-        ws_db1.data_ptr(), Tp, D, H, E, TILE_ROWS, _is_bf16(x), _stream())
+        ws_db1.data_ptr(), _ptr(ws_dw), splits, Tp, D, H, E, TILE_ROWS,
+        _is_bf16(x), _stream())
     _build.check(err, "fused_expert_ffn_gather_bwd")
     fused_expert_ffn_gather_bwd.launches += 1
     return out
@@ -369,13 +399,14 @@ def fused_expert_ffn_permuted_bwd(xs, w1, b1, w2, e_of_step, tile_perm, dy):
     _check_perm(Tp, xs.device, tile_perm)
     check_tensor(dy, "dy", (xs.dtype,), device=xs.device, shape=(Tp, D))
     out = _bwd_outputs(Tp, D, H, E, xs, w1, w2)
-    ws_dh, ws_g, ws_db1 = _workspace(Tp, H, xs)
+    ws_dh, ws_g, ws_db1, ws_dw, splits = _workspace(Tp, D, H, E, xs)
     lib = _build.load_library()
     err = lib.ssmv_expert_ffn_bwd_perm(
         xs.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         w2.data_ptr(), e_of_step.data_ptr(), tile_perm.data_ptr(),
         *(t.data_ptr() for t in out), ws_dh.data_ptr(), ws_g.data_ptr(),
-        ws_db1.data_ptr(), Tp, D, H, E, TILE_ROWS, _is_bf16(xs), _stream())
+        ws_db1.data_ptr(), _ptr(ws_dw), splits, Tp, D, H, E, TILE_ROWS,
+        _is_bf16(xs), _stream())
     _build.check(err, "fused_expert_ffn_permuted_bwd")
     fused_expert_ffn_permuted_bwd.launches += 1
     return out

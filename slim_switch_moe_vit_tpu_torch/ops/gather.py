@@ -16,11 +16,15 @@ differentiable, the other's backward (``custom_vjp`` :161-193).
 - ``scatter_add_rows(g, idx, num_rows)``: out[r] = sum of g[i] over
   idx[i] = r, over zeros((num_rows, D)). Deterministic: the wrapper sorts
   idx stably into a CSR of destination -> sources (index preparation, as
-  the JAX wrapper's padding is), and the kernel sums each row's sources in
-  index order in f32 and rounds once. In f32 that is ``np.add.at`` bit for
+  the JAX wrapper's padding is), and the kernels sum each row's sources in
+  index order in f32 and round once. In f32 that is ``np.add.at`` bit for
   bit; in bf16 the JAX kernel rounds after every add, a divergence by design
   (``tests/test_torch_gather.py`` bounds it). Indices outside
-  [0, num_rows) add nowhere.
+  [0, num_rows) add nowhere. Rows of at most :data:`LONG_ROW` sources are
+  summed a warp each, several rows a warp; longer rows (the dropless
+  layout's padding slots all name one token, ~2,000 sources) a block each,
+  their sources streamed through a ``cp.async`` ring in shared memory, so
+  the loads run in parallel while the adds keep index order.
 
 Dispatch: a CPU tensor takes the plain versions
 (:func:`reference_gather_rows`, :func:`reference_scatter_add_rows`); a CUDA
@@ -35,6 +39,8 @@ from ._checks import check_tensor
 
 INDEX_DTYPES = (torch.int32, torch.int64)
 DTYPES = (torch.bfloat16, torch.float32)
+# rows of more sources than this take the scatter-add's long-row kernel
+LONG_ROW = 64
 
 
 def reference_gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -45,9 +51,12 @@ def reference_gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def scatter_plan(idx: torch.Tensor, num_rows: int) -> tuple:
     """(order, row_ptr): the sources sorted stably by destination, and the
     start of each destination's run (num_rows + 1 entries, int64). Entries
-    outside [0, num_rows) fall before row 0's run or after the last's."""
-    dest, order = torch.sort(idx.long(), stable=True)
-    bounds = torch.arange(num_rows + 1, device=idx.device)
+    outside [0, num_rows) fall before row 0's run or after the last's: the
+    keys are clamped to [-1, num_rows], which keeps that order and lets
+    them sort as int32 (half the radix passes of int64)."""
+    dt = torch.int32 if num_rows < 2 ** 31 - 1 else torch.int64
+    dest, order = torch.sort(idx.clamp(-1, num_rows).to(dt), stable=True)
+    bounds = torch.arange(num_rows + 1, device=idx.device, dtype=dt)
     return order, torch.searchsorted(dest, bounds)
 
 
@@ -104,7 +113,7 @@ def _scatter_add(g, idx, num_rows):
     lib = _build.load_library()
     err = lib.ssmv_scatter_add_rows(g.data_ptr(), order.data_ptr(),
                                     row_ptr.data_ptr(), out.data_ptr(),
-                                    num_rows, g.shape[1],
+                                    num_rows, g.shape[1], LONG_ROW,
                                     int(g.dtype == torch.bfloat16),
                                     torch.cuda.current_stream().cuda_stream)
     _build.check(err, "scatter_add_rows")

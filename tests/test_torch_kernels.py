@@ -340,29 +340,74 @@ def test_mha_bwd_kernel_matches_plain(cuda, N, d):
                                rtol=1.6e-2, msg="dqkv")
 
 
+# (T, D, H, E, skew): skew None routes at random; "edges" starves the last
+# expert (no token: one all-padding tile) and gives the one before it a
+# single tile. (1200, 192, 768, 4) splits the dW products over the rows
+# (too few 128 x 128 dW tiles to fill the card).
+BWD_CASES = [(300, 384, 1536, 8, None), (40, 192, 768, 4, None),
+             (300, 768, 3072, 4, None), (600, 384, 1536, 4, "edges"),
+             (300, 768, 3072, 4, "edges"), (1200, 192, 768, 4, None)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,D,H,E", [(300, 384, 1536, 8), (40, 192, 768, 4)])
-def test_expert_ffn_bwd_kernel_matches_plain(cuda, T, D, H, E):
-    """K4 on a routed layout, dy zero at padding slots: dx elementwise
-    within 1.6e-2; dW (bf16 out) and db (f32) within 1e-2 of max |ref|."""
+@pytest.mark.parametrize("T,D,H,E,skew", BWD_CASES,
+                         ids=["-".join(map(str, c[:4])) + ("-edges" if c[4]
+                                                           else "")
+                              for c in BWD_CASES])
+def test_expert_ffn_bwd_kernel_matches_plain(cuda, T, D, H, E, skew):
+    """K4 on a routed layout, dy zero at padding slots, and K9's and K10's
+    backward forms on the same rows (x read by index; the row tiles visited
+    in reverse): dx elementwise within 1.6e-2; dW (bf16 out) and db (f32)
+    within 1e-2 of max |ref|; a starved expert's dW exactly zero."""
     rs = np.random.RandomState(8)
     _, w1, b1, w2, _, _ = _ffn_case(rs, T, D, H, E, torch.bfloat16, cuda)
     x = _rand(rs, T, D, dtype=torch.bfloat16, device=cuda)
-    _, eidx = moe_ops.naive_topk_gate(_rand(rs, T, E, device=cuda), 2)
+    logits = _rand(rs, T, E, device=cuda)
+    if skew:
+        logits[:, E - 1] = -1e9
+        logits[:, E - 2] -= 2.5
+    _, eidx = moe_ops.naive_topk_gate(logits, 2)
     gather_idx, pair_slot, e_of_tile, w_slot, _ = \
         moe_ops.aligned_expert_layout(eidx, E, gate_w=torch.ones(T, 2,
                                                                  device=cuda))
     xs = moe_ops.dispatch_gather(x, gather_idx, pair_slot)
     dy = _rand(rs, xs.shape[0], D, dtype=torch.bfloat16, device=cuda) * \
         w_slot[:, None]
-    got = ffn_ops.fused_expert_ffn_bwd(xs, w1, b1, w2, e_of_tile, dy)
+    Tp = xs.shape[0]
+    if skew:
+        tiles = torch.bincount(e_of_tile.long(), minlength=E).tolist()
+        assert (eidx == E - 1).sum().item() == 0 and tiles[E - 2] == 1, tiles
+        assert (eidx == E - 2).sum().item() > 0
+    if (T, D, E) == (1200, 192, 4):
+        assert ffn_ops.wgrad_splits(Tp, D, H, E, torch.bfloat16) > 1
+    perm = torch.arange(Tp // ffn_ops.TILE_ROWS, dtype=torch.int32,
+                        device=cuda).flip(0)
+    rows = ffn_ops.permuted_rows(perm)
+    xp, dyp = torch.empty_like(xs), torch.empty_like(dy)
+    xp[rows], dyp[rows] = xs, dy  # step i's rows in tile perm[i]
+    ops.reset_launch_counts()
+    got = {"k4": ffn_ops.fused_expert_ffn_bwd(xs, w1, b1, w2, e_of_tile, dy),
+           "k9": ffn_ops.fused_expert_ffn_gather_bwd(x, gather_idx, w1, b1,
+                                                     w2, e_of_tile, dy),
+           "k10": ffn_ops.fused_expert_ffn_permuted_bwd(xp, w1, b1, w2,
+                                                        e_of_tile, perm, dyp)}
     torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert (counts["fused_expert_ffn_bwd"],
+            counts["fused_expert_ffn_gather_bwd"],
+            counts["fused_expert_ffn_permuted_bwd"]) == (1, 1, 1)
     want = ffn_ops.reference_expert_ffn_bwd(xs, w1, b1, w2, e_of_tile, dy)
-    torch.testing.assert_close(got[0].float(), want[0].float(), atol=1.6e-2,
-                               rtol=1.6e-2)
-    for name, gt, w in zip(["dw1", "db1", "dw2", "db2"], got[1:], want[1:]):
-        assert gt.dtype == w.dtype and torch.isfinite(gt.float()).all(), name
-        _rel_close(gt, w, 1e-2, name)
+    got["k10"] = (got["k10"][0][rows], *got["k10"][1:])
+    for form, g in got.items():
+        torch.testing.assert_close(g[0].float(), want[0].float(),
+                                   atol=1.6e-2, rtol=1.6e-2, msg=form)
+        for name, gt, w in zip(["dw1", "db1", "dw2", "db2"], g[1:], want[1:]):
+            assert gt.dtype == w.dtype and torch.isfinite(gt.float()).all(), \
+                (form, name)
+            _rel_close(gt, w, 1e-2, f"{form} {name}")
+        if skew:
+            assert g[1][E - 1].abs().max().item() == 0.0, form
+            assert g[3][E - 1].abs().max().item() == 0.0, form
 
 
 @pytest.mark.cuda
@@ -897,33 +942,76 @@ def test_mha_proj_refuses_what_it_does_not_take(cuda):
                                     0.125)
 
 
+def _scatter_idx(rs, kind, N, M):
+    """Destination rows: "random", M of them in [0, N); "hot", one row of
+    3,000 sources among rows of 0-2; "two_hot", two neighbouring rows of
+    1,500 each; "threshold", one row of exactly LONG_ROW sources and
+    its neighbour of LONG_ROW + 1; "out_of_range", random with a tenth of
+    them below 0 or at N and beyond. Shuffled, so each row's sources
+    interleave with the others'."""
+    from slim_switch_moe_vit_tpu_torch.ops import gather as gops
+
+    if kind in ("random", "out_of_range"):
+        idx = rs.randint(0, N, M)
+        if kind == "out_of_range":
+            bad = rs.rand(M) < 0.1
+            idx[bad] = rs.choice([-3, -1, N, N + 7], bad.sum())
+        return idx
+    few = np.repeat(np.arange(N), rs.randint(0, 3, N))  # 0-2 a row
+    big = {"hot": [(N // 3, 3000)],
+           "two_hot": [(N // 2, 1500), (N // 2 + 1, 1500)],
+           "threshold": [(5, gops.LONG_ROW), (6, gops.LONG_ROW + 1)]}[kind]
+    few = few[~np.isin(few, [r for r, _ in big])]
+    return rs.permutation(np.concatenate([few] + [np.full(n, r)
+                                                  for r, n in big]))
+
+
+# (N, D, M, idx_dtype, kind), M the sources of "random" and
+# "out_of_range" (the others make their own); D = 7 takes the scalar path
+# (a row is not a multiple of 16 bytes)
+SCATTER_CASES = [(1000, 192, 2048, torch.int32, "random"),
+                 (500, 384, 1700, torch.int64, "random"),
+                 (300, 7, 999, torch.int64, "random"),
+                 (2000, 384, None, torch.int64, "hot"),
+                 (1000, 192, None, torch.int32, "two_hot"),
+                 (500, 384, None, torch.int64, "threshold"),
+                 (500, 384, 1700, torch.int64, "out_of_range"),
+                 (300, 7, None, torch.int64, "hot")]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("N,D,M,idx_dtype", [(1000, 192, 2048, torch.int32),
-                                             (500, 384, 1700, torch.int64),
-                                             (300, 7, 999, torch.int64)])
-def test_gather_scatter_kernels_match_plain(cuda, dtype, N, D, M, idx_dtype):
+@pytest.mark.parametrize("N,D,M,idx_dtype,kind", SCATTER_CASES)
+def test_gather_scatter_kernels_match_plain(cuda, dtype, N, D, M, idx_dtype,
+                                            kind):
     """K13: the gather equals index_select bit for bit (16-byte vectors, and
     the scalar path where a row is not a multiple of 16 bytes); the
     scatter-add equals its plain version (index-order f32 sums, one
-    rounding) bit for bit, in f32 also np.add.at's sum; their autograd
-    directions launch each other."""
+    rounding) bit for bit, in f32 also np.add.at's sum (indices outside
+    [0, N) add nowhere), with hot rows past the long-row threshold; their
+    autograd directions launch each other."""
     from slim_switch_moe_vit_tpu_torch.ops import gather as gops
 
     rs = np.random.RandomState(20)
     x = _rand(rs, N, D, dtype=dtype, device=cuda)
-    idx = torch.from_numpy(rs.randint(0, N, M)).to(cuda, idx_dtype)
-    g = _rand(rs, M, D, dtype=dtype, device=cuda)
+    idx_np = _scatter_idx(rs, kind, N, M)
+    idx = torch.from_numpy(idx_np).to(cuda, idx_dtype)
+    g = _rand(rs, idx_np.shape[0], D, dtype=dtype, device=cuda)
     ops.reset_launch_counts()
-    out = gops.gather_rows(x, idx)
     acc = gops.scatter_add_rows(g, idx, N)
     torch.cuda.synchronize()
-    assert torch.equal(out, gops.reference_gather_rows(x, idx))
     assert torch.equal(acc, gops.reference_scatter_add_rows(g, idx, N))
     if dtype == torch.float32:
         ref = np.zeros((N, D), np.float32)
-        np.add.at(ref, idx.cpu().numpy(), g.cpu().numpy())
+        inside = (idx_np >= 0) & (idx_np < N)
+        np.add.at(ref, idx_np[inside], g.cpu().numpy()[inside])
         assert np.array_equal(acc.cpu().numpy(), ref)
+    if kind == "out_of_range":  # the gather takes indices in [0, N) only
+        assert ops.launch_counts()["scatter_add_rows"] == 1
+        return
+    out = gops.gather_rows(x, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(out, gops.reference_gather_rows(x, idx))
     xl = x.detach().requires_grad_()
     gops.gather_rows(xl, idx).backward(g)
     gl = g.detach().requires_grad_()

@@ -193,15 +193,16 @@ ATOL = RTOL = 1.6e-2
 # (e*linv*sum(e*dp)) dropped or off by 5% or 2% (PLANTED_DELTA).
 ELEM_TOL = {"fused_mha_bwd": (4e-3, 1.6e-2)}
 PLANTED_DELTA = (0.0, 0.95, 0.98)
-# the bf16 tensor-core kernels K4, K5, K6, K11 and K12 against the exact
-# f32 function (their plain versions on the f32-cast inputs, no rounding to
-# bf16 inside): the kernel's mean |d| may exceed its bf16 plain version's
-# by at most this factor. Both round the same values at the same points,
-# in other summation orders, so their mean errors agree closely; a kernel
-# that rounds once more, or loses the f32 sums, reads well above it. K12
-# is checked at each of its shapes (``proj_case``), K4 (dx, dW1, dW2) at
-# each of its layouts in ``kernel_phase`` and at D = 768, the rest at
-# B = 128.
+# the bf16 tensor-core kernels K3-K6, K9's and K10's forwards, K11 and K12
+# against the exact f32 function (their plain versions on the f32-cast
+# inputs, no rounding to bf16 inside): the kernel's mean |d| may exceed its
+# bf16 plain version's by at most this factor. Both round the same values
+# at the same points, in other summation orders, so their mean errors
+# agree closely; a kernel that rounds once more, or loses the f32 sums,
+# reads well above it. K12 is checked at each of its shapes
+# (``proj_case``), K4 (dx, dW1, dW2) at each of its layouts in
+# ``kernel_phase`` and at D = 768, K3 at B = 128 and D = 768, K9's forward
+# at cfg4 and K10's at ep=4 (``exact_ffn_fwd``), the rest at B = 128.
 EXACT_RATIO = 1.1
 EXACT_CHECKED = ("fused_mha", "fused_mha_bwd", "flash_attention")
 # f32 sums over all ~25k (LN) or an expert's ~6k (FFN) rows, in other
@@ -471,8 +472,8 @@ def bound(nbytes: float, flops: float, peak: float) -> tuple:
 def kernel_cases(B: int, gen):
     """({name: (kernel call, plain call, one-call library equivalent or
     None, (bytes, flops, peak), per-output comparison modes)}, (qkv, do),
-    K4's arguments) on random inputs at batch B. A mode is "elem" (ELEM_TOL elementwise) or
-    "sum" (SUM_REL of max |ref|)."""
+    K3's arguments, K4's arguments) on random inputs at batch B. A mode is
+    "elem" (ELEM_TOL elementwise) or "sum" (SUM_REL of max |ref|)."""
     import torch
     import torch.nn.functional as F
 
@@ -573,7 +574,7 @@ def kernel_cases(B: int, gen):
                             lambda: F.scaled_dot_product_attention(
                                 q4[0], q4[1], q4[2], scale=scale),
                             (4 * n * 2, 2 * mha_f, BF16_FLOPS), ("elem",)),
-    }, (qkv, do), ffn_bwd)
+    }, (qkv, do), ffn, ffn_bwd)
 
 
 def flash_long_case(gen) -> tuple:
@@ -777,6 +778,35 @@ def exact_ffn_bwd(name: str, got, want, args) -> None:
         exact_error(f"{name} {part}", got[i], want[i], exact[i])
 
 
+def exact_ffn_fwd(name: str, got, want, args, perm=None) -> None:
+    """``exact_error`` for K3's (or K9's, K10's with ``perm``) y: the exact
+    f32 function is the plain forward on f32 copies of ``args`` (xs, w1,
+    b1, w2, b2, e_of_tile; K9's xs are its gathered rows)."""
+    from slim_switch_moe_vit_tpu_torch.ops import fused_ffn
+
+    xs, w1, b1, w2, b2, eot = args
+    f32 = (xs.float(), w1.float(), b1, w2.float(), b2, eot)
+    exact = (fused_ffn.fused_expert_ffn_reference(*f32) if perm is None else
+             fused_ffn.reference_expert_ffn_permuted(*f32, perm))
+    exact_error(name, got, want, exact)
+
+
+def dense_yardstick(args) -> None:
+    """Two ``torch.matmul`` calls and ``F.gelu`` on K3's rows with one
+    expert's weights: the tensor-core rate cuBLAS reaches on the same
+    products, logged beside K3. Not the same function (no routing of rows
+    to experts), so it is no ``library_ms``; used nowhere in the port."""
+    import torch
+    import torch.nn.functional as F
+
+    xs, w1, _, w2, _, _ = args
+    ms = median_ms(lambda: torch.matmul(F.gelu(torch.matmul(xs, w1[0])),
+                                        w2[0]))
+    log(f"kernel fused_expert_ffn: dense cuBLAS yardstick, not the same "
+        f"function ({xs.shape[0]} rows x one expert's W1 and W2, "
+        f"torch.matmul + F.gelu): {ms:.4f} ms")
+
+
 def exact_error(name: str, got, want, exact) -> None:
     """A bf16 kernel's mean |d| from the exact f32 function beside its bf16
     plain version's, held to ``EXACT_RATIO``."""
@@ -797,7 +827,7 @@ def kernel_phase(results: dict) -> None:
     gen = torch.Generator().manual_seed(0)
     for B in (32, 128):
         t_batch = time.perf_counter()
-        cases, mha_inputs, ffn_bwd_inputs = kernel_cases(B, gen)
+        cases, mha_inputs, ffn_inputs, ffn_bwd_inputs = kernel_cases(B, gen)
         for name, (kernel, plain, library, cost, modes) in cases.items():
             t0 = time.perf_counter()
             got = kernel()
@@ -812,6 +842,8 @@ def kernel_phase(results: dict) -> None:
                             exact_attention(name, *mha_inputs))
             if name == "fused_expert_ffn_bwd":
                 exact_ffn_bwd(f"{name} B={B}", got, want, ffn_bwd_inputs)
+            if name == "fused_expert_ffn" and B == 128:
+                exact_ffn_fwd(name, got, want, ffn_inputs)
             # the plain versions are timed at B = 128 only, the batch of
             # the training path (they are no yardstick of speed)
             ms = median_ms(kernel)
@@ -839,7 +871,9 @@ def kernel_phase(results: dict) -> None:
         log(f"kernel flash_attention vs fused_mha B={B}: max|d| {err:.3e} "
             f"(max|ref| {peak:.3e}); [kernels at B={B}: "
             f"{time.perf_counter() - t_batch:.1f} s]")
-        del cases, mha_inputs, ffn_bwd_inputs
+        if B == 128:
+            dense_yardstick(ffn_inputs)
+        del cases, mha_inputs, ffn_inputs, ffn_bwd_inputs
         torch.cuda.empty_cache()
     kernel, plain, library, cost, modes = flash_long_case(gen)
     err, peak, _ = compare("flash_attention", kernel(), plain(), modes)
@@ -1378,6 +1412,9 @@ def capacity_kernel_phase(results: dict) -> None:
             torch.cuda.synchronize()
             want = plain()
             err, peak, rel = compare(name, got, want, modes)
+            if name == "fused_expert_ffn_gather" and label == "cfg4":
+                exact_ffn_fwd(f"{name} ({label})", got, want,
+                              (xt.index_select(0, gidx), *weights, eot))
             if label == "skewed" and isinstance(got, tuple):
                 # the starved expert's dW1 and dW2: exact zeros
                 if any(g[-1].abs().max().item() != 0.0
@@ -1974,7 +2011,11 @@ def ep_kernel_phase(results: dict, card: str) -> None:
     for name, (kernel, plain, cost, modes, (other, beside)) in cases.items():
         got = kernel()
         torch.cuda.synchronize()
-        err, peak, rel = compare(name, got, plain(), modes)
+        want = plain()
+        err, peak, rel = compare(name, got, want, modes)
+        if name == "fused_expert_ffn_permuted":
+            exact_ffn_fwd(f"{name} (ep={ep})", got, want,
+                          (xr, w1, b1, w2, b2, e_of_step), perm)
         # the relayout + K3/K4 path computes the same rows in the same order
         err_k, _, _ = compare(name, got, beside(), modes)
         ms, beside_ms = median_ms(kernel), median_ms(beside)
@@ -2565,6 +2606,9 @@ def _ffn_family(results, label, dtype, T, D, H, E, peak, gen):
         _timed_case(results, name, kernel, plain, None, cost, mode,
                     "_" + label, tol=tol, reps=5)
     if dtype == torch.bfloat16:
+        exact_ffn_fwd(f"fused_expert_ffn_{label}",
+                      cases["fused_expert_ffn"][0](),
+                      cases["fused_expert_ffn"][1](), (xs, w1, b1, w2, b2, eot))
         exact_ffn_bwd(f"fused_expert_ffn_bwd_{label}",
                       cases["fused_expert_ffn_bwd"][0](),
                       cases["fused_expert_ffn_bwd"][1](), bwd)

@@ -1,7 +1,8 @@
 // Tensor-core and asynchronous-copy building blocks shared by the bf16
 // kernels on mma.sync: the attention kernels (attn_mma.cuh: K5, K6, K11,
-// K12) and the expert-FFN backward (expert_ffn_bwd.cu: K4, K9's and K10's
-// backward). mma.sync m16n8k16 (bf16 in, f32 sums), ldmatrix fragment
+// K12) and the expert-FFN forward and backward (expert_ffn_fwd.cu: K3, K9's
+// and K10's forward; expert_ffn_bwd.cu: K4, K9's and K10's backward).
+// mma.sync m16n8k16 (bf16 in, f32 sums), ldmatrix fragment
 // loads from shared memory (plain and transposing), and cp.async copies
 // from global to shared memory with their commit groups.
 //

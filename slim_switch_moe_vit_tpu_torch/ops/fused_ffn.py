@@ -22,11 +22,12 @@ Replaces these Pallas kernels of ``slim_switch_moe_vit_tpu/ops/fused_ffn.py``:
 The sources' header notes say what bounds each kernel on the card and how
 its design answers that. In short: the FFN is FLOP-bound; the forward keeps
 the (rows, H) hidden activation out of device memory by streaming H in
-chunks; the backward recomputes it as GEMM tiles that write bf16(dh) and
-bf16(gelu(h)) to a (Tp, H) workspace, then takes dx and each expert's
-dW1/dW2 over its consecutive tiles as GEMMs over that workspace (K4, K9,
-K10), or recomputes dh on chip for dx and for dW over same-expert tile
-pairs (K8).
+chunks (h and GELU by one warp group into a bf16 tile in shared memory,
+y summed in registers by another); the backward recomputes it as GEMM
+tiles that write bf16(dh) and bf16(gelu(h)) to a (Tp, H) workspace, then
+takes dx and each expert's dW1/dW2 over its consecutive tiles as GEMMs
+over that workspace (K4, K9, K10), or recomputes dh on chip for dx and
+for dW over same-expert tile pairs (K8).
 
 Layout contract (``ops/moe.py::aligned_expert_layout``): rows are sorted by
 expert and every ``TILE_ROWS``-row tile belongs to one expert,
@@ -34,13 +35,13 @@ expert and every ``TILE_ROWS``-row tile belongs to one expert,
 
 Shapes and types: D in ``KERNEL_DIMS`` (192, 384, 768), H a multiple of
 64, activations and expert weights in one dtype, bf16 or f32 (the biases
-f32). In bf16, K4 and the backward forms of K9 and K10 run on the tensor
-cores at every D (``mma.sync`` with ``cp.async`` rings: a dh kernel, then
-one GEMM launch for dx, dW and db, the dW products split over an expert's
-rows by :func:`wgrad_splits` where their tiles would not fill the card);
-K3, K9's forward and K8 run on WMMA at D 192 and 384. f32 at every D, and
-bf16 at D = 768 for K3, K9's forward and K8, run in each source's SIMT form
-(f32 FMAs on the CUDA cores: those WMMA layouts' full-D tiles exceed shared
+f32). In bf16, K3, K4 and the forward and backward forms of K9 and K10 run
+on the tensor cores at every D (``mma.sync`` with ``cp.async`` rings; the
+backward as a dh kernel, then one GEMM launch for dx, dW and db, the dW
+products split over an expert's rows by :func:`wgrad_splits` where their
+tiles would not fill the card); K8 runs on WMMA at D 192 and 384. f32 at
+every D, and bf16 at D = 768 for K8, run in each source's SIMT form (f32
+FMAs on the CUDA cores: K8's WMMA layout's full-D tiles exceed shared
 memory at D = 768, and f32 has no exact tensor-core product), with the
 same arithmetic. Anything else raises on a CUDA tensor.
 

@@ -149,7 +149,7 @@ def test_build_key_tracks_sources_and_flags():
     assert {"mha_fwd.cu", "mha_bwd.cu", "expert_ffn_fwd.cu",
             "expert_ffn_bwd.cu", "expert_ffn_bwd_defer.cu",
             "expert_ffn_dgrad.cuh", "flash_fwd.cu", "fused_adamw.cu",
-            "common.cuh"} <= set(srcs)
+            "common.cuh", "mma_sync.cuh"} <= set(srcs)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
@@ -216,17 +216,61 @@ def test_mha_kernel_matches_plain(cuda, dtype, tol, N, d):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+# (T, D, H, E, skew) of the forward kernels: each width's tiling (D = 192,
+# 384, 768); skew None routes at random, "edges" gives the last expert no
+# token (one all-padding tile) and the one before it a single tile
+FWD_CASES = [(300, 384, 1536, 8, None), (40, 192, 768, 4, None),
+             (300, 768, 3072, 4, None), (600, 192, 768, 4, "edges"),
+             (600, 384, 1536, 4, "edges"), (300, 768, 3072, 4, "edges")]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,D,H,E", [(300, 384, 1536, 8), (40, 192, 768, 4)])
-def test_expert_ffn_kernel_matches_plain(cuda, T, D, H, E):
+@pytest.mark.parametrize("T,D,H,E,skew", FWD_CASES,
+                         ids=["-".join(map(str, c[:4])) + ("-edges" if c[4]
+                                                           else "")
+                              for c in FWD_CASES])
+def test_expert_ffn_kernel_matches_plain(cuda, T, D, H, E, skew):
+    """K3 on a routed layout, and K9's and K10's forward forms on the same
+    rows (x read by index; the row tiles visited in reverse), against the
+    plain version: y finite and elementwise within 1.6e-2; one launch
+    each."""
     rs = np.random.RandomState(4)
-    case = _ffn_case(rs, T, D, H, E, torch.bfloat16, cuda)
-    got = ffn_ops.fused_expert_ffn(*case)
+    _, w1, b1, w2, b2, _ = _ffn_case(rs, T, D, H, E, torch.bfloat16, cuda)
+    x = _rand(rs, T, D, dtype=torch.bfloat16, device=cuda)
+    logits = _rand(rs, T, E, device=cuda)
+    if skew:
+        logits[:, E - 1] = -1e9
+        logits[:, E - 2] -= 2.5
+    _, eidx = moe_ops.naive_topk_gate(logits, 2)
+    gather_idx, pair_slot, e_of_tile, _, _ = moe_ops.aligned_expert_layout(
+        eidx, E)
+    xs = moe_ops.dispatch_gather(x, gather_idx, pair_slot)
+    if skew:
+        tiles = torch.bincount(e_of_tile.long(), minlength=E).tolist()
+        assert (eidx == E - 1).sum().item() == 0 and tiles[E - 2] == 1, tiles
+        assert (eidx == E - 2).sum().item() > 0
+    perm = torch.arange(xs.shape[0] // ffn_ops.TILE_ROWS, dtype=torch.int32,
+                        device=cuda).flip(0)
+    rows = ffn_ops.permuted_rows(perm)
+    xp = torch.empty_like(xs)
+    xp[rows] = xs  # step i's rows in tile perm[i]
+    ops.reset_launch_counts()
+    got = {"k3": ffn_ops.fused_expert_ffn(xs, w1, b1, w2, b2, e_of_tile),
+           "k9": ffn_ops.fused_expert_ffn_gather(x, gather_idx, pair_slot,
+                                                 None, w1, b1, w2, b2,
+                                                 e_of_tile),
+           "k10": ffn_ops.fused_expert_ffn_permuted(xp, w1, b1, w2, b2,
+                                                    e_of_tile, perm)}
     torch.cuda.synchronize()
-    want = ffn_ops.fused_expert_ffn_reference(*case)
-    assert torch.isfinite(got.float()).all()
-    torch.testing.assert_close(got.float(), want.float(), atol=1.6e-2,
-                               rtol=1.6e-2)
+    counts = ops.launch_counts()
+    assert (counts["fused_expert_ffn"], counts["fused_expert_ffn_gather"],
+            counts["fused_expert_ffn_permuted"]) == (1, 1, 1)
+    want = ffn_ops.fused_expert_ffn_reference(xs, w1, b1, w2, b2, e_of_tile)
+    got["k10"] = got["k10"][rows]
+    for form, y in got.items():
+        assert torch.isfinite(y.float()).all(), form
+        torch.testing.assert_close(y.float(), want.float(), atol=1.6e-2,
+                                   rtol=1.6e-2, msg=form)
 
 
 @pytest.mark.cuda
@@ -823,7 +867,7 @@ def test_mha_bwd_f32_kernel_matches_plain(cuda, N, d):
            torch.float32, "dqkv")
 
 
-# (dtype, T, D, H, E): f32 at each width, bf16 at D = 768
+# (dtype, T, D, H, E): f32 at each width (the SIMT forms), bf16 at D = 768
 WIDE = [(torch.float32, 300, 384, 1536, 4),
         (torch.float32, 200, 192, 768, 3),
         (torch.float32, 150, 768, 1024, 3),
@@ -833,10 +877,12 @@ WIDE = [(torch.float32, 300, 384, 1536, 4),
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,T,D,H,E", WIDE)
 def test_expert_ffn_family_f32_and_d768(cuda, dtype, T, D, H, E):
-    """K3, K4, K8, K9 and K10 in their SIMT forms against their plain
-    versions on one routed layout (a favoured and a starved expert): y and
-    dx elementwise, dW and db elementwise in f32 and within 1e-2 of max
-    |ref| in bf16; one launch each."""
+    """K3, K4, K8, K9 and K10 against their plain versions on one routed
+    layout (a favoured and a starved expert): in f32 every form's SIMT
+    kernel; in bf16 at D = 768 the tensor-core forward and backward forms
+    of K3, K4, K9 and K10 and K8's SIMT form. y and dx elementwise, dW and
+    db elementwise in f32 and within 1e-2 of max |ref| in bf16; one launch
+    each."""
     rs = np.random.RandomState(17)
     x, gidx, pslot, keep, (w1, b1, w2, b2), eot, dy = _routed_case(
         rs, T, D, H, E, None, cuda)

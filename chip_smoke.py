@@ -12,11 +12,12 @@ Phases (any failure propagates and the script exits non-zero):
    kernels from ``slim_switch_moe_vit_tpu_torch/csrc`` (one nvcc per
    source, in parallel).
 2. Kernels: at the flagship shapes (B = 32 and 128, N = 197, D = 384,
-   bf16) each of the twelve kernel wrappers (LayerNorm K1a/K1b/K2a and its
-   backward K1c (plain and add forms) / K2b in Triton; MHA K5 / K6 and
-   expert FFN K3 / K4, the fused AdamW + EMA K7 and the flash forward K11
-   in CUDA C++) is held against its plain PyTorch version on the card and
-   both are timed, beside the card's bound for the same work and, where
+   bf16) each of the twelve kernel wrappers (LayerNorm K1a/K1b/K2a in
+   Triton; the LayerNorm backward K1c (plain and add forms) / K2b, MHA K5 /
+   K6 and expert FFN K3 / K4, the fused AdamW + EMA K7 and the flash
+   forward K11 in CUDA C++) is held against its plain PyTorch version on
+   the card and both are timed, beside the card's bound for the same work
+   and, where
    one exists, one PyTorch call computing the same function. Each time is
    the median over CUDA-event pairs that each span a loop of calls (about
    2 ms of device work), so the host's pace does not enter a
@@ -26,7 +27,10 @@ Phases (any failure propagates and the script exits non-zero):
    limit must reject planted faults in its plain form; K4 (dx, dW1, dW2;
    at B = 32 and 128, and at D = 768 in phase 13), K5, K6 and K11 (and K12
    in phase 13) may be no less accurate against the exact f32 function
-   than their plain versions (``EXACT_RATIO``).
+   than their plain versions (``EXACT_RATIO``), and K1c's two forms and
+   K2b (du, dgamma, dbeta, at B = 128) no less accurate against the
+   exact function in f64; two calls of each of these three give
+   bit-identical outputs.
 3. Serving: ``moe_small_patch16_224_expert8`` at full width (ViT-S/16, 12
    blocks, 8 experts top-2), bf16, seeded random weights, exported through
    the export CLI with buckets 1, 8 and 32, loaded, and served over HTTP on
@@ -88,7 +92,9 @@ Phases (any failure propagates and the script exits non-zero):
     launch counts (``PER_CAP_STEP``, ``CAP_DISPATCH_GATHERS``), finite
     losses within ``CAP_WITNESS`` times the gap of a witness (the default
     form with the batch reversed) of the default form's, images/s and one
-    step's profile. The knobs are set inside the phase and restored.
+    step's profile, whose LN-backward launches must equal the step's
+    LN-backward wrapper calls (one launch a call). The knobs are set inside
+    the phase and restored.
 
 12. Expert parallelism, its ranks sharing the one card over gloo (NCCL
     takes one rank per card; the times are not NCCL exchange times): (a)
@@ -113,7 +119,9 @@ Phases (any failure propagates and the script exits non-zero):
 13. Coverage kernels: K12 (attention with the proj folded in) at deit-tiny
     (B = 256, 3 heads) and ViT-S (B = 128, 6 heads) eval shapes against its
     plain version and the exact f32 function, beside K5 + the proj GEMM and
-    SDPA + ``F.linear``; K13's
+    SDPA + ``F.linear``; the LayerNorm backward (K1c's two forms, K2b) at
+    6,301 rows (no ring stage divides them) and D = 192, 768, 1,280 and 100
+    (the scalar form) in bf16 and D = 384 and 100 in f32 (``LN_COV``); K13's
     gather and scatter-add on the dropless B = 128 layout (52,480 rows of
     25,216 tokens) bit for bit against their plain versions (the
     scatter-add in bf16 and f32), beside ``index_select`` / ``index_add_``;
@@ -202,7 +210,10 @@ PLANTED_DELTA = (0.0, 0.95, 0.98)
 # reads well above it. K12 is checked at each of its shapes
 # (``proj_case``), K4 (dx, dW1, dW2) at each of its layouts in
 # ``kernel_phase`` and at D = 768, K3 at B = 128 and D = 768, K9's forward
-# at cfg4 and K10's at ep=4 (``exact_ffn_fwd``), the rest at B = 128.
+# at cfg4 and K10's at ep=4 (``exact_ffn_fwd``), the rest at B = 128. The
+# LN backward (K1c's two forms, K2b; du, dgamma and dbeta) is held to the
+# exact function in f64 at B = 128 (``check_ln_bwd``): its f32 sums would
+# equal the plain version's exact f32 run bit for bit.
 EXACT_RATIO = 1.1
 EXACT_CHECKED = ("fused_mha", "fused_mha_bwd", "flash_attention")
 # f32 sums over all ~25k (LN) or an expert's ~6k (FFN) rows, in other
@@ -346,9 +357,9 @@ KERNELS = [  # name, route, source, TPU kernel it replaces
     ("fused_sum_ln", "triton", SRC + "ops/_fused_ln_triton.py", JAX + "ops/fused_ln.py:268"),
     ("fused_mha", "cuda", SRC + "csrc/mha_fwd.cu", JAX + "ops/attention.py:168"),
     ("fused_expert_ffn", "cuda", SRC + "csrc/expert_ffn_fwd.cu", JAX + "ops/fused_ffn.py:166"),
-    ("fused_ln_bwd", "triton", SRC + "ops/_fused_ln_triton.py", JAX + "ops/fused_ln.py:159"),
-    ("fused_add_ln_bwd", "triton", SRC + "ops/_fused_ln_triton.py", JAX + "ops/fused_ln.py:159"),
-    ("fused_sum_ln_bwd", "triton", SRC + "ops/_fused_ln_triton.py", JAX + "ops/fused_ln.py:273"),
+    ("fused_ln_bwd", "cuda", SRC + "csrc/ln_bwd.cu", JAX + "ops/fused_ln.py:159"),
+    ("fused_add_ln_bwd", "cuda", SRC + "csrc/ln_bwd.cu", JAX + "ops/fused_ln.py:159"),
+    ("fused_sum_ln_bwd", "cuda", SRC + "csrc/ln_bwd.cu", JAX + "ops/fused_ln.py:273"),
     ("fused_mha_bwd", "cuda", SRC + "csrc/mha_bwd.cu", JAX + "ops/attention.py:203"),
     ("fused_expert_ffn_bwd", "cuda", SRC + "csrc/expert_ffn_bwd.cu", JAX + "ops/fused_ffn.py:261"),
     ("fused_adamw_ema", "cuda", SRC + "csrc/fused_adamw.cu", JAX + "ops/fused_adamw.py:50"),
@@ -472,8 +483,9 @@ def bound(nbytes: float, flops: float, peak: float) -> tuple:
 def kernel_cases(B: int, gen):
     """({name: (kernel call, plain call, one-call library equivalent or
     None, (bytes, flops, peak), per-output comparison modes)}, (qkv, do),
-    K3's arguments, K4's arguments) on random inputs at batch B. A mode is
-    "elem" (ELEM_TOL elementwise) or "sum" (SUM_REL of max |ref|)."""
+    K3's arguments, K4's arguments, {LN backward: (u, dy, du_out, gamma)})
+    on random inputs at batch B. A mode is "elem" (ELEM_TOL elementwise) or
+    "sum" (SUM_REL of max |ref|)."""
     import torch
     import torch.nn.functional as F
 
@@ -574,7 +586,10 @@ def kernel_cases(B: int, gen):
                             lambda: F.scaled_dot_product_attention(
                                 q4[0], q4[1], q4[2], scale=scale),
                             (4 * n * 2, 2 * mha_f, BF16_FLOPS), ("elem",)),
-    }, (qkv, do), ffn, ffn_bwd)
+    }, (qkv, do), ffn, ffn_bwd, {
+        "fused_ln_bwd": (x, dy, None, g),
+        "fused_add_ln_bwd": (x, dy, du, g),
+        "fused_sum_ln_bwd": ((x + r), dy, None, g)})
 
 
 def flash_long_case(gen) -> tuple:
@@ -807,15 +822,52 @@ def dense_yardstick(args) -> None:
         f"torch.matmul + F.gelu): {ms:.4f} ms")
 
 
-def exact_error(name: str, got, want, exact) -> None:
-    """A bf16 kernel's mean |d| from the exact f32 function beside its bf16
-    plain version's, held to ``EXACT_RATIO``."""
-    err = [(t.float() - exact).abs().mean().item() for t in (got, want)]
-    log(f"  {name} vs the exact f32 function: mean |d| kernel {err[0]:.4e}, "
+def exact_error(name: str, got, want, exact, what: str = "f32") -> None:
+    """A bf16 kernel's mean |d| from the exact function (in ``what``)
+    beside its bf16 plain version's, held to ``EXACT_RATIO``."""
+    err = [(t.to(exact.dtype) - exact).abs().mean().item()
+           for t in (got, want)]
+    log(f"  {name} vs the exact {what} function: mean |d| kernel {err[0]:.4e}, "
         f"plain version {err[1]:.4e} (ratio {err[0] / err[1]:.4f}, limit "
         f"{EXACT_RATIO}; mean |exact| {exact.abs().mean().item():.4e})")
     if err[0] > EXACT_RATIO * err[1]:
         raise AssertionError(f"{name}: less accurate than its plain version")
+
+
+LN_BWD = ("fused_ln_bwd", "fused_add_ln_bwd", "fused_sum_ln_bwd")
+
+
+def exact_ln_bwd(u, dy, du_out, g) -> tuple:
+    """The LayerNorm backward's exact function: the plain version's steps
+    in f64 on the same inputs (u = a + b already rounded, as the forward
+    rounds it). In f32 the plain version's dgamma and dbeta would equal
+    its bf16 run's bit for bit (both sum f32 terms of the same bf16
+    inputs), so the sums are held to f64."""
+    u, dy = u.double(), dy.double()
+    d = u - u.mean(-1, keepdim=True)
+    rstd = ((d * d).mean(-1, keepdim=True) + 1e-6).rsqrt()
+    xhat = d * rstd
+    dyg = dy * g.double()
+    du = (dyg - dyg.mean(-1, keepdim=True)
+          - xhat * (dyg * xhat).mean(-1, keepdim=True)) * rstd
+    if du_out is not None:
+        du = du + du_out.double()
+    D = u.shape[-1]
+    return (du, (dy * xhat).reshape(-1, D).sum(0), dy.reshape(-1, D).sum(0))
+
+
+def check_ln_bwd(name: str, kernel, got, want, args) -> None:
+    """K1c's or K2b's outputs against the exact function (``exact_error``
+    for du, dgamma and dbeta) and a second call: bit-identical."""
+    import torch
+
+    exact = exact_ln_bwd(*args)
+    for part, k, w, e in zip(("du", "dgamma", "dbeta"), got, want, exact):
+        exact_error(f"{name} {part}", k, w, e, "f64")
+    again = kernel()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{name}: two calls on the same inputs differ")
+    log(f"  {name}: a second call bit-identical (du, dgamma, dbeta)")
 
 
 def kernel_phase(results: dict) -> None:
@@ -827,7 +879,8 @@ def kernel_phase(results: dict) -> None:
     gen = torch.Generator().manual_seed(0)
     for B in (32, 128):
         t_batch = time.perf_counter()
-        cases, mha_inputs, ffn_inputs, ffn_bwd_inputs = kernel_cases(B, gen)
+        cases, mha_inputs, ffn_inputs, ffn_bwd_inputs, ln_inputs = (
+            kernel_cases(B, gen))
         for name, (kernel, plain, library, cost, modes) in cases.items():
             t0 = time.perf_counter()
             got = kernel()
@@ -844,6 +897,8 @@ def kernel_phase(results: dict) -> None:
                 exact_ffn_bwd(f"{name} B={B}", got, want, ffn_bwd_inputs)
             if name == "fused_expert_ffn" and B == 128:
                 exact_ffn_fwd(name, got, want, ffn_inputs)
+            if name in LN_BWD and B == 128:
+                check_ln_bwd(name, kernel, got, want, ln_inputs[name])
             # the plain versions are timed at B = 128 only, the batch of
             # the training path (they are no yardstick of speed)
             ms = median_ms(kernel)
@@ -873,7 +928,7 @@ def kernel_phase(results: dict) -> None:
             f"{time.perf_counter() - t_batch:.1f} s]")
         if B == 128:
             dense_yardstick(ffn_inputs)
-        del cases, mha_inputs, ffn_inputs, ffn_bwd_inputs
+        del cases, mha_inputs, ffn_inputs, ffn_bwd_inputs, ln_inputs
         torch.cuda.empty_cache()
     kernel, plain, library, cost, modes = flash_long_case(gen)
     err, peak, _ = compare("flash_attention", kernel(), plain(), modes)
@@ -1016,9 +1071,10 @@ def speed_phase(pred, card: str) -> None:
     profile_call(lambda: serve(xb), f"one forward B={xb.shape[0]}")
 
 
-def profile_call(fn, what: str) -> None:
+def profile_call(fn, what: str) -> dict:
     """Device time of one call of ``fn`` by kernel name, from
-    torch.profiler, and its busy share (kernel time over wall time)."""
+    torch.profiler, and its busy share (kernel time over wall time);
+    returns {kernel name: (us, launches)}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1045,6 +1101,7 @@ def profile_call(fn, what: str) -> None:
         f"(busy share {total / wall_ms:.3f})")
     for us, n, name in rows[:15]:
         log(f"  {us / 1e3:9.3f} ms {n:5d}x  {name[:90]}")
+    return by_name
 
 
 def _train_setup(dtype, device, model=None):
@@ -1524,6 +1581,20 @@ def capacity_layer_check() -> None:
     torch.cuda.empty_cache()
 
 
+def check_ln_bwd_launches(prof: dict, per: dict, form: str) -> None:
+    """One profiled step's LN-backward launches (``csrc/ln_bwd.cu``'s
+    ``ln_bwd_kernel``) equal its LN-backward wrapper calls: one launch a
+    call, no second pass."""
+    calls = sum(per.get(name, 0) for name in LN_BWD)
+    launched = sum(n for name, (_, n) in prof.items() if "ln_bwd" in name)
+    others = [name for name in prof if "col_sum" in name]
+    log(f"  cfg4 {form} form: {launched} LN-backward launches in the profiled"
+        f" step for {calls} wrapper calls")
+    if launched != calls or others:
+        raise AssertionError(f"cfg4 {form}: {launched} LN-backward launches "
+                             f"({others}) for {calls} wrapper calls")
+
+
 def capacity_train_phase(card: str) -> dict:
     """cfg4's training step in the three forms and the witness, from the
     same weights, CAP_STEPS steps each with exact per-step launch counts;
@@ -1588,9 +1659,10 @@ def capacity_train_phase(card: str) -> dict:
                 if not all(np.isfinite(losses[form])):
                     raise AssertionError(f"cfg4 {form}: non-finite loss")
                 if form != "witness":
-                    profile_call(lambda: step(state, xb, yb, LR, LR),
-                                 f"one cfg4 train step B={TRAIN_B}, {form} "
-                                 "form")
+                    prof = profile_call(lambda: step(state, xb, yb, LR, LR),
+                                        f"one cfg4 train step B={TRAIN_B}, "
+                                        f"{form} form")
+                    check_ln_bwd_launches(prof, per, form)
                 del model, state, step
                 torch.cuda.empty_cache()
     finally:
@@ -2614,8 +2686,54 @@ def _ffn_family(results, label, dtype, T, D, H, E, peak, gen):
                       cases["fused_expert_ffn_bwd"][1](), bwd)
 
 
+# the LayerNorm backward's coverage: (dtype, D) at LN_COV_ROWS rows, which
+# no ring stage of 8, 16 or 32 rows divides; D = 100 takes the kernel's
+# scalar form (its rows are not a multiple of 16 bytes), 1,280 is
+# vit_huge's width
+LN_COV_ROWS = 6301
+LN_COV = (("bf16", 192), ("bf16", 768), ("bf16", 1280), ("bf16", 100),
+          ("f32", 384), ("f32", 100))
+
+
+def ln_bwd_coverage(results: dict, gen) -> None:
+    """K1c's two forms and K2b at each of LN_COV against their plain
+    versions (bf16 to the kernel limits, f32 to F32_TOL), timed beside
+    their bounds under ``*_<dtype>_d<D>``."""
+    import torch
+
+    from slim_switch_moe_vit_tpu_torch.ops import fused_ln as ln
+
+    for dt, D in LN_COV:
+        dtype, item = ((torch.bfloat16, 2) if dt == "bf16"
+                       else (torch.float32, 4))
+        a, b, dy, du = (torch.randn(LN_COV_ROWS, D, generator=gen).to(
+            "cuda", dtype) for _ in range(4))
+        g = (torch.randn(D, generator=gen) * 0.1 + 1.0).cuda()
+        n = LN_COV_ROWS * D
+        cost = lambda streams: (streams * n * item + 2 * D * 4, 10 * n,  # noqa: E731
+                                F32_FLOPS)
+        tol = None if dt == "bf16" else F32_TOL
+        modes = ("elem", "sum", "sum")
+        sfx = f"_{dt}_d{D}"
+        _timed_case(results, "fused_ln_bwd", lambda: ln.fused_ln_bwd(a, dy, g),
+                    lambda: ln.reference_ln_bwd(a, dy, None, g), None, cost(3),
+                    modes, sfx, tol=tol, reps=5)
+        _timed_case(results, "fused_add_ln_bwd",
+                    lambda: ln.fused_add_ln_bwd(a, dy, du, g),
+                    lambda: ln.reference_ln_bwd(a, dy, du, g), None, cost(4),
+                    modes, sfx, tol=tol, reps=5)
+        _timed_case(results, "fused_sum_ln_bwd",
+                    lambda: ln.fused_sum_ln_bwd(a, b, dy, g),
+                    lambda: ln.reference_ln_bwd(a + b, dy, None, g), None,
+                    cost(4), modes, sfx, tol=tol, reps=5)
+        del a, b, dy, du
+    torch.cuda.empty_cache()
+
+
 def coverage_kernel_phase(results: dict) -> None:
-    """Phase 13: K12 and K13 (``proj_and_rows_kernel_phase``); the expert
+    """Phase 13: K12 and K13 (``proj_and_rows_kernel_phase``); the LayerNorm
+    backward at other widths, an odd width and f32 (``ln_bwd_coverage``);
+    the expert
     family at D = 768 in bf16 (moe_base_patch16_224_expert32's layout at
     B = 32) and in f32 at D = 384 (the flagship's at B = 32); K6 in f32 at
     N = 197 against the exact-f32 plain backward and SDPA's backward."""
@@ -2626,6 +2744,7 @@ def coverage_kernel_phase(results: dict) -> None:
 
     proj_and_rows_kernel_phase(results)
     gen = torch.Generator().manual_seed(7)
+    ln_bwd_coverage(results, gen)
     _ffn_family(results, "d768", torch.bfloat16, WIDE_B * N_TOK, WIDE_D,
                 WIDE_H, WIDE_E, BF16_FLOPS, gen)
     torch.cuda.empty_cache()

@@ -52,6 +52,7 @@ _SIGNATURES = {
     "ssmv_mha_proj_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
     "ssmv_gather_rows": (_P, _P, _I, _P, _L, _I, _I, _P),
     "ssmv_scatter_add_rows": (_P, _P, _P, _P, _L, _I, _L, _I, _P),
+    "ssmv_ln_bwd": (_P,) * 10 + (_L, _I, _I, _F) + (_I,) * 6 + (_P,),
 }
 
 
@@ -123,15 +124,19 @@ def build() -> str:
     return lib
 
 
+def bind(lib: ctypes.CDLL, names=tuple(_SIGNATURES)) -> ctypes.CDLL:
+    """Set the C signatures of the entry points ``names`` of ``lib``."""
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = list(_SIGNATURES[name])
+        fn.restype = ctypes.c_int
+    return lib
+
+
 @functools.cache
 def load_library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed (once per process)."""
-    lib = ctypes.CDLL(build())
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    return lib
+    return bind(ctypes.CDLL(build()))
 
 
 def check(err: int, what: str) -> None:

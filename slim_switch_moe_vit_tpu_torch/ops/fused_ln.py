@@ -14,20 +14,19 @@ Replaces five Pallas kernels of ``slim_switch_moe_vit_tpu/ops/fused_ln.py``:
 - ``_bwd_kernel_slim`` (:273) behind ``_sum_ln_bwd`` (:326), the backward of
   the third, recomputing a + b.
 
-Triton kernels (``_fused_ln_triton.py``): one forward with ``HAS_RESIDUAL``
-and ``WRITE_SUM`` as compile-time flags, one backward with ``HAS_B`` and
-``HAS_DU_OUT``. Triton is enough here: a row normalisation is one reduction
-and one elementwise pass, and its backward adds a column reduction.
+The forwards are Triton kernels (``_fused_ln_triton.py``): one kernel
+with ``HAS_RESIDUAL`` and ``WRITE_SUM`` as compile-time flags, one row per
+program with the row in registers between the two reductions. Triton is
+enough there: a row normalisation is one reduction and one elementwise
+pass. The backward of all three (K1c plain and add forms, K2b) is one CUDA
+C++ kernel, ``csrc/ln_bwd.cu``: a persistent grid streaming row tiles
+through a ring of bulk asynchronous copies, a warp per row, and dgamma and
+dbeta summed in the same launch in a fixed order (deterministic, no float
+atomics); its source note gives the design and its probes.
 
 What bounds them on the H100: device-memory bytes. At D=384 a bf16 row is
 768 bytes and the kernels do ~10 FLOP per element, far below the card's
-~295 FLOP per byte, so the design is to move each byte once. The forward
-takes one row per program with the row in registers between the two
-reductions. The backward takes a run of rows per program (about four
-programs per SM), recomputes the statistics from u, writes du once, and
-sums dgamma/dbeta over its rows in f32 registers; one f32 row of partials
-per program then goes through a second Triton pass that adds them in a
-fixed order (deterministic, no atomics).
+~295 FLOP per byte, so the design is to move each byte once.
 
 Math, as the JAX kernels: the residual sum is rounded to the activation
 dtype first; statistics in f32 with eps inside the rsqrt; gamma and beta
@@ -42,13 +41,22 @@ and (a, b, gamma).
 """
 from __future__ import annotations
 
+import math
 import typing as typ
 
 import torch
 
+from . import _build
 from ._checks import check_tensor
 
-BWD_BLOCK_R = 4  # rows per step of a backward program
+MAX_BWD_DIM = 2048  # the widest row the backward kernel takes (kMaxD)
+# the backward's launch: ring stages, rows a stage, blocks an SM, lanes a
+# row (the design probes of csrc/ln_bwd.cu's note)
+BWD_STAGES, BWD_ROWS, BWD_BLOCKS_PER_SM, BWD_TEAM = 2, 8, 2, 32
+_BWD_FORMS = {"ring": 0, "prefetch": 1, "scalar": 2}
+_BWD_SMEM = 232448 - 1024  # a block's shared memory, less the reserved 1 KB
+_TICKET_SLOTS = 65         # the kernel's kMaxGroups + 1
+_tickets: dict = {}
 
 
 def reference_add_ln(x: torch.Tensor, r: typ.Optional[torch.Tensor],
@@ -116,25 +124,67 @@ def _launch_fwd(x, r, gamma, beta, eps, write_sum):
     return u, y
 
 
-def _launch_bwd(a, b, dy, du_out, gamma, eps):
-    from ._fused_ln_triton import col_sum_kernel, ln_bwd_kernel
+def _bwd_tickets(device) -> torch.Tensor:
+    """The backward's int32 tickets on this device and stream: zeroed once
+    here, and left zero by every launch."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    t = _tickets.get(key)
+    if t is None:
+        t = _tickets[key] = torch.zeros(_TICKET_SLOTS, dtype=torch.int32,
+                                        device=device)
+    return t
 
-    D, rows, block = _check_rows(a, [("b", b), ("dy", dy), ("du_out", du_out)],
-                                 gamma)
-    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
-    per_prog = -(-rows // (4 * sms))
-    per_prog = -(-per_prog // BWD_BLOCK_R) * BWD_BLOCK_R
-    progs = -(-rows // per_prog)
+
+def _launch_bwd(a, b, dy, du_out, gamma, eps, stages=BWD_STAGES,
+                rows_per_stage=BWD_ROWS, blocks_per_sm=BWD_BLOCKS_PER_SM,
+                team=BWD_TEAM, form=None, stamps=None, lib=None):
+    """One launch of ``csrc/ln_bwd.cu``: (du, dgamma, dbeta) of u = a
+    (+ b). ``form`` is "ring" wherever a row's bytes are a multiple of 16,
+    else "scalar"; the other arguments, "prefetch", ``stamps`` (an int64
+    tensor of 8 phase times a block) and ``lib`` (a build with the probe
+    forms) serve the design probes (``scripts/ln_bwd_tilings.py``)."""
+    D, rows, _ = _check_rows(a, [("b", b), ("dy", dy), ("du_out", du_out)],
+                             gamma)
+    if D > MAX_BWD_DIM:
+        raise ValueError(f"the LayerNorm backward kernel takes D <= "
+                         f"{MAX_BWD_DIM}, got {D}")
     du = torch.empty_like(a)
-    part = torch.empty((progs, 2 * D), dtype=torch.float32, device=a.device)
-    ln_bwd_kernel[(progs,)](
-        a, a if b is None else b, dy, a if du_out is None else du_out, du,
-        gamma, part, rows, D, per_prog, eps, HAS_B=b is not None,
-        HAS_DU_OUT=du_out is not None, BLOCK_R=BWD_BLOCK_R, BLOCK_D=block,
-        num_warps=4)
+    if rows == 0:
+        sums = torch.zeros(2 * D, dtype=torch.float32, device=a.device)
+        return du, sums[:D], sums[D:]
+    item = a.element_size()
+    if form is None:
+        form = "ring" if D * item % 16 == 0 else "scalar"
+    sms = torch.cuda.get_device_properties(a.device).multi_processor_count
+    # shared memory: barriers, gamma, and the ring or the nine warps'
+    # column sums, whichever is larger
+    fixed = 256 + (D * 4 + 127) // 128 * 128
+    if D > 512 or fixed + 72 * D > _BWD_SMEM // blocks_per_sm:
+        blocks_per_sm = 1  # two blocks' registers fit an SM up to D = 512
+    budget = _BWD_SMEM // blocks_per_sm - fixed
+    if form == "ring":
+        row_bytes = (2 + (b is not None) + (du_out is not None)) * D * item
+        rows_per_stage = max(1, min(rows_per_stage,
+                                    budget // (stages * row_bytes)))
+        stages = max(1, min(stages, budget // (rows_per_stage * row_bytes)))
+        work = -(-rows // rows_per_stage)
+    else:
+        work = -(-rows // 9)  # a block's nine warps take a row each
+    grid = min(work, sms * blocks_per_sm)
+    group = math.isqrt(grid - 1) + 1  # ceil(sqrt(grid))
+    part = torch.empty((grid + -(-grid // group)) * 2 * D,
+                       dtype=torch.float32, device=a.device)
     sums = torch.empty(2 * D, dtype=torch.float32, device=a.device)
-    col_sum_kernel[(-(-2 * D // 128),)](part, sums, progs, 2 * D, BLOCK_P=32,
-                                        BLOCK_C=128, num_warps=4)
+    err = (lib or _build.load_library()).ssmv_ln_bwd(
+        a.data_ptr(), None if b is None else b.data_ptr(), dy.data_ptr(),
+        None if du_out is None else du_out.data_ptr(), du.data_ptr(),
+        gamma.data_ptr(), part.data_ptr(), _bwd_tickets(a.device).data_ptr(),
+        sums.data_ptr(), None if stamps is None else stamps.data_ptr(), rows,
+        D, int(a.dtype == torch.bfloat16), eps, grid,
+        stages, rows_per_stage, group, _BWD_FORMS[form],
+        team if form == "ring" else 32,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "ln_bwd")
     return du, sums[:D], sums[D:]
 
 

@@ -85,11 +85,12 @@ LN_PARAM_TOL = {"float32": 1e-5, "bfloat16": 2e-3}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape", [(2, 24, 128), (40, 128)])
+@pytest.mark.parametrize("shape", [(2, 24, 128), (40, 128), (2, 13, 100)])
 @pytest.mark.parametrize("form", ["ln", "add_ln", "sum_ln"])
 def test_ln_backward_matches_jax(form, shape, dtype):
     """K1c without du_out (fused_ln) and with it (fused_add_ln), K2b
-    (fused_sum_ln), on 3-D and 2-D inputs."""
+    (fused_sum_ln), on 3-D and 2-D inputs, and at an odd width (D = 100,
+    whose bf16 rows are not a multiple of 16 bytes)."""
     rs = np.random.RandomState(0)
     D = shape[-1]
     x, r = rs.randn(*shape), rs.randn(*shape)

@@ -331,34 +331,84 @@ def _rel_close(got, want, rel, what):
     assert d <= rel * want.float().abs().max().item(), f"{what}: max |d| {d}"
 
 
+def _ln_bwd_cases(a, b, dy, du, g):
+    """{wrapper name: (kernel call, plain call)} of K1c's two forms and
+    K2b."""
+    return {
+        "fused_ln_bwd": (lambda: ln_ops.fused_ln_bwd(a, dy, g),
+                         lambda: ln_ops.reference_ln_bwd(a, dy, None, g)),
+        "fused_add_ln_bwd": (lambda: ln_ops.fused_add_ln_bwd(a, dy, du, g),
+                             lambda: ln_ops.reference_ln_bwd(a, dy, du, g)),
+        "fused_sum_ln_bwd": (lambda: ln_ops.fused_sum_ln_bwd(a, b, dy, g),
+                             lambda: ln_ops.reference_ln_bwd(a + b, dy, None,
+                                                             g)),
+    }
+
+
+def _ln_bwd_inputs(rs, shape, dtype, device):
+    a, b, dy, du = (_rand(rs, *shape, dtype=dtype, device=device)
+                    for _ in range(4))
+    g = _rand(rs, shape[-1], scale=0.1, device=device) + 1.0
+    return a, b, dy, du, g
+
+
+# 2,531 rows: no ring stage of 8, 16 or 32 rows divides them; D = 100 takes
+# the kernel's scalar form (its bf16 rows are not a multiple of 16 bytes),
+# 1,280 is vit_huge's width
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1.6e-2)])
-@pytest.mark.parametrize("shape", [(4, 197, 384), (37, 192)])
+@pytest.mark.parametrize("shape", [(4, 197, 384), (37, 192), (2531, 100),
+                                   (2531, 192), (2531, 384), (2531, 768),
+                                   (2531, 1280)])
 def test_ln_bwd_kernels_match_plain(cuda, dtype, tol, shape):
     """K1c in both forms and K2b: du elementwise within tol; dgamma/dbeta
     (f32 sums over the rows, in other orders) within 1e-4 of max |ref|."""
     rs = np.random.RandomState(6)
-    a, b, dy, du = (_rand(rs, *shape, dtype=dtype, device=cuda)
-                    for _ in range(4))
-    g = _rand(rs, shape[-1], scale=0.1, device=cuda) + 1.0
+    cases = _ln_bwd_cases(*_ln_bwd_inputs(rs, shape, dtype, cuda))
     ops.reset_launch_counts()
-    cases = {
-        "fused_ln_bwd": (ln_ops.fused_ln_bwd(a, dy, g),
-                         ln_ops.reference_ln_bwd(a, dy, None, g)),
-        "fused_add_ln_bwd": (ln_ops.fused_add_ln_bwd(a, dy, du, g),
-                             ln_ops.reference_ln_bwd(a, dy, du, g)),
-        "fused_sum_ln_bwd": (ln_ops.fused_sum_ln_bwd(a, b, dy, g),
-                             ln_ops.reference_ln_bwd(a + b, dy, None, g)),
-    }
-    torch.cuda.synchronize()
-    for name, (got, want) in cases.items():
+    for name, (kernel, plain) in cases.items():
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
         assert got[0].dtype == dtype
         torch.testing.assert_close(got[0].float(), want[0].float(), atol=tol,
                                    rtol=tol, msg=name)
         for gt, w in zip(got[1:], want[1:]):
             _rel_close(gt, w, 1e-4, name)
         assert ops.launch_counts()[name] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [100, 384])
+def test_ln_bwd_kernels_deterministic(cuda, dtype, D):
+    """dgamma and dbeta are summed in a fixed order (lane, warp, block,
+    group): two calls on the same inputs give bit-identical du, dgamma and
+    dbeta."""
+    rs = np.random.RandomState(7)
+    for name, (kernel, _) in _ln_bwd_cases(
+            *_ln_bwd_inputs(rs, (2531, D), dtype, cuda)).items():
+        first, second = kernel(), kernel()
+        for x, y in zip(first, second):
+            assert torch.equal(x, y), name
+
+
+@pytest.mark.cuda
+def test_ln_bwd_kernel_refuses_wide_rows(cuda):
+    """A row wider than MAX_BWD_DIM raises on a CUDA tensor, naming the
+    cap; the widest row it takes runs."""
+    rs = np.random.RandomState(8)
+    for D in (ln_ops.MAX_BWD_DIM + 1, ln_ops.MAX_BWD_DIM + 128):
+        a, b, dy, du, g = _ln_bwd_inputs(rs, (4, D), torch.bfloat16, cuda)
+        for name, (kernel, _) in _ln_bwd_cases(a, b, dy, du, g).items():
+            with pytest.raises(ValueError, match=str(ln_ops.MAX_BWD_DIM)):
+                kernel()
+    a, b, dy, du, g = _ln_bwd_inputs(rs, (33, ln_ops.MAX_BWD_DIM),
+                                     torch.float32, cuda)
+    for name, (kernel, plain) in _ln_bwd_cases(a, b, dy, du, g).items():
+        got, want = kernel(), plain()
+        torch.testing.assert_close(got[0], want[0], atol=1e-5, rtol=1e-5,
+                                   msg=name)
 
 
 @pytest.mark.cuda

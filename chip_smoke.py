@@ -25,7 +25,8 @@ Phases (any failure propagates and the script exits non-zero):
    within ``ELEM_TOL`` (default ``ATOL``/``RTOL``); f32 sums over all rows
    (dgamma, dbeta, dW, db) within ``SUM_REL`` of their largest |ref|. K6's
    limit must reject planted faults in its plain form; K4 (dx, dW1, dW2;
-   at B = 32 and 128, and at D = 768 in phase 13), K5, K6 and K11 (and K12
+   at B = 32 and 128, and at D = 768 and 192 in phase 13; K8 at cfg4,
+   dropless B = 128, D = 768 and D = 192), K5, K6 and K11 (and K12
    in phase 13) may be no less accurate against the exact f32 function
    than their plain versions (``EXACT_RATIO``), and K1c's two forms and
    K2b (du, dgamma, dbeta, at B = 128) no less accurate against the
@@ -126,8 +127,10 @@ Phases (any failure propagates and the script exits non-zero):
     25,216 tokens) bit for bit against their plain versions (the
     scatter-add in bf16 and f32), beside ``index_select`` / ``index_add_``;
     K3, K4, K8, K9 and K10 at D = 768 (moe_base_patch16_224_expert32's
-    layout at B = 32; K4 also against the exact f32 function) and in f32
-    at D = 384, K6 in f32, K5 and K6 at
+    layout at B = 32; K4 and K8 also against the exact f32 function) and in
+    f32 at D = 384, K4 and K8 at D = 192 (moe_tiny_patch16_224_expert8's
+    dropless layout at B = 128, both against the exact f32 function), K6
+    in f32, K5 and K6 at
     N = 577 in bf16 and f32, K5, K6 and K11 at vit_huge_patch14_224's head
     (16 heads of 80, N = 257, ``HUGE``), K11 in f32 and K12 at N = 577 and
     C = 1024 (``K12_LONG``), against their plain versions (f32 within
@@ -209,7 +212,8 @@ PLANTED_DELTA = (0.0, 0.95, 0.98)
 # agree closely; a kernel that rounds once more, or loses the f32 sums,
 # reads well above it. K12 is checked at each of its shapes
 # (``proj_case``), K4 (dx, dW1, dW2) at each of its layouts in
-# ``kernel_phase`` and at D = 768, K3 at B = 128 and D = 768, K9's forward
+# ``kernel_phase`` and at D = 768 and 192, K8 (``check_defer``) at cfg4,
+# dropless B = 128, D = 768 and 192, K3 at B = 128 and D = 768, K9's forward
 # at cfg4 and K10's at ep=4 (``exact_ffn_fwd``), the rest at B = 128. The
 # LN backward (K1c's two forms, K2b; du, dgamma and dbeta) is held to the
 # exact function in f64 at B = 128 (``check_ln_bwd``): its f32 sums would
@@ -385,6 +389,9 @@ K12_SHAPES = {"deit_tiny": (256, 197, 3), "vit_s": (128, 197, 6)}
 WIDE_MODEL, WIDE_B, WIDE_D, WIDE_E, WIDE_H = (
     "moe_base_patch16_224_expert32", 32, 768, 32, 3072)
 RESMOE_BASE, WIDE_STEPS = "resmoe_base_patch16_224_expert8", 2
+# K4 and K8 at D = 192: moe_tiny_patch16_224_expert8's dropless layout at
+# B = 128
+TINY_B, TINY_D, TINY_E, TINY_H = 128, 192, 8, 768
 PER_RESMOE_BASE_STEP = dict(PER_RESMOE_STEP, fused_adamw_ema=0)
 # the f32 path: moe_small_patch16_224_expert8 in f32, B = 16, 2 steps on
 # the kernels against the same steps on the plain versions; each step's
@@ -791,6 +798,37 @@ def exact_ffn_bwd(name: str, got, want, args) -> None:
                                                w2.float(), eot, dy.float())
     for part, i in (("dx", 0), ("dw1", 1), ("dw2", 3)):
         exact_error(f"{name} {part}", got[i], want[i], exact[i])
+
+
+def check_defer(res: dict, label: str, sfx: str, kernel, got, want,
+                args) -> None:
+    """K8 at one layout: dx, dW1 and dW2 against the exact f32 function
+    (``exact_ffn_bwd``), a second call bit-identical, and its launches
+    timed apart (``profile_call``): the dgrad kernel under ``ms_dgrad``,
+    the dW kernel under ``ms_dw``, any other launch of the wrapper under
+    ``ms_other`` (each with ``sfx``)."""
+    import torch
+
+    name = "fused_expert_ffn_bwd_defer"
+    exact_ffn_bwd(f"{name} ({label})", got, want, args)
+    again = kernel()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"{name} ({label}): two calls on the same "
+                             "inputs differ")
+    log(f"  {name} ({label}): a second call bit-identical (dx, dW, db)")
+    # ten calls, each launch's mean over the events seen: a profiling
+    # session that follows a large one misses its last few device events
+    parts = {"dgrad": 0.0, "dw": 0.0, "other": 0.0}
+    for k, (us, n) in profile_call(lambda: [kernel() for _ in range(10)],
+                                   f"K8 ({label}), 10 calls").items():
+        parts["dgrad" if "dgrad" in k else "dw" if "defer" in k
+              else "other"] += us / n / 1e3
+    if not parts["dgrad"] or not parts["dw"]:
+        raise AssertionError(f"{name} ({label}): the profile shows no dgrad "
+                             "or no dW launch")
+    res.update({f"ms_{k}{sfx}": v for k, v in parts.items()})
+    log(f"  {name} ({label}) by launch (profiler, ms a call): "
+        + ", ".join(f"{k} {ms:.4f}" for k, ms in parts.items()))
 
 
 def exact_ffn_fwd(name: str, got, want, args, perm=None) -> None:
@@ -1386,7 +1424,8 @@ def capacity_kernel_phase(results: dict) -> None:
     cfg4's layout, the dropless B=128 layout and a small skewed capacity
     layout with a starved expert; timed at the first two beside their
     bounds, K9's forward beside the dispatch gather + K3 and K8 beside
-    K4."""
+    K4; at the first two K8 also against the exact f32 function, call to
+    call bit for bit and launch by launch (``check_defer``)."""
     import torch
 
     from slim_switch_moe_vit_tpu_torch.ops import fused_ffn as ffn
@@ -1472,6 +1511,11 @@ def capacity_kernel_phase(results: dict) -> None:
             if name == "fused_expert_ffn_gather" and label == "cfg4":
                 exact_ffn_fwd(f"{name} ({label})", got, want,
                               (xt.index_select(0, gidx), *weights, eot))
+            if name == "fused_expert_ffn_bwd_defer" and label != "skewed":
+                check_defer(results.setdefault(name, {"max_abs_err": 0.0,
+                                                      "library_ms": None}),
+                            label, "" if label == "cfg4" else "_" + label,
+                            kernel, got, want, (xs, w1, b1, w2, eot, dy))
             if label == "skewed" and isinstance(got, tuple):
                 # the starved expert's dW1 and dW2: exact zeros
                 if any(g[-1].abs().max().item() != 0.0
@@ -1616,13 +1660,15 @@ def capacity_train_phase(card: str) -> dict:
         gathers.append(1)
         return real_gather(*a, **kw)
 
-    losses, launched = {}, {}
+    losses, launched, peak = {}, {}, {}
     moe_ops.dispatch_gather = counted_gather
     try:
         for form, knob in (*CAP_FORMS.items(), ("witness", None)):
             per = PER_CAP_STEP.get(form, PER_CAP_STEP["default"])
             n_gather = CAP_DISPATCH_GATHERS.get(form, 12)
             with ffn_knob(knob):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
                 model, state, step = _train_setup(
                     torch.bfloat16, "cuda", model=copy.deepcopy(base))
                 xb, yb = (x.flip(0), y.flip(0)) if form == "witness" else (x, y)
@@ -1663,6 +1709,11 @@ def capacity_train_phase(card: str) -> dict:
                                         f"one cfg4 train step B={TRAIN_B}, "
                                         f"{form} form")
                     check_ln_bwd_launches(prof, per, form)
+                peak[form] = torch.cuda.max_memory_allocated()
+                log(f"  cfg4 {form} form: peak device memory "
+                    f"{peak[form] / 2 ** 30:.3f} GiB "
+                    "(max_memory_allocated over the model's set-up and "
+                    "its steps)")
                 del model, state, step
                 torch.cuda.empty_cache()
     finally:
@@ -1683,6 +1734,10 @@ def capacity_train_phase(card: str) -> dict:
         if any(g > t for g, t in zip(gaps(losses[form]), limit)):
             raise AssertionError(f"cfg4 {form} form's losses part from the "
                                  "default form's beyond the limit")
+    # K8 keeps no (Tp, H) workspace (K4's is 2 x Tp x H bf16 a call); the
+    # step's peak need not fall with it, since it lies elsewhere
+    log(f"cfg4 peak device memory, K8 form vs default: "
+        f"{peak['K8'] / 2 ** 30:.3f} vs {peak['default'] / 2 ** 30:.3f} GiB")
     del base
     return {"fused_expert_ffn_gather": launched["K9"]["fused_expert_ffn_gather"],
             "fused_expert_ffn_gather_bwd":
@@ -2604,9 +2659,10 @@ def proj_and_rows_kernel_phase(results: dict) -> None:
         "index-order plain version bit for bit (bf16 and f32)")
 
 
-def _ffn_family(results, label, dtype, T, D, H, E, peak, gen):
-    """K3, K4, K8, K9 and K10 on one routed layout of T tokens against
-    their plain versions, timed beside their bounds, under ``_<label>``."""
+def _ffn_family(results, label, dtype, T, D, H, E, peak, gen, only=None):
+    """K3, K4, K8, K9 and K10 (or the kernels named in ``only``) on one
+    routed layout of T tokens against their plain versions, timed beside
+    their bounds, under ``_<label>``."""
     import torch
 
     from slim_switch_moe_vit_tpu_torch.ops import fused_ffn as ffn
@@ -2674,16 +2730,23 @@ def _ffn_family(results, label, dtype, T, D, H, E, peak, gen):
                                                           perm, dy),
             bwd_cost, modes),
     }
+    if only is not None:
+        cases = {k: v for k, v in cases.items() if k in only}
     for name, (kernel, plain, cost, mode) in cases.items():
         _timed_case(results, name, kernel, plain, None, cost, mode,
                     "_" + label, tol=tol, reps=5)
     if dtype == torch.bfloat16:
-        exact_ffn_fwd(f"fused_expert_ffn_{label}",
-                      cases["fused_expert_ffn"][0](),
-                      cases["fused_expert_ffn"][1](), (xs, w1, b1, w2, b2, eot))
+        if "fused_expert_ffn" in cases:
+            exact_ffn_fwd(f"fused_expert_ffn_{label}",
+                          cases["fused_expert_ffn"][0](),
+                          cases["fused_expert_ffn"][1](),
+                          (xs, w1, b1, w2, b2, eot))
         exact_ffn_bwd(f"fused_expert_ffn_bwd_{label}",
                       cases["fused_expert_ffn_bwd"][0](),
                       cases["fused_expert_ffn_bwd"][1](), bwd)
+        k8, k8_plain = cases["fused_expert_ffn_bwd_defer"][:2]
+        check_defer(results["fused_expert_ffn_bwd_defer"], label,
+                    "_" + label, k8, k8(), k8_plain(), bwd)
 
 
 # the LayerNorm backward's coverage: (dtype, D) at LN_COV_ROWS rows, which
@@ -2735,7 +2798,8 @@ def coverage_kernel_phase(results: dict) -> None:
     backward at other widths, an odd width and f32 (``ln_bwd_coverage``);
     the expert
     family at D = 768 in bf16 (moe_base_patch16_224_expert32's layout at
-    B = 32) and in f32 at D = 384 (the flagship's at B = 32); K6 in f32 at
+    B = 32) and in f32 at D = 384 (the flagship's at B = 32), K4 and K8 at
+    D = 192 (moe_tiny_patch16_224_expert8's at B = 128); K6 in f32 at
     N = 197 against the exact-f32 plain backward and SDPA's backward."""
     import torch
     import torch.nn.functional as F
@@ -2747,6 +2811,10 @@ def coverage_kernel_phase(results: dict) -> None:
     ln_bwd_coverage(results, gen)
     _ffn_family(results, "d768", torch.bfloat16, WIDE_B * N_TOK, WIDE_D,
                 WIDE_H, WIDE_E, BF16_FLOPS, gen)
+    torch.cuda.empty_cache()
+    _ffn_family(results, "d192", torch.bfloat16, TINY_B * N_TOK, TINY_D,
+                TINY_H, TINY_E, BF16_FLOPS, gen,
+                only=("fused_expert_ffn_bwd", "fused_expert_ffn_bwd_defer"))
     torch.cuda.empty_cache()
     _ffn_family(results, "f32", torch.float32, 32 * N_TOK, DIM, HIDDEN,
                 EXPERTS, F32_FLOPS, gen)

@@ -7,7 +7,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 namespace ssmv {
 
@@ -37,29 +36,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Write one 16x16 f32 WMMA accumulator as bf16 to rows [r0, r0+16) of a
-// row-major global matrix ``dst`` (row stride ld, the tile's first column at
-// dst), rows >= n_rows dropped. ``stg`` is the calling warp's own 16x16 f32
-// staging tile in shared memory (32-byte aligned); every lane of the warp
-// calls this.
-template <typename Frag>
-__device__ __forceinline__ void store_frag_bf16(const Frag& f, float* stg,
-                                                __nv_bfloat16* dst, int ld,
-                                                int r0, int n_rows) {
-  const int lane = threadIdx.x & 31;
-  nvcuda::wmma::store_matrix_sync(stg, f, 16, nvcuda::wmma::mem_row_major);
-  __syncwarp();
-  const int r = lane >> 1, c = (lane & 1) * 8;
-  if (r0 + r < n_rows) {
-    __align__(16) __nv_bfloat16 v[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = __float2bfloat16(stg[r * 16 + c + j]);
-    *reinterpret_cast<uint4*>(dst + (size_t)(r0 + r) * ld + c) =
-        *reinterpret_cast<const uint4*>(v);
-  }
-  __syncwarp();
-}
-
 // The attention kernels' head-width instances: the smallest of 32, 64, 96
 // and 128 that holds a head of d columns (the rest zero on chip), or 0
 // beyond 128.
@@ -71,9 +47,9 @@ inline int head_instance(int d) {
 // Largest dynamic shared memory one block may use on sm_90.
 constexpr size_t kMaxSmemBytes = 232448;
 
-// The SIMT forms of the expert-FFN kernels (f32 at every D, bf16 at
-// D = 768): rows per block, the hidden chunk streamed through one weight
-// buffer, and that buffer's elements (the W1 chunk in rows of kSHC + 1 or
+// The SIMT forms of the expert-FFN kernels (f32 at every D): rows per
+// block, the hidden chunk streamed through one weight buffer, and that
+// buffer's elements (the W1 chunk in rows of kSHC + 1 or
 // the W2 chunk in rows of d + 1, the larger, rounded up to 8).
 constexpr int kSRows = 16;
 constexpr int kSHC = 32;

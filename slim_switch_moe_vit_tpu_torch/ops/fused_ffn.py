@@ -26,8 +26,8 @@ chunks (h and GELU by one warp group into a bf16 tile in shared memory,
 y summed in registers by another); the backward recomputes it as GEMM
 tiles that write bf16(dh) and bf16(gelu(h)) to a (Tp, H) workspace, then
 takes dx and each expert's dW1/dW2 over its consecutive tiles as GEMMs
-over that workspace (K4, K9, K10), or recomputes dh on chip for dx and
-for dW over same-expert tile pairs (K8).
+over that workspace (K4, K9, K10), or recomputes dh on chip, once for dx
+and once for the dW products over each expert's rows (K8).
 
 Layout contract (``ops/moe.py::aligned_expert_layout``): rows are sorted by
 expert and every ``TILE_ROWS``-row tile belongs to one expert,
@@ -35,15 +35,15 @@ expert and every ``TILE_ROWS``-row tile belongs to one expert,
 
 Shapes and types: D in ``KERNEL_DIMS`` (192, 384, 768), H a multiple of
 64, activations and expert weights in one dtype, bf16 or f32 (the biases
-f32). In bf16, K3, K4 and the forward and backward forms of K9 and K10 run
-on the tensor cores at every D (``mma.sync`` with ``cp.async`` rings; the
-backward as a dh kernel, then one GEMM launch for dx, dW and db, the dW
-products split over an expert's rows by :func:`wgrad_splits` where their
-tiles would not fill the card); K8 runs on WMMA at D 192 and 384. f32 at
-every D, and bf16 at D = 768 for K8, run in each source's SIMT form (f32
-FMAs on the CUDA cores: K8's WMMA layout's full-D tiles exceed shared
-memory at D = 768, and f32 has no exact tensor-core product), with the
-same arithmetic. Anything else raises on a CUDA tensor.
+f32). In bf16 every kernel runs on the tensor cores at every D
+(``mma.sync`` with ``cp.async`` rings): K4's backward as a dh kernel, then
+one GEMM launch for dx, dW and db, the dW products split over an expert's
+rows by :func:`wgrad_splits` where their tiles would not fill the card; K8
+as a dgrad kernel and a dW kernel that both recompute h and dy . W2^T on
+chip, with a cluster of two blocks splitting D at D = 768. f32 at every D runs in each
+source's SIMT form (f32 FMAs on the CUDA cores: f32 has no exact
+tensor-core product), with the same arithmetic. Anything else raises on a
+CUDA tensor.
 
 GELU and its derivative are the exact erf forms at every dtype. The JAX
 package evaluates them for bf16 with odd polynomials (``gelu_fast``, within
@@ -308,21 +308,24 @@ def fused_expert_ffn_bwd(xs, w1, b1, w2, e_of_tile, dy):
 
 
 def fused_expert_ffn_bwd_defer(xs, w1, b1, w2, e_of_tile, dy):
-    """K8: K4's function (:func:`fused_expert_ffn_bwd`) with the dW products
-    taken over same-expert tile pairs as :func:`bwd_flags` directs, from x,
-    dh, g and dy on chip (no (Tp, H) workspace). H must be at least D."""
+    """K8: K4's function (:func:`fused_expert_ffn_bwd`) with no (Tp, H)
+    workspace: h and dy . W2^T are recomputed on chip for dx and again for
+    the dW products (over same-expert tile pairs, as :func:`bwd_flags`
+    directs, in the plain version and the f32 kernel, which alone read
+    the flags; over all of the expert's rows in 32-row steps, in bf16). It
+    allocates nothing but its outputs. H must be at least D."""
     if not xs.is_cuda:
         return reference_expert_ffn_bwd_defer(xs, w1, b1, w2, e_of_tile, dy)
     Tp, D, H, E = _check_ffn(xs, w1, b1, w2, None, e_of_tile)
     check_tensor(dy, "dy", (xs.dtype,), device=xs.device, shape=(Tp, D))
     if H < D:
         raise ValueError(f"the deferred-dW kernel needs H ({H}) >= D ({D})")
-    flags = bwd_flags(e_of_tile)
+    flags = None if _is_bf16(xs) else bwd_flags(e_of_tile)
     out = _bwd_outputs(Tp, D, H, E, xs, w1, w2)
     lib = _build.load_library()
     err = lib.ssmv_expert_ffn_bwd_defer(
         xs.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), e_of_tile.data_ptr(), flags.data_ptr(),
+        w2.data_ptr(), e_of_tile.data_ptr(), _ptr(flags),
         *(t.data_ptr() for t in out), Tp, D, H, E, TILE_ROWS, _is_bf16(xs),
         _stream())
     _build.check(err, "fused_expert_ffn_bwd_defer")

@@ -742,24 +742,93 @@ def test_gather_ffn_kernels_match_plain(cuda, T, D, H, E, capacity):
     assert gb[1][E - 1].abs().max().item() == 0.0
 
 
+# K8 beyond ROUTED: bf16 at D = 768 on routed layouts (a favoured and a
+# starved expert; H = 3072 and H = D), and a
+# hand-made layout (T None) at each width: expert 0
+# owns three tiles (a single-tile flush), expert 2 one all-padding tile
+# (dy zero), expert 3 two, experts 1 and 4 none at all
+DEFER = ROUTED + [(300, 768, 3072, 4, None), (600, 768, 768, 3, None),
+                  (None, 192, 768, 5, None), (None, 384, 1536, 5, None),
+                  (None, 768, 3072, 5, None)]
+HAND_TILES = [0, 0, 0, 2, 3, 3]
+
+
+def _hand_case(rs, D, H, E, device):
+    """K8's inputs on the HAND_TILES layout: random rows, dy zero on the
+    all-padding tile of expert 2."""
+    tile = ffn_ops.TILE_ROWS
+    eot = torch.tensor(HAND_TILES, dtype=torch.int32, device=device)
+    Tp = len(HAND_TILES) * tile
+    xs = _rand(rs, Tp, D, dtype=torch.bfloat16, device=device)
+    dy = _rand(rs, Tp, D, dtype=torch.bfloat16, device=device)
+    dy[HAND_TILES.index(2) * tile:(HAND_TILES.index(2) + 1) * tile] = 0
+    w1 = _rand(rs, E, D, H, scale=D ** -0.5, dtype=torch.bfloat16,
+               device=device)
+    b1 = _rand(rs, E, H, scale=0.1, device=device)
+    w2 = _rand(rs, E, H, D, scale=H ** -0.5, dtype=torch.bfloat16,
+               device=device)
+    return xs, (w1, b1, w2), eot, dy
+
+
+def test_defer_plain_hand_layout():
+    """K8's plain version (what the wrapper takes on the CPU) on the
+    HAND_TILES layout: the experts with no tile (1, 4) and with one
+    all-padding tile (2) get exact zeros for dW and db, and all of it
+    agrees with K4's plain version (the same function, its dW summed
+    without the tile pairs)."""
+    rs = np.random.RandomState(14)
+    D, H, E = 192, 768, 5
+    xs, (w1, b1, w2), eot, dy = _hand_case(rs, D, H, E, "cpu")
+    got = ffn_ops.fused_expert_ffn_bwd_defer(xs, w1, b1, w2, eot, dy)
+    want = ffn_ops.reference_expert_ffn_bwd(xs, w1, b1, w2, eot, dy)
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=1.6e-2,
+                               rtol=1.6e-2)
+    for name, gt, w in zip(["dw1", "db1", "dw2", "db2"], got[1:], want[1:]):
+        assert gt.dtype == w.dtype and torch.isfinite(gt.float()).all()
+        _rel_close(gt, w, 1e-2, name)
+        for e in (1, 2, 4):
+            assert gt[e].abs().max().item() == 0.0, (e, name)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("T,D,H,E,capacity", ROUTED)
+@pytest.mark.parametrize("T,D,H,E,capacity", DEFER)
 def test_defer_dw_kernel_matches_plain(cuda, T, D, H, E, capacity):
     """K8 against its plain version and against K4 on the same inputs: dx
-    elementwise within 1.6e-2, dW and db within 1e-2 of max |ref|, the
-    starved expert's dW exactly zero; one launch."""
+    elementwise within 1.6e-2, dW and db within 1e-2 of max |ref|; an
+    expert with no token (one all-padding tile) or no tile at all gets
+    exact zeros for dW and db; a second call bit-identical; one launch;
+    no (Tp, H) workspace: the allocator's peak during the call exceeds
+    what the returned outputs hold by no more than 2 MiB (the rounding of
+    one large block)."""
     rs = np.random.RandomState(14)
-    x, gidx, pslot, keep, (w1, b1, w2, _), eot, dy = _routed_case(
-        rs, T, D, H, E, capacity, cuda)
-    xs = moe_ops.dispatch_gather(x, gidx, pslot, keep)
+    if T is None:
+        xs, (w1, b1, w2), eot, dy = _hand_case(rs, D, H, E, cuda)
+        zero = [1, 2, 4]  # no tile; one all-padding tile; no tile
+    else:
+        x, gidx, pslot, keep, (w1, b1, w2, _), eot, dy = _routed_case(
+            rs, T, D, H, E, capacity, cuda)
+        xs = moe_ops.dispatch_gather(x, gidx, pslot, keep)
+        zero = [E - 1]  # no token
     flags = ffn_ops.bwd_flags(eot)
     single = (flags & 1).bool() & ~(flags & 2).bool()
-    assert single.any() == (D == 384)  # single-tile flushes where odd
+    if D != 768 and T is not None:
+        assert single.any() == (D == 384)  # single-tile flushes where odd
+    if T is None:
+        assert single.any()
+    allowed = 2 * 2 ** 20
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     got = ffn_ops.fused_expert_ffn_bwd_defer(xs, w1, b1, w2, eot, dy)
-    k4 = ffn_ops.fused_expert_ffn_bwd(xs, w1, b1, w2, eot, dy)
     torch.cuda.synchronize()
+    transient = torch.cuda.max_memory_allocated() - \
+        torch.cuda.memory_allocated()
+    assert transient <= allowed, transient
     assert ops.launch_counts()["fused_expert_ffn_bwd_defer"] == 1
+    again = ffn_ops.fused_expert_ffn_bwd_defer(xs, w1, b1, w2, eot, dy)
+    for name, a, b in zip(["dx", "dw1", "db1", "dw2", "db2"], got, again):
+        assert torch.equal(a, b), name
+    k4 = ffn_ops.fused_expert_ffn_bwd(xs, w1, b1, w2, eot, dy)
     want = ffn_ops.reference_expert_ffn_bwd_defer(xs, w1, b1, w2, eot, dy)
     for ref in (want, k4):
         torch.testing.assert_close(got[0].float(), ref[0].float(),
@@ -768,8 +837,9 @@ def test_defer_dw_kernel_matches_plain(cuda, T, D, H, E, capacity):
                                ref[1:]):
             assert gt.dtype == w.dtype and torch.isfinite(gt.float()).all()
             _rel_close(gt, w, 1e-2, name)
-    assert got[1][E - 1].abs().max().item() == 0.0
-    assert got[3][E - 1].abs().max().item() == 0.0
+    for e in zero:
+        for name, gt in zip(["dw1", "db1", "dw2", "db2"], got[1:]):
+            assert gt[e].abs().max().item() == 0.0, (e, name)
 
 
 def _perm_case(rs, src, E, n_per, D, H, device):

@@ -152,8 +152,33 @@ Phases (any failure propagates and the script exits non-zero):
     path: K12 and K13 as a user calls these ops (no model path calls them,
     as in the JAX package), their launches counted.
 
+18. The DeiT / ViT zoo and the data pipeline at the driver's defaults
+    (``zoo_phase``; bf16 activations, f32 params): (a) ``bench.py``'s cfg1,
+    ``deit_tiny_patch16_224`` eval at B = 256, held to the card's plain
+    path, images/s by events and one profiled forward's kernel sum; (b)
+    ``deit_base_patch16_224`` (the driver's default model, D = 768, 12
+    blocks) trains ``DEIT_STEPS`` steps at B = 128 through
+    ``engine.make_train_step`` with the driver's default augmentation
+    (RandAugment rand-m9-mstd0.5-inc1, color jitter 0.3, erasing 0.25) and
+    mixup 0.8 / cutmix 1.0 / smoothing 0.1, the step by events and by its
+    kernel sum, the augmentation and mixup alone by events, and one step on
+    the kernels against the same step on the plain versions from the same
+    generator seed (the same augmented batch) within XTRAIN's step-1 loss
+    limit; (c) ``deit_small_distilled_patch16_224`` trains 2 steps at B = 64
+    on its (logits, logits_dist) pair, evaluates B = 32 (the mean of the
+    two heads) against the plain path, and its weights go through the
+    export CLI, the Predictor and one HTTP request matching the eval; (d)
+    ``vit_large_patch32_224_in21k`` (the pre-logits layer, 21,843 classes)
+    evaluates B = 16 against the plain path; (e) the driver, ``python -m
+    slim_switch_moe_vit_tpu_torch.main`` on SYNTH, with every flag at its
+    default and with ``scripts/run_reference_recipe.sh``'s flags on
+    ``deit_tiny_patch16_224``, 1 epoch of 4 steps and its evals each: exit
+    0, finite losses, steps/s. Every forward and step of (a)-(d) launches
+    exactly ``PER_DEIT_FORWARD`` / ``PER_DEIT_STEP`` (``PER_VIT_L_FORWARD``
+    for the 24 blocks of (d)) with every attention on the K5 (+ K6) route.
+
 Each attention forward's route (``models/vit.py::attention_route``) is
-counted in ``ROUTE_COUNTS``; phases 14 and 16 assert it.
+counted in ``ROUTE_COUNTS``; phases 14, 16 and 18 assert it.
 
 The kernel phase (2) also holds K7 (the fused AdamW + EMA over every
 parameter of the ResMoE model) and K11 (the flash forward, at N = 197 and
@@ -407,6 +432,43 @@ LONG_IMG, LONG_EVAL_B, LONG_TRAIN_B = 384, 8, 4
 HUGE, K12_LONG = (8, 257, 16, 80), (2, 577, 16, 64)
 # the driver checkpoint served through the export CLI at this size
 EXPORT_IMG = 256
+# phase 18, the DeiT / ViT zoo and the data pipeline at the driver's
+# defaults: the dense models' launches (block 0's norm1 the plain LN, every
+# later norm the add+LN, the final norm the slim LN; no expert FFN: the
+# dense MLP is cuBLAS, as the JAX package computes it in XLA)
+DEIT_TINY, DEIT_BASE = "deit_tiny_patch16_224", "deit_base_patch16_224"
+DEIT_DISTILLED = "deit_small_distilled_patch16_224"
+VIT_L21K = "vit_large_patch32_224_in21k"  # 24 blocks, pre-logits, 21,843
+PER_DEIT_FORWARD = {"fused_ln": 1, "fused_add_ln": 23, "fused_sum_ln": 1,
+                    "fused_mha": 12}
+PER_DEIT_STEP = {**PER_DEIT_FORWARD, "fused_ln_bwd": 1,
+                 "fused_add_ln_bwd": 23, "fused_sum_ln_bwd": 1,
+                 "fused_mha_bwd": 12}
+PER_VIT_L_FORWARD = {"fused_ln": 1, "fused_add_ln": 47, "fused_sum_ln": 1,
+                     "fused_mha": 24}
+# cfg1 (bench.py:305-308) eval at B=256; DeiT-B steps at B=128; the
+# distilled model's steps at B=64 and eval at B=32; the in21k eval at B=16
+CFG1_B, DEIT_B, DEIT_STEPS = 256, 128, 4
+DIST_B, DIST_STEPS, DIST_EVAL_B, VIT_L_B = 64, 2, 32, 16
+# the driver's default augmentation and mixup (config.py)
+DEIT_AUG = dict(aa="rand-m9-mstd0.5-inc1", color_jitter=0.3, reprob=0.25)
+DEIT_MIX = dict(mixup_alpha=0.8, cutmix_alpha=1.0, label_smoothing=0.1)
+# the driver as a user runs it, 1 epoch of 4 steps and its evals: every
+# other flag at its default (deit_base_patch16_224, B=64, SYNTH's 512
+# images), then scripts/run_reference_recipe.sh's flags on SYNTH
+ZOO_DRIVER_RUNS = {
+    "defaults": ["--data-set", "SYNTH", "--epochs", "1",
+                 "--max-steps-per-epoch", "4"],
+    "reference recipe": [
+        "--data-set", "SYNTH", "--model", DEIT_TINY, "--batch-size", "128",
+        "--lr", "1e-3", "--epochs", "1", "--weight-decay", "0.05", "--sched",
+        "cosine", "--input-size", "224", "--eval-crop-ratio", "1.0",
+        "--reprob", "0.0", "--smoothing", "0.1", "--warmup-epochs", "5",
+        "--drop", "0.0", "--seed", "0", "--opt", "adamw", "--warmup-lr",
+        "1e-6", "--mixup", ".8", "--drop-path", "0.0", "--cutmix", "1.0",
+        "--unscale-lr", "--no-repeated-aug", "--aa", "rand-m9-mstd0.5-inc1",
+        "--starting-threshold", "1.0", "--target-threshold", "0.9",
+        "--max-steps-per-epoch", "4"]}
 
 
 def expected(per: dict, n: int) -> dict:
@@ -3211,6 +3273,318 @@ def long_phase(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def _counted(fn, per: dict, n: int, routes: dict, what: str):
+    """Run ``fn`` with the launch and route counters zeroed; they must read
+    ``n`` times ``per`` and exactly ``routes``."""
+    from slim_switch_moe_vit_tpu_torch import ops
+    from slim_switch_moe_vit_tpu_torch.models import vit
+
+    ops.reset_launch_counts()
+    vit.ROUTE_COUNTS.clear()
+    out = fn()
+    counts, taken = ops.launch_counts(), dict(vit.ROUTE_COUNTS)
+    if counts != expected(per, n) or taken != routes:
+        raise AssertionError(f"{what}: launches {counts}, routes {taken}")
+    log(f"{what}: launches exact ({n} x {per}), routes {taken}")
+    return out
+
+
+def _kernel_ms(by_name: dict) -> float:
+    return sum(us for us, _ in by_name.values()) / 1e3
+
+
+def _deit_training(model, seed: int):
+    """A train state and step with the driver's defaults: AdamW wd 0.05,
+    EMA, RandAugment + color jitter + erasing, mixup / cutmix with
+    smoothing 0.1 and the soft-target loss."""
+    from slim_switch_moe_vit_tpu_torch import losses, optim
+    from slim_switch_moe_vit_tpu_torch.data import (build_device_augment,
+                                                    make_mixup_fn)
+    from slim_switch_moe_vit_tpu_torch.engine import make_train_step
+    from slim_switch_moe_vit_tpu_torch.train_state import create_train_state
+
+    opt_init, opt_update = optim.make_optimizer(weight_decay=0.05)
+    state = create_train_state(model, device="cuda", seed=seed,
+                               opt_init=opt_init, use_ema=True)
+    augment = build_device_augment(input_size=224, **DEIT_AUG)
+    mixup_fn = make_mixup_fn(num_classes=1000, **DEIT_MIX)
+    step = make_train_step(model, opt_update,
+                           losses.make_base_criterion(True, 0.1, False),
+                           ema_decay=EMA_DECAY, augment_fn=augment,
+                           mixup_fn=mixup_fn)
+    return state, step, augment, mixup_fn
+
+
+def _u8_batch(B: int, seed: int):
+    import torch
+
+    rs = np.random.RandomState(seed)
+    x = rs.randint(0, 256, (B, 224, 224, 3)).astype(np.uint8)
+    y = rs.randint(0, 1000, B)
+    return torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+
+
+def cfg1_eval(card: str) -> None:
+    """(a) cfg1: deit_tiny_patch16_224 eval at B = 256 in bf16 on the
+    kernels, held to the card's plain path; images/s by events and the
+    kernel sum of one profiled forward."""
+    import torch
+
+    model, model_f32 = (
+        _model_on_card(DEIT_TINY, num_classes=1000, dtype=dt).eval()
+        for dt in (torch.bfloat16, torch.float32))
+    x = torch.from_numpy(np.random.RandomState(0).randn(
+        CFG1_B, 224, 224, 3).astype(np.float32)).cuda()
+    xb = x.bfloat16()  # bench.py's cfg1 input: the model's compute dtype
+
+    def forward():
+        with torch.inference_mode():
+            return model(xb)
+
+    logits = _counted(forward, PER_DEIT_FORWARD, 1, {"k5": 12},
+                      f"cfg1 {DEIT_TINY} eval B={CFG1_B}")
+    if logits.shape != (CFG1_B, 1000) or not torch.isfinite(logits).all():
+        raise AssertionError(f"cfg1 logits {tuple(logits.shape)}")
+    _eval_vs_plain(model, model_f32, x, f"cfg1 {DEIT_TINY} eval B={CFG1_B}")
+    ms = median_ms(forward, reps=10)
+    by_name = profile_call(forward, f"cfg1 {DEIT_TINY} eval B={CFG1_B}")
+    log(f"cfg1 {DEIT_TINY} eval B={CFG1_B}: {ms:.3f} ms a forward on the "
+        f"device clock ({CFG1_B / ms * 1e3:.1f} images/s), kernel sum "
+        f"{_kernel_ms(by_name):.3f} ms; card {card}")
+    del model, model_f32
+    torch.cuda.empty_cache()
+
+
+def deit_base_training(card: str) -> None:
+    """(b) deit_base_patch16_224, the driver's default model at full width:
+    one step on the kernels against the same step on the plain versions
+    (the same generator seed, so the same augmented and mixed batch), then
+    DEIT_STEPS steps at B = 128 with exact launch counts, the step by
+    events and by its kernel sum, and the augmentation and mixup alone."""
+    import torch
+
+    from slim_switch_moe_vit_tpu_torch import ops
+
+    base = _model_on_card(DEIT_BASE, num_classes=1000, dtype=torch.bfloat16,
+                          drop_path_rate=0.1)
+    x, y = _u8_batch(DEIT_B, 12)
+    runs = {}
+    for label in ("kernels", "plain"):
+        m = copy.deepcopy(base)
+        state, step, _, _ = _deit_training(m, seed=7)
+        ops.reset_launch_counts()
+        ctx = plain_versions() if label == "plain" else contextlib.nullcontext()
+        with ctx:
+            state, met = step(state, x, y, XTRAIN_LR, XTRAIN_LR)
+        counts = ops.launch_counts()
+        want = (expected(PER_DEIT_STEP, 1) if label == "kernels"
+                else expected({}, 1))
+        if counts != want:
+            raise AssertionError(f"{DEIT_BASE} {label} step: launches {counts}")
+        runs[label] = (met["loss"].item(), torch.cat(
+            [p.grad.detach().float().flatten() for p in m.parameters()]))
+        del m, state, step
+    (lk, gk), (lp, gp) = runs["kernels"], runs["plain"]
+    rel, lim = abs(lk - lp) / abs(lp), XTRAIN_PAIRS[0][2][0][0]
+    log(f"{DEIT_BASE} B={DEIT_B} step 1 at the driver's augmentation and "
+        f"mixup, kernels vs the card's plain path from one seed: loss "
+        f"{lk:.5f} vs {lp:.5f} (rel {rel:.3e}, limit {lim}), gradient "
+        f"cosine {_cos(gk, gp):.6f}; card {card}")
+    if rel > lim or not np.isfinite(lk):
+        raise AssertionError(f"{DEIT_BASE} step on the kernels disagrees with "
+                             "the plain path")
+    del runs, gk, gp
+
+    model = base
+    state, step, augment, mixup_fn = _deit_training(model, seed=0)
+    state, m = step(state, x, y, LR, LR)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    losses_ = []
+
+    def steps():
+        nonlocal state
+        start.record()
+        for _ in range(DEIT_STEPS):
+            state, met = step(state, x, y, LR, LR)
+            losses_.append(met["loss"])
+        end.record()
+        end.synchronize()
+
+    _counted(steps, PER_DEIT_STEP, DEIT_STEPS, {"k5_k6": 12 * DEIT_STEPS},
+             f"{DEIT_BASE} train, {DEIT_STEPS} steps B={DEIT_B}")
+    losses_ = torch.stack(losses_).tolist()
+    if not all(np.isfinite(losses_)):
+        raise AssertionError(f"{DEIT_BASE}: non-finite losses {losses_}")
+    step_ms = start.elapsed_time(end) / DEIT_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    by_name = profile_call(lambda: step(state, x, y, LR, LR),
+                           f"one {DEIT_BASE} train step B={DEIT_B}")
+    gen = torch.Generator("cuda").manual_seed(3)
+    aug_ms = median_ms(lambda: augment(gen, x), reps=10)
+    xa = augment(gen, x)
+    mix_ms = median_ms(lambda: mixup_fn(gen, xa, y), reps=10)
+    both_ms = median_ms(lambda: mixup_fn(gen, augment(gen, x), y), reps=10)
+    log(f"{DEIT_BASE} train B={DEIT_B} (drop path 0.1, RandAugment "
+        f"rand-m9-mstd0.5-inc1, color jitter 0.3, erasing 0.25, mixup 0.8 / "
+        f"cutmix 1.0, smoothing 0.1, AdamW + EMA): losses "
+        f"{[round(v, 4) for v in losses_]}, {step_ms:.3f} ms a step on the "
+        f"device clock ({DEIT_B / step_ms * 1e3:.1f} images/s), kernel sum "
+        f"{_kernel_ms(by_name):.3f} ms, peak memory allocated {peak:.2f} "
+        f"GiB; augmentation + mixup alone {both_ms:.3f} ms (augmentation "
+        f"{aug_ms:.3f}, mixup {mix_ms:.3f}) = {both_ms / step_ms:.3f} of the "
+        f"step; card {card}")
+    del model, base, state, step
+    torch.cuda.empty_cache()
+
+
+def distilled_phase(card: str, tmp: str) -> None:
+    """(c) deit_small_distilled_patch16_224: DIST_STEPS training steps at
+    B = 64 whose forwards return (logits, logits_dist); an eval at B = 32
+    (the mean of the two heads) held to the card's plain path; its weights
+    through the export CLI, the Predictor and one HTTP request, whose
+    logits match the eval."""
+    import torch
+
+    from slim_switch_moe_vit_tpu_torch import create_model
+    from slim_switch_moe_vit_tpu_torch.serving import export
+    from slim_switch_moe_vit_tpu_torch.serving.export import make_serve_fn
+    from slim_switch_moe_vit_tpu_torch.serving.server import make_server
+    from slim_switch_moe_vit_tpu_torch.utils.checkpoint import save_checkpoint
+
+    model = _model_on_card(DEIT_DISTILLED, num_classes=1000,
+                           dtype=torch.bfloat16)
+    state, step, _, _ = _deit_training(model, seed=1)
+    outs = []
+    hook = model.register_forward_hook(lambda mod, i, o: outs.append(
+        isinstance(o, tuple) and len(o) == 2 and o[0].shape == o[1].shape))
+    x, y = _u8_batch(DIST_B, 14)
+    losses_ = []
+
+    def steps():
+        nonlocal state
+        for _ in range(DIST_STEPS):
+            state, met = step(state, x, y, LR, LR)
+            losses_.append(met["loss"].item())
+
+    _counted(steps, PER_DEIT_STEP, DIST_STEPS, {"k5_k6": 12 * DIST_STEPS},
+             f"{DEIT_DISTILLED} train, {DIST_STEPS} steps B={DIST_B} (N=198)")
+    hook.remove()
+    if outs != [True] * DIST_STEPS or not all(np.isfinite(losses_)):
+        raise AssertionError(f"{DEIT_DISTILLED} training: pairs {outs}, "
+                             f"losses {losses_}")
+    log(f"{DEIT_DISTILLED} train: each forward returned (logits, "
+        f"logits_dist); losses {[round(v, 4) for v in losses_]}")
+
+    model.eval()
+    model_f32 = create_model(DEIT_DISTILLED, num_classes=1000,
+                             dtype=torch.float32)
+    model_f32.load_state_dict(model.state_dict())
+    model_f32 = model_f32.cuda().eval()
+    imgs = np.random.RandomState(15).randint(
+        0, 256, (DIST_EVAL_B, 224, 224, 3)).astype(np.uint8)
+    xe = torch.from_numpy(imgs).cuda()
+    from slim_switch_moe_vit_tpu_torch.data import build_eval_normalize
+
+    _eval_vs_plain(model, model_f32, build_eval_normalize()(xe),
+                   f"{DEIT_DISTILLED} eval B={DIST_EVAL_B} (the mean of the "
+                   f"two heads)")
+    evaluated = _counted(lambda: make_serve_fn(model)(xe).cpu().numpy(),
+                         PER_DEIT_FORWARD, 1, {"k5": 12},
+                         f"{DEIT_DISTILLED} eval B={DIST_EVAL_B}")
+    ckpt, art = os.path.join(tmp, "distilled.ckpt"), os.path.join(tmp, "art")
+    save_checkpoint(ckpt, state, 0)
+    export.main(["--model", DEIT_DISTILLED, "--output", art, "--checkpoint",
+                 ckpt, "--num-classes", "1000", "--batch-sizes",
+                 str(DIST_EVAL_B)])
+    pred = export.load_predictor(art)
+    server, batcher = make_server(pred, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        served = post(server.server_address[1], imgs)
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.close()
+        thread.join(timeout=30)
+    _xcheck(served, evaluated, f"{DEIT_DISTILLED} served over HTTP from the "
+            f"export CLI's artifact vs the eval (bit-identical: "
+            f"{np.array_equal(served, evaluated)})")
+    del model, model_f32, state, step, pred
+    torch.cuda.empty_cache()
+
+
+def vit_large_eval(card: str) -> None:
+    """(d) vit_large_patch32_224_in21k (24 blocks of D = 1024, the
+    pre-logits layer, 21,843 classes) eval at B = 16 on the kernels, held
+    to the card's plain path."""
+    import torch
+
+    model, model_f32 = (_model_on_card(VIT_L21K, dtype=dt).eval()
+                        for dt in (torch.bfloat16, torch.float32))
+    if model.pre_logits is None or model.head.weight.shape != (21843, 1024):
+        raise AssertionError(f"{VIT_L21K}: no pre-logits layer or head "
+                             f"{tuple(model.head.weight.shape)}")
+    x = torch.from_numpy(np.random.RandomState(13).randn(
+        VIT_L_B, 224, 224, 3).astype(np.float32)).cuda()
+
+    def forward():
+        with torch.inference_mode():
+            return model(x)
+
+    _counted(forward, PER_VIT_L_FORWARD, 1, {"k5": 24},
+             f"{VIT_L21K} eval B={VIT_L_B} (N=50)")
+    _eval_vs_plain(model, model_f32, x, f"{VIT_L21K} (pre-logits, 21,843 "
+                   f"classes) eval B={VIT_L_B}")
+    del model, model_f32
+    torch.cuda.empty_cache()
+
+
+def zoo_driver_runs(card: str) -> None:
+    """(e) ``python -m slim_switch_moe_vit_tpu_torch.main`` on SYNTH at its
+    default size, with every flag at its default and with the reference
+    recipe's flags: each exits 0 (the engine aborts on a non-finite loss),
+    and its epoch's steps/s and loss are read from its output."""
+    import re
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    for what, argv in ZOO_DRIVER_RUNS.items():
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "slim_switch_moe_vit_tpu_torch.main",
+             *argv], cwd=here, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        out = proc.stdout
+        pace = re.search(r"(\d+) train steps in ([\d.]+) s \(([\d.]+) "
+                         r"steps/s\)", out)
+        loss = re.search(r"Averaged stats:.*loss: (\S+) \((\S+)\)", out)
+        acc = re.search(r"Accuracy of the network on the (\d+) test images: "
+                        r"(\S+)%", out)
+        if (proc.returncode != 0 or not pace or not loss or not acc
+                or int(pace.group(1)) != 4
+                or not np.isfinite(float(loss.group(2)))):
+            raise AssertionError(
+                f"driver, {what}: exit {proc.returncode}\n{out[-3000:]}\n"
+                f"{proc.stderr[-3000:]}")
+        log(f"driver, {what} ({' '.join(argv)}): exit 0, {pace.group(1)} "
+            f"train steps in {pace.group(2)} s ({pace.group(3)} steps/s, host "
+            f"clock, data loading and the first step's warm-up included), "
+            f"mean loss {loss.group(2)}, eval on {acc.group(1)} images "
+            f"{acc.group(2)}%, {wall:.1f} s for the whole process; card "
+            f"{card}")
+
+
+def zoo_phase(card: str, tmp: str) -> None:
+    """Phase 18: the DeiT / ViT zoo and the data pipeline at the driver's
+    defaults, (a) to (e)."""
+    cfg1_eval(card)
+    deit_base_training(card)
+    distilled_phase(card, tmp)
+    vit_large_eval(card)
+    zoo_driver_runs(card)
+
+
 def main() -> int:
     import torch
 
@@ -3287,6 +3661,12 @@ def main() -> int:
     phase_done("N=577 phase")
     trained.update(op_path_launches())
     phase_done("op path (K12, K13)")
+    tmp = tempfile.mkdtemp(prefix="ssmv_zoo_")
+    try:
+        zoo_phase(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_done("zoo phase (cfg1, DeiT-B, distilled, ViT-L in21k, driver)")
 
     # launches: K1a-K6 in the 10 training steps of phase 6, which run all
     # ten (the serving run's counts are checked in serving_phase); K7 in the

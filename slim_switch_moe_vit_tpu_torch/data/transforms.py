@@ -7,12 +7,14 @@ batches travel to the card as uint8.
 
 The crop boxes (:func:`rrc_params`, the per-sample generator of
 :class:`TrainTransform`) are the JAX package's, number for number. The
-bicubic resize is ``torch.nn.functional.interpolate(mode="bicubic",
-antialias=True)`` on the host (PIL's filter: a = -0.5, support scaled when
-shrinking) in place of PIL or the package's native library, neither of
-which the card host has; its pixels agree with the JAX package's within a
-few uint8 levels (float sums against PIL's fixed-point ones; the bound is
-in tests/test_torch_driver.py).
+bicubic crops (RandomResizedCrop, the eval center crop and the <= 32 px
+eval resize) go through the port's copy of the JAX package's native C++
+library (``native_loader.py``), so their pixels are those of the JAX
+package's native path. Two resizes take
+``torch.nn.functional.interpolate(antialias=True)`` where the JAX package
+takes PIL, which the card host does not have: ``--train-interpolation
+bilinear`` and the short-side resize of :func:`simple_random_crop` (a
+non-square output the native library does not make).
 
 Eval geometry (reference datasets.py:310-318): resize the short side to
 ``int(256/224 * input_size)`` bicubic, then center crop.
@@ -25,11 +27,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import native_loader
 
-def resize_bicubic(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
-    """(H, W, C) uint8 -> (out_h, out_w, C) uint8, antialiased bicubic."""
+
+def _interpolate(img: np.ndarray, out_h: int, out_w: int,
+                 mode: str) -> np.ndarray:
+    """(H, W, C) uint8 -> (out_h, out_w, C) uint8 by ``F.interpolate``
+    (antialiased: PIL's filters, support scaled when shrinking)."""
     x = torch.from_numpy(np.ascontiguousarray(img)).permute(2, 0, 1)[None]
-    y = F.interpolate(x.float(), size=(out_h, out_w), mode="bicubic",
+    y = F.interpolate(x.float(), size=(out_h, out_w), mode=mode,
                       align_corners=False, antialias=True)
     y = y.round_().clamp_(0, 255).to(torch.uint8)
     return y[0].permute(1, 2, 0).contiguous().numpy()
@@ -37,11 +43,14 @@ def resize_bicubic(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
 
 def _crop_resize(img: np.ndarray, i: int, j: int, h: int, w: int, size: int,
                  interp_name: str) -> np.ndarray:
-    """Crop rows [i, i+h) and columns [j, j+w), resize to size x size."""
-    if interp_name != "bicubic":
-        raise NotImplementedError(
-            f"--train-interpolation {interp_name!r}: only bicubic is ported")
-    return resize_bicubic(img[i:i + h, j:j + w], size, size)
+    """Crop rows [i, i+h) and columns [j, j+w), resize to size x size:
+    bicubic on the native library, bilinear by ``F.interpolate``."""
+    if interp_name == "bicubic":
+        return native_loader.crop_resize(img, i, j, h, w, size)
+    if interp_name == "bilinear":
+        return _interpolate(img[i:i + h, j:j + w], size, size, "bilinear")
+    raise ValueError(f"--train-interpolation {interp_name!r}: bicubic or "
+                     "bilinear")
 
 
 def rrc_params(img_shape, rng: np.random.RandomState, scale=(0.08, 1.0),
@@ -107,13 +116,11 @@ def simple_random_crop(img: np.ndarray, size: int, rng: np.random.RandomState,
             nh, nw = size, int(round(W * size / H))
         else:
             nh, nw = int(round(H * size / W)), size
-        arr = resize_bicubic(img, nh, nw)
-    arr = np.pad(arr, ((padding, padding), (padding, padding), (0, 0)),
-                 mode="reflect")
-    H, W = arr.shape[:2]
+        arr = _interpolate(img, nh, nw, "bicubic")
+    H, W = arr.shape[0] + 2 * padding, arr.shape[1] + 2 * padding
     i = rng.randint(0, H - size + 1)
     j = rng.randint(0, W - size + 1)
-    return arr[i:i + size, j:j + size]
+    return native_loader.pad_reflect_crop(arr, padding, i, j, size)
 
 
 class TrainTransform:
@@ -159,7 +166,8 @@ class EvalTransform:
         if img.shape[0] == img.shape[1] == self.input_size:
             return img
         if self.input_size <= 32:  # no crop for small images (reference :291)
-            return resize_bicubic(img, self.input_size, self.input_size)
+            return native_loader.crop_resize(img, 0, 0, img.shape[0],
+                                             img.shape[1], self.input_size)
         return resize_center_crop(img, self.input_size, self.crop_ratio)
 
 

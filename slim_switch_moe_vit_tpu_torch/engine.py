@@ -10,8 +10,10 @@ the JAX package.
 ``use_fused_optimizer`` takes the optimizer's ``fused_apply`` (the K7
 kernel: AdamW and the EMA in one pass), as the JAX step takes its
 ``fused_apply`` (engine.py:116-125). Images may come as uint8 batches with
-an ``augment_fn`` (``data/device_aug.py``) that runs on the device. Mixup
-is not ported yet (ROADMAP Queue 1 #3).
+an ``augment_fn`` (``data/device_aug.py``) that runs on the device, and a
+``mixup_fn`` (``data/mixup.py``) then mixes the batch and turns the labels
+into soft targets there, before the criterion, as the JAX step does
+(engine.py:71-79).
 
 Under a (data, expert) layout (``mesh``), each gradient is averaged over
 the data group after the backward, and the step's metrics too (the JAX
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 import math
 import sys
+import time
 import typing as typ
 
 import torch
@@ -106,6 +109,9 @@ def make_train_step(model: torch.nn.Module, update_fn: typ.Callable,
         augment_fn: fn(generator, images) -> images on the device (uint8
             NHWC in, normalized f32 out), drawing from the state's
             generator.
+        mixup_fn: fn(generator, images, int labels) -> (images, soft
+            targets) on the device, after ``augment_fn``, drawing from the
+            state's generator.
     Returns:
         train_step(state, images, targets, lr_base, lr_gate) -> (state,
         metrics): the state updated in place (parameters, optimizer, EMA,
@@ -114,9 +120,6 @@ def make_train_step(model: torch.nn.Module, update_fn: typ.Callable,
         fetched. The step's gradients stay in ``p.grad`` until the next
         step.
     """
-    if mixup_fn is not None:
-        raise NotImplementedError("mixup is not ported yet (ROADMAP Queue 1 "
-                                  "#3)")
     moe_modules = _moe_modules(model)
     fused_apply = (getattr(update_fn, "fused_apply", None)
                    if use_fused_optimizer else None)
@@ -128,6 +131,8 @@ def make_train_step(model: torch.nn.Module, update_fn: typ.Callable,
                                                                   device)
         if augment_fn is not None:
             images = augment_fn(state.generator, images)
+        if mixup_fn is not None:
+            images, targets = mixup_fn(state.generator, images, targets)
         if bce_loss:
             targets = (targets > 0.0).float()
         teacher_logits = None
@@ -210,7 +215,9 @@ def train_one_epoch(state: TrainState, train_step, data_loader, epoch: int,
 
     Step metrics stay on the device and are fetched once every
     ``print_freq`` steps (and at the end), so the NaN abort fires up to
-    print_freq-1 steps late, as in the JAX package."""
+    print_freq-1 steps late, as in the JAX package. The loop's pace is
+    printed at its end in steps/s on the host clock (data loading and the
+    last fetch included)."""
     metric_logger = MetricLogger(delimiter="  ")
     metric_logger.add_meter("lr", SmoothedValue(window_size=1,
                                                 fmt="{value:.6f}"))
@@ -231,6 +238,7 @@ def train_one_epoch(state: TrainState, train_step, data_loader, epoch: int,
             metric_logger.update(loss=loss_value, lr=lr_base, **extra)
 
     n = 0
+    t0 = time.perf_counter()
     for samples, targets in metric_logger.log_every(data_loader, print_freq,
                                                     header):
         state, metrics = train_step(state, torch.as_tensor(samples),
@@ -243,6 +251,9 @@ def train_one_epoch(state: TrainState, train_step, data_loader, epoch: int,
             break
 
     drain()
+    seconds = time.perf_counter() - t0
+    print(f"{header} {n} train steps in {seconds:.3f} s "
+          f"({n / max(seconds, 1e-9):.3f} steps/s)")
     metric_logger.synchronize_between_processes()
     print("Averaged stats:", metric_logger)
     return state, {k: m.global_avg for k, m in metric_logger.meters.items()}

@@ -23,9 +23,10 @@ over every rank after each epoch. The learning rate scales with the data
 shards, under EP ``--moe-dispatch auto`` becomes ``capacity`` (JAX
 :66-69), and checkpoints and logs are written by rank 0 alone.
 
-Run: ``python -m slim_switch_moe_vit_tpu_torch.main --data-set SYNTH
---model resmoe_small_patch16_224_expert8 --epochs 2 --no-repeated-aug
---mixup 0 --cutmix 0 --aa '' --color-jitter 0 --reprob 0 ...``; on 4 ranks,
+Run: ``python -m slim_switch_moe_vit_tpu_torch.main --data-set SYNTH``
+(every other flag at its default: ``deit_base_patch16_224`` with
+RandAugment, color jitter, random erasing, mixup and cutmix), or
+``--model resmoe_small_patch16_224_expert8 --epochs 2 ...``; on 4 ranks,
 ``torchrun --nproc-per-node 4 -m slim_switch_moe_vit_tpu_torch.main
 --expert-parallel 2 --moe-dispatch capacity_fused_a2a ...``
 (``SSMV_DIST_BACKEND=gloo`` where the ranks share a card).
@@ -53,6 +54,8 @@ from .data import (
     build_device_augment,
     build_eval_normalize,
     build_split_dataset,
+    make_mixup_fn,
+    mixup_active,
 )
 from .models import create_model
 from .parallel import collectives
@@ -82,8 +85,6 @@ def _dtype(args) -> torch.dtype:
 def _refuse_unported(args) -> None:
     """Raise for every asked-for feature whose machinery is not ported."""
     refused = []
-    if args.mixup > 0.0 or args.cutmix > 0.0 or args.cutmix_minmax is not None:
-        refused.append(("--mixup/--cutmix", "Queue 1 #3 (data pipeline)"))
     if args.distillation_type != "none":
         refused.append(("--distillation-type", "Queue 1 #5 (the RegNet "
                         "teacher)"))
@@ -215,6 +216,15 @@ def main(args):
     dataset_val, nb_classes = build_dataset(is_train=False, args=args)
     args.nb_classes = nb_classes
 
+    mix_on = mixup_active(args.mixup, args.cutmix, args.cutmix_minmax)
+    mixup_fn = None
+    if mix_on:
+        mixup_fn = make_mixup_fn(
+            mixup_alpha=args.mixup, cutmix_alpha=args.cutmix,
+            cutmix_minmax=args.cutmix_minmax, prob=args.mixup_prob,
+            switch_prob=args.mixup_switch_prob,
+            label_smoothing=args.smoothing, num_classes=nb_classes)
+
     print(f"Creating model: {args.model}")
     model = build_model(args, nb_classes, args.seed)  # the same on every rank
     if mesh.n_data * mesh.n_expert > 1:
@@ -241,13 +251,14 @@ def main(args):
     # linear lr scaling (reference main.py:615-617) by the data shards
     lr = optim.scaled_lr(args.lr, args.batch_size, mesh.n_data,
                          args.unscale_lr)
-    base_criterion = losses.make_base_criterion(False, args.smoothing,
+    base_criterion = losses.make_base_criterion(mix_on, args.smoothing,
                                                 args.bce_loss)
     train_step_pre = engine.make_train_step(
         model, opt_update, base_criterion,
         ema_decay=args.model_ema_decay if args.model_ema else None,
-        moe_balance_weight=args.moe_balance_weight, bce_loss=args.bce_loss,
-        augment_fn=device_augment, set_training_mode=args.train_mode,
+        moe_balance_weight=args.moe_balance_weight, mixup_fn=mixup_fn,
+        bce_loss=args.bce_loss, augment_fn=device_augment,
+        set_training_mode=args.train_mode,
         use_fused_optimizer=args.fused_optimizer, mesh=mesh)
     eval_step_pre = engine.make_eval_step(model, preprocess_fn=eval_normalize)
 

@@ -5,8 +5,9 @@ Port of ``slim_switch_moe_vit_tpu/models/vit.py``: :class:`Attention`
 run (:func:`attention_route`), :class:`Block` with its plain and
 residual-deferred forms (:146-168), :class:`VisionTransformer` with the
 residual-deferred chain and the ``block_factory`` hook (:199-310), and
-:func:`resize_pos_embed` (:334-346). The distilled and pre-logits heads are
-not ported yet.
+:func:`resize_pos_embed` (:334-346), with the DeiT distillation token and
+second head (``distilled``) and the pre-logits layer
+(``representation_size``).
 
 Training runs the same chain in ``model.train()``: every kernel wrapper is
 an autograd Function with its backward kernel. Stochastic depth draws from
@@ -18,7 +19,7 @@ Residual-deferred chain: each block leaves its last branch output
 (``pending``) un-added; the next LayerNorm folds the add into its kernel.
 Block 0's ``norm1`` is the no-add LN, every later norm the add+LN, and the
 final norm the slim LN that never writes the sum. The head runs in f32 on
-the class token.
+the class token (and ``head_dist`` on the distillation token).
 """
 from __future__ import annotations
 
@@ -190,12 +191,22 @@ class VisionTransformer(nn.Module):
     block's MLP (the MoE models plug in here); None gives the dense Mlp.
     ``block_factory(layer_idx, **block_kwargs)`` replaces the whole block
     (the gated ResMoE blocks plug in here).
+
+    ``distilled`` adds the DeiT distillation token (N + 2 tokens) and its
+    head ``head_dist``: a training forward returns ``(logits,
+    logits_dist)``, an eval forward their mean (JAX vit.py:312-325).
+    ``representation_size`` puts the pre-logits layer (a Dense and tanh) on
+    the class token before the head; it is ignored when ``distilled``. With
+    ``num_classes == 0`` the forward returns the features the head would
+    read.
     """
 
     def __init__(self, img_size: int = 224, patch_size: int = 16,
                  num_classes: int = 1000, embed_dim: int = 768,
                  depth: int = 12, num_heads: int = 12, mlp_ratio: float = 4.0,
-                 qkv_bias: bool = True, drop_rate: float = 0.0,
+                 qkv_bias: bool = True,
+                 representation_size: typ.Optional[int] = None,
+                 distilled: bool = False, drop_rate: float = 0.0,
                  attn_drop_rate: float = 0.0, drop_path_rate: float = 0.0,
                  dtype: torch.dtype = torch.float32, use_flash: bool = False,
                  block_mlp_factory: typ.Optional[MlpFactory] = None,
@@ -203,12 +214,15 @@ class VisionTransformer(nn.Module):
         super().__init__()
         self.img_size = img_size
         self.num_classes = num_classes
+        self.distilled = distilled
         self.dtype = dtype
         self.patch_embed = PatchEmbed(img_size, patch_size, 3, embed_dim,
                                       dtype=dtype)
         self.cls_token = nn.Parameter(torch.empty(1, 1, embed_dim))
-        self.pos_embed = nn.Parameter(
-            torch.empty(1, self.patch_embed.num_patches + 1, embed_dim))
+        self.dist_token = (nn.Parameter(torch.empty(1, 1, embed_dim))
+                           if distilled else None)
+        self.pos_embed = nn.Parameter(torch.empty(
+            1, self.patch_embed.num_patches + self.num_tokens, embed_dim))
         self.pos_drop = nn.Dropout(drop_rate)
         dpr = [float(r) for r in np.linspace(0.0, drop_path_rate, depth)]
 
@@ -228,12 +242,30 @@ class VisionTransformer(nn.Module):
 
         self.blocks = nn.ModuleList(block(i) for i in range(depth))
         self.norm = LayerNorm(embed_dim)
-        self.head = (Dense(embed_dim, num_classes, dtype=torch.float32)
-                     if num_classes > 0 else None)
+        feat = embed_dim
+        self.pre_logits = None
+        if representation_size and not distilled:
+            self.pre_logits = Dense(embed_dim, representation_size,
+                                    dtype=torch.float32)
+            feat = representation_size
+        self.head = self.head_dist = None
+        if num_classes > 0:
+            self.head = Dense(feat, num_classes, dtype=torch.float32)
+            if distilled:
+                self.head_dist = Dense(embed_dim, num_classes,
+                                       dtype=torch.float32)
+
+    @property
+    def num_tokens(self) -> int:
+        """The tokens before the patches: the class token, and the
+        distillation token when ``distilled``."""
+        return 2 if self.distilled else 1
 
     def init_weights(self, generator: torch.Generator) -> None:
         """Draw every weight from ``generator`` in module order."""
         trunc_normal_(self.cls_token, generator)
+        if self.dist_token is not None:
+            trunc_normal_(self.dist_token, generator)
         trunc_normal_(self.pos_embed, generator)
         for m in self.modules():
             if m is not self and hasattr(m, "init_weights"):
@@ -243,9 +275,11 @@ class VisionTransformer(nn.Module):
                          generator: typ.Optional[torch.Generator] = None
                          ) -> torch.Tensor:
         x = self.patch_embed(x)
-        cls = self.cls_token.to(x.dtype).expand(x.shape[0], -1, -1)
-        x = torch.cat([cls, x], dim=1) + self.pos_embed.to(x.dtype)
-        x = self.pos_drop(x)
+        tokens = [self.cls_token] + ([self.dist_token] if self.distilled
+                                     else [])
+        x = torch.cat([t.to(x.dtype).expand(x.shape[0], -1, -1)
+                       for t in tokens] + [x], dim=1)
+        x = self.pos_drop(x + self.pos_embed.to(x.dtype))
         pending = None
         for blk in self.blocks:
             if hasattr(blk, "deferred_call"):
@@ -260,8 +294,19 @@ class VisionTransformer(nn.Module):
         return self.norm(x)
 
     def forward(self, x: torch.Tensor,
-                generator: typ.Optional[torch.Generator] = None
-                ) -> torch.Tensor:
-        """Logits (f32); ``generator`` feeds stochastic depth in training."""
-        feat = self.forward_features(x, generator)[:, 0].float()
+                generator: typ.Optional[torch.Generator] = None):
+        """Logits (f32); ``generator`` feeds stochastic depth in training.
+        A distilled model in training returns ``(logits, logits_dist)``."""
+        x = self.forward_features(x, generator)
+        if self.distilled:
+            if self.head is None:
+                return x[:, 0]
+            logits = self.head(x[:, 0].float())
+            logits_dist = self.head_dist(x[:, 1].float())
+            if self.training:
+                return logits, logits_dist
+            return (logits + logits_dist) / 2.0
+        feat = x[:, 0].float()
+        if self.pre_logits is not None:
+            feat = torch.tanh(self.pre_logits(feat))
         return feat if self.head is None else self.head(feat)

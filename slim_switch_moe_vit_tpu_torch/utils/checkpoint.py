@@ -25,6 +25,8 @@ and optionally the ``gates`` collection) into this package's
   ``expert_fc{1,2}_{kernel,bias}`` keep their layout (router_weight, w1,
   b1, w2, b2): (E, d, h) / (E, h, d) is what the expert-FFN kernel reads;
 - ``blocks_<i>`` becomes ``blocks.<i>``;
+- the DeiT ``dist_token`` and the ``head_dist`` and ``pre_logits`` Dense
+  layers keep their names, like ``cls_token`` and ``head``;
 - the gates' ``dense_gate/head`` and ``moe_gate/head`` are Dense layers like
   any other, and the ``gates`` collection's ``threshold``,
   ``target_threshold`` and ``enabled`` become the gates' buffers of the

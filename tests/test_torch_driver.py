@@ -1,7 +1,9 @@
 """The port's training driver (``main.py``) on the CPU, and the host pieces
 it shares with the JAX package.
 
-``main()`` runs ``resmoe_tiny_patch16_224_expert8`` at 32 px on ``SYNTH``
+``main()`` runs ``deit_tiny_patch16_224`` at 32 px on ``SYNTH`` with every
+augmentation flag at its default (RandAugment, color jitter, erasing,
+mixup and cutmix), and ``resmoe_tiny_patch16_224_expert8`` at 32 px
 with ``--device cpu``: 2 tasks of 2 epochs, rehearsal, ``--fused-optimizer``
 (K7's plain version on CPU tensors), the gates disabled at each task's
 start and annealed after each epoch, then ``--resume`` from its checkpoint
@@ -10,12 +12,9 @@ sees are held to the JAX package's functions on the same inputs, exactly:
 the config parser's flags and defaults (all but ``--device``, ``cuda``
 here, ``tpu`` there), the per-epoch schedule values of the four schedules,
 the continual-learning split indices, the sampler orders, the crop boxes
-and the rehearsal picks. The crop's pixels come from
-``torch.nn.functional.interpolate(bicubic, antialias)`` where the JAX
-package uses PIL (or its native library, which this test switches off):
-within 1 uint8 level of PIL on a smooth image (1 measured) and 24 on white
-noise (22 measured: PIL rounds and clips to uint8 between its horizontal and
-vertical passes, the port does not).
+and the rehearsal picks. The crops' pixels come from the port's copy of the
+JAX package's native crop library, so they equal the JAX package's native
+path bit for bit.
 """
 import argparse
 import json
@@ -146,11 +145,11 @@ def _smooth(H, W):
                      for c in range(3)], -1).astype(np.uint8)
 
 
-def test_crop_boxes_and_pixels_match_jax(monkeypatch):
-    """The same (seed, epoch, index) -> the same RandomResizedCrop box; the
-    resized pixels within the stated uint8 levels of the JAX package's PIL
-    path."""
-    monkeypatch.setattr(jax_native, "native_available", lambda: False)
+def test_crop_boxes_and_pixels_match_jax():
+    """The same (seed, epoch, index) -> the same RandomResizedCrop box and,
+    through the native library on both sides, the same pixels; the eval
+    center crop too."""
+    assert jax_native.native_available()  # tests/conftest.py builds it
     got_tf = transforms.TrainTransform(48, seed=3)
     want_tf = jax_transforms.TrainTransform(48, seed=3)
     noise = np.random.RandomState(0).randint(0, 256, (90, 70, 3)).astype(
@@ -162,15 +161,20 @@ def test_crop_boxes_and_pixels_match_jax(monkeypatch):
             box = transforms.rrc_params(noise.shape, got_tf._rng(index))
             assert box == jax_transforms.rrc_params(noise.shape,
                                                     want_tf._rng(index))
-            for img, levels in ((_smooth(90, 70), 1), (noise, 24)):
-                a = got_tf(img, index).astype(int)
-                b = want_tf(img, index).astype(int)
+            for img in (_smooth(90, 70), noise):
+                a, b = got_tf(img, index), want_tf(img, index)
                 assert a.shape == b.shape == (48, 48, 3)
-                assert np.abs(a - b).max() <= levels, (index, levels)
-                assert np.abs(a - b).mean() < 0.5
+                np.testing.assert_array_equal(a, b, err_msg=str(index))
     ev, want_ev = transforms.EvalTransform(48), jax_transforms.EvalTransform(48)
-    img = _smooth(100, 80)
-    assert np.abs(ev(img).astype(int) - want_ev(img)).max() <= 1
+    for img in (_smooth(100, 80), noise):
+        np.testing.assert_array_equal(ev(img), want_ev(img))
+    # <= 32 px: the reflect-padded random crop (the native library's, where
+    # the JAX package pads with numpy)
+    small, want_small = (transforms.TrainTransform(32, seed=3),
+                         jax_transforms.TrainTransform(32, seed=3))
+    for index in range(6):
+        np.testing.assert_array_equal(small(noise[:32, :32], index),
+                                      want_small(noise[:32, :32], index))
 
 
 def test_rehearsal_memory_matches_jax():
@@ -286,16 +290,45 @@ def test_driver_trains_with_capacity_dispatch(tmp_path):
 
 
 @pytest.mark.parametrize("flags,error,match", [
-    (["--mixup", "0.8"], NotImplementedError, "ROADMAP Queue 1 #3"),
+    (["--distillation-type", "hard"], NotImplementedError,
+     "ROADMAP Queue 1 #5"),
     (["--opt", "sgd"], NotImplementedError, "ROADMAP Queue 1 #6"),
     (["--opt", "bogus"], ValueError, "not implemented"),
-    (["--aa", "rand-m9-mstd0.5-inc1"], NotImplementedError, "Queue 1 #3"),
+    (["--async-checkpoint"], NotImplementedError, "ROADMAP Queue 1 #4"),
     (["--finetune", "x.pth"], NotImplementedError, "ROADMAP Queue 1 #4"),
     (["--expert-parallel", "2"], NotImplementedError, "ROADMAP Queue 1 #7"),
 ])
 def test_driver_refuses_what_is_not_ported(flags, error, match):
     with pytest.raises(error, match=match):
         main.main(_parse(RUN + flags))
+
+
+def test_driver_runs_at_its_default_augmentation(tmp_path, monkeypatch):
+    """``deit_tiny_patch16_224`` at 32 px on SYNTH with every augmentation
+    flag at its default (RandAugment rand-m9-mstd0.5-inc1, color jitter
+    0.3, erasing 0.25, mixup 0.8 / cutmix 1.0 with smoothing 0.1,
+    repeated augmentation): two steps through the mixup step and the
+    soft-target loss, finite losses, and an eval."""
+    made = {}
+    real = main.engine.make_train_step
+
+    def spy(model, update_fn, criterion, **kw):
+        made.update(kw, criterion=criterion)
+        return real(model, update_fn, criterion, **kw)
+
+    monkeypatch.setattr(main.engine, "make_train_step", spy)
+    out = tmp_path / "defaults"
+    state = main.main(_parse([
+        "--device", "cpu", "--data-set", "SYNTH", "--synth-size", "256",
+        "--input-size", "32", "--model", "deit_tiny_patch16_224",
+        "--batch-size", "8", "--epochs", "1", "--max-steps-per-epoch", "2",
+        "--num_workers", "2", "--output_dir", str(out)]))
+    assert state.step == 2
+    assert made["mixup_fn"] is not None and made["augment_fn"] is not None
+    assert made["criterion"].__name__ == "soft_target_cross_entropy"
+    log = _log(out)
+    assert len(log) == 1 and np.isfinite(log[0]["train_loss"])
+    assert np.isfinite(log[0]["test_loss"])
 
 
 def test_driver_needs_cuda_unless_cpu_is_asked(monkeypatch):

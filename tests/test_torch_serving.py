@@ -202,3 +202,57 @@ def test_default_device_refuses_without_cuda(artifact, tmp_path, monkeypatch):
         export_mod.main(["--model", MODEL, "--output", str(tmp_path),
                          "--num-classes", str(NCLS), "--img-size", str(IMG)])
     assert not os.listdir(tmp_path)  # no CPU artifact written
+
+
+@pytest.mark.parametrize("name", ["deit_tiny_distilled_patch16_224",
+                                  "deit_tiny_patch16_224"])
+def test_export_and_serve_a_zoo_model(name, tmp_path):
+    """A distilled and a dense DeiT from a JAX-layout ``.npz`` through the
+    export CLI, the Predictor and one HTTP request: the logits equal the
+    model's eval forward (for the distilled model the mean of its two
+    heads) and the JAX model's on the same weights (f32, 1e-4)."""
+    from slim_switch_moe_vit_tpu.models import create_model as jax_create
+
+    ref = create_model(name, num_classes=NCLS, img_size=IMG)
+    rs = np.random.RandomState(2)
+    jax_tree = to_jax_tree({
+        k: torch.from_numpy((rs.randn(*v.shape) * 0.05).astype(np.float32))
+        for k, v in ref.state_dict().items()})
+    ckpt = str(tmp_path / "params.npz")
+    np.savez(ckpt, **flatten_tree(jax_tree))
+    out = str(tmp_path / "art")
+    export_mod.main(["--model", name, "--output", out, "--checkpoint", ckpt,
+                     "--num-classes", str(NCLS), "--img-size", str(IMG),
+                     "--dtype", "float32", "--batch-sizes", "4",
+                     "--device", "cpu"])
+    pred = load_predictor(out, device="cpu")
+    assert pred.manifest["model_name"] == name
+    x = _images(3, seed=5)
+    server, batcher = make_server(pred, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        body = json.dumps({"instances": x.tolist()}).encode()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.server_address[1]}/v1/predict",
+            data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            served = np.asarray(json.loads(r.read())["predictions"],
+                                np.float32)
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.close()
+        thread.join(timeout=10)
+    ref.load_state_dict(from_jax_params(jax_tree))
+    ref.eval()
+    direct = _bucketed(make_serve_fn(ref), x, (4,))
+    np.testing.assert_array_equal(pred.predict(x), direct)
+    np.testing.assert_allclose(served, direct, atol=1e-5, rtol=1e-5)
+    jm = jax_create(name, num_classes=NCLS, img_size=IMG)
+    want = jm.apply({"params": jax_tree},
+                    jax_normalize()(jnp.asarray(x)), deterministic=True)
+    np.testing.assert_allclose(direct, np.asarray(want), atol=1e-4,
+                               rtol=1e-4)
+    if "distilled" in name:
+        assert ref.head_dist is not None

@@ -177,6 +177,7 @@ def test_port_imports_neither_jax_nor_flax():
         "assert not bad, bad\n"
         "for name in ('main', 'config', 'data.datasets', 'data.samplers',\n"
         "             'data.loader', 'data.transforms', 'data.device_aug',\n"
+        "             'data.mixup', 'data.native_loader', 'models.zoo',\n"
         "             'models.gates', 'ops.fused_adamw', 'utils.memory',\n"
         "             'utils.logging'):\n"
         "    assert p.__name__ + '.' + name in sys.modules, name\n"

@@ -176,9 +176,41 @@ Phases (any failure propagates and the script exits non-zero):
     0, finite losses, steps/s. Every forward and step of (a)-(d) launches
     exactly ``PER_DEIT_FORWARD`` / ``PER_DEIT_STEP`` (``PER_VIT_L_FORWARD``
     for the 24 blocks of (d)) with every attention on the K5 (+ K6) route.
+19. Fine-tuning, distillation, the switchable and sparse ViTs
+    (``distill_phase``; bf16 student activations, f32 parameters, the
+    teacher in f32): (a) the DeiT distillation recipe through the driver
+    as a process, ``--model deit_base_distilled_patch16_224 --finetune
+    <student .pth at 384 px> --distillation-type hard --teacher-model
+    regnety_160 --teacher-path <teacher .pth> --async-checkpoint`` on
+    SYNTH at B = 64, 4 steps at the driver's default augmentation and
+    mixup (both files in timm's names, from seeded weights): exit 0,
+    finite losses; the driver's ``finetune_from`` on the same file gives
+    the file's weights and ``resize_pos_embed``'s position embedding; its
+    ``--eval --resume`` of the checkpoint holds the saved parameters, EMA
+    and moments bit for bit; (b) the distilled DeiT-B step at B = 128,
+    ``hard`` and ``soft``, on the kernels and on the card's plain path from
+    one seed and one set of teacher logits (computed once), within XTRAIN's
+    step-1 loss limit and gradient cosine, launches exact
+    (``PER_DEIT_STEP``, none in the teacher); the hard step at the driver's augmentation and mixup with
+    the teacher inside by events and by kernel sum, the teacher's forward
+    alone and its share, the peak memory; (c) the teacher's logits on the
+    card (TF32 convolutions) against the CPU f32 run of the same weights on
+    4 images within ``TEACHER_REL``, which a bf16-activation teacher of the
+    same weights must exceed; (d) ``deit_sw_tiny_patch16_224`` with
+    4 buckets and ``route_capacity`` 98 of 197: a routed eval at B = 128
+    against the card's plain path within the serving limit, N = 98 in the
+    11 mid blocks, launches and routes exact (``PER_SW_FORWARD``), the
+    routed and unrouted evals by events, 2 routed training steps against
+    the plain path (``PER_SW_STEP``; each step's loss within XTRAIN's
+    limit, the step-1 gradient within XTRAIN's cosine); (e) ``sparse_deit_tiny_patch16_224``
+    in f32 with its zetas spread over [0, 1): 2 search steps with the L1
+    zeta loss and ``compress`` at (0.5, 0.5, 0.5) on the card and on the
+    CPU, every mask equal element for element, the compressed forward,
+    ``get_remaining`` and the FLOP counts; (f) one distillation step under
+    ``utils/profiling.trace``, ``summarize_trace``'s top rows.
 
 Each attention forward's route (``models/vit.py::attention_route``) is
-counted in ``ROUTE_COUNTS``; phases 14, 16 and 18 assert it.
+counted in ``ROUTE_COUNTS``; phases 14, 16, 18 and 19 assert it.
 
 The kernel phase (2) also holds K7 (the fused AdamW + EMA over every
 parameter of the ResMoE model) and K11 (the flash forward, at N = 197 and
@@ -469,6 +501,45 @@ ZOO_DRIVER_RUNS = {
         "--unscale-lr", "--no-repeated-aug", "--aa", "rand-m9-mstd0.5-inc1",
         "--starting-threshold", "1.0", "--target-threshold", "0.9",
         "--max-steps-per-epoch", "4"]}
+# phase 19, fine-tuning, distillation and the switchable and sparse ViTs:
+# the DeiT recipe's student and teacher (timm-format files written from
+# seeded weights; the student's at 384 px, so the driver resizes its
+# position embedding from 24 x 24 to 14 x 14), the driver's run at B=64
+# and the step's at B=128
+STUDENT, TEACHER, STUDENT_FILE_IMG = ("deit_base_distilled_patch16_224",
+                                      "regnety_160", 384)
+DISTILL_DRIVER_ARGS = ["--data-set", "SYNTH", "--synth-classes", "1000",
+                       "--model", STUDENT, "--distillation-type", "hard",
+                       "--teacher-model", TEACHER, "--async-checkpoint",
+                       "--batch-size", "64", "--epochs", "1",
+                       "--max-steps-per-epoch", "4"]
+DISTILL_RESUME_ARGS = ["--data-set", "SYNTH", "--synth-classes", "1000",
+                       "--model", STUDENT, "--batch-size", "64", "--eval",
+                       "--max-steps-per-epoch", "1"]
+DISTILL_B, DISTILL_STEPS = 128, 3
+# the teacher's logits on the card, TF32 convolutions (the teacher's
+# precision; the JAX teacher on the TPU runs its f32 convolutions as one
+# bf16 pass) vs the CPU's f32, on this many images, in max |d| over max
+# |ref|. On an NVIDIA H100 80GB HBM3 at 700 W: TF32 3.550e-4, full f32
+# 7.049e-7, the same weights with bf16 activations 2.752e-3. The limit sits
+# between TF32 and bf16, ~2.8x from each: TF32 passes, a teacher computing
+# in bf16 fails
+TEACHER_CPU_B, TEACHER_REL, TEACHER_COS = 4, 1e-3, 0.999
+# deit_sw_tiny_patch16_224: 4 buckets, tokens of bucket >= 2 pass the
+# router, 98 of 197 positions in the 11 mid blocks; every block's two LNs
+# are the plain-LN kernel (the blocks run unchained, as the JAX model's do)
+SW_MODEL, SW_BUCKETS, SW_THRESHOLD, SW_CAPACITY = ("deit_sw_tiny_patch16_224",
+                                                   4, 2, 98)
+SW_B, SW_STEPS = 128, 2
+PER_SW_FORWARD = {"fused_ln": 25, "fused_mha": 12}
+PER_SW_STEP = {**PER_SW_FORWARD, "fused_ln_bwd": 25, "fused_mha_bwd": 12}
+# sparse_deit_tiny_patch16_224: the search's L1 weight and steps, the
+# compress budgets; only the final norm is a kernel of the port
+SPARSE = "sparse_deit_tiny_patch16_224"
+SPARSE_B, SPARSE_STEPS, SPARSE_W = 16, 2, 2e-4
+SPARSE_BUDGETS = (0.5, 0.5, 0.5)
+PER_SPARSE_FORWARD = {"fused_ln": 1}
+PER_SPARSE_STEP = {**PER_SPARSE_FORWARD, "fused_ln_bwd": 1}
 
 
 def expected(per: dict, n: int) -> dict:
@@ -3585,6 +3656,549 @@ def zoo_phase(card: str, tmp: str) -> None:
     zoo_driver_runs(card)
 
 
+# ---------------------------------------------------------------------------
+# phase 19: fine-tuning and distillation through the driver, the switchable
+# and sparse ViTs, the profiler
+# ---------------------------------------------------------------------------
+
+def timm_state_dict(model) -> dict:
+    """A port ``VisionTransformer``'s weights under timm's names and
+    layouts, on the host: the patch GEMM's (D, p * p * C) weight as the
+    convolution's (D, C, p, p), ``pre_logits`` as ``pre_logits.fc``."""
+    out = {}
+    p = model.patch_embed.patch_size
+    for name, t in model.state_dict().items():
+        t = t.detach().float().cpu()
+        if name == "patch_embed.proj.weight":
+            t = t.reshape(t.shape[0], p, p, -1).permute(0, 3, 1, 2)
+        out[name.replace("pre_logits.", "pre_logits.fc.")] = t.contiguous()
+    return out
+
+
+def _distill_files(tmp: str) -> tuple:
+    """The seeded timm-format files of phase 19 (a): a regnety_160 teacher
+    and a deit_base_distilled student at 384 px (a 24 x 24 grid + 2
+    tokens)."""
+    import torch
+
+    teacher = _model_on_card(TEACHER, num_classes=1000)
+    t_path = os.path.join(tmp, "teacher.pth")
+    torch.save({"model": {k: v.cpu() for k, v in
+                          teacher.state_dict().items()}}, t_path)
+    student = _model_on_card(STUDENT, num_classes=1000,
+                             img_size=STUDENT_FILE_IMG)
+    s_path = os.path.join(tmp, "student.pth")
+    torch.save({"model": timm_state_dict(student)}, s_path)
+    del teacher, student
+    torch.cuda.empty_cache()
+    return t_path, s_path
+
+
+def distill_driver_run(card: str, tmp: str, t_path: str, s_path: str) -> None:
+    """(a) The DeiT distillation recipe through the driver as a process:
+    ``--finetune`` of the 384 px student, ``--distillation-type hard``
+    against the RegNetY-160 teacher, ``--async-checkpoint``, 4 steps at
+    B = 64 at the driver's default augmentation and mixup. The driver's
+    own ``finetune_from`` on the same file gives the file's weights, the
+    position embedding as ``resize_pos_embed`` gives it; ``--eval
+    --resume`` of the checkpoint restores the saved state bit for bit."""
+    import argparse
+    import re
+
+    import torch
+
+    from slim_switch_moe_vit_tpu_torch import config
+    from slim_switch_moe_vit_tpu_torch import main as driver
+    from slim_switch_moe_vit_tpu_torch.models.vit import resize_pos_embed
+    from slim_switch_moe_vit_tpu_torch.utils.checkpoint import \
+        restore_checkpoint
+
+    out = os.path.join(tmp, "out")
+    argv = DISTILL_DRIVER_ARGS + ["--finetune", s_path, "--teacher-path",
+                                  t_path, "--output_dir", out]
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "slim_switch_moe_vit_tpu_torch.main", *argv],
+        cwd=here, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    pace = re.search(r"(\d+) train steps in ([\d.]+) s \(([\d.]+) steps/s\)",
+                     proc.stdout)
+    loss = re.search(r"Averaged stats:.*loss: (\S+) \((\S+)\)", proc.stdout)
+    ckpt = os.path.join(out, "checkpoint")
+    if (proc.returncode != 0 or not pace or not loss
+            or int(pace.group(1)) != 4 or not os.path.exists(ckpt)
+            or not np.isfinite(float(loss.group(2)))
+            or f"Creating teacher model: {TEACHER}" not in proc.stdout):
+        raise AssertionError(f"distillation driver: exit {proc.returncode}\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    log(f"distillation driver (--model {STUDENT} --finetune <384 px .pth> "
+        f"--distillation-type hard --teacher-model {TEACHER} "
+        f"--async-checkpoint, B=64, default augmentation and mixup): exit 0, "
+        f"{pace.group(1)} train steps in {pace.group(2)} s ({pace.group(3)} "
+        f"steps/s, host clock, the first step's warm-up included), mean loss "
+        f"{loss.group(2)}, {wall:.1f} s for the whole process; card {card}")
+
+    # the driver's import of the file, in this process
+    model = _model_on_card(STUDENT, num_classes=1000)
+    driver.finetune_from(s_path, model)
+    sd = torch.load(s_path, weights_only=True)["model"]
+    got = model.state_dict()
+    grid = model.img_size // model.patch_embed.patch_size
+    want = dict(sd, pos_embed=resize_pos_embed(sd["pos_embed"], 2, grid))
+    pw = sd["patch_embed.proj.weight"]
+    want["patch_embed.proj.weight"] = pw.permute(0, 2, 3, 1).reshape(
+        pw.shape[0], -1)
+    diff = [n for n, t in got.items() if not torch.equal(t.cpu(), want[n])]
+    file_grid = STUDENT_FILE_IMG // model.patch_embed.patch_size
+    if diff or sd["pos_embed"].shape[1] != file_grid ** 2 + 2:
+        raise AssertionError(f"--finetune: {diff[:5]} differ from the file")
+    log(f"--finetune: {len(got)} tensors equal the file's, pos_embed "
+        f"{tuple(sd['pos_embed'].shape)} -> {tuple(got['pos_embed'].shape)} "
+        f"equal to resize_pos_embed's")
+    del model
+
+    # --eval --resume through the driver: the saved state, bit for bit
+    payload = torch.load(ckpt, weights_only=True)
+    args = argparse.ArgumentParser(parents=[config.get_args_parser()]) \
+        .parse_args(DISTILL_RESUME_ARGS + ["--resume", ckpt])
+    state = driver.main(args)
+    restore_checkpoint(ckpt, state)  # the moments, into its fresh optimizer
+    same = [torch.equal(t.cpu(), payload["model"][n])
+            for n, t in state.model.state_dict().items()]
+    same += [torch.equal(t.cpu(), payload["ema_params"][n])
+             for n, t in state.ema_params.items()]
+    saved = payload["optimizer"]["state"]
+    for i, st in state.optimizer.state_dict()["state"].items():
+        same += [torch.equal(st[k].cpu(), saved[i][k]) for k in st]
+    if not all(same) or state.step != payload["step"] or state.step != 4:
+        raise AssertionError(f"--resume: {same.count(False)} of {len(same)} "
+                             f"tensors differ, step {state.step}")
+    log(f"--eval --resume: {len(same)} tensors (parameters, EMA, moments) "
+        f"bit-identical to the asynchronous save, step {state.step}")
+    del state
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def cudnn_tf32(allow: bool):
+    """cuDNN's TF32 switch set to ``allow`` for the calls inside, restored
+    after. ``main`` turns TF32 off for the f32 references; the teacher runs
+    at its own precision, TF32, PyTorch's default, which the driver keeps.
+    (``torch.backends.cudnn.flags`` would also reset every cuDNN flag it is
+    not given, ``enabled`` among them.)"""
+    import torch
+
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = allow
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+def _teacher_on_card(t_path: str):
+    from slim_switch_moe_vit_tpu_torch.models.regnet import \
+        import_torch_regnet
+
+    return import_torch_regnet(t_path, _model_on_card(
+        TEACHER, num_classes=1000)).eval().requires_grad_(False)
+
+
+def distilled_steps(card: str, teacher, tmp: str) -> None:
+    """(b) The distilled DeiT-B step at B = 128 with the RegNetY-160
+    teacher: for ``hard`` and ``soft``, one step on the kernels and one on
+    the card's plain path from one seed and one set of teacher logits
+    (computed once), within XTRAIN's step-1 loss limit and gradient
+    cosine, launches exact and none in the teacher; the hard step at the driver's augmentation and
+    mixup by events and by kernel sum, the teacher's forward alone and its
+    share, the peak memory; (f) one step under ``utils/profiling.trace``."""
+    import torch
+
+    from slim_switch_moe_vit_tpu_torch import losses, ops, optim
+    from slim_switch_moe_vit_tpu_torch.engine import make_train_step
+    from slim_switch_moe_vit_tpu_torch.train_state import create_train_state
+    from slim_switch_moe_vit_tpu_torch.utils import profiling
+
+    from slim_switch_moe_vit_tpu_torch.data import (build_device_augment,
+                                                    make_mixup_fn)
+
+    base = _model_on_card(STUDENT, num_classes=1000, dtype=torch.bfloat16,
+                          drop_path_rate=0.1)
+    augment = build_device_augment(input_size=224, **DEIT_AUG)
+    mixup_fn = make_mixup_fn(num_classes=1000, **DEIT_MIX)
+    x8, y = _u8_batch(DISTILL_B, 16)
+    gen = torch.Generator("cuda").manual_seed(5)
+    xa, ysoft = mixup_fn(gen, augment(gen, x8), y)
+    def t_apply(images):
+        with cudnn_tf32(True):
+            return teacher(images)
+
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        t_logits = t_apply(xa)
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"the teacher launched {ops.launch_counts()}")
+    crit = losses.make_base_criterion(True, 0.1, False)
+    opt_init, opt_update = optim.make_optimizer(weight_decay=0.05)
+
+    def make(model, kind, teacher_apply, **kw):
+        state = create_train_state(model, device="cuda", seed=7,
+                                   opt_init=opt_init, use_ema=True)
+        return state, make_train_step(
+            model, opt_update, crit, distillation_type=kind, alpha=0.5,
+            tau=1.0, teacher_apply=teacher_apply, ema_decay=EMA_DECAY, **kw)
+
+    lim, cos_lim = XTRAIN_PAIRS[0][2][0][0], XTRAIN_PAIRS[0][2][1]
+    for kind in ("hard", "soft"):
+        runs = {}
+        for label in ("kernels", "plain"):
+            m = copy.deepcopy(base)
+            state, step = make(m, kind, lambda images: t_logits)
+            ops.reset_launch_counts()
+            ctx = (plain_versions() if label == "plain"
+                   else contextlib.nullcontext())
+            with ctx:
+                state, met = step(state, xa, ysoft, XTRAIN_LR, XTRAIN_LR)
+            want = (expected(PER_DEIT_STEP, 1) if label == "kernels"
+                    else expected({}, 1))
+            if ops.launch_counts() != want:
+                raise AssertionError(f"{kind} {label} step: launches "
+                                     f"{ops.launch_counts()}")
+            runs[label] = (met["loss"].item(), torch.cat(
+                [p.grad.detach().float().flatten() for p in m.parameters()]))
+            del m, state, step
+        (lk, gk), (lp, gp) = runs["kernels"], runs["plain"]
+        rel, cos = abs(lk - lp) / abs(lp), _cos(gk, gp)
+        log(f"{STUDENT} B={DISTILL_B} {kind} distillation step from one seed "
+            f"and one set of {TEACHER} logits, kernels vs the card's plain "
+            f"path: loss {lk:.5f} vs {lp:.5f} (rel {rel:.3e}, limit {lim}), "
+            f"gradient cosine {cos:.6f} (limit {cos_lim}); launches exact "
+            f"{PER_DEIT_STEP}, none in the teacher")
+        if rel > lim or cos < cos_lim or not np.isfinite(lk):
+            raise AssertionError(f"{kind} distillation step disagrees")
+        del runs, gk, gp
+
+    model = base
+    state, step = make(model, "hard", t_apply,
+                       augment_fn=augment, mixup_fn=mixup_fn)
+    state, _ = step(state, x8, y, LR, LR)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    losses_ = []
+
+    def steps():
+        nonlocal state
+        start.record()
+        for _ in range(DISTILL_STEPS):
+            state, met = step(state, x8, y, LR, LR)
+            losses_.append(met["loss"])
+        end.record()
+        end.synchronize()
+
+    _counted(steps, PER_DEIT_STEP, DISTILL_STEPS,
+             {"k5_k6": 12 * DISTILL_STEPS},
+             f"{STUDENT} hard distillation, {DISTILL_STEPS} steps "
+             f"B={DISTILL_B} (the teacher inside)")
+    losses_ = torch.stack(losses_).tolist()
+    if not all(np.isfinite(losses_)):
+        raise AssertionError(f"distillation losses {losses_}")
+    step_ms = start.elapsed_time(end) / DISTILL_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    by_name = profile_call(lambda: step(state, x8, y, LR, LR),
+                           f"one {STUDENT} hard distillation step "
+                           f"B={DISTILL_B}")
+    with torch.no_grad():
+        t_ms = median_ms(lambda: t_apply(xa), reps=5, warmup=1)
+    log(f"{STUDENT} hard distillation B={DISTILL_B} (the driver's "
+        f"augmentation and mixup, AdamW + EMA, {TEACHER} teacher in f32 with "
+        f"TF32 convolutions): losses {[round(v, 4) for v in losses_]}, "
+        f"{step_ms:.3f} ms a step on the device clock ({DISTILL_B / step_ms * 1e3:.1f} "
+        f"images/s), kernel sum {_kernel_ms(by_name):.3f} ms, peak memory "
+        f"allocated {peak:.2f} GiB; the teacher's forward alone {t_ms:.3f} ms "
+        f"= {t_ms / step_ms:.3f} of the step; card {card}")
+
+    # (f) one step under the port's profiler
+    log_dir = os.path.join(tmp, "trace")
+    with profiling.trace(log_dir):
+        step(state, x8, y, LR, LR)
+    rows = profiling.summarize_trace(log_dir, top=8)
+    if not rows or not any("mha_fwd" in r[2] for r in profiling.summarize_trace(
+            log_dir, top=10 ** 6)):
+        raise AssertionError(f"summarize_trace: {rows}")
+    log(f"utils/profiling.trace of one hard distillation step, "
+        f"summarize_trace's top rows (ms a step, launches, kernel):")
+    for ms, n, name in rows:
+        log(f"  {ms:9.3f} ms {n:5d}x  {name[:90]}")
+    del model, state, step, base
+    torch.cuda.empty_cache()
+    return xa[:TEACHER_CPU_B].float().cpu()
+
+
+def teacher_check(card: str, teacher, t_path: str, images) -> None:
+    """(c) The teacher's logits on the card (TF32 convolutions, the
+    teacher's precision) against the CPU f32 run of the same weights on
+    TEACHER_CPU_B augmented images: max |d| within TEACHER_REL of max
+    |ref|, cosine at least TEACHER_COS. Two controls from the same file:
+    the card in full f32 (printed), and the teacher built with bf16
+    activations, which must fall outside TEACHER_REL, so the limit tells
+    TF32 from a lower precision."""
+    import torch
+
+    from slim_switch_moe_vit_tpu_torch import create_model
+    from slim_switch_moe_vit_tpu_torch.models.regnet import \
+        import_torch_regnet
+
+    cpu = import_torch_regnet(t_path, create_model(TEACHER, num_classes=1000))
+    bf16 = import_torch_regnet(t_path, _model_on_card(
+        TEACHER, num_classes=1000, dtype=torch.bfloat16)).eval()
+    with torch.no_grad():
+        ref = cpu.eval()(images)
+        with cudnn_tf32(True):
+            got = teacher(images.cuda()).cpu()
+            low = bf16(images.cuda()).cpu()
+        with cudnn_tf32(False):
+            full = teacher(images.cuda()).cpu()
+    del bf16
+    top = ref.abs().max().item()
+    d, d32, d16 = ((t - ref).abs().max().item() for t in (got, full, low))
+    cos = min(_cos(a, b) for a, b in zip(got, ref))
+    log(f"{TEACHER} logits, card (TF32) vs CPU f32, {len(images)} images: max "
+        f"|d| {d:.4e} = {d / top:.3e} of max |ref| {top:.4e} (limit "
+        f"{TEACHER_REL}), min cosine {cos:.6f} (limit {TEACHER_COS}); "
+        f"controls: the card in full f32 {d32 / top:.3e}, bf16 activations "
+        f"{d16 / top:.3e} (must exceed the limit); top-1 agree "
+        f"{int((got.argmax(1) == ref.argmax(1)).sum())}/{len(images)}; card "
+        f"{card}")
+    if not torch.isfinite(got).all() or d > TEACHER_REL * top \
+            or cos < TEACHER_COS:
+        raise AssertionError("the teacher's logits on the card disagree")
+    if d16 <= TEACHER_REL * top:
+        raise AssertionError("TEACHER_REL passes the bf16-activation teacher")
+
+
+def _routed(model, threshold: int):
+    """``model`` (a switchable ViT) called in routing mode by the engine's
+    ``model(images, generator)``."""
+    import torch
+
+    class Routed(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.m = model
+
+        def forward(self, x, generator=None):
+            return self.m(x, generator, threshold=threshold, routing=True)
+
+    return Routed()
+
+
+def switchable_check(card: str) -> None:
+    """(d) deit_sw_tiny_patch16_224 with SW_BUCKETS buckets (centroids set
+    from pre-router tokens) and route_capacity SW_CAPACITY of 197: a routed
+    eval at B = 128 against the card's plain path within the serving limit,
+    launches and routes exact and N = SW_CAPACITY in the mid blocks; the
+    routed and unrouted evals by events; SW_STEPS routed training steps on
+    the kernels against the card's plain path from one seed (each step's
+    loss within XTRAIN's limit for it, the step-1 gradient within XTRAIN's
+    cosine), launches exact."""
+    import torch
+
+    from slim_switch_moe_vit_tpu_torch import ops
+    from slim_switch_moe_vit_tpu_torch.models import vit
+
+    base = _model_on_card(SW_MODEL, num_classes=1000, dtype=torch.bfloat16,
+                          buckets=SW_BUCKETS, route_capacity=SW_CAPACITY)
+    x, y = _batch(SW_B, 17, "cuda")
+    with torch.no_grad():
+        pre = base.forward_pre(x).float()
+    base.router.set_centroids(pre[[0, 1, 2, 3], [5, 60, 120, 190]])
+    model = base.eval()
+    routed = _routed(model, SW_THRESHOLD).eval()
+    seen = []
+    hooks = [blk.attn.register_forward_hook(
+        lambda mod, i, o: seen.append(i[0].shape[1])) for blk in model.blocks]
+
+    def forward():
+        with torch.inference_mode():
+            return routed(x)
+
+    got = _counted(forward, PER_SW_FORWARD, 1, {"k5": 12},
+                   f"{SW_MODEL} routed eval B={SW_B}")
+    for h in hooks:
+        h.remove()
+    _, sel = model.router(pre)
+    passing = (sel >= SW_THRESHOLD).sum(1).float()
+    if seen != [SW_CAPACITY] * 11 + [197]:
+        raise AssertionError(f"attention N per block {seen}")
+    _xcheck(got.float().cpu().numpy(), _plain_logits(routed, x),
+            f"{SW_MODEL} routed eval B={SW_B} vs the card's plain path "
+            f"(tokens passing the router per image: mean "
+            f"{passing.mean().item():.1f}, min {passing.min().item():.0f}, "
+            f"max {passing.max().item():.0f}; capacity {SW_CAPACITY})")
+    r_ms = median_ms(forward, reps=10)
+    with torch.inference_mode():
+        u_ms = median_ms(lambda: model(x), reps=10)
+    log(f"{SW_MODEL} eval B={SW_B}: routed {r_ms:.3f} ms (N={SW_CAPACITY} in "
+        f"the 11 mid blocks), unrouted {u_ms:.3f} ms, ratio "
+        f"{r_ms / u_ms:.3f}; card {card}")
+
+    runs = {}
+    for label in ("kernels", "plain"):
+        m = copy.deepcopy(base)
+        _, state, step = _train_setup(torch.bfloat16, "cuda",
+                                      _routed(m, SW_THRESHOLD))
+        ctx = plain_versions() if label == "plain" else contextlib.nullcontext()
+        losses_, grads = [], []
+
+        def steps():
+            nonlocal state
+            for _ in range(SW_STEPS):
+                state, met = step(state, x, y, XTRAIN_LR, XTRAIN_LR)
+                losses_.append(met["loss"].item())
+                if not grads:  # step 1's gradient
+                    grads.append(torch.cat([
+                        (p.grad if p.grad is not None else
+                         torch.zeros_like(p)).detach().float().flatten()
+                        for p in m.parameters()]))
+
+        with ctx:
+            if label == "kernels":
+                _counted(steps, PER_SW_STEP, SW_STEPS, {"k5_k6": 12 * SW_STEPS},
+                         f"{SW_MODEL} routed train, {SW_STEPS} steps B={SW_B}")
+            else:
+                ops.reset_launch_counts()
+                steps()
+                if any(ops.launch_counts().values()):
+                    raise AssertionError(f"plain path launched "
+                                         f"{ops.launch_counts()}")
+        runs[label] = (losses_, grads[0])
+        del m, state, step
+    (lk, gk), (lp, gp) = runs["kernels"], runs["plain"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(lk, lp)]
+    lim, cos_lim = XTRAIN_PAIRS[0][2][0][:SW_STEPS], XTRAIN_PAIRS[0][2][1]
+    cos = _cos(gk, gp)
+    log(f"{SW_MODEL} routed training, kernels vs the card's plain path from "
+        f"one seed: losses {[round(v, 5) for v in lk]} vs "
+        f"{[round(v, 5) for v in lp]} (rel per step "
+        f"{[float(f'{r:.3e}') for r in rel]}, limits {list(lim)}), step-1 "
+        f"gradient cosine {cos:.6f} (limit {cos_lim})")
+    if (any(r > t for r, t in zip(rel, lim)) or cos < cos_lim
+            or not all(np.isfinite(lk))):
+        raise AssertionError("switchable routed training disagrees")
+    del base, model, routed
+    torch.cuda.empty_cache()
+
+
+def _sparse_search(device: str, base, x, y) -> tuple:
+    """SPARSE_STEPS search steps (label-smoothed CE + SPARSE_W x the L1
+    zeta loss, AdamW) and compress at SPARSE_BUDGETS, in f32 on
+    ``device``; returns (model, losses, launches)."""
+    import torch
+
+    from slim_switch_moe_vit_tpu_torch import losses, ops
+    from slim_switch_moe_vit_tpu_torch.models import sparse
+
+    m = copy.deepcopy(base).to(device)
+    opt = torch.optim.AdamW(m.parameters(), lr=XTRAIN_LR, weight_decay=0.0,
+                            foreach=False)
+    crit = losses.make_base_criterion(False, 0.1, False)
+    x, y = x.to(device), y.to(device)
+    ops.reset_launch_counts()
+    out = []
+    for _ in range(SPARSE_STEPS):
+        m.train()
+        opt.zero_grad()
+        loss = crit(m(x, torch.Generator(device)), y) + SPARSE_W * sum(
+            sparse.get_sparsity_loss(m))
+        loss.backward()
+        opt.step()
+        out.append(loss.item())
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    sparse.compress(m, *SPARSE_BUDGETS)
+    return m, out, launches
+
+
+def sparse_check(card: str) -> None:
+    """(e) sparse_deit_tiny_patch16_224 (N = 197) in f32 with its zetas
+    spread over [0, 1) (the JAX golden test's jittered init, seeded):
+    SPARSE_STEPS search steps and compress at SPARSE_BUDGETS on the card
+    and on the CPU from the same weights and batch; every searched mask
+    equal element for element; the compressed forward on the card; the
+    remaining fractions and the FLOP counts."""
+    import torch
+
+    from slim_switch_moe_vit_tpu_torch import create_model, ops
+    from slim_switch_moe_vit_tpu_torch.models import sparse
+    from slim_switch_moe_vit_tpu_torch.ops import flops
+
+    base = create_model(SPARSE, num_classes=1000)
+    rng = np.random.RandomState(5)
+    with torch.no_grad():
+        for _, mod, _ in sparse.sparse_modules(base):
+            for p in (mod.zeta, getattr(mod, "patch_zeta", None)):
+                if p is not None:
+                    p.copy_(torch.from_numpy(rng.rand(*p.shape).astype(
+                        np.float32)))
+    x, y = _batch(SPARSE_B, 18, "cpu")
+    card_m, card_losses, launches = _sparse_search("cuda", base, x, y)
+    if launches != {k: v * SPARSE_STEPS for k, v in PER_SPARSE_STEP.items()}:
+        raise AssertionError(f"{SPARSE} launches {launches}")
+    cpu_m, cpu_losses, _ = _sparse_search("cpu", base, x, y)
+    masks = [n for n in cpu_m.state_dict() if "searched" in n]
+    differ = [n for n in masks if not torch.equal(
+        card_m.state_dict()[n].cpu(), cpu_m.state_dict()[n])]
+    kept = sum(int(cpu_m.state_dict()[n].sum()) for n in masks)
+    total = sum(cpu_m.state_dict()[n].numel() for n in masks)
+    log(f"{SPARSE} search, {SPARSE_STEPS} steps B={SPARSE_B} f32: losses card "
+        f"{[round(v, 6) for v in card_losses]}, CPU "
+        f"{[round(v, 6) for v in cpu_losses]}; launches {launches} (the "
+        f"final norm's; the sparse blocks keep plain norms and attention); "
+        f"compress at {SPARSE_BUDGETS}: {len(masks)} masks, {kept} of {total} "
+        f"entries kept, {len(differ)} differing from the CPU's")
+    if differ or not 0 < kept < total:
+        raise AssertionError(f"sparse masks differ: {differ[:5]}")
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        logits = card_m.eval()(x.cuda())
+    if (logits.shape != (SPARSE_B, 1000) or not torch.isfinite(logits).all()
+            or {k: v for k, v in ops.launch_counts().items() if v}
+            != PER_SPARSE_FORWARD):
+        raise AssertionError(f"compressed forward: {tuple(logits.shape)}, "
+                             f"launches {ops.launch_counts()}")
+    ra, rm, rp = sparse.get_remaining(card_m, 197)
+    attn = [b.attn for b in card_m.blocks]
+    f_total = f_active = 0.0
+    for a in attn:
+        t, act = sparse.sparse_attention_flops(
+            192, 3, a.searched_zeta.cpu().numpy(), 197,
+            float(a.searched_patch_zeta.sum()))
+        f_total, f_active = f_total + t, f_active + act
+    counted = flops.cost_analysis(cpu_m.eval(), x[:1])["flops"]
+    log(f"{SPARSE} compressed: remaining attention {ra:.4f}, MLP {rm:.4f}, "
+        f"patches {rp:.4f}; attention FLOPs a forward (one image, analytic) "
+        f"{f_active:.4e} of {f_total:.4e}; the dense ViT-tiny's analytic "
+        f"{flops.vit_flops(1, 224, 16, 192, 12):.4e}, counted by "
+        f"FlopCounterMode on the CPU (the masked products included) "
+        f"{counted:.4e}; card {card}")
+    del card_m, cpu_m, base
+    torch.cuda.empty_cache()
+
+
+def distill_phase(card: str, tmp: str) -> None:
+    """Phase 19, (a) to (f)."""
+    t0 = time.perf_counter()
+    t_path, s_path = _distill_files(tmp)
+    log(f"[phase 19 files written in {time.perf_counter() - t0:.1f} s]")
+    distill_driver_run(card, tmp, t_path, s_path)
+    teacher = _teacher_on_card(t_path)
+    images = distilled_steps(card, teacher, tmp)
+    teacher_check(card, teacher, t_path, images)
+    del teacher
+    switchable_check(card)
+    sparse_check(card)
+
+
 def main() -> int:
     import torch
 
@@ -3667,6 +4281,13 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_done("zoo phase (cfg1, DeiT-B, distilled, ViT-L in21k, driver)")
+    tmp = tempfile.mkdtemp(prefix="ssmv_distill_")
+    try:
+        distill_phase(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_done("distillation phase (driver, DeiT-B + RegNetY-160, "
+               "switchable, sparse)")
 
     # launches: K1a-K6 in the 10 training steps of phase 6, which run all
     # ten (the serving run's counts are checked in serving_phase); K7 in the

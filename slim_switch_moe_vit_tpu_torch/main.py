@@ -10,7 +10,15 @@ on the task's, ``log.txt`` and the plateau sidecar; ``--eval`` and
 
 The run is on ``--device`` (``cuda`` unless ``cpu`` is passed; without a
 GPU it raises, never falling back). Flags whose machinery is not ported yet
-raise ``NotImplementedError`` naming the ROADMAP item that ports it.
+(the optimizer surface, the dropless modes under expert parallelism) raise
+``NotImplementedError`` naming the ROADMAP item that ports it.
+
+``--finetune`` loads a DeiT / timm ``.pth`` (or a jax-ViT ``.npz``) into
+the fresh model before its optimizer is made; ``--distillation-type
+soft|hard`` trains a ``*_distilled`` student against ``--teacher-model``
+(``regnety_160`` by default) with ``--teacher-path``'s weights, the teacher
+seeing the batch after the augmentation and mixup; ``--async-checkpoint``
+writes each checkpoint on a background thread.
 
 Data and expert parallelism (JAX :141-155): the ranks join the process
 group the environment describes (``parallel.init_distributed_mode``:
@@ -68,10 +76,14 @@ from .models.gates import (
     gate_paths,
 )
 from .train_state import create_train_state
+from .models.regnet import import_torch_regnet
 from .utils.checkpoint import (
+    import_flax_npz,
+    import_torch_checkpoint,
     load_checkpoint_sched,
     restore_checkpoint,
     save_checkpoint,
+    wait_for_checkpoints,
 )
 from .utils.device import resolve_device
 from .utils.logging import TensorboardTracker, append_log_stats
@@ -85,17 +97,10 @@ def _dtype(args) -> torch.dtype:
 def _refuse_unported(args) -> None:
     """Raise for every asked-for feature whose machinery is not ported."""
     refused = []
-    if args.distillation_type != "none":
-        refused.append(("--distillation-type", "Queue 1 #5 (the RegNet "
-                        "teacher)"))
-    if args.finetune:
-        refused.append(("--finetune", "Queue 1 #4 (the .pth importer)"))
     if args.expert_parallel > 1 and args.moe_dispatch in ("fused", "ragged",
                                                           "dense"):
         refused.append(("--expert-parallel with a dropless --moe-dispatch",
                         "Queue 1 #7 (parallelism)"))
-    if args.async_checkpoint:
-        refused.append(("--async-checkpoint", "Queue 1 #4 (checkpoints)"))
     if args.opt != "adamw" or args.attn_only or (args.clip_grad or 0) > 0:
         refused.append(("--opt other than adamw, --attn-only, --clip-grad",
                         "Queue 1 #6 (optimizer surface)"))
@@ -103,6 +108,41 @@ def _refuse_unported(args) -> None:
         raise NotImplementedError(
             "not ported yet: " + "; ".join(f"{f} (ROADMAP {item})"
                                            for f, item in refused))
+
+
+def finetune_from(path: str, model) -> None:
+    """Load foreign weights into the freshly built ``model`` (JAX main.py
+    :198-201): an ``.npz`` through ``import_flax_npz``, anything else as a
+    DeiT / timm ``.pth`` through ``import_torch_checkpoint``."""
+    print(f"Finetuning from {path}")
+    if str(path).endswith(".npz"):
+        import_flax_npz(path, model)
+    else:
+        import_torch_checkpoint(path, model)
+
+
+def build_teacher(args, nb_classes: int):
+    """The distillation teacher (JAX main.py:213-241): the registered
+    ``--teacher-model`` in f32 with ``--teacher-path``'s weights (timm's
+    RegNet names for a ``regnet*`` model, a DeiT ``.pth`` otherwise),
+    frozen, in eval mode, on ``--device``. Returns ``teacher_apply(images)
+    -> logits``."""
+    print(f"Creating teacher model: {args.teacher_model}")
+    teacher = create_model(args.teacher_model, num_classes=nb_classes,
+                           img_size=args.input_size)
+    if "regnet" in args.teacher_model:
+        import_torch_regnet(args.teacher_path, teacher)
+    else:
+        import_torch_checkpoint(args.teacher_path, teacher)
+    teacher = teacher.to(resolve_device(args.device)).eval()
+    teacher.requires_grad_(False)
+
+    def teacher_apply(images: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            return teacher(images.float())
+
+    teacher_apply.model = teacher
+    return teacher_apply
 
 
 def build_model(args, nb_classes: int, seed: int):
@@ -202,6 +242,9 @@ def main(args):
         raise ValueError(f"--sched {args.sched!r} is not implemented; "
                          f"supported: {optim.SUPPORTED_SCHEDULERS}")
     _refuse_unported(args)
+    if args.distillation_type != "none" and not args.teacher_path:
+        raise ValueError("need to specify teacher-path when using "
+                         "distillation")
     resolve_device(args.device)
     init_distributed_mode(args)
     print(args)
@@ -227,6 +270,8 @@ def main(args):
 
     print(f"Creating model: {args.model}")
     model = build_model(args, nb_classes, args.seed)  # the same on every rank
+    if args.finetune:
+        finetune_from(args.finetune, model)
     if mesh.n_data * mesh.n_expert > 1:
         shard_params(model, mesh)
 
@@ -253,8 +298,14 @@ def main(args):
                          args.unscale_lr)
     base_criterion = losses.make_base_criterion(mix_on, args.smoothing,
                                                 args.bce_loss)
+    teacher_apply = None
+    if args.distillation_type != "none":
+        teacher_apply = build_teacher(args, nb_classes)
     train_step_pre = engine.make_train_step(
         model, opt_update, base_criterion,
+        distillation_type=args.distillation_type,
+        alpha=args.distillation_alpha, tau=args.distillation_tau,
+        teacher_apply=teacher_apply,
         ema_decay=args.model_ema_decay if args.model_ema else None,
         moe_balance_weight=args.moe_balance_weight, mixup_fn=mixup_fn,
         bce_loss=args.bce_loss, augment_fn=device_augment,
@@ -380,7 +431,7 @@ def main(args):
                     extra["sched"] = sched.state_dict()
                 save_checkpoint(str(output_dir / "checkpoint"), state, epoch,
                                 extra=extra, is_main=is_main_process(),
-                                mesh=mesh)
+                                mesh=mesh, use_async=args.async_checkpoint)
             if mesh.n_data * mesh.n_expert > 1:
                 print(f"dense parameters bit-identical over "
                       f"{mesh.n_data * mesh.n_expert} rank(s), digest "
@@ -415,7 +466,8 @@ def main(args):
                 if output_dir:
                     save_checkpoint(str(output_dir / "best_checkpoint"),
                                     state, epoch, extra={"args": vars(args)},
-                                    is_main=is_main_process(), mesh=mesh)
+                                    is_main=is_main_process(), mesh=mesh,
+                                    use_async=args.async_checkpoint)
             print(f"Max accuracy: {max_accuracy:.2f}%")
             if writer:
                 writer.log_scalar("max_acc", max_accuracy, epoch)
@@ -441,6 +493,7 @@ def main(args):
         last_task_end = current_task_end
         start_epoch = 0  # the resume offset applies to the first task only
 
+    wait_for_checkpoints()  # asynchronous saves land before the exit
     total_time = time.time() - start_time
     print("Training time {}".format(
         str(datetime.timedelta(seconds=int(total_time)))))

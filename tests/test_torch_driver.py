@@ -290,13 +290,14 @@ def test_driver_trains_with_capacity_dispatch(tmp_path):
 
 
 @pytest.mark.parametrize("flags,error,match", [
-    (["--distillation-type", "hard"], NotImplementedError,
-     "ROADMAP Queue 1 #5"),
+    (["--clip-grad", "1.0"], NotImplementedError, "ROADMAP Queue 1 #6"),
     (["--opt", "sgd"], NotImplementedError, "ROADMAP Queue 1 #6"),
     (["--opt", "bogus"], ValueError, "not implemented"),
-    (["--async-checkpoint"], NotImplementedError, "ROADMAP Queue 1 #4"),
-    (["--finetune", "x.pth"], NotImplementedError, "ROADMAP Queue 1 #4"),
+    (["--attn-only"], NotImplementedError, "ROADMAP Queue 1 #6"),
+    (["--moe-dispatch", "fused", "--expert-parallel", "2"],
+     NotImplementedError, "ROADMAP Queue 1 #7"),
     (["--expert-parallel", "2"], NotImplementedError, "ROADMAP Queue 1 #7"),
+    (["--distillation-type", "hard"], ValueError, "teacher-path"),
 ])
 def test_driver_refuses_what_is_not_ported(flags, error, match):
     with pytest.raises(error, match=match):

@@ -8,6 +8,8 @@ run on a GPU host without JAX:
 On a CPU-only host those skip, and the CPU tests check that a CPU tensor
 takes the plain version and counts no launch.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -1200,3 +1202,199 @@ def test_gather_scatter_refuse_what_they_do_not_take(cuda):
         gops.gather_rows(x.float(), idx.to(torch.int16))
     with pytest.raises(ValueError):  # idx one per row of g
         gops.scatter_add_rows(torch.zeros(5, 8, device=cuda), idx, 10)
+
+
+# ---------------------------------------------------------------------------
+# on the card: the switchable and sparse ViTs, the RegNet teacher, the
+# asynchronous checkpoint and the profiler
+# ---------------------------------------------------------------------------
+
+def _sw_model(device, dtype=torch.float32):
+    """deit_sw_tiny at 64 px (N = 17), 4 buckets with centroids from the
+    pre-router tokens, route_capacity 8; seed-0 weights."""
+    from slim_switch_moe_vit_tpu_torch import create_model
+
+    m = create_model("deit_sw_tiny_patch16_224", num_classes=10, img_size=64,
+                     buckets=4, route_capacity=8, dtype=dtype).to(device)
+    x = _rand(np.random.RandomState(30), 4, 64, 64, 3, device=device)
+    with torch.no_grad():
+        pre = m.forward_pre(x).float().reshape(-1, 192)
+    m.router.set_centroids(pre[[1, 20, 40, 66]])
+    return m, x
+
+
+@pytest.mark.cuda
+def test_switchable_routed_forward_and_step_on_the_kernels(cuda):
+    """deit_sw_tiny routed (threshold 1, capacity 8 of 17) in f32 on the
+    card: the 11 mid blocks see N = 8, every block runs its two LNs on K1a
+    and its attention on K5 (K1c and K6 added by the backward), the logits
+    within 1e-4 + 1e-4 |ref| of the CPU plain path's, and every parameter's
+    gradient of the routed backward within 1e-4 of its max |ref| of the
+    CPU plain path's (the same f32 function, summed in other orders)."""
+    from slim_switch_moe_vit_tpu_torch.models import vit
+
+    m, x = _sw_model(cuda)
+    seen = []
+    hooks = [blk.attn.register_forward_hook(
+        lambda mod, i, o: seen.append(i[0].shape[1])) for blk in m.blocks]
+    ops.reset_launch_counts()
+    vit.ROUTE_COUNTS.clear()
+    with torch.no_grad():
+        got = m.eval()(x, threshold=1, routing=True)
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    assert counts == {"fused_ln": 25, "fused_mha": 12}
+    assert dict(vit.ROUTE_COUNTS) == {"k5": 12}
+    assert seen == [8] * 11 + [17]
+    for h in hooks:
+        h.remove()
+    cpu = _sw_model("cpu")[0]
+    cpu.load_state_dict({k: v.cpu() for k, v in m.state_dict().items()})
+    with torch.no_grad():
+        want = cpu.eval()(x.cpu(), threshold=1, routing=True)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    ops.reset_launch_counts()
+    m.train()
+    m(x, torch.Generator(cuda), threshold=1, routing=True).sum().backward()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    assert counts == {"fused_ln": 25, "fused_mha": 12, "fused_ln_bwd": 25,
+                      "fused_mha_bwd": 12}
+    cpu.train()
+    cpu(x.cpu(), torch.Generator(), threshold=1,
+        routing=True).sum().backward()
+    worst = {}
+    for (name, p), q in zip(m.named_parameters(), cpu.parameters()):
+        assert (p.grad is None) == (q.grad is None), name
+        if q.grad is not None:
+            worst[name] = ((p.grad.cpu() - q.grad).abs().max()
+                           / q.grad.abs().max().clamp_min(1e-30)).item()
+    assert max(worst.values()) <= 1e-4, sorted(
+        worst.items(), key=lambda kv: -kv[1])[:5]
+
+
+@pytest.mark.cuda
+def test_sparse_model_launches_only_its_final_norm(cuda):
+    """sparse_deit_tiny at 32 px on the card: the sparse blocks keep plain
+    norms and their own attention, so a forward launches only the final
+    norm's K1a and a backward its K1c; the logits within 1e-4 + 1e-4 |ref|
+    of the CPU's; compress gives the CPU's masks."""
+    from slim_switch_moe_vit_tpu_torch import create_model
+    from slim_switch_moe_vit_tpu_torch.models import sparse
+
+    cpu = create_model("sparse_deit_tiny_patch16_224", num_classes=10,
+                       img_size=32)
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(3)
+        for _, mod, _ in sparse.sparse_modules(cpu):
+            mod.zeta.copy_(torch.rand(mod.zeta.shape, generator=g))
+    m = create_model("sparse_deit_tiny_patch16_224", num_classes=10,
+                     img_size=32).to(cuda)
+    m.load_state_dict(cpu.state_dict())
+    x = _rand(np.random.RandomState(31), 8, 32, 32, 3)
+    ops.reset_launch_counts()
+    m.train()
+    out = m(x.to(cuda), torch.Generator(cuda))
+    out.sum().backward()
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    assert counts == {"fused_ln": 1, "fused_ln_bwd": 1}
+    torch.testing.assert_close(out.detach().cpu(), cpu.train()(x).detach(),
+                               atol=1e-4, rtol=1e-4)
+    assert sparse.compress(m, 0.5, 0.5, 0.5) == sparse.compress(cpu, 0.5,
+                                                                0.5, 0.5)
+    for name, t in cpu.state_dict().items():
+        if "searched" in name:
+            assert torch.equal(m.state_dict()[name].cpu(), t), name
+
+
+@contextlib.contextmanager
+def _cudnn_tf32(allow):
+    """cuDNN's TF32 switch set to ``allow`` inside, restored after (the
+    ``cuda`` fixture turns it off)."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = allow
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+# regnety_040's eval logits at 64 px on the card vs the CPU f32, in max |d|
+# over max |ref|: TF32 convolutions (the teacher's precision) within this,
+# the same weights with bf16 activations outside it (NVIDIA H100 80GB HBM3
+# at 700 W: TF32 3.781e-4, bf16 5.287e-3, full f32 5.587e-7); the limit of
+# chip_smoke.py's TEACHER_REL
+REGNET_TF32_REL = 1e-3
+
+
+@pytest.mark.cuda
+def test_regnet_on_the_card_matches_the_cpu(cuda):
+    """regnety_040 at 64 px, f32: eval logits in TF32 (PyTorch's default,
+    the teacher's precision) within REGNET_TF32_REL of max |ref| of the CPU
+    f32 logits, the bf16-activation model of the same weights outside it,
+    in full f32 within 1e-4 of it; train-mode running statistics in full
+    f32 within 1e-4 + 1e-4 |ref|; no kernel of the port launched; the
+    channels-last weights."""
+    from slim_switch_moe_vit_tpu_torch import create_model
+
+    cpu = create_model("regnety_040", num_classes=10)
+    m = create_model("regnety_040", num_classes=10).to(cuda)
+    low = create_model("regnety_040", num_classes=10,
+                       dtype=torch.bfloat16).to(cuda)
+    low.load_state_dict(m.state_dict())
+    assert m.stem.conv.weight.is_contiguous(
+        memory_format=torch.channels_last)
+    x = _rand(np.random.RandomState(32), 4, 64, 64, 3)
+    with torch.no_grad():
+        want = cpu.eval()(x)
+        ops.reset_launch_counts()
+        with _cudnn_tf32(True):
+            tf32 = m.eval()(x.to(cuda)).cpu()
+            bf16 = low.eval()(x.to(cuda)).cpu()
+        assert not any(ops.launch_counts().values())
+        full = m(x.to(cuda)).cpu()
+        ref = want.abs().max()
+        rel = [((t - want).abs().max() / ref).item()
+               for t in (tf32, bf16, full)]
+        assert rel[0] <= REGNET_TF32_REL < rel[1], rel
+        assert rel[2] <= 1e-4, rel
+        m.train()(x.to(cuda))
+        cpu.train()(x)
+    for name, t in cpu.state_dict().items():
+        if "running" in name:
+            torch.testing.assert_close(m.state_dict()[name].cpu(), t,
+                                       atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_async_checkpoint_snapshots_a_cuda_state(cuda, tmp_path):
+    """An asynchronous save of a state on the card holds the values of the
+    call, not the values a later in-place update leaves."""
+    from slim_switch_moe_vit_tpu_torch.train_state import create_train_state
+    from slim_switch_moe_vit_tpu_torch.utils import checkpoint
+
+    model = torch.nn.Linear(256, 256)
+    state = create_train_state(model, device="cuda")
+    before = model.weight.detach().cpu().clone()
+    checkpoint.save_checkpoint(str(tmp_path / "ckpt"), state, 0,
+                               use_async=True)
+    with torch.no_grad():
+        model.weight.add_(1.0)
+    checkpoint.wait_for_checkpoints()
+    saved = torch.load(tmp_path / "ckpt", weights_only=True)
+    assert torch.equal(saved["model"]["weight"], before)
+
+
+@pytest.mark.cuda
+def test_profiling_trace_reads_the_card_kernels(cuda, tmp_path):
+    """``trace`` around a bf16 K5 call: ``summarize_trace`` lists its
+    kernel, one launch a call."""
+    from slim_switch_moe_vit_tpu_torch.utils import profiling
+
+    qkv = _rand(np.random.RandomState(33), 2, 197, 3 * 384,
+                dtype=torch.bfloat16, device=cuda)
+    attn_ops.fused_mha(qkv, 6, 0.125)
+    with profiling.trace(str(tmp_path)):
+        for _ in range(3):
+            attn_ops.fused_mha(qkv, 6, 0.125)
+    rows = profiling.summarize_trace(str(tmp_path), steps=3)
+    mha = [r for r in rows if "mha_fwd" in r[2]]
+    assert len(mha) == 1 and mha[0][1] == 3 and mha[0][0] > 0

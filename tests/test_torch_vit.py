@@ -179,7 +179,9 @@ def test_port_imports_neither_jax_nor_flax():
         "             'data.loader', 'data.transforms', 'data.device_aug',\n"
         "             'data.mixup', 'data.native_loader', 'models.zoo',\n"
         "             'models.gates', 'ops.fused_adamw', 'utils.memory',\n"
-        "             'utils.logging'):\n"
+        "             'utils.logging', 'models.regnet', 'models.switchable',\n"
+        "             'models.sparse', 'ops.flops', 'utils.profiling',\n"
+        "             'utils.checkpoint'):\n"
         "    assert p.__name__ + '.' + name in sys.modules, name\n"
         "print('clean', len(sys.modules))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -104,7 +104,10 @@ Phases (any failure propagates and the script exits non-zero):
     of cfg4's a2a form (16,384 rows a rank, 64 steps over 2 experts, a
     permutation that is not the identity), timed beside their bounds; (b)
     one MoE layer (T = 25,216) on 4 ranks in the psum, a2a relayout, a2a
-    K10 and sharded 'capacity' forms, against the single-rank
+    K10 and sharded 'capacity' forms and the dropless 'fused' form (the
+    experts gathered on every rank; K3/K4 once a rank; y, dx and every
+    gradient bit-identical to the single-rank 'fused' layer: phase 20 (d)),
+    against the single-rank
     ``capacity_fused`` at factor 2.0 (no drops; y, dx, dW within the
     kernel limits), and the two a2a forms against each other at 1.25;
     (c) cfg4's step at ep=4 in the relayout and K10 forms, ``EP_STEPS``
@@ -209,8 +212,28 @@ Phases (any failure propagates and the script exits non-zero):
     ``get_remaining`` and the FLOP counts; (f) one distillation step under
     ``utils/profiling.trace``, ``summarize_trace``'s top rows.
 
+20. The optimizer surface, ``expert_choice``, expert dropout, the dropless
+    modes under expert parallelism and a gated artifact (``surface_phase``;
+    each part prints its time beside the card's name and power limit): (a)
+    the f32 gradients of one kernel step of the flagship at B = 32, and
+    every ``--opt`` name's two steps from them on the card and on the CPU,
+    every parameter within ``OPT_REL`` of its leaf's largest |ref| plus
+    ``OPT_LR_SLACK`` lr; the driver with ``--opt lamb --clip-grad 1.0``
+    (its checkpoint restored bit for bit, then ``--resume``) and with
+    ``--finetune`` of a timm-format DeiT-S file and ``--attn-only`` (every
+    frozen parameter bit-identical to the file's); (b) the flagship with
+    ``--moe-dispatch expert_choice``: an eval at B = 32 against the card's
+    plain path within the serving limit (f32, and bf16 with the expert
+    choices imposed, ``pinned_expert_choice``) and 2 training steps within
+    XTRAIN's limits, launches exact; (c) ``--drop 0.1``: a training step
+    routed to ``'ragged'``, its loss finite, the kept share of the hidden
+    activations within 5 binomial standard deviations of 0.9; (d) in the
+    EP phase (12 (b)); (e) ``resmoe_small_patch16_224_expert8`` with its
+    gates' eval targets lowered to 0.3, exported and served: a positive
+    share of tokens skipped, the served logits held to the eval.
+
 Each attention forward's route (``models/vit.py::attention_route``) is
-counted in ``ROUTE_COUNTS``; phases 14, 16, 18 and 19 assert it.
+counted in ``ROUTE_COUNTS``; phases 14, 16, 18, 19 and 20 assert it.
 
 The kernel phase (2) also holds K7 (the fused AdamW + EMA over every
 parameter of the ResMoE model) and K11 (the flash forward, at N = 197 and
@@ -540,6 +563,25 @@ SPARSE_B, SPARSE_STEPS, SPARSE_W = 16, 2, 2e-4
 SPARSE_BUDGETS = (0.5, 0.5, 0.5)
 PER_SPARSE_FORWARD = {"fused_ln": 1}
 PER_SPARSE_STEP = {**PER_SPARSE_FORWARD, "fused_ln_bwd": 1}
+# phase 20, the optimizer surface, expert_choice, expert dropout and a
+# gated artifact: the optimizers' f32 gradients from one kernel step of the
+# flagship at B=32, SURF_STEPS steps at SURF_LR on the card and on the CPU
+# from the same parameters and gradients, every parameter within OPT_REL of
+# its leaf's largest |ref| plus OPT_LR_SLACK lr (the limit of the CPU
+# parity tests against the JAX package, tests/test_torch_optim_surface.py:
+# the same f32 math in other orders); the driver runs at B=32, 2 steps an
+# epoch; the flagship's moe_small and the distilled recipe's DeiT-S
+SURF_B, SURF_EVAL_B, SURF_STEPS, SURF_LR = 32, 8, 2, 1e-3
+OPT_REL, OPT_LR_SLACK = 1e-6, 1e-4
+SURF_DRIVER_STEPS = 2
+SURF_DRIVER_ARGS = ["--data-set", "SYNTH", "--synth-size", "256",
+                    "--batch-size", str(SURF_B), "--epochs", "1",
+                    "--max-steps-per-epoch", str(SURF_DRIVER_STEPS),
+                    "--warmup-epochs", "0", "--no-repeated-aug", "--mixup",
+                    "0", "--cutmix", "0", "--aa", "", "--color-jitter", "0",
+                    "--reprob", "0", "--num_workers", "2"]
+DEIT_SMALL = "deit_small_patch16_224"
+EC_STEPS, DROP_RATE, GATED_TARGET = 2, 0.1, 0.3
 
 
 def expected(per: dict, n: int) -> dict:
@@ -2306,10 +2348,13 @@ def _read_ranks(out: str, n: int) -> tuple:
 def ep_layer_check(card: str, tmp: str) -> None:
     """One MoE layer (T = 25,216 tokens, D 384, H 1536, E 8, top-2) on
     EP_RANKS ranks sharing the card (dp 1), bf16 activations, in the psum,
-    a2a relayout, a2a permuted (K10) and sharded 'capacity' forms: at
+    a2a relayout, a2a permuted (K10) and sharded 'capacity' forms and the
+    dropless 'fused' form (the experts gathered on every rank): at
     factor 2.0 (nothing drops) each against the single-rank
     ``capacity_fused`` on the same tokens (y elementwise within the kernel
-    limit, dx, dW1 and dW2 within SUM_REL of max |ref|); at factor 1.25,
+    limit, dx, dW1 and dW2 within SUM_REL of max |ref|), and the 'fused'
+    form bit for bit against the single-rank dropless 'fused' layer (y,
+    dx and every parameter's gradient); at factor 1.25,
     with a router skewed past the capacity, the two a2a forms against each
     other (the same drops, more than a tenth of the pairs; y within the
     kernel limit). Each rank's expert-FFN launches are exact."""
@@ -2337,7 +2382,7 @@ def ep_layer_check(card: str, tmp: str) -> None:
     os.makedirs(out)
     path = os.path.join(out, "in.npz")
     np.savez(path, top_k=2, **data)
-    runs = [(f, 2.0) for f in EP_LAYER_FORMS] + [
+    runs = [(f, 2.0) for f in EP_LAYER_FORMS + ("fused",)] + [
         (f, CAP_FACTOR, "router_b_skewed") for f in ("a2a", "a2a_perm")]
     t0 = time.perf_counter()
     launch.spawn(launch.moe_layer_worker, EP_RANKS,
@@ -2359,7 +2404,16 @@ def ep_layer_check(card: str, tmp: str) -> None:
     if aux["drop_fraction"].item() != 0.0:
         raise AssertionError("the single-rank reference drops pairs at 2.0")
     want = (y.detach(), x.grad, params["w1"].grad, params["w2"].grad)
+    # the single-rank dropless 'fused' layer on the same tokens: the
+    # gathered form's ranks run the same kernels on the same inputs
+    xd = x.detach().clone().requires_grad_()
+    pd = {k: v.detach().clone().requires_grad_() for k, v in params.items()}
+    yd, _ = moe.moe_forward_fused(xd, *pd.values(), top_k=2)
+    (yd.float() * c.float()).sum().backward()
+    dropless = {"y": yd.detach(), "dx": xd.grad,
+                **{"d" + k: v.grad for k, v in pd.items()}}
     launches = {"psum": {"fused_expert_ffn": 1, "fused_expert_ffn_bwd": 1},
+                "fused": {"fused_expert_ffn": 1, "fused_expert_ffn_bwd": 1},
                 "a2a": {"fused_expert_ffn": 1, "fused_expert_ffn_bwd": 1},
                 "a2a_perm": {"fused_expert_ffn_permuted": 1,
                              "fused_expert_ffn_permuted_bwd": 1},
@@ -2392,6 +2446,20 @@ def ep_layer_check(card: str, tmp: str) -> None:
             line += ("; vs single-rank capacity_fused, max|d| / max|ref|: "
                      + ", ".join(f"{w} {e[0]:.3e}/{e[1]:.3e}" for w, e in
                                  zip(("y", "dx", "dW1", "dW2"), err)))
+        if form == "fused":
+            same = {}
+            for k, ref in dropless.items():
+                ref = ref.float().cpu().numpy()
+                if k in ("dw1", "db1", "dw2", "db2"):  # each rank's experts
+                    got_k = np.concatenate([a[f"{key}/{k}"] for a in arrays])
+                else:
+                    got_k = arrays[0][f"{key}/{k}"]
+                same[k] = bool(np.array_equal(got_k.astype(np.float32), ref))
+            line += (f"; the gathered dropless form vs the single-rank "
+                     f"'fused' layer, bit-identical: {same}")
+            if not all(same.values()):
+                raise AssertionError(f"EP layer {key}: not bit-identical to "
+                                     f"the single-rank 'fused' layer: {same}")
         log(line)
     a, b = (f"{f}@{CAP_FACTOR}/router_b_skewed" for f in ("a2a", "a2a_perm"))
     drop = float(arrays[0][f"{a}/drop_fraction"])
@@ -2408,7 +2476,7 @@ def ep_layer_check(card: str, tmp: str) -> None:
         f"{same}; peak memory "
         f"per rank {[rec['max_memory_allocated'] / 2**30 for rec in records]}"
         f" GiB")
-    del x, params, y, want
+    del x, params, y, want, xd, pd, yd, dropless
     torch.cuda.empty_cache()
 
 
@@ -4199,6 +4267,419 @@ def distill_phase(card: str, tmp: str) -> None:
     sparse_check(card)
 
 
+def _param_module(tensors: dict):
+    """A module whose ``named_parameters()`` are ``tensors`` under their
+    names (``blocks.0.mlp.w1`` ...), for an optimizer over a copy of a
+    model's parameters on another device."""
+    import torch
+
+    root = torch.nn.Module()
+    for name, t in tensors.items():
+        *path, leaf = name.split(".")
+        node = root
+        for part in path:
+            if part not in node._modules:
+                node.add_module(part, torch.nn.Module())
+            node = node._modules[part]
+        node.register_parameter(leaf, torch.nn.Parameter(t))
+    return root
+
+
+def _driver_args(argv: list):
+    import argparse
+
+    from slim_switch_moe_vit_tpu_torch import config
+
+    return argparse.ArgumentParser(
+        parents=[config.get_args_parser()]).parse_args(argv)
+
+
+def optimizer_surface_check(card: str, tmp: str) -> None:
+    """(a) Every ``--opt`` name: the f32 gradients of one kernel step of
+    the flagship at B = SURF_B, two steps of the port's optimizer from the
+    same parameters and gradients on the card and on the CPU, in f32,
+    every parameter within OPT_REL of its leaf's largest |ref| plus
+    OPT_LR_SLACK lr. Then the driver with ``--opt lamb --clip-grad 1.0``: its checkpoint
+    restores the parameters, moments and EMA bit for bit and ``--resume``
+    trains on; and ``--finetune`` of a timm-format DeiT-S file with
+    ``--attn-only``: every frozen parameter bit-identical to the file's
+    after the steps."""
+    import torch
+
+    from slim_switch_moe_vit_tpu_torch import losses, ops, optim
+    from slim_switch_moe_vit_tpu_torch import main as driver
+    from slim_switch_moe_vit_tpu_torch.train_state import create_train_state
+    from slim_switch_moe_vit_tpu_torch.utils.checkpoint import \
+        restore_checkpoint
+
+    t0 = time.perf_counter()
+    model = _model_on_card(MODEL, num_classes=1000, dtype=torch.bfloat16)
+    x, y = _batch(SURF_B, 23, "cuda")
+    crit = losses.make_base_criterion(False, 0.1, False)
+    model.train()
+    ops.reset_launch_counts()
+    crit(model(x, torch.Generator("cuda").manual_seed(0)), y).backward()
+    if ops.launch_counts() != expected(PER_TRAIN_STEP, 1):
+        raise AssertionError(f"gradient step launched {ops.launch_counts()}")
+    params = {n: p.detach().clone() for n, p in model.named_parameters()}
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    del model
+    # the CPU side in f32 too: in f64, adam's L2 term g + wd * p cancels
+    # to within an f32 ulp of 0 in places, where eps amplifies the rounding
+    # into the update (131x the limit on an NVIDIA H100 80GB HBM3, 700 W)
+    host = ({n: t.cpu() for n, t in params.items()},
+            {n: t.cpu() for n, t in grads.items()})
+    log(f"optimizers: f32 gradients of one kernel step of {MODEL} at "
+        f"B={SURF_B} ({sum(t.numel() for t in params.values())} parameters"
+        f", launches exact) in {time.perf_counter() - t0:.1f} s")
+    for opt in optim.SUPPORTED_OPTIMIZERS:
+        out, ms = {}, 0.0
+        for dev, (p0, g) in (("cuda", (params, grads)), ("cpu", host)):
+            shell = _param_module({n: t.clone() for n, t in p0.items()})
+            init, update = optim.make_optimizer(opt=opt, weight_decay=0.05)
+            optimizer = init(shell)
+            for s in range(SURF_STEPS):
+                for n, p in shell.named_parameters():
+                    p.grad = g[n].clone()
+                if dev == "cuda" and s == SURF_STEPS - 1:
+                    start, end = (torch.cuda.Event(enable_timing=True)
+                                  for _ in range(2))
+                    start.record()
+                    update(optimizer, SURF_LR, SURF_LR)
+                    end.record()
+                    end.synchronize()
+                    ms = start.elapsed_time(end)
+                else:
+                    update(optimizer, SURF_LR, SURF_LR)
+            out[dev] = {n: p.detach().cpu() for n, p in
+                        shell.named_parameters()}
+            del shell, optimizer
+        worst, moved, leaf = 0.0, 0.0, ""
+        for n, ref in out["cpu"].items():
+            d = (out["cuda"][n] - ref).abs().max().item()
+            tol = OPT_REL * ref.abs().max().item() + OPT_LR_SLACK * SURF_LR
+            if d / tol >= worst:
+                worst, leaf = d / tol, n
+            moved = max(moved, (ref - host[0][n]).abs().max().item())
+        log(f"optimizer {opt}: {SURF_STEPS} steps, card vs CPU in f32, "
+            f"worst leaf max |d| {worst:.3f} of its limit ({OPT_REL} max "
+            f"|ref| + {OPT_LR_SLACK} lr; {leaf}); largest move "
+            f"{moved:.3e}; the card's step {ms:.3f} ms (one step, events, "
+            f"host launches included) {card}")
+        if not worst <= 1.0 or not moved > 0.0:
+            raise AssertionError(f"optimizer {opt}: card vs CPU {worst}")
+    del params, grads, host
+    torch.cuda.empty_cache()
+
+    # the driver: --opt lamb --clip-grad 1.0, restored and resumed
+    t0 = time.perf_counter()
+    out = os.path.join(tmp, "lamb")
+    argv = SURF_DRIVER_ARGS + ["--model", MODEL, "--opt", "lamb",
+                               "--clip-grad", "1.0", "--output_dir", out]
+    args = _driver_args(argv)
+    state = driver.main(args)
+    init, _ = optim.make_optimizer(opt="lamb", clip_grad=1.0)
+    restored, epoch = restore_checkpoint(
+        os.path.join(out, "checkpoint"), create_train_state(
+            driver.build_model(args, 10, args.seed + 1), device="cuda",
+            opt_init=init, use_ema=True))
+    same = epoch == 0 and restored.step == state.step == SURF_DRIVER_STEPS
+    for (n, a), b in zip(state.model.named_parameters(),
+                         restored.model.parameters()):
+        same &= torch.equal(a, b) and torch.equal(state.ema_params[n],
+                                                  restored.ema_params[n])
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            same &= torch.equal(state.optimizer.state[a][key].cpu(),
+                                restored.optimizer.state[b][key].cpu())
+    if not same:
+        raise AssertionError("the lamb checkpoint does not restore bit for "
+                             "bit")
+    del state, restored
+    resumed = driver.main(_driver_args(argv + [
+        "--epochs", "2", "--resume", os.path.join(out, "checkpoint")]))
+    with open(os.path.join(out, "log.txt")) as f:
+        logged = [json.loads(line) for line in f]
+    if (resumed.step != 2 * SURF_DRIVER_STEPS
+            or [r["epoch"] for r in logged] != [0, 1]
+            or not all(np.isfinite(r["train_loss"]) for r in logged)):
+        raise AssertionError(f"lamb resume: step {resumed.step}, {logged}")
+    log(f"driver --opt lamb --clip-grad 1.0 ({MODEL}, B={SURF_B}): "
+        f"{SURF_DRIVER_STEPS} steps, the checkpoint restored bit for bit "
+        f"(parameters, Lamb moments and steps, EMA), --resume trained epoch "
+        f"1 to step {resumed.step}; train losses "
+        f"{[round(r['train_loss'], 5) for r in logged]}; "
+        f"{time.perf_counter() - t0:.1f} s {card}")
+    del resumed
+    torch.cuda.empty_cache()
+
+    # --finetune of a timm-format DeiT-S file with --attn-only
+    t0 = time.perf_counter()
+    src = _model_on_card(DEIT_SMALL, num_classes=1000)
+    path = os.path.join(tmp, "deit_small.pth")
+    torch.save({"model": timm_state_dict(src)}, path)
+    del src
+    argv = SURF_DRIVER_ARGS + ["--model", DEIT_SMALL, "--finetune", path,
+                               "--attn-only", "--output_dir",
+                               os.path.join(tmp, "attn_only")]
+    args = _driver_args(argv)
+    ref = driver.build_model(args, 10, args.seed)
+    driver.finetune_from(path, ref)
+    state = driver.main(args)
+    trained = optim.attn_only_mask(state.model.named_parameters())
+    start = dict(ref.named_parameters())
+    frozen = moved = 0
+    for n, p in state.model.named_parameters():
+        same = torch.equal(p.detach().cpu(), start[n].detach())
+        if same == trained[n]:
+            raise AssertionError(f"--attn-only: {n} (trained "
+                                 f"{trained[n]}) moved {not same}")
+        frozen += same
+        moved += not same
+    log(f"driver --finetune (timm-format {DEIT_SMALL}) --attn-only: "
+        f"{state.step} steps at B={SURF_B}, {frozen} frozen tensors "
+        f"bit-identical to the file's, {moved} trained tensors moved; "
+        f"{time.perf_counter() - t0:.1f} s {card}")
+    del state, ref
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def pinned_expert_choice(routes: list, replay: bool):
+    """``pinned_routing`` for ``expert_choice``: record each expert's
+    chosen tokens into ``routes``, or with ``replay`` impose them, the gate
+    weights this run's own probabilities at them. Yields ``moved``: the
+    chosen slots, and those whose imposed token is not among the run's own
+    top-C of its expert."""
+    import torch
+
+    from slim_switch_moe_vit_tpu_torch.ops import moe as moe_ops
+
+    real = moe_ops.expert_choice_gate
+    recorded = iter(list(routes))
+    moved = {"tokens": 0, "moved": 0}
+
+    def gate(probs, capacity):
+        if not replay:
+            weights, idx = real(probs, capacity)
+            routes.append(idx)
+            return weights, idx
+        idx = next(recorded).to(probs.device)
+        own = real(probs, capacity)[1]
+        hit = (own[:, :, None] == idx[:, None, :]).any(1)
+        moved["tokens"] += idx.numel()
+        moved["moved"] += int((~hit).sum())
+        return probs.t().gather(1, idx), idx
+
+    moe_ops.expert_choice_gate = gate
+    try:
+        yield moved
+    finally:
+        moe_ops.expert_choice_gate = real
+
+
+def expert_choice_check(card: str) -> None:
+    """(b) The flagship with ``--moe-dispatch expert_choice``: an eval at
+    B = SURF_B against the card's plain path within the serving limit (in
+    f32, and in bf16 with the kernels' run's expert choices imposed), and
+    EC_STEPS training steps on the kernels against the plain path from one
+    seed, the kernels' run's expert choices imposed on the plain run (each
+    step's loss within XTRAIN's limit, the step-1 gradient within XTRAIN's
+    cosine), launches exact (no expert-FFN kernel: the buffer's FFN is
+    plain, as in the JAX package)."""
+    import torch
+
+    from slim_switch_moe_vit_tpu_torch import ops
+
+    t0 = time.perf_counter()
+    kw = dict(num_classes=1000, dispatch_mode="expert_choice")
+    model = _model_on_card(MODEL, dtype=torch.bfloat16, **kw).eval()
+    model32 = _model_on_card(MODEL, dtype=torch.float32, **kw).eval()
+    x, y = _batch(SURF_B, 29, "cuda")
+    routes: list = []
+
+    def forward():
+        with torch.no_grad(), pinned_expert_choice(routes, replay=False):
+            return model(x).float().cpu().numpy()
+
+    got = _counted(forward, PER_DEIT_FORWARD, 1, {"k5": 12},
+                   f"{MODEL} expert_choice eval B={SURF_B}")
+    drop = float(torch.stack([blk.mlp.aux["drop_fraction"]
+                              for blk in model.blocks]).mean())
+    with torch.no_grad():
+        got32 = model32(x).float().cpu().numpy()
+    _xcheck(got32, _plain_logits(model32, x),
+            f"{MODEL} expert_choice eval, f32, vs the card's plain path")
+    with pinned_expert_choice(routes, replay=True) as moved:
+        plain = _plain_logits(model, x)
+    _xcheck(got, plain, f"{MODEL} expert_choice eval, bf16, vs the card's "
+            f"plain path (the kernels' expert choices on both; "
+            + check_moved(moved, "expert_choice") + ")")
+    del model32
+    runs, train_routes = {}, []
+    for label in ("kernels", "plain"):
+        m = copy.deepcopy(model)
+        _, state, step = _train_setup(torch.bfloat16, "cuda", m)
+        ctx = contextlib.ExitStack()
+        moved = ctx.enter_context(pinned_expert_choice(
+            train_routes, replay=label == "plain"))
+        if label == "plain":
+            ctx.enter_context(plain_versions())
+        losses_, grads = [], []
+
+        def steps():
+            nonlocal state
+            for _ in range(EC_STEPS):
+                state, met = step(state, x, y, XTRAIN_LR, XTRAIN_LR)
+                losses_.append(met["loss"].item())
+                if not grads:  # step 1's gradient
+                    grads.append(torch.cat([
+                        (p.grad if p.grad is not None else
+                         torch.zeros_like(p)).detach().float().flatten()
+                        for p in m.parameters()]))
+
+        with ctx:
+            if label == "kernels":
+                _counted(steps, PER_DEIT_STEP, EC_STEPS,
+                         {"k5_k6": 12 * EC_STEPS},
+                         f"{MODEL} expert_choice train, {EC_STEPS} steps "
+                         f"B={SURF_B}")
+            else:
+                ops.reset_launch_counts()
+                steps()
+                if any(ops.launch_counts().values()):
+                    raise AssertionError(f"plain path launched "
+                                         f"{ops.launch_counts()}")
+        runs[label] = (losses_, grads[0])
+        del m, state, step
+    pinned = check_moved(moved, "expert_choice training")
+    (lk, gk), (lp, gp) = runs["kernels"], runs["plain"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(lk, lp)]
+    lim, cos_lim = XTRAIN_PAIRS[0][2][0][:EC_STEPS], XTRAIN_PAIRS[0][2][1]
+    cos = _cos(gk, gp)
+    log(f"{MODEL} expert_choice training, kernels vs the card's plain path "
+        f"from one seed, the kernels' expert choices on both ({pinned}): "
+        f"losses {[round(v, 5) for v in lk]} vs "
+        f"{[round(v, 5) for v in lp]} (rel per step "
+        f"{[float(f'{r:.3e}') for r in rel]}, limits {list(lim)}), step-1 "
+        f"gradient cosine {cos:.6f} (limit {cos_lim}); eval drop_fraction "
+        f"{drop:.4f}; {time.perf_counter() - t0:.1f} s {card}")
+    if (any(r > t for r, t in zip(rel, lim)) or cos < cos_lim
+            or not all(np.isfinite(lk))):
+        raise AssertionError("expert_choice training disagrees")
+    del model
+    torch.cuda.empty_cache()
+
+
+def expert_dropout_check(card: str) -> None:
+    """(c) The flagship with ``--drop DROP_RATE`` (default dispatch,
+    ``'fused'``): one training step at B = SURF_B runs ``'ragged'`` in
+    every block (no expert-FFN launch, the LN and attention kernels
+    exact), its loss is finite, and the kept share of the hidden
+    activations over the step's masks is within 5 binomial standard
+    deviations of 1 - DROP_RATE."""
+    import torch
+
+    from slim_switch_moe_vit_tpu_torch.ops import moe as moe_ops
+
+    t0 = time.perf_counter()
+    model = _model_on_card(MODEL, num_classes=1000, dtype=torch.bfloat16,
+                           drop_rate=DROP_RATE)
+    _, state, step = _train_setup(torch.bfloat16, "cuda", model)
+    x, y = _batch(SURF_B, 31, "cuda")
+    real, kept = moe_ops.expert_dropout_mask, []
+
+    def recording(shape, drop_rate, device):
+        mask = real(shape, drop_rate, device)
+        kept.append((mask.sum(), mask.numel()))
+        return mask
+
+    moe_ops.expert_dropout_mask = recording
+    try:
+        model.train()
+        modes = {blk.mlp.dispatch() for blk in model.blocks}
+        state, met = _counted(lambda: step(state, x, y, LR, LR),
+                              PER_DEIT_STEP, 1, {"k5_k6": 12},
+                              f"{MODEL} --drop {DROP_RATE} train step "
+                              f"B={SURF_B}")
+    finally:
+        moe_ops.expert_dropout_mask = real
+    loss = met["loss"].item()
+    n = sum(k[1] for k in kept)
+    share = float(sum(k[0] for k in kept)) / n
+    sd = np.sqrt(DROP_RATE * (1 - DROP_RATE) / n)
+    log(f"{MODEL} --drop {DROP_RATE}: dispatch {sorted(modes)} in training, "
+        f"loss {loss:.5f}, {len(kept)} masks over {n} hidden activations "
+        f"kept {share:.6f} (1 - p = {1 - DROP_RATE}, 5 sd = {5 * sd:.2e}); "
+        f"{time.perf_counter() - t0:.1f} s {card}")
+    if (modes != {"ragged"} or not np.isfinite(loss) or len(kept) != 12
+            or abs(share - (1 - DROP_RATE)) > 5 * sd):
+        raise AssertionError("expert dropout step")
+    del model, state, step
+    torch.cuda.empty_cache()
+
+
+def gated_artifact_check(card: str, tmp: str) -> None:
+    """(e) ``resmoe_small_patch16_224_expert8`` with every gate's eval
+    target lowered to GATED_TARGET, exported and served through the
+    Predictor: the served logits within the serving limit of the model's
+    eval on the same images (the same kernels on the same inputs: max |d|
+    printed), the eval skips a positive share of the tokens, launches
+    exact; the same model at the default targets gives other logits (an
+    artifact that lost its gates' buffers would show)."""
+    import torch
+
+    from slim_switch_moe_vit_tpu_torch.models import gates
+    from slim_switch_moe_vit_tpu_torch.serving import (export_model,
+                                                       load_predictor,
+                                                       make_serve_fn)
+
+    t0 = time.perf_counter()
+    model = _model_on_card(RESMOE, num_classes=1000).eval()
+    images = np.random.RandomState(37).randint(
+        0, 256, (SURF_EVAL_B, 224, 224, 3)).astype(np.uint8)
+    x = torch.from_numpy(images).cuda()
+    default = make_serve_fn(model)(x).cpu().numpy()
+    with torch.no_grad():
+        for g in gates.gate_modules(model).values():
+            g.target_threshold.fill_(GATED_TARGET)
+    want = make_serve_fn(model)(x).cpu().numpy()
+    skipped = float(torch.stack([g.skip_fraction for g in
+                                 gates.gate_modules(model).values()]).mean())
+    artifact = os.path.join(tmp, "gated")
+    export_model(model, artifact, model_name=RESMOE,
+                 batch_sizes=(SURF_EVAL_B,), device="cuda")
+    pred = load_predictor(artifact, device="cuda")
+    got = _counted(lambda: pred.predict(images), PER_RESMOE_FORWARD, 1,
+                   {"k5": 12}, f"{RESMOE} gated artifact served, "
+                   f"{SURF_EVAL_B} images")
+    d = float(np.abs(got - want).max())
+    gap = float(np.abs(default - want).max())
+    _xcheck(got, want, f"{RESMOE} gated artifact (targets {GATED_TARGET}) "
+            "served vs the model's eval")
+    log(f"{RESMOE} gated artifact: tokens skipped at target {GATED_TARGET} "
+        f"{skipped:.4f} of every gate's (mean over the 24 gates), served "
+        f"vs eval max |d| {d:.3e}, eval at the default targets max |d| "
+        f"{gap:.3e} from it; {time.perf_counter() - t0:.1f} s {card}")
+    if not skipped > 0.0 or not gap > 0.0:
+        raise AssertionError(f"gated artifact: skipped {skipped}, served vs "
+                             f"eval {d}, default gap {gap}")
+    del model, pred
+    torch.cuda.empty_cache()
+
+
+def surface_phase(card: str, tmp: str) -> None:
+    """Phase 20, (a) to (c) and (e); (d) runs in the EP phase
+    (``ep_layer_check``)."""
+    for what, fn in (("(a) optimizers", lambda: optimizer_surface_check(
+            card, tmp)), ("(b) expert_choice", lambda: expert_choice_check(
+                card)), ("(c) expert dropout", lambda: expert_dropout_check(
+                    card)), ("(e) gated artifact",
+                             lambda: gated_artifact_check(card, tmp))):
+        t0 = time.perf_counter()
+        fn()
+        log(f"[phase 20 {what}: {time.perf_counter() - t0:.1f} s] {card}")
+
+
 def main() -> int:
     import torch
 
@@ -4288,6 +4769,13 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_done("distillation phase (driver, DeiT-B + RegNetY-160, "
                "switchable, sparse)")
+    tmp = tempfile.mkdtemp(prefix="ssmv_surface_")
+    try:
+        surface_phase(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_done("phase 20 (optimizers, expert_choice, expert dropout, gated "
+               "artifact)")
 
     # launches: K1a-K6 in the 10 training steps of phase 6, which run all
     # ten (the serving run's counts are checked in serving_phase); K7 in the

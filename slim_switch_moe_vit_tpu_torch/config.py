@@ -3,8 +3,8 @@
 Port of ``slim_switch_moe_vit_tpu/config.py`` (reference ``main.py:47-456``
 ``get_args_parser``): every flag of the JAX package, with the same names
 and the same defaults, but ``--device``, which defaults to ``cuda`` and
-takes ``cpu``. Flags whose machinery is not ported yet are accepted here
-and refused by ``main.py`` with the ROADMAP item that ports them.
+takes ``cpu``. ``main.py`` runs every one of them; ``--fused-optimizer``
+with a flag that needs the optimizer chain raises there.
 """
 from __future__ import annotations
 
@@ -46,13 +46,13 @@ def get_args_parser():
     parser.add_argument("--momentum", type=float, default=0.9, metavar="M")
     parser.add_argument("--weight-decay", type=float, default=0.05)
     parser.add_argument("--async-checkpoint", action="store_true",
-                        help="commit checkpoints on a background thread "
-                             "(not ported yet)")
+                        help="commit checkpoints on a background thread")
     parser.add_argument("--fused-optimizer", action="store_true",
                         help="single-pass AdamW(+EMA) update, the K7 "
                              "kernel (ops/fused_adamw.py); the same math and "
-                             "torch.optim.AdamW's state, adamw only, no "
-                             "clip-grad/attn-only")
+                             "torch.optim.AdamW's state. adamw only: with "
+                             "another --opt, --clip-grad or --attn-only it "
+                             "raises ValueError")
 
     # Learning rate schedule parameters
     parser.add_argument("--sched", default="cosine", type=str, metavar="SCHEDULER")
@@ -170,8 +170,9 @@ def get_args_parser():
                              "in place of AMP (reference engine.py:52)")
     parser.add_argument("--expert-parallel", default=1, type=int,
                         help="ranks of an expert group: the world splits "
-                             "into world / N data shards x N expert ranks "
-                             "(the capacity dispatch modes only)")
+                             "into world / N data shards x N expert ranks, "
+                             "each holding E / N experts (the dropless "
+                             "modes gather them on every rank)")
     parser.add_argument("--num-experts", default=8, type=int)
     parser.add_argument("--moe-top-k", default=2, type=int)
     parser.add_argument("--capacity-factor", default=2.0, type=float,
@@ -189,8 +190,14 @@ def get_args_parser():
                              "plain), capacity_fused (the same drops through "
                              "the expert FFN kernel; capacity_fused_a2a is "
                              "the same on one card, the all-to-all form "
-                             "under --expert-parallel > 1); expert_choice is "
-                             "not ported yet. auto = fused, capacity under "
+                             "under --expert-parallel > 1), expert_choice "
+                             "(each expert takes its top capacity tokens; "
+                             "plain). Under --expert-parallel > 1 the "
+                             "capacity modes and expert_choice split the "
+                             "experts' work and the dropless modes gather "
+                             "the experts; under --drop > 0 in training "
+                             "fused runs ragged and capacity_fused* "
+                             "capacity. auto = fused, capacity under "
                              "--expert-parallel > 1")
     parser.add_argument("--moe-balance-weight", default=0.0, type=float,
                         help="aux load-balance loss weight (0 = FastMoE naive-"

@@ -102,8 +102,9 @@ def make_train_step(model: torch.nn.Module, update_fn: typ.Callable,
     Args:
         update_fn: from ``optim.make_optimizer`` — (optimizer, lr_base,
             lr_gate) -> None, one step on the gradients in ``p.grad``; with
-            ``use_fused_optimizer``, its ``fused_apply`` (when it has one)
-            takes the step and the EMA update in one kernel instead.
+            ``use_fused_optimizer``, its ``fused_apply`` takes the step
+            and the EMA update in one kernel instead (an optimizer without
+            one raises ``ValueError``).
         mesh: this rank's ``parallel.Mesh``, or None on one process.
         teacher_apply: fn(images) -> logits for distillation (no grad).
         augment_fn: fn(generator, images) -> images on the device (uint8
@@ -123,6 +124,10 @@ def make_train_step(model: torch.nn.Module, update_fn: typ.Callable,
     moe_modules = _moe_modules(model)
     fused_apply = (getattr(update_fn, "fused_apply", None)
                    if use_fused_optimizer else None)
+    if use_fused_optimizer and fused_apply is None:
+        raise ValueError("use_fused_optimizer: this optimizer has no fused "
+                         "form (K7 is AdamW without clip_grad or a "
+                         "trainable mask)")
     data_group = None if mesh is None else mesh.data_group
 
     def train_step(state: TrainState, images, targets, lr_base, lr_gate):
@@ -152,7 +157,7 @@ def make_train_step(model: torch.nn.Module, update_fn: typ.Callable,
         if moe_balance_weight and "balance_loss" in moe_metrics:
             loss = loss + moe_balance_weight * moe_metrics["balance_loss"]
 
-        state.optimizer.zero_grad(set_to_none=True)
+        model.zero_grad(set_to_none=True)  # frozen parameters' too
         loss.backward()
         coll.average_gradients(model.parameters(), data_group)
         ema_on = state.ema_params is not None and ema_decay is not None

@@ -9,9 +9,10 @@ on the task's, ``log.txt`` and the plateau sidecar; ``--eval`` and
 ``--resume``.
 
 The run is on ``--device`` (``cuda`` unless ``cpu`` is passed; without a
-GPU it raises, never falling back). Flags whose machinery is not ported yet
-(the optimizer surface, the dropless modes under expert parallelism) raise
-``NotImplementedError`` naming the ROADMAP item that ports it.
+GPU it raises, never falling back). Every ``--opt`` name of the JAX
+package runs, with ``--clip-grad`` and ``--attn-only`` (``optim.py``);
+``--fused-optimizer`` with any of them raises ``ValueError`` where the JAX
+driver warns and takes the optimizer chain.
 
 ``--finetune`` loads a DeiT / timm ``.pth`` (or a jax-ViT ``.npz``) into
 the fresh model before its optimizer is made; ``--distillation-type
@@ -29,7 +30,9 @@ ranks. The ranks of one expert group load the same batch (seed ``--seed``
 experts; the dense parameters stay replicated and are checked bit-identical
 over every rank after each epoch. The learning rate scales with the data
 shards, under EP ``--moe-dispatch auto`` becomes ``capacity`` (JAX
-:66-69), and checkpoints and logs are written by rank 0 alone.
+:66-69), the dropless modes gather the experts on every rank, the
+optimizer's global norms sum the expert tensors over the expert group, and
+checkpoints and logs are written by rank 0 alone.
 
 Run: ``python -m slim_switch_moe_vit_tpu_torch.main --data-set SYNTH``
 (every other flag at its default: ``deit_base_patch16_224`` with
@@ -94,20 +97,21 @@ def _dtype(args) -> torch.dtype:
     return torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
 
 
-def _refuse_unported(args) -> None:
-    """Raise for every asked-for feature whose machinery is not ported."""
-    refused = []
-    if args.expert_parallel > 1 and args.moe_dispatch in ("fused", "ragged",
-                                                          "dense"):
-        refused.append(("--expert-parallel with a dropless --moe-dispatch",
-                        "Queue 1 #7 (parallelism)"))
-    if args.opt != "adamw" or args.attn_only or (args.clip_grad or 0) > 0:
-        refused.append(("--opt other than adamw, --attn-only, --clip-grad",
-                        "Queue 1 #6 (optimizer surface)"))
-    if refused:
-        raise NotImplementedError(
-            "not ported yet: " + "; ".join(f"{f} (ROADMAP {item})"
-                                           for f, item in refused))
+def _refuse_fused_optimizer_chain(args) -> None:
+    """``--fused-optimizer`` runs K7, AdamW alone: raise for a combination
+    that needs the optimizer chain (the JAX driver warns and takes the
+    chain, main.py:190-193; the port does not fall back off a kernel
+    quietly)."""
+    if not args.fused_optimizer:
+        return
+    chain = [flag for flag, on in (
+        (f"--opt {args.opt}", args.opt != "adamw"),
+        (f"--clip-grad {args.clip_grad}", (args.clip_grad or 0) > 0),
+        ("--attn-only", args.attn_only)) if on]
+    if chain:
+        raise ValueError(
+            f"--fused-optimizer runs the fused AdamW kernel (K7), which has "
+            f"no form for {', '.join(chain)}; drop --fused-optimizer")
 
 
 def finetune_from(path: str, model) -> None:
@@ -241,7 +245,7 @@ def main(args):
     if args.sched not in optim.SUPPORTED_SCHEDULERS:
         raise ValueError(f"--sched {args.sched!r} is not implemented; "
                          f"supported: {optim.SUPPORTED_SCHEDULERS}")
-    _refuse_unported(args)
+    _refuse_fused_optimizer_chain(args)
     if args.distillation_type != "none" and not args.teacher_path:
         raise ValueError("need to specify teacher-path when using "
                          "distillation")
@@ -285,7 +289,9 @@ def main(args):
     betas = tuple(args.opt_betas) if args.opt_betas else (0.9, 0.999)
     opt_init, opt_update = optim.make_optimizer(
         opt=args.opt, weight_decay=args.weight_decay, betas=betas,
-        eps=args.opt_eps, clip_grad=args.clip_grad)
+        eps=args.opt_eps, momentum=args.momentum, clip_grad=args.clip_grad,
+        trainable_mask=optim.attn_only_mask if args.attn_only else None,
+        expert_group=mesh.expert_group)
     state = create_train_state(model, device=args.device, seed=seed,
                                opt_init=opt_init, use_ema=args.model_ema)
     n_parameters = sum(  # the whole model's, every expert counted

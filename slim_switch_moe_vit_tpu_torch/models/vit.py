@@ -13,7 +13,7 @@ Training runs the same chain in ``model.train()``: every kernel wrapper is
 an autograd Function with its backward kernel. Stochastic depth draws from
 the ``generator`` passed to ``forward``; attention dropout takes the plain
 attention with dropout on the probabilities, as the JAX XLA branch does;
-expert dropout raises.
+expert dropout takes a dropout path of the MoE dispatch (``models/moe.py``).
 
 Residual-deferred chain: each block leaves its last branch output
 (``pending``) un-added; the next LayerNorm folds the add into its kernel.

@@ -17,7 +17,11 @@ Port of the single-device pieces of ``slim_switch_moe_vit_tpu/ops/moe.py``:
   :func:`make_dispatch` (:104-125), :func:`dispatch_tokens` (:128-143),
   :func:`combine_tokens` (:146-160), :func:`grouped_ffn` (:163-183) and
   :func:`moe_forward` (:186-219), the scatter-buffer ``'capacity'`` mode:
-  plain PyTorch, the oracle of the fused capacity form;
+  plain PyTorch, the oracle of the fused capacity form; expert dropout on
+  the hidden activations (:176-178, :256-258), its mask drawn by
+  :func:`expert_dropout_mask`;
+- :func:`moe_forward_expert_choice` (:858-899), each expert picking its
+  top-C tokens, plain as in the JAX package;
 - :func:`dispatch_gather` (:476-507) and :func:`combine_slots` (:510-552)
   as autograd Functions with the JAX custom backwards: k row gathers
   instead of a scatter-add for dx (the dropped pairs' masked to zero), one
@@ -35,8 +39,10 @@ Port of the single-device pieces of ``slim_switch_moe_vit_tpu/ops/moe.py``:
   ``SSMV_A2A_PERMUTED=1`` on the permuted-tile FFN K10) and
   :func:`moe_forward_sharded` (the ``'capacity'`` mode, whose (E, C, d)
   buffer GSPMD shards over the expert axis in the JAX package,
-  ``models/moe.py:136-150``). Their collectives are the autograd Functions
-  of ``parallel/collectives.py``.
+  ``models/moe.py:136-150``), and :func:`moe_forward_gathered`, a dropless
+  mode with the experts gathered over the group (GSPMD's replication of a
+  Pallas call's inputs). Their collectives are the autograd Functions of
+  ``parallel/collectives.py``.
 
 Each forward returns ``(y, aux)``, aux holding ``balance_loss`` and
 ``drop_fraction`` (0 for the dropless modes, ``1 - mean(keep)`` with a
@@ -49,8 +55,7 @@ Not ported here (TPU layout policies): the lane-major prefix count of
 ``_rank_in_expert`` (a one-hot cumsum does the same), the packed-s32 slot
 table (``w_slot`` is one scatter into the activation dtype, the same values
 the JAX package's packing gives), the 512-row layout policy (the
-flagship's T*k = 50,432 takes the 256-row layout there too), and expert
-dropout in :func:`grouped_ffn`.
+flagship's T*k = 50,432 takes the 256-row layout there too).
 """
 from __future__ import annotations
 
@@ -148,24 +153,56 @@ def combine_tokens(expert_out: torch.Tensor, dest: torch.Tensor,
     return torch.einsum("tkd,tk->td", gathered, w)
 
 
-def grouped_ffn(buf: torch.Tensor, w1, b1, w2, b2) -> torch.Tensor:
+def expert_dropout_mask(shape, drop_rate: float,
+                        device: torch.device) -> torch.Tensor:
+    """Expert dropout's keep mask over the hidden activations h: True with
+    probability 1 - ``drop_rate``, drawn from ``device``'s default
+    generator (JAX: ``jax.random.bernoulli(rng, 1 - p, h.shape)``). Every
+    dropout path draws through this one function."""
+    return torch.rand(shape, device=device) < 1.0 - drop_rate
+
+
+def _dropout(h: torch.Tensor, keep: typ.Optional[torch.Tensor],
+             drop_rate: float) -> torch.Tensor:
+    """h where kept, scaled by 1 / (1 - p), 0 elsewhere (JAX
+    ``jnp.where(mask, h / (1 - p), 0)``)."""
+    if keep is None:
+        return h
+    return torch.where(keep, h / (1.0 - drop_rate),
+                       torch.zeros((), dtype=h.dtype, device=h.device))
+
+
+def _buffer_mask(E: int, C: int, w1, drop_rate: float, device):
+    """The keep mask of an (E, C, h) buffer's hidden activations, None
+    without dropout."""
+    if drop_rate <= 0.0:
+        return None
+    return expert_dropout_mask((E, C, w1.shape[-1]), drop_rate, device)
+
+
+def grouped_ffn(buf: torch.Tensor, w1, b1, w2, b2,
+                keep: typ.Optional[torch.Tensor] = None,
+                drop_rate: float = 0.0) -> torch.Tensor:
     """Per-expert FFN over the (E, C, d) buffer: products in f32 on
-    buf-dtype operands, + b1, the exact GELU in f32, rounded to buf's dtype,
-    then fc2 in f32 + b2 and one final rounding (the JAX einsums with
-    ``preferred_element_type=f32``). Expert dropout is not ported."""
+    buf-dtype operands, + b1, the exact GELU in f32, expert dropout (the
+    (E, C, h) ``keep`` mask at ``drop_rate``) in f32, rounded to buf's
+    dtype, then fc2 in f32 + b2 and one final rounding (the JAX einsums
+    with ``preferred_element_type=f32``)."""
     dt = buf.dtype
     h = torch.einsum("ecd,edh->ech", buf.float(), w1.to(dt).float())
-    h = gelu_exact(h + b1.float()[:, None, :]).to(dt)
+    h = _dropout(gelu_exact(h + b1.float()[:, None, :]), keep,
+                 drop_rate).to(dt)
     y = torch.einsum("ech,ehd->ecd", h.float(), w2.to(dt).float())
     return (y + b2.float()[:, None, :]).to(dt)
 
 
 def moe_forward(x, router_w, router_b, w1, b1, w2, b2, *, top_k: int = 2,
                 capacity_factor: float = 2.0,
-                capacity: typ.Optional[int] = None):
+                capacity: typ.Optional[int] = None, drop_rate: float = 0.0):
     """The ``'capacity'`` mode: static per-expert buffers filled by a
-    scatter, token-major drop priority, grouped GEMMs, gather + mix. Plain
-    PyTorch; the oracle of the fused capacity form. Returns (y, aux)."""
+    scatter, token-major drop priority, grouped GEMMs (expert dropout at
+    ``drop_rate``), gather + mix. Plain PyTorch; the oracle of the fused
+    capacity form. Returns (y, aux)."""
     T, d = x.shape
     E = w1.shape[0]
     logits = _router_logits(x, router_w, router_b)
@@ -174,7 +211,9 @@ def moe_forward(x, router_w, router_b, w1, b1, w2, b2, *, top_k: int = 2,
         capacity = compute_capacity(T, E, top_k, capacity_factor)
     dest, keep = make_dispatch(expert_idx, E, capacity)
     buf = dispatch_tokens(x, dest, E, capacity)
-    out = grouped_ffn(buf, w1, b1, w2, b2)
+    out = grouped_ffn(buf, w1, b1, w2, b2,
+                      _buffer_mask(E, capacity, w1, drop_rate, x.device),
+                      drop_rate)
     y = combine_tokens(out, dest, keep, gate_w)
     return y.to(x.dtype), _aux(logits, expert_idx, E, keep)
 
@@ -504,7 +543,8 @@ def moe_forward_fused_ep_a2a(x, router_w, router_b, w1, b1, w2, b2, *, mesh,
 
 def moe_forward_sharded(x, router_w, router_b, w1, b1, w2, b2, *, mesh,
                         top_k: int = 2, capacity_factor: float = 2.0,
-                        capacity: typ.Optional[int] = None):
+                        capacity: typ.Optional[int] = None,
+                        drop_rate: float = 0.0):
     """The ``'capacity'`` mode over a (data, expert) layout: the function of
     :func:`moe_forward` over the whole batch, as GSPMD computes it in the
     JAX package. ``x`` is this data shard's (T, d) tokens; w1, b1, w2, b2
@@ -514,8 +554,11 @@ def moe_forward_sharded(x, router_w, router_b, w1, b1, w2, b2, *, mesh,
     and fills the replicated (E, C, d) buffer, runs its E_local experts'
     slice through :func:`grouped_ffn` and gathers the outputs over the
     expert group before the combine; each rank keeps its own rows of y.
-    Capacity and drop priority are those of the whole batch. Plain
-    PyTorch, as in the JAX package, where no Pallas kernel runs here.
+    Capacity and drop priority are those of the whole batch. Under expert
+    dropout every rank draws the whole buffer's mask (the ranks of an
+    expert group share their generators' seed) and applies its experts'
+    rows. Plain PyTorch, as in the JAX package, where no Pallas kernel
+    runs here.
 
     Gradients: x into the buffer sums its partial gradients over the expert
     group; the token gather's backward sums over the data group and keeps
@@ -531,18 +574,120 @@ def moe_forward_sharded(x, router_w, router_b, w1, b1, w2, b2, *, mesh,
                                     capacity_factor)
     dest, keep = make_dispatch(expert_idx, E, capacity)
     buf = dispatch_tokens(coll.sum_grad(x_all, group), dest, E, capacity)
-    out = grouped_ffn(buf[j * E_local:(j + 1) * E_local], w1, b1, w2, b2)
+    mine = slice(j * E_local, (j + 1) * E_local)
+    keep_h = _buffer_mask(E, capacity, w1, drop_rate, x.device)
+    out = grouped_ffn(buf[mine], w1, b1, w2, b2,
+                      None if keep_h is None else keep_h[mine], drop_rate)
     y = combine_tokens(coll.all_gather_rows(out, group), dest, keep, gate_w)
     i = mesh.data_index
     return (y[i * T:(i + 1) * T].to(x.dtype),
             _aux(logits, expert_idx, E, keep))
 
 
+def expert_choice_capacity(tokens: int, num_experts: int,
+                           capacity_factor: float) -> int:
+    """Tokens each expert picks: int(T*cf/E) + 1 rounded up to 8, at most
+    T (JAX ops/moe.py:876-878)."""
+    cap = int(tokens * capacity_factor / num_experts) + 1
+    return min((cap + 7) // 8 * 8, tokens)
+
+
+def expert_choice_gate(probs: torch.Tensor, capacity: int):
+    """Each expert's top-``capacity`` tokens by router probability: ((E, C)
+    f32 gate weights, (E, C) int64 token ids), largest first (JAX
+    ``lax.top_k(probs.T, C)``)."""
+    return torch.topk(probs.t(), capacity, dim=1)
+
+
+def moe_forward_expert_choice(x, router_w, router_b, w1, b1, w2, b2, *,
+                              capacity_factor: float = 2.0,
+                              capacity: typ.Optional[int] = None,
+                              drop_rate: float = 0.0, mesh=None):
+    """Expert-choice routing (Zhou et al. 2022; JAX ops/moe.py:858-899):
+    the router's softmax over the experts, then each expert takes its
+    top-C tokens by probability (``topk`` over probs.T), an (E, C, d)
+    buffer through :func:`grouped_ffn` (expert dropout at ``drop_rate``)
+    and a combine y[t] = sum_e gate[e, c] * out[e, c] over the (e, c) that
+    picked t. Plain PyTorch, as the JAX package computes it outside any
+    Pallas kernel. aux: ``balance_loss`` 0 (balanced by construction) and
+    ``drop_fraction`` the share of tokens no expert took.
+
+    The combine adds each token's rows in expert order from a (T, E) slot
+    table (the order of the JAX scatter-add), a gather per expert instead
+    of an atomic scatter, so every run and every rank rounds alike.
+
+    Under an expert group (``mesh``; w1, b1, w2, b2 this rank's E_local
+    experts) it runs as the sharded ``'capacity'`` mode does
+    (:func:`moe_forward_sharded`): the data shards' tokens are gathered,
+    every rank routes the whole batch and fills the whole buffer, runs its
+    experts' rows (the buffer's gradient into x summed over the group),
+    the outputs are gathered over the group before the combine, and each
+    rank keeps its own rows of y."""
+    T0, d = x.shape
+    group = None if mesh is None else mesh.expert_group
+    ep, j = ((1, 0) if mesh is None else
+             (mesh_axis_size(mesh, EXPERT_AXIS), axis_index(mesh,
+                                                           EXPERT_AXIS)))
+    x_all = (x if mesh is None
+             else coll.gather_rows_sum_grad(x, mesh.data_group))
+    T = x_all.shape[0]
+    E_local = w1.shape[0]
+    E = E_local * ep
+    logits = _router_logits(x_all, router_w, router_b)
+    probs = torch.softmax(logits, dim=-1)
+    if capacity is None:
+        capacity = expert_choice_capacity(T, E, capacity_factor)
+    C = capacity
+    gate_w, token_idx = expert_choice_gate(probs, C)
+    mine = slice(j * E_local, (j + 1) * E_local)
+    xs = coll.sum_grad(x_all, group).index_select(
+        0, token_idx[mine].reshape(-1)).reshape(E_local, C, d)
+    keep_h = _buffer_mask(E, C, w1, drop_rate, x.device)
+    out = grouped_ffn(xs, w1, b1, w2, b2,
+                      None if keep_h is None else keep_h[mine], drop_rate)
+    out = coll.all_gather_rows(out, group)
+    flat = out.reshape(E * C, d) * gate_w.reshape(-1, 1).to(out.dtype)
+    flat = torch.cat([flat, flat.new_zeros((1, d))])  # row E*C: nothing
+    experts = torch.arange(E, device=x.device)
+    slot = torch.full((T, E), E * C, dtype=torch.long, device=x.device)
+    slot[token_idx, experts[:, None].expand(E, C)] = torch.arange(
+        E * C, device=x.device).reshape(E, C)
+    y = flat.index_select(0, slot[:, 0])
+    for e in range(1, E):
+        y = y + flat.index_select(0, slot[:, e])
+    served = (slot < E * C).any(dim=1)
+    aux = {"balance_loss": torch.zeros((), dtype=torch.float32,
+                                       device=x.device),
+           "drop_fraction": (~served).float().mean()}
+    if mesh is not None:
+        i = mesh.data_index
+        y = y[i * T0:(i + 1) * T0]
+    return y.to(x.dtype), aux
+
+
+def moe_forward_gathered(x, router_w, router_b, w1, b1, w2, b2, *, mesh,
+                         dispatch: typ.Callable, **kw):
+    """A dropless mode (``dispatch``: :func:`moe_forward_fused`,
+    :func:`moe_forward_ragged`) under an expert group, as GSPMD runs it in
+    the JAX package (a Pallas call cannot be partitioned, so XLA gathers
+    its inputs): w1, b1, w2 and b2, this rank's E_local experts, are
+    gathered over the group, and the unchanged dropless function runs on
+    every rank over this data shard's tokens, the same kernels on the same
+    inputs. The gathers' backward is this rank's slice of the cotangent,
+    which is the gradient because every rank of the group computes the
+    same loss."""
+    group = mesh.expert_group
+    w = [coll.all_gather_rows(t, group) for t in (w1, b1, w2, b2)]
+    return dispatch(x, router_w, router_b, *w, **kw)
+
+
 def moe_forward_ragged(x, router_w, router_b, w1, b1, w2, b2, *,
-                       top_k: int = 2):
+                       top_k: int = 2, drop_rate: float = 0.0):
     """Plain oracle: stable sort by expert, one GEMM pair per expert group
     (products in x's dtype, as ``lax.ragged_dot`` with
-    ``preferred_element_type=x.dtype``), then unsort and mix."""
+    ``preferred_element_type=x.dtype``), then unsort and mix. Expert
+    dropout at ``drop_rate`` masks the (T*k, h) hidden activations in
+    sorted order, drawn once."""
     T, d = x.shape
     E = w1.shape[0]
     logits = _router_logits(x, router_w, router_b)
@@ -551,10 +696,13 @@ def moe_forward_ragged(x, router_w, router_b, w1, b1, w2, b2, *,
     sort_idx = torch.argsort(flat_e, stable=True)
     xs = x.index_select(0, sort_idx // top_k)
     sizes = torch.bincount(flat_e, minlength=E).tolist()
+    keeps = ([None] * E if drop_rate <= 0.0 else torch.split(
+        expert_dropout_mask((T * top_k, w1.shape[-1]), drop_rate, x.device),
+        sizes))
     outs = []
-    for e, rows in enumerate(torch.split(xs, sizes)):
+    for e, (rows, keep) in enumerate(zip(torch.split(xs, sizes), keeps)):
         h = rows @ w1[e].to(x.dtype) + b1[e].to(x.dtype)
-        g = gelu_fast(h)
+        g = _dropout(gelu_fast(h), keep, drop_rate)
         outs.append(g @ w2[e].to(x.dtype) + b2[e].to(x.dtype))
     out = torch.cat(outs)
     inv = torch.argsort(sort_idx).reshape(T, top_k)

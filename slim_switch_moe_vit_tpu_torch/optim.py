@@ -2,7 +2,8 @@
 
 Port of ``slim_switch_moe_vit_tpu/optim.py``: the four timm schedules and
 ``create_scheduler`` (:84-356, pure Python, copied as they are), ``scaled_lr``
-(:359-364), and the ``adamw`` part of ``make_optimizer`` (:567-695).
+(:359-364), ``attn_only_mask`` (:66-82) and ``make_optimizer`` (:567-697)
+with every optimizer name, ``clip_grad`` and the trainable mask.
 
 The JAX package's default chain (``scale_by_adam`` then
 ``add_decayed_weights`` on ``wd_mask``, times -lr per group) is AdamW's
@@ -14,10 +15,11 @@ the JAX math's order; it reads and writes the same state
 checkpoint moves between the two paths, as the JAX package keeps optax's
 layout for its fused path (optim.py:604-607).
 
-Parameters fall into four groups, weight decay or none by ``wd_mask``
-crossed with the base or the gate learning rate by ``gate_mask``; each
-update sets the groups' ``lr`` from ``lr_base`` / ``lr_gate``, as the JAX
-update takes both as arguments. The masks read the JAX package's parameter
+Parameters fall into groups, weight decay or none by ``wd_mask`` crossed
+with the base or the gate learning rate by ``gate_mask`` and with expert or
+dense tensors (the global norms under an expert group sum the expert
+tensors' squares over it); each update sets the groups' ``lr`` from
+``lr_base`` / ``lr_gate``, as the JAX update takes both as arguments. The masks read the JAX package's parameter
 names (``utils/checkpoint.py::jax_path``): the port calls the expert biases
 ``b1`` / ``b2``, and only their JAX names (``expert_fc*_bias``) say they are
 biases, which the JAX mask exempts from decay (optim.py:55).
@@ -27,9 +29,12 @@ from __future__ import annotations
 import math
 import typing as typ
 
+import numpy as np
 import torch
 
 from .ops.fused_adamw import bias_corrections, fused_adamw_ema
+from .parallel import collectives as coll
+from .parallel.sharding import is_expert_param
 from .utils.checkpoint import jax_path
 
 NO_WEIGHT_DECAY_NAMES = {"pos_embed", "cls_token", "dist_token"}
@@ -55,6 +60,21 @@ def gate_mask(named: typ.Iterable[typ.Tuple[str, torch.Tensor]]
     """{name: True for the gate parameters}, trained at ``lr_gate``."""
     return {name: any(m in n for n in jax_path(name) for m in GATE_MARKERS)
             for name, _ in named}
+
+
+def attn_only_mask(named: typ.Iterable[typ.Tuple[str, torch.Tensor]]
+                   ) -> typ.Dict[str, bool]:
+    """{name: True for the parameters ``--attn-only`` trains} (JAX :66-82,
+    reference main.py:575-595): the attention parameters, the heads and
+    ``pos_embed``; ``patch_embed`` and everything else freeze."""
+    out = {}
+    for name, _ in named:
+        path = jax_path(name)
+        out[name] = ("patch_embed" not in path
+                     and (any("attn" in n for n in path)
+                          or path[0] in ("head", "head_dist", "fc",
+                                         "pos_embed")))
+    return out
 
 
 class TimmCosineSchedule:
@@ -343,49 +363,244 @@ def scaled_lr(lr: float, batch_size: int, world_size: int,
     return lr * batch_size * world_size / 512.0
 
 
+def global_norm(tensors: typ.Sequence[torch.Tensor],
+                expert: typ.Sequence[bool], expert_group=None) -> torch.Tensor:
+    """The L2 norm of the whole parameter tree's ``tensors`` (0-d, in
+    their dtype, on their device), as the JAX package takes it over its
+    GSPMD tree: under an expert group each rank holds ``E / ep`` experts
+    of an ``expert`` tensor, so those tensors' squares are summed over the
+    group, the dense ones' counted once (every rank of the group holds the
+    same). Each tensor's norm accumulates in f64 (:func:`_norms`)."""
+    sq = []
+    for flag in (False, True):
+        part = [t for t, e in zip(tensors, expert) if e == flag]
+        sq.append(_norms(part).square().sum() if part else
+                  tensors[0].new_zeros((), dtype=torch.float64))
+    if expert_group is not None:
+        sq[1] = coll.psum(sq[1], expert_group)
+    return torch.sqrt(sq[0] + sq[1]).to(tensors[0].dtype)
+
+
+def _norms(tensors: typ.List[torch.Tensor]) -> torch.Tensor:
+    """Each tensor's L2 norm, accumulated in f64: PyTorch's f32 norm on the
+    CPU of a (8, 384, 1536) expert tensor is 1.2e-4 of itself off."""
+    return torch.stack(torch._foreach_norm(tensors, 2, dtype=torch.float64))
+
+
+def _tensor_norms(tensors: typ.List[torch.Tensor], expert: bool,
+                  expert_group) -> typ.List[torch.Tensor]:
+    """Each tensor's L2 norm over the whole tensor: an expert tensor's
+    squares summed over the expert group (one all-reduce for the list)."""
+    if not tensors:
+        return []
+    norms = _norms(tensors)
+    if expert and expert_group is not None:
+        norms = torch.sqrt(coll.psum(norms.square(), expert_group))
+    return list(norms.to(tensors[0].dtype).unbind())
+
+
+@torch.no_grad()
+def clip_by_global_norm(params: typ.Sequence[torch.Tensor],
+                        expert: typ.Sequence[bool], max_norm: float,
+                        expert_group=None) -> None:
+    """``optax.clip_by_global_norm`` on the gradients of ``params``, in
+    place and without a host sync: where the global norm is at least
+    ``max_norm``, g <- (g / norm) * max_norm."""
+    grads = [p.grad for p in params]
+    norm = global_norm(grads, expert, expert_group)
+    clip = norm >= max_norm
+    one = torch.ones_like(norm)
+    torch._foreach_div_(grads, torch.where(clip, norm, one))
+    torch._foreach_mul_(grads, torch.where(clip, one * max_norm, one))
+
+
+class Lamb(torch.optim.Optimizer):
+    """timm's Lamb (the FusedLAMB port) as the JAX package chains it
+    (optim.py:521-564, :620-631), in place over foreach ops:
+
+    1. every gradient is divided by max(1, global grad-norm /
+       ``max_grad_norm``);
+    2. Adam moments and the bias-corrected direction u = m_hat /
+       (sqrt(v_hat) + eps) (eps outside the sqrt, as ``scale_by_adam``);
+    3. decoupled decay u += wd * p;
+    4. on a group with weight decay only, the trust ratio ||p|| / ||u||
+       (1 where either norm is 0) scales u;
+    5. p -= lr * u.
+
+    The global norm and an expert tensor's ||p|| and ||u|| are taken over
+    the whole tensor under an expert group (``expert_group``, the groups
+    flagged ``expert``), so every layout clips and scales alike. The state
+    is ``torch.optim.AdamW``'s (``step``, ``exp_avg``, ``exp_avg_sq``)."""
+
+    def __init__(self, params, lr: float = 0.0,
+                 betas: typ.Tuple[float, float] = (0.9, 0.999),
+                 eps: float = 1e-8, weight_decay: float = 0.0,
+                 max_grad_norm: float = 1.0, expert_group=None):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
+                                      weight_decay=weight_decay,
+                                      expert=False))
+        self.max_grad_norm = max_grad_norm
+        self.expert_group = expert_group
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        work = [(g, [p for p in g["params"] if p.grad is not None])
+                for g in self.param_groups]
+        work = [(g, ps) for g, ps in work if ps]
+        if not work:
+            return None
+        norm = global_norm([p.grad for _, ps in work for p in ps],
+                           [g["expert"] for g, ps in work for _ in ps],
+                           self.expert_group)
+        denom = torch.clamp(norm / self.max_grad_norm, min=1.0)
+        for group, params in work:
+            b1, b2 = group["betas"]
+            for p in params:
+                st = self.state[p]
+                if not st:  # torch.optim.AdamW's lazily built state
+                    st["step"] = torch.tensor(0.0, dtype=torch.float32)
+                    st["exp_avg"] = torch.zeros_like(p)
+                    st["exp_avg_sq"] = torch.zeros_like(p)
+                st["step"] += 1
+            # the bias corrections in f32, as optax takes them (b2 = 0.999
+            # in f32 moves 1 - b2 by 1.3e-5 of itself)
+            t = np.float32(self.state[params[0]]["step"])
+            c1, c2 = (float(np.float32(1.0) - np.float32(b) ** t)
+                      for b in (b1, b2))
+            grads = torch._foreach_div([p.grad for p in params], denom)
+            m = [self.state[p]["exp_avg"] for p in params]
+            v = [self.state[p]["exp_avg_sq"] for p in params]
+            torch._foreach_mul_(m, b1)
+            torch._foreach_add_(m, grads, alpha=1.0 - b1)
+            torch._foreach_mul_(v, b2)
+            torch._foreach_addcmul_(v, grads, grads, value=1.0 - b2)
+            u = torch._foreach_div(m, c1)
+            den = torch._foreach_sqrt(torch._foreach_div(v, c2))
+            torch._foreach_add_(den, group["eps"])
+            torch._foreach_div_(u, den)
+            wd = group["weight_decay"]
+            if wd != 0:
+                torch._foreach_add_(u, params, alpha=wd)
+                for ui, pn, un in zip(
+                        u, _tensor_norms(params, group["expert"],
+                                         self.expert_group),
+                        _tensor_norms(u, group["expert"],
+                                      self.expert_group)):
+                    ratio = torch.where((pn > 0) & (un > 0), pn / un,
+                                        torch.ones_like(pn))
+                    ui.mul_(ratio)
+            torch._foreach_add_(params, u, alpha=-group["lr"])
+        return None
+
+
 def make_optimizer(*, opt: str = "adamw",
                    weight_decay: float = 0.05,
                    betas: typ.Tuple[float, float] = (0.9, 0.999),
-                   eps: float = 1e-8, clip_grad: typ.Optional[float] = None):
+                   eps: float = 1e-8, momentum: float = 0.9,
+                   clip_grad: typ.Optional[float] = None,
+                   trainable_mask: typ.Optional[typ.Callable] = None,
+                   expert_group=None):
     """Returns ``(init_fn, update_fn)`` as the JAX package does (which also
     takes the param tree first; here the groups come from the model given
     to ``init_fn``):
     ``init_fn(model)`` builds the optimizer over the model's parameters (on
     their device), ``update_fn(optimizer, lr_base, lr_gate)`` sets the
-    groups' learning rates and applies one step to the gradients in
-    ``p.grad``.
+    groups' learning rates, clips the gradients in ``p.grad`` by their
+    global norm (``clip_grad``) and applies one step.
+
+    ``opt`` is one of the timm names of the JAX ``make_optimizer``
+    (:567-697), each with its math there:
+
+    - ``adamw``: ``torch.optim.AdamW``, decoupled weight decay;
+    - ``adam``: ``torch.optim.Adam``, L2 decay on the gradient;
+    - ``sgd`` / ``nesterov`` / ``momentum``: ``torch.optim.SGD`` with
+      Nesterov (the first two) or heavy-ball ``momentum``, L2 decay;
+    - ``lamb``: :class:`Lamb`;
+    - ``nadam``: ``torch.optim.NAdam``, momentum decay 4e-3, L2 decay;
+    - ``radam``: ``torch.optim.RAdam``, decoupled decay;
+    - ``adadelta``: ``torch.optim.Adadelta``, rho 0.9, L2 decay;
+    - ``rmsprop``: ``torch.optim.RMSprop`` as timm builds it, alpha 0.9,
+      eps outside the sqrt, ``momentum``, L2 decay.
+
+    adadelta takes ``eps`` (the JAX chain fixes 1e-6) and radam adds it to
+    sqrt(v) before the bias correction (the JAX chain after it), as timm's
+    torch optimizers do. The groups of every optimizer are weight decay or
+    none (``wd_mask``) x the base or the gate learning rate (``gate_mask``)
+    x expert or dense tensors (whose norms under ``expert_group`` sum over
+    the group: ``clip_grad``'s global norm, :class:`Lamb`'s).
+
+    ``trainable_mask(named_parameters) -> {name: bool}`` (``--attn-only``:
+    :func:`attn_only_mask`) leaves the other parameters out of the
+    optimizer: they move by neither an update nor weight decay, and their
+    gradients enter no norm, as the JAX update zeroes both (:662-672).
 
     ``update_fn.fused_apply(model, optimizer, ema, lr_base, lr_gate,
-    ema_decay)`` takes the same step, and the EMA update when ``ema`` (the
-    EMA tensors by parameter name) is given, in one K7 launch."""
+    ema_decay)`` (adamw without ``clip_grad`` or a mask, as in the JAX
+    package) takes the same step, and the EMA update when ``ema`` (the EMA
+    tensors by parameter name) is given, in one K7 launch."""
     if opt not in SUPPORTED_OPTIMIZERS:
         raise ValueError(f"--opt {opt!r} is not implemented; supported: "
                          f"{SUPPORTED_OPTIMIZERS}")
-    if opt != "adamw":
-        raise NotImplementedError(
-            f"--opt {opt!r} is not ported yet (ROADMAP Queue 1 #6)")
-    if clip_grad is not None and clip_grad > 0:
-        raise NotImplementedError("clip_grad is not ported yet (ROADMAP "
-                                  "Queue 1 #6)")
+    clip = clip_grad if clip_grad is not None and clip_grad > 0 else None
 
-    def init_fn(model: torch.nn.Module) -> torch.optim.AdamW:
+    def build(groups):
+        if opt == "adamw":
+            return torch.optim.AdamW(groups, lr=0.0, betas=betas, eps=eps,
+                                     foreach=True)
+        if opt == "adam":
+            return torch.optim.Adam(groups, lr=0.0, betas=betas, eps=eps,
+                                    foreach=True)
+        if opt == "lamb":
+            return Lamb(groups, betas=betas, eps=eps,
+                        expert_group=expert_group)
+        if opt == "nadam":
+            return torch.optim.NAdam(groups, lr=0.0, betas=betas, eps=eps,
+                                     momentum_decay=4e-3, foreach=True)
+        if opt == "radam":
+            return torch.optim.RAdam(groups, lr=0.0, betas=betas, eps=eps,
+                                     decoupled_weight_decay=True,
+                                     foreach=True)
+        if opt == "adadelta":
+            return torch.optim.Adadelta(groups, lr=0.0, rho=0.9, eps=eps,
+                                        foreach=True)
+        if opt == "rmsprop":
+            return torch.optim.RMSprop(groups, lr=0.0, alpha=0.9, eps=eps,
+                                       momentum=momentum, foreach=True)
+        return torch.optim.SGD(  # sgd / nesterov / momentum
+            groups, lr=0.0, momentum=momentum,
+            nesterov=opt != "momentum" and momentum > 0, foreach=True)
+
+    def init_fn(model: torch.nn.Module) -> torch.optim.Optimizer:
         named = list(model.named_parameters())
+        if trainable_mask is not None:
+            keep = trainable_mask(named)
+            named = [(n, p) for n, p in named if keep[n]]
         decay, gate = wd_mask(named), gate_mask(named)
         groups = []
         for wd in (True, False):
             for is_gate in (False, True):
-                params = [p for n, p in named
-                          if decay[n] == wd and gate[n] == is_gate]
-                if params:
-                    groups.append({"params": params, "gate": is_gate,
-                                   "weight_decay": weight_decay if wd else 0.0})
-        return torch.optim.AdamW(groups, lr=0.0, betas=betas, eps=eps,
-                                 foreach=True)
+                for expert in (False, True):
+                    params = [p for n, p in named
+                              if decay[n] == wd and gate[n] == is_gate
+                              and is_expert_param(n) == expert]
+                    if params:
+                        groups.append({
+                            "params": params, "gate": is_gate,
+                            "expert": expert,
+                            "weight_decay": weight_decay if wd else 0.0})
+        return build(groups)
 
     def update_fn(optimizer: torch.optim.Optimizer, lr_base: float,
                   lr_gate: float) -> None:
         for group in optimizer.param_groups:
             group["lr"] = float(lr_gate if group["gate"] else lr_base)
+        if clip is not None:
+            work = [(p, g["expert"]) for g in optimizer.param_groups
+                    for p in g["params"] if p.grad is not None]
+            if work:
+                clip_by_global_norm([p for p, _ in work],
+                                    [e for _, e in work], clip,
+                                    expert_group)
         optimizer.step()
 
     @torch.no_grad()
@@ -427,5 +642,6 @@ def make_optimizer(*, opt: str = "adamw",
         for step in leaves["step"]:
             step.fill_(t)
 
-    update_fn.fused_apply = fused_apply
+    if opt == "adamw" and clip is None and trainable_mask is None:
+        update_fn.fused_apply = fused_apply
     return init_fn, update_fn

@@ -17,12 +17,15 @@ results to ``<out_dir>/rank<r>.npz`` (arrays) and ``rank<r>.json``
   forms, forward and backward;
 - :func:`model_forward_worker`: a model's eval forward, its parameters
   sharded;
-- :func:`train_steps_worker`: a few train steps of a model.
+- :func:`train_steps_worker`: a few train steps of a model;
+- :func:`optimizer_steps_worker`: a few optimizer steps on one MoE
+  layer's parameters, its experts split over the expert group.
 """
 from __future__ import annotations
 
 import argparse
 import copy
+import functools
 import json
 import os
 import typing as typ
@@ -39,6 +42,9 @@ EP_FORMS = {"psum": ("moe_forward_fused_ep", "0"),
             "a2a": ("moe_forward_fused_ep_a2a", "0"),
             "a2a_perm": ("moe_forward_fused_ep_a2a", "1"),
             "sharded": ("moe_forward_sharded", "0")}
+# the dropless forms under an expert group: the dropless function on the
+# experts gathered over the group (ops/moe.py::moe_forward_gathered)
+DROPLESS_FORMS = {"fused": "moe_forward_fused", "ragged": "moe_forward_ragged"}
 _PARAMS = ("router_w", "router_b", "w1", "b1", "w2", "b2")
 
 
@@ -95,7 +101,9 @@ def moe_layer_worker(in_path: str, out_dir: str, dp: int, ep: int,
                      runs: typ.Sequence[typ.Tuple[str, float]], dtype: str,
                      device: str, timing_reps: int = 0) -> None:
     """One MoE layer through each (form, capacity factor[, router bias
-    key]) of ``runs`` (forms of :data:`EP_FORMS`) on a dp x ep layout.
+    key]) of ``runs`` (forms of :data:`EP_FORMS`, of
+    :data:`DROPLESS_FORMS`, which take no capacity factor, and
+    ``expert_choice``) on a dp x ep layout.
     Inputs (``in_path``): x (T, d), the cotangent weights c (T, d),
     router_w, router_b (or the array the run names) and the full expert
     tensors, ``top_k`` and optionally ``balance_weight`` (0 without it).
@@ -131,9 +139,19 @@ def moe_layer_worker(in_path: str, out_dir: str, dp: int, ep: int,
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     for form, factor, *bias in runs:
-        name, permuted = EP_FORMS[form]
-        os.environ["SSMV_A2A_PERMUTED"] = permuted
-        fn = getattr(moe_ops, name)
+        kw = {"top_k": int(data["top_k"])}
+        if form in DROPLESS_FORMS:
+            fn = functools.partial(
+                moe_ops.moe_forward_gathered,
+                dispatch=getattr(moe_ops, DROPLESS_FORMS[form]))
+        elif form == "expert_choice":
+            fn, kw = moe_ops.moe_forward_expert_choice, {
+                "capacity_factor": factor}
+        else:
+            name, permuted = EP_FORMS[form]
+            os.environ["SSMV_A2A_PERMUTED"] = permuted
+            fn = getattr(moe_ops, name)
+            kw["capacity_factor"] = factor
         x = tensor("x", rows, act).requires_grad_()
         sources = {**dict(zip(_PARAMS, _PARAMS)), "router_b":
                    bias[0] if bias else "router_b"}
@@ -141,8 +159,7 @@ def moe_layer_worker(in_path: str, out_dir: str, dp: int, ep: int,
                   .requires_grad_() for k in _PARAMS}
 
         def step():
-            y, aux = fn(x, *params.values(), mesh=mesh,
-                        top_k=int(data["top_k"]), capacity_factor=factor)
+            y, aux = fn(x, *params.values(), mesh=mesh, **kw)
             loss = (y.float() * c.float()).sum()
             if balance_weight:
                 loss = loss + balance_weight / dp * aux["balance_loss"]
@@ -275,3 +292,43 @@ def train_steps_worker(out_dir: str, dp: int, ep: int, model_name: str,
                 if v is not None:
                     os.environ[k] = v
     _save(out_dir, {}, record)
+
+
+def optimizer_steps_worker(in_path: str, out_dir: str, dp: int, ep: int,
+                           opt_kwargs: dict, group_norms: bool,
+                           device: str) -> None:
+    """``optim.make_optimizer(**opt_kwargs)`` steps on one ``MoEMlp``
+    (module name ``mlp``) laid out over dp x ep. Inputs (``in_path``): the
+    layer's shape (``dims``: d, h, E), its full parameters ``param/<name>``
+    and each step's full gradients ``grad<s>/<name>``, applied at ``lr``.
+    Each rank keeps its experts of the parameters and the gradients; with
+    ``group_norms`` the optimizer's global norms sum over the expert group
+    (the driver's setting), without it each rank's norms are its own.
+    Saves the rank's parameters after the steps."""
+    from .. import optim
+    from ..models.moe import MoEMlp
+
+    mesh = make_mesh(dp, ep)
+    data = np.load(in_path)
+    d, h, E = (int(v) for v in data["dims"])
+    model = torch.nn.Module()
+    model.mlp = MoEMlp(d, h, num_experts=E)
+    model.load_state_dict({k[len("param/"):]: torch.from_numpy(data[k])
+                           for k in data.files if k.startswith("param/")})
+    shard_params(model, mesh)
+    model.to(device)
+    init, update = optim.make_optimizer(
+        **opt_kwargs, expert_group=mesh.expert_group if group_norms else None)
+    opt = init(model)
+    experts = expert_slice(mesh, E)
+    n_steps = sum(1 for k in data.files if k.startswith("grad") and
+                  k.endswith("/mlp.w1"))
+    for s in range(n_steps):
+        for name, p in model.named_parameters():
+            g = data[f"grad{s}/{name}"]
+            if p.shape != g.shape:
+                g = g[experts]
+            p.grad = torch.from_numpy(np.ascontiguousarray(g)).to(device)
+        update(opt, float(data["lr"]), float(data["lr"]))
+    _save(out_dir, {n: p.detach().cpu().numpy()
+                    for n, p in model.named_parameters()}, {})

@@ -16,7 +16,10 @@ subgroups for the collectives:
 :func:`shard_params` keeps this rank's ``E / n_expert`` experts of every
 expert tensor (the parameters whose JAX name contains ``expert``: the
 port's ``w1``/``b1``/``w2``/``b2``) and replicates everything else, as the
-JAX function places them (:84-103).
+JAX function places them (:84-103), in every dispatch mode: the dropless
+ones gather the experts in their forward (``ops/moe.py::
+moe_forward_gathered``), so the optimizer and checkpoints hold the
+sharded tensors.
 
 Not ported: ``constrain`` (``with_sharding_constraint``) has no meaning in
 PyTorch, where no compiler places tensors: the expert-parallel forms of

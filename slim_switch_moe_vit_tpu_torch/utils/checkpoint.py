@@ -47,7 +47,8 @@ against the JAX tree.
 
 :func:`load_npz_tree` reads such a tree from an ``.npz`` whose keys are the
 tree paths joined by ``/``. Reading the JAX package's Orbax checkpoints is
-not ported yet.
+not ported: it needs Orbax and tensorstore, which the card's host does not
+have (a JAX tree saved as an ``.npz`` loads through this function).
 
 Foreign weights (the JAX ``utils/checkpoint.py:156-325``):
 :func:`import_torch_checkpoint` loads a DeiT / timm ``.pth`` into a
@@ -209,14 +210,15 @@ def _optimizer_names(state) -> typ.List[str]:
 
 def _map_experts(state, model_sd, opt_sd, ema, fn):
     """(model, optimizer, EMA) dicts with ``fn`` applied to every expert
-    tensor: the parameters, their moments and their EMA."""
+    tensor: the parameters, their per-element optimizer state (not the
+    0-d ones, such as ``step`` or NAdam's ``mu_product``) and their EMA."""
     experts = _expert_names(state.model)
     model_sd = {k: fn(v) if k in experts else v for k, v in model_sd.items()}
     if opt_sd is not None:
         names = _optimizer_names(state)
         opt_sd = {**opt_sd, "state": {
-            i: {k: fn(v) if names[i] in experts and k != "step" else v
-                for k, v in st.items()}
+            i: {k: fn(v) if names[i] in experts and torch.is_tensor(v)
+                and v.dim() > 0 else v for k, v in st.items()}
             for i, st in opt_sd["state"].items()}}
     if ema is not None:
         ema = {k: fn(v) if k in experts else v for k, v in ema.items()}

@@ -290,13 +290,13 @@ def test_driver_trains_with_capacity_dispatch(tmp_path):
 
 
 @pytest.mark.parametrize("flags,error,match", [
-    (["--clip-grad", "1.0"], NotImplementedError, "ROADMAP Queue 1 #6"),
-    (["--opt", "sgd"], NotImplementedError, "ROADMAP Queue 1 #6"),
     (["--opt", "bogus"], ValueError, "not implemented"),
-    (["--attn-only"], NotImplementedError, "ROADMAP Queue 1 #6"),
-    (["--moe-dispatch", "fused", "--expert-parallel", "2"],
-     NotImplementedError, "ROADMAP Queue 1 #7"),
-    (["--expert-parallel", "2"], NotImplementedError, "ROADMAP Queue 1 #7"),
+    (["--opt", "adagrad"], ValueError, "not implemented"),
+    # RUN has --fused-optimizer: K7 is AdamW alone, and the port raises
+    # where the JAX driver warns and takes the optimizer chain
+    (["--opt", "sgd"], ValueError, "--fused-optimizer .* --opt sgd"),
+    (["--clip-grad", "1.0"], ValueError, "--fused-optimizer .* --clip-grad"),
+    (["--attn-only"], ValueError, "--fused-optimizer .* --attn-only"),
     (["--distillation-type", "hard"], ValueError, "teacher-path"),
 ])
 def test_driver_refuses_what_is_not_ported(flags, error, match):

@@ -168,8 +168,9 @@ def test_one_process_layout_and_refusals():
         sharding.make_mesh(n_expert=2)
     model = create_model("moe_tiny_patch16_224_expert8", num_classes=10,
                          img_size=32, dispatch_mode="fused")
-    with pytest.raises(NotImplementedError, match="dropless"):
-        sharding.shard_params(model, sharding.Mesh(1, 2, 0, 1))
+    sharding.shard_params(model, sharding.Mesh(1, 2, 0, 1))
+    mlp = model.blocks[0].mlp  # the dropless mode keeps its half, gathers
+    assert mlp.mesh is not None and mlp.w1.shape[0] == 4
 
 
 def test_a2a_form_refuses_a_token_count_the_expert_ranks_do_not_split():

@@ -117,10 +117,13 @@ def test_wd_mask_is_the_jax_mask(models):
 
 
 def test_unported_optimizers_raise():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        optim.make_optimizer(opt="lamb")
+    """A name neither package implements raises; every JAX name is
+    accepted (their parity: tests/test_torch_optim_surface.py)."""
     with pytest.raises(ValueError, match="not implemented"):
         optim.make_optimizer(opt="adagrad")
+    assert optim.SUPPORTED_OPTIMIZERS == jax_optim.SUPPORTED_OPTIMIZERS
+    for name in optim.SUPPORTED_OPTIMIZERS:
+        optim.make_optimizer(opt=name)
 
 
 def test_adamw_and_ema_update_matches_jax(models):

@@ -156,9 +156,9 @@ def test_moe_mlp_module_matches_jax(jax_moe_mlp, mode):
                                rtol=1e-5)
 
 
-@pytest.mark.parametrize("mode", ["expert_choice"])
+@pytest.mark.parametrize("mode", ["bogus"])
 def test_unported_dispatch_modes_raise(mode):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="unknown dispatch_mode"):
         MoEMlp(32, 64, dispatch_mode=mode)
 
 

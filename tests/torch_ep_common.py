@@ -69,12 +69,20 @@ def run_jax(form: str, dp: int, ep: int, data: dict, factor: float,
     gradients of sum(y * c) + balance_weight * balance_loss (the data's
     weight unless given) by x and every parameter."""
     monkeypatch.setenv("SSMV_A2A_PERMUTED", "1" if form == "a2a_perm" else "0")
+    def shard_buf(b):
+        return constrain(b, (EXPERT_AXIS, None, None))
+
     fn = {"psum": jax_moe.moe_forward_fused_ep,
           "a2a": jax_moe.moe_forward_fused_ep_a2a,
           "a2a_perm": jax_moe.moe_forward_fused_ep_a2a,
           "sharded": lambda *a, **kw: jax_moe.moe_forward(
-              *a, **kw, shard_buf=lambda b: constrain(
-                  b, (EXPERT_AXIS, None, None)))}[form]
+              *a, **kw, shard_buf=shard_buf),
+          # the dropless forms: the ragged function under the mesh
+          "ragged": lambda *a, capacity_factor, **kw:
+              jax_moe.moe_forward_ragged(*a, **kw),
+          "expert_choice": lambda *a, top_k, **kw:
+              jax_moe.moe_forward_expert_choice(*a, **kw,
+                                                shard_buf=shard_buf)}[form]
     w = {k: jnp.asarray(data[k]) for k in PARAMS}
     x, c = jnp.asarray(data["x"]), jnp.asarray(data["c"])
     bw = float(data["balance_weight"] if balance_weight is None

@@ -231,6 +231,22 @@ Phases (any failure propagates and the script exits non-zero):
     EP phase (12 (b)); (e) ``resmoe_small_patch16_224_expert8`` with its
     gates' eval targets lowered to 0.3, exported and served: a positive
     share of tokens skipped, the served logits held to the eval.
+21. A JAX run resumed on the card (``jax_resume_phase``): cfg3's gated
+    ResMoE (``resmoe_small_patch16_224_expert8`` at full width, bf16
+    activations, f32 parameters, no dropout or drop path) with an EMA and
+    the fused optimizer (K7) takes 2 steps at B = 128, and its state is
+    saved as the port's checkpoint and in the layout
+    ``scripts/jax_checkpoint_to_npz.py`` writes from the JAX trainer's
+    Orbax checkpoint (``write_jax_npz``: the card's host has no JAX). A
+    fresh state resumes from each file (``restore_checkpoint``, the
+    ``.npz`` through ``import_jax_checkpoint``) and takes one more step on
+    the same batch: the two losses and every parameter, EMA and moment
+    tensor bit for bit equal, each step's launches exact
+    (``PER_RESMOE_STEP``, one K7). The driver (``--resume run.npz
+    --model-ema --fused-optimizer``) trains one step of the stored epoch
+    + 1, launches exact; the export CLI's ``--use-ema`` from the ``.npz``
+    and from the port's checkpoint serves bit for bit equal logits. The
+    phase prints its seconds and the files' sizes.
 
 Each attention forward's route (``models/vit.py::attention_route``) is
 counted in ``ROUTE_COUNTS``; phases 14, 16, 18, 19 and 20 assert it.
@@ -582,6 +598,21 @@ SURF_DRIVER_ARGS = ["--data-set", "SYNTH", "--synth-size", "256",
                     "--reprob", "0", "--num_workers", "2"]
 DEIT_SMALL = "deit_small_patch16_224"
 EC_STEPS, DROP_RATE, GATED_TARGET = 2, 0.1, 0.3
+# phase 21: a JAX run resumed on the card. The gated ResMoE (cfg3) at full
+# width with an EMA and K7 trains 2 steps at B=128, is saved as the port's
+# checkpoint and in the layout scripts/jax_checkpoint_to_npz.py writes
+# (epoch JAXR_EPOCH, a JAX key), and resumes from each for one more step;
+# the driver resumes the .npz for one step of epoch JAXR_EPOCH + 1
+JAXR_EPOCH, JAXR_KEY, JAXR_SERVE_B = 3, (0, 42), 8
+JAXR_DRIVER_ARGS = ["--data-set", "SYNTH", "--synth-size", "256",
+                    "--synth-classes", "1000", "--model", RESMOE,
+                    "--batch-size", str(TRAIN_B), "--epochs",
+                    str(JAXR_EPOCH + 2), "--max-steps-per-epoch", "1",
+                    "--model-ema", "--fused-optimizer", "--drop-path", "0",
+                    "--warmup-epochs", "0", "--no-repeated-aug", "--mixup",
+                    "0", "--cutmix", "0", "--aa", "", "--color-jitter", "0",
+                    "--reprob", "0", "--num_workers", "2"]
+GATE_BUFFERS = ("threshold", "target_threshold", "enabled")
 
 
 def expected(per: dict, n: int) -> dict:
@@ -4680,6 +4711,200 @@ def surface_phase(card: str, tmp: str) -> None:
         log(f"[phase 20 {what}: {time.perf_counter() - t0:.1f} s] {card}")
 
 
+def write_jax_npz(state, path: str, epoch: int, key) -> None:
+    """``state`` (an AdamW state) in the layout that
+    ``scripts/jax_checkpoint_to_npz.py`` writes from the JAX trainer's
+    Orbax checkpoint: ``params/``, ``gates/``, ``ema_params/`` and the
+    Adam entry ``opt_state/0/{count,mu,nu}`` in the flax names and layouts
+    (``to_jax_tree``), ``step``, ``epoch`` and the key ``rng``. The card's
+    host has no JAX, so the phase writes the layout itself."""
+    from slim_switch_moe_vit_tpu_torch.utils.checkpoint import (
+        flatten_tree,
+        to_jax_tree,
+    )
+
+    model = state.model
+    named = dict(model.named_parameters())
+    opt = {n: state.optimizer.state[p] for n, p in named.items()}
+    count, = {int(st["step"]) for st in opt.values()}
+    tree = {
+        "params": to_jax_tree(named),
+        "gates": to_jax_tree({n: b for n, b in model.named_buffers()
+                              if n.split(".")[-1] in GATE_BUFFERS}),
+        "ema_params": to_jax_tree(state.ema_params),
+        "opt_state": {"0": {
+            "count": np.asarray(count, np.int32),
+            "mu": to_jax_tree({n: st["exp_avg"] for n, st in opt.items()}),
+            "nu": to_jax_tree({n: st["exp_avg_sq"]
+                               for n, st in opt.items()})}},
+        "step": np.asarray(state.step, np.int32),
+        "epoch": np.asarray(epoch),
+        "rng": np.asarray(key, np.uint32),
+    }
+    np.savez(path, **flatten_tree(tree))
+
+
+def _resmoe_state(seed: int, device: str = "cuda"):
+    """cfg3's gated ResMoE at full width (bf16 activations, f32 parameters,
+    no dropout or drop path) on ``device``, AdamW + EMA, its K7 train
+    step."""
+    import torch
+
+    from slim_switch_moe_vit_tpu_torch import (create_model, engine, losses,
+                                               optim)
+    from slim_switch_moe_vit_tpu_torch.train_state import create_train_state
+
+    model = create_model(RESMOE, num_classes=1000, dtype=torch.bfloat16,
+                         drop_rate=0.0, drop_path_rate=0.0,
+                         generator=torch.Generator().manual_seed(seed))
+    opt_init, update = optim.make_optimizer(weight_decay=0.05)
+    state = create_train_state(model, device=device, opt_init=opt_init,
+                               use_ema=True)
+    step = engine.make_train_step(
+        model, update, losses.make_base_criterion(False, 0.1, False),
+        ema_decay=EMA_DECAY, use_fused_optimizer=True)
+    return state, step
+
+
+def jax_resume_phase(card: str, tmp: str, device: str = "cuda") -> dict:
+    """Phase 21: a JAX run resumed on the card, and its EMA served. Returns
+    the phase's seconds and file sizes. (``device="cpu"`` rehearses it with
+    the plain versions, whose calls launch and count nothing.)"""
+    import torch
+
+    from slim_switch_moe_vit_tpu_torch import engine, ops
+    from slim_switch_moe_vit_tpu_torch import main as driver
+    from slim_switch_moe_vit_tpu_torch.serving import export
+    from slim_switch_moe_vit_tpu_torch.utils.checkpoint import (
+        restore_checkpoint,
+        save_checkpoint,
+    )
+
+    t0 = time.perf_counter()
+    x, y = _batch(TRAIN_B, 21, device)
+    state, step = _resmoe_state(0, device)
+    for _ in range(2):
+        state, _ = step(state, x, y, LR, LR)
+    pt, npz = os.path.join(tmp, "checkpoint"), os.path.join(tmp, "run.npz")
+    t_save = time.perf_counter()
+    save_checkpoint(pt, state, JAXR_EPOCH)
+    write_jax_npz(state, npz, JAXR_EPOCH, JAXR_KEY)
+    t_save = time.perf_counter() - t_save
+    del state, step
+    torch.cuda.empty_cache()
+
+    # (c) one more step from each file, with no random draw on the path
+    resumed = {}
+    for seed, path in ((1, pt), (2, npz)):
+        rstate, rstep = _resmoe_state(seed, device)
+        rstate, epoch = restore_checkpoint(path, rstate)
+        if epoch != JAXR_EPOCH or rstate.step != 2:
+            raise AssertionError(f"{path}: epoch {epoch}, step {rstate.step}")
+        rstate, m = _counted(lambda: rstep(rstate, x, y, LR, LR),
+                             PER_RESMOE_STEP, 1, {"k5_k6": 12},
+                             f"{RESMOE} step resumed from "
+                             f"{os.path.basename(path)}")
+        named = dict(rstate.model.named_parameters())
+        resumed[path] = {
+            "loss": m["loss"].float().cpu(),
+            **{f"param {n}": p.detach().cpu() for n, p in named.items()},
+            **{f"ema {n}": t.cpu() for n, t in rstate.ema_params.items()},
+            **{f"{k} {n}": rstate.optimizer.state[p][k].cpu()
+               for n, p in named.items()
+               for k in ("exp_avg", "exp_avg_sq", "step")}}
+        del rstate, rstep, named
+        torch.cuda.empty_cache()
+    a, b = resumed[pt], resumed[npz]
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    if differ or a.keys() != b.keys():
+        raise AssertionError(f"the step resumed from the .npz differs from "
+                             f"the port checkpoint's: {differ[:5]}")
+    log(f"{RESMOE} resumed from the port checkpoint and from the JAX "
+        f"layout (.npz): one more K7 step at B={TRAIN_B}, loss "
+        f"{float(a['loss']):.6f} and all {len(a) - 1} parameter, EMA and "
+        f"moment tensors bit for bit equal")
+    del resumed, a, b
+
+    # (d) the driver resumes the .npz for one step of the next epoch
+    epochs, losses_, evals, real = [], [], [], {
+        "train_one_epoch": engine.train_one_epoch,
+        "make_train_step": engine.make_train_step,
+        "make_eval_step": engine.make_eval_step}
+
+    def spy_epoch(st, fn, loader, epoch, *a, **kw):
+        epochs.append(epoch)
+        return real["train_one_epoch"](st, fn, loader, epoch, *a, **kw)
+
+    def spy(make, seen):
+        def make_spied(*a, **kw):
+            fn = make(*a, **kw)
+
+            def run(*fa, **fkw):
+                res = fn(*fa, **fkw)
+                seen.append(res)
+                return res
+            return run
+        return make_spied
+
+    engine.train_one_epoch = spy_epoch
+    engine.make_train_step = spy(real["make_train_step"], losses_)
+    engine.make_eval_step = spy(real["make_eval_step"], evals)
+    try:
+        ops.reset_launch_counts()
+        dstate = driver.main(_driver_args(JAXR_DRIVER_ARGS + [
+            "--resume", npz, "--device", device]))
+        counts = ops.launch_counts()
+    finally:
+        engine.train_one_epoch = real["train_one_epoch"]
+        engine.make_train_step = real["make_train_step"]
+        engine.make_eval_step = real["make_eval_step"]
+    losses_ = [float(res[1]["loss"]) for res in losses_]
+    want = {k: v + PER_RESMOE_FORWARD.get(k, 0) * len(evals)
+            for k, v in expected(PER_RESMOE_STEP, 1).items()}
+    if (epochs != [JAXR_EPOCH + 1] or len(losses_) != 1
+            or not np.isfinite(losses_).all() or dstate.step != 3
+            or counts != want):
+        raise AssertionError(f"driver --resume {npz}: epochs {epochs}, "
+                             f"losses {losses_}, step {dstate.step}, "
+                             f"launches {counts} != {want}")
+    log(f"driver --resume run.npz --model-ema --fused-optimizer: started at "
+        f"epoch {epochs[0]} (stored {JAXR_EPOCH}), one step, loss "
+        f"{losses_[0]:.4f}, step count {dstate.step}, launches exact (1 "
+        f"step, {len(evals)} eval forwards)")
+    del dstate
+    torch.cuda.empty_cache()
+
+    # (e) the export CLI's --use-ema from each file: the same logits
+    images = np.random.RandomState(21).randint(
+        0, 256, (JAXR_SERVE_B, 224, 224, 3), dtype=np.uint8)
+    logits = {}
+    for path in (pt, npz):
+        art = os.path.join(tmp, "art_" + os.path.basename(path))
+        export.main(["--model", RESMOE, "--output", art, "--checkpoint",
+                     path, "--use-ema", "--num-classes", "1000",
+                     "--batch-sizes", str(JAXR_SERVE_B), "--device", device])
+        pred = export.load_predictor(art, device=device)
+        logits[path] = _counted(lambda: pred.predict(images),
+                                PER_RESMOE_FORWARD, 1, {"k5": 12},
+                                f"--use-ema artifact of "
+                                f"{os.path.basename(path)} served")
+        del pred
+    if not (np.isfinite(logits[pt]).all()
+            and np.array_equal(logits[pt], logits[npz])):
+        raise AssertionError("the .npz's EMA served other logits than the "
+                             "port checkpoint's")
+    sizes = {"npz_bytes": os.path.getsize(npz),
+             "checkpoint_bytes": os.path.getsize(pt)}
+    secs = time.perf_counter() - t0
+    log(f"--use-ema from the .npz and from the port checkpoint: "
+        f"{JAXR_SERVE_B} x 1000 logits bit for bit equal; the .npz "
+        f"{sizes['npz_bytes']} bytes, the port checkpoint "
+        f"{sizes['checkpoint_bytes']} bytes, both written in {t_save:.1f} s")
+    log(f"[phase 21 (a JAX run resumed on the card): {secs:.1f} s] {card}")
+    torch.cuda.empty_cache()
+    return {"seconds": secs, **sizes}
+
+
 def main() -> int:
     import torch
 
@@ -4776,6 +5001,12 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     phase_done("phase 20 (optimizers, expert_choice, expert dropout, gated "
                "artifact)")
+    tmp = tempfile.mkdtemp(prefix="ssmv_jax_resume_")
+    try:
+        jax_resume_phase(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    phase_done("phase 21 (a JAX run resumed on the card)")
 
     # launches: K1a-K6 in the 10 training steps of phase 6, which run all
     # ten (the serving run's counts are checked in serving_phase); K7 in the

@@ -20,7 +20,9 @@ and returns f32 logits.
 
 The CLI (:func:`main`) takes the weights from ``--checkpoint``: this
 package's ``utils/checkpoint.py::save_checkpoint`` output (the driver's
-checkpoint, the gates' buffers included), with ``--use-ema`` its EMA, or a
+checkpoint, the gates' buffers included), with ``--use-ema`` its EMA, a
+checkpoint of the JAX trainer converted by
+``scripts/jax_checkpoint_to_npz.py`` (``--use-ema`` its EMA too), or a
 ``.npz`` of the JAX package's param tree; a ``pos_embed`` trained at
 another resolution is resized to ``--img-size`` (:func:`checkpoint_state`,
 as the JAX CLI, :258-311 there).
@@ -209,9 +211,11 @@ def _cli_parser():
     p.add_argument("--output", required=True)
     p.add_argument("--checkpoint", default="",
                    help="a checkpoint written by the training driver "
-                        "(utils/checkpoint.py::save_checkpoint), or an .npz "
-                        "of the JAX package's param tree, keys joined by "
-                        "'/' (random weights from seed 0 when empty)")
+                        "(utils/checkpoint.py::save_checkpoint), a JAX "
+                        "checkpoint converted by "
+                        "scripts/jax_checkpoint_to_npz.py, or an .npz of "
+                        "the JAX package's param tree, keys joined by '/' "
+                        "(random weights from seed 0 when empty)")
     p.add_argument("--use-ema", action="store_true",
                    help="serve the checkpoint's EMA of the parameters; "
                         "refuses a checkpoint without one")
@@ -230,20 +234,36 @@ def checkpoint_state(path: str, model: torch.nn.Module,
                      use_ema: bool = False) -> dict:
     """The ``state_dict`` to serve ``model`` with, from ``path``: the
     training driver's checkpoint (its model state, the gates' buffers
-    included; with ``use_ema`` its EMA in place of the parameters), or a
-    ``.npz`` of the JAX package's param tree. A ``pos_embed`` whose grid
-    differs from the model's is resized bicubically (``resize_pos_embed``),
-    as the JAX CLI serves a checkpoint at another resolution."""
+    included; with ``use_ema`` its EMA in place of the parameters), a
+    checkpoint of the JAX trainer converted to an ``.npz`` by
+    ``scripts/jax_checkpoint_to_npz.py`` (known by its top-level
+    ``params/``: its ``params/`` or, with ``use_ema``, its ``ema_params/``,
+    and its ``gates/``), or a ``.npz`` of the JAX package's bare param
+    tree. A ``pos_embed`` whose grid differs from the model's is resized
+    bicubically (``resize_pos_embed``), as the JAX CLI serves a checkpoint
+    at another resolution."""
     from ..models.vit import resize_pos_embed
 
     if path.endswith(".npz"):
         from ..utils.checkpoint import from_jax_params, load_npz_tree
 
-        if use_ema:
+        with np.load(path) as z:
+            converted = any(k.startswith("params/") for k in z.files)
+        if converted:
+            weights = "ema_params" if use_ema else "params"
+            tree = load_npz_tree(path, roots=(weights, "gates"))
+            if weights not in tree:
+                raise ValueError(
+                    "--use-ema: checkpoint has no EMA shadow (trained "
+                    "without --model-ema?); refusing to silently serve the "
+                    "raw weights")
+            state = from_jax_params(tree[weights], tree.get("gates"))
+        elif use_ema:
             raise ValueError("--use-ema: a .npz param tree has no EMA "
                              "shadow; refusing to silently serve the raw "
                              "weights")
-        state = from_jax_params(load_npz_tree(path))
+        else:
+            state = from_jax_params(load_npz_tree(path))
     else:
         payload = torch.load(os.path.abspath(path), map_location="cpu",
                              weights_only=True)

@@ -46,9 +46,13 @@ and nesting, as numpy f32 arrays, so a port tensor can be held leaf by leaf
 against the JAX tree.
 
 :func:`load_npz_tree` reads such a tree from an ``.npz`` whose keys are the
-tree paths joined by ``/``. Reading the JAX package's Orbax checkpoints is
-not ported: it needs Orbax and tensorstore, which the card's host does not
-have (a JAX tree saved as an ``.npz`` loads through this function).
+tree paths joined by ``/``. A checkpoint of the JAX trainer is an Orbax
+tree, which needs Orbax and tensorstore, and the card's host has neither:
+``scripts/jax_checkpoint_to_npz.py`` converts it, where JAX runs, into such
+an ``.npz`` (``params/``, ``ema_params/``, ``gates/``, the optax state
+under ``opt_state/<i>/``, ``step``, ``epoch``, ``rng``), and
+:func:`import_jax_checkpoint` reads that into a train state, the optimizer
+state included (``--resume run.npz``).
 
 Foreign weights (the JAX ``utils/checkpoint.py:156-325``):
 :func:`import_torch_checkpoint` loads a DeiT / timm ``.pth`` into a
@@ -70,6 +74,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import hashlib
 import json
 import os
 import re
@@ -121,7 +126,8 @@ def from_jax_params(params: typ.Mapping,
                 arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
             else:
                 name = rename.get(key, key)
-            out[prefix + name] = torch.tensor(np.ascontiguousarray(arr))
+            out[prefix + name] = torch.tensor(  # 0-d stays 0-d
+                np.ascontiguousarray(arr).reshape(arr.shape))
 
     walk(params, "", _RENAME)
     for tree in (gates, centroids, pruning):
@@ -161,7 +167,7 @@ def to_jax_tree(tensors: typ.Mapping[str, torch.Tensor]) -> dict:
         node = tree
         for m in mods:
             node = node.setdefault(m, {})
-        node[leaf] = np.ascontiguousarray(arr)
+        node[leaf] = np.ascontiguousarray(arr).reshape(arr.shape)
     return tree
 
 
@@ -176,14 +182,17 @@ def flatten_tree(tree: typ.Mapping, prefix: str = "") -> typ.Dict[str, np.ndarra
     return flat
 
 
-def load_npz_tree(path: str) -> dict:
+def load_npz_tree(path: str,
+                  roots: typ.Optional[typ.Collection[str]] = None) -> dict:
     """Read an ``.npz`` written from ``flatten_tree`` back into nested
-    dicts."""
+    dicts; with ``roots``, only the keys under those top-level names."""
     tree: dict = {}
     with np.load(path) as z:
         for flat_key in z.files:
             node = tree
             *parents, leaf = flat_key.split("/")
+            if roots is not None and (parents or [leaf])[0] not in roots:
+                continue
             for p in parents:
                 node = node.setdefault(p, {})
             node[leaf] = z[flat_key]
@@ -349,7 +358,11 @@ def restore_checkpoint(path: str, state, mesh=None) -> typ.Tuple[typ.Any,
     generator, step); returns (state, epoch). Read onto the host, so the
     optimizer's ``step`` counts stay CPU tensors, as ``torch.optim.AdamW``
     keeps them. With ``mesh``, this rank's experts are sliced out of every
-    expert tensor of the (single-card layout) file."""
+    expert tensor of the (single-card layout) file. A path ending in
+    ``.npz`` is a converted checkpoint of the JAX trainer
+    (:func:`import_jax_checkpoint`)."""
+    if str(path).endswith(".npz"):
+        return import_jax_checkpoint(path, state, mesh=mesh)
     wait_for_checkpoints()  # a save of this process may still be landing
     payload = torch.load(os.path.abspath(path), map_location="cpu",
                          weights_only=True)
@@ -371,6 +384,179 @@ def restore_checkpoint(path: str, state, mesh=None) -> typ.Tuple[typ.Any,
     state.generator.set_state(payload["generator"])
     state.step = int(payload["step"])
     return state, int(payload["epoch"])
+
+
+# ---------------------------------------------------------------------------
+# A JAX trainer's checkpoint, converted by scripts/jax_checkpoint_to_npz.py
+# ---------------------------------------------------------------------------
+
+_ADAM = ("adamw / adam / lamb", {"count", "mu", "nu"},
+         {"exp_avg": "mu", "exp_avg_sq": "nu"})
+# For each torch optimizer of the port (optim.py), the JAX ``--opt`` names
+# that build it, the fields of the one optax chain entry that holds their
+# state (the JAX optim.py:567-657) and the JAX field of each torch field.
+# ``count`` becomes the torch ``step``; where the chain keeps no count, the
+# torch ``step`` (which Adadelta and RMSprop count but never read) is the
+# run's step.
+_JAX_OPT_STATE = {
+    "AdamW": _ADAM, "Adam": _ADAM, "Lamb": _ADAM,
+    "NAdam": ("nadam", {"count", "mu_product", "m", "v"},
+              {"mu_product": "mu_product", "exp_avg": "m",
+               "exp_avg_sq": "v"}),
+    "RAdam": ("radam", {"count", "m", "v"},
+              {"exp_avg": "m", "exp_avg_sq": "v"}),
+    "Adadelta": ("adadelta", {"v", "u"},
+                 {"square_avg": "v", "acc_delta": "u"}),
+    "RMSprop": ("rmsprop", {"v", "buf"},
+                {"square_avg": "v", "momentum_buffer": "buf"}),
+    "SGD": ("sgd / nesterov / momentum", {"trace"},
+            {"momentum_buffer": "trace"}),
+}
+
+
+def _jax_tensors(mapped: typ.Dict[str, torch.Tensor],
+                 want: typ.Mapping[str, torch.Tensor], experts: set, mesh,
+                 what: str) -> typ.Dict[str, torch.Tensor]:
+    """``mapped`` (``from_jax_params``' output) checked name by name against
+    ``want``'s tensors, with this rank's experts sliced out under ``mesh``:
+    a leaf on either side alone raises, naming it."""
+    extra = sorted(set(mapped) - set(want))
+    missing = sorted(set(want) - set(mapped))
+    if extra or missing:
+        raise ValueError(
+            f"{what}: the JAX leaves "
+            f"{['/'.join(jax_path(n)) for n in extra]} have no counterpart "
+            f"in the model, and the model's {missing} none in the file")
+    out = {}
+    for name, t in mapped.items():
+        if mesh is not None and name in experts:
+            from ..parallel.sharding import expert_slice
+
+            t = t[expert_slice(mesh, t.shape[0])].clone()
+        if t.shape != want[name].shape:
+            raise ValueError(f"{what}: {name} is {tuple(t.shape)} in the "
+                             f"file, {tuple(want[name].shape)} in the model")
+        out[name] = t
+    return out
+
+
+def _jax_opt_state(optimizer, model, opt_tree: dict, run_step: int,
+                   experts: set, mesh) -> dict:
+    """``optimizer``'s state ({parameter: {field: tensor}}) from the optax
+    chain's state, by parameter object; every moment tree takes its
+    parameter's names and layouts (``from_jax_params``), so a transposed
+    kernel's moments are transposed too."""
+    cls = type(optimizer).__name__
+    if cls not in _JAX_OPT_STATE:
+        raise ValueError(f"no JAX optimizer state maps onto {cls}")
+    opts, fields, torch_fields = _JAX_OPT_STATE[cls]
+    # the chain's entries with a state (clipping, lamb's rescale and the
+    # masked weight decay keep none); the sgd family without momentum has
+    # none on either side
+    entries = [opt_tree[k] for k in sorted(opt_tree, key=int)]
+    stateless = cls == "SGD" and not any(g["momentum"]
+                                         for g in optimizer.param_groups)
+    if [set(e) for e in entries] != ([] if stateless else [fields]):
+        raise ValueError(
+            f"--opt {opts} keeps its state in one optax entry with the "
+            f"fields {sorted(fields)}; the checkpoint's chain holds entries "
+            f"with the fields {[sorted(e) for e in entries]}")
+    if stateless:
+        return {}
+    entry, = entries
+    named = dict(model.named_parameters())
+    trees = {tf: _jax_tensors(from_jax_params(entry[jf]), named, experts,
+                              mesh, f"opt_state {jf}")
+             for tf, jf in torch_fields.items()
+             if isinstance(entry[jf], typ.Mapping)}
+    count = float(entry.get("count", run_step))
+    group_of = {p: g for g in optimizer.param_groups for p in g["params"]}
+    states = {}
+    for name, p in named.items():
+        group = group_of.get(p)
+        if group is None:  # left out of the optimizer (--attn-only)
+            continue
+        st = {} if cls == "SGD" else {
+            "step": torch.tensor(count, dtype=torch.float32)}
+        for tf, jf in torch_fields.items():
+            if tf == "momentum_buffer" and not group["momentum"]:
+                continue  # RMSprop without momentum never reads the buffer
+            st[tf] = (trees[tf][name].to(p.device, p.dtype) if tf in trees
+                      else torch.tensor(float(entry[jf]),
+                                        dtype=torch.float32))
+        states[p] = st
+    return states
+
+
+def _seed_from_key(key: np.ndarray) -> int:
+    """A torch seed from a JAX key's words (a JAX key cannot become a torch
+    generator's state): the same key gives the same seed. The words are
+    hashed, because the CPU generator keeps only a seed's low 32 bits."""
+    words = np.ascontiguousarray(key).astype("<u4").tobytes()
+    return int.from_bytes(hashlib.blake2b(words, digest_size=8).digest(),
+                          "little")
+
+
+def import_jax_checkpoint(path: str, state, mesh=None
+                          ) -> typ.Tuple[typ.Any, int]:
+    """Read a checkpoint of the JAX trainer, converted to an ``.npz`` by
+    ``scripts/jax_checkpoint_to_npz.py``, into an existing state, in place;
+    returns (state, epoch), as :func:`restore_checkpoint` does for the
+    port's own files.
+
+    - ``params/`` and ``gates/`` load through :func:`from_jax_params`,
+      ``ema_params/`` into ``state.ema_params`` through the same mapping. A
+      run with an EMA raises on a file without one (the JAX template's
+      rule); a file's EMA is passed over, with a note, in a run without.
+    - The optax chain's state (``opt_state/<i>/...``) fills
+      ``state.optimizer.state`` by parameter object, every moment in its
+      parameter's layout. The chain entry is found by its fields, not its
+      position (``--clip-grad`` and lamb put another entry first); a chain
+      whose state does not map onto the run's optimizer raises, naming the
+      ``--opt``. ``step`` becomes a CPU f32 tensor equal to the JAX
+      ``count``.
+    - A leaf of the file without a counterpart in the model raises, naming
+      it, and so does the reverse.
+    - ``step`` comes from the file; the generator is seeded from the JAX
+      key (``rng``), the same key giving the same seed.
+    - With ``mesh``, this rank's experts are sliced out of every expert
+      tensor (the parameters, the EMA and the moments).
+    """
+    tree = load_npz_tree(path)
+    if "params" not in tree:
+        raise ValueError(f"{path}: no params/ leaves; not a checkpoint "
+                         f"converted by scripts/jax_checkpoint_to_npz.py")
+    model = state.model
+    experts = _expert_names(model)
+    model_sd = _jax_tensors(from_jax_params(tree["params"], tree.get("gates")),
+                            model.state_dict(), experts, mesh, "params")
+    ema = None
+    if state.ema_params is not None:
+        if "ema_params" not in tree:
+            raise ValueError(f"{path}: the run keeps an EMA (--model-ema) "
+                             f"and the checkpoint has none")
+        ema = _jax_tensors(from_jax_params(tree["ema_params"]),
+                           state.ema_params, experts, mesh, "ema_params")
+    elif "ema_params" in tree:
+        print(f"{path}: the checkpoint's EMA is not read; the run keeps "
+              f"none (--model-ema)")
+    opt_state = None
+    if state.optimizer is not None:
+        opt_state = _jax_opt_state(state.optimizer, model,
+                                   tree.get("opt_state", {}),
+                                   int(tree["step"]), experts, mesh)
+    # every check has passed: the state changes from here on
+    model.load_state_dict(model_sd)
+    if ema is not None:
+        with torch.no_grad():
+            for name, t in state.ema_params.items():
+                t.copy_(ema[name])
+    if opt_state is not None:
+        state.optimizer.state.clear()
+        state.optimizer.state.update(opt_state)
+    state.generator.manual_seed(_seed_from_key(tree["rng"]))
+    state.step = int(tree["step"])
+    return state, int(tree["epoch"])
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,7 @@ import torch
 from slim_switch_moe_vit_tpu_torch import optim
 from slim_switch_moe_vit_tpu_torch.train_state import create_train_state
 from slim_switch_moe_vit_tpu_torch.utils import checkpoint, profiling
+from torch_tmp import delete_module_tmp, delete_tmp_path  # noqa: F401
 
 
 def _state(seed: int = 0):

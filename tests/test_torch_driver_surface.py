@@ -18,6 +18,7 @@ import torch
 from slim_switch_moe_vit_tpu_torch import config, main, optim
 from slim_switch_moe_vit_tpu_torch.train_state import create_train_state
 from slim_switch_moe_vit_tpu_torch.utils import checkpoint
+from torch_tmp import delete_module_tmp, delete_tmp_path  # noqa: F401
 
 RUN = ["--device", "cpu", "--data-set", "SYNTH", "--synth-size", "24",
        "--input-size", "32", "--model", "resmoe_tiny_patch16_224_expert8",

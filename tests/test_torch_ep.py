@@ -14,6 +14,7 @@ router gradient.
 import numpy as np
 import pytest
 import torch_ep_common as common
+from torch_tmp import delete_module_tmp, delete_tmp_path  # noqa: F401
 
 DP, EP, FACTOR, T = 1, 4, 0.75, 256
 FORMS = ("psum", "a2a", "a2a_perm", "sharded")

@@ -25,6 +25,7 @@ from slim_switch_moe_vit_tpu_torch.models.moe import MoEMlp
 from slim_switch_moe_vit_tpu_torch.parallel import distributed, sharding
 from slim_switch_moe_vit_tpu_torch.train_state import create_train_state
 from slim_switch_moe_vit_tpu_torch.utils import checkpoint
+from torch_tmp import delete_module_tmp, delete_tmp_path  # noqa: F401
 
 A2A = ["--moe-dispatch", "capacity_fused_a2a"]
 

@@ -13,6 +13,7 @@ import math
 
 import pytest
 from ep_driver_common import SMALL, run_ranks
+from torch_tmp import delete_module_tmp, delete_tmp_path  # noqa: F401
 
 
 @pytest.mark.parametrize("flags", [

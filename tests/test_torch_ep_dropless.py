@@ -20,6 +20,7 @@ import torch
 import torch_ep_common as common
 
 from slim_switch_moe_vit_tpu_torch.ops import moe as torch_moe
+from torch_tmp import delete_module_tmp, delete_tmp_path  # noqa: F401
 
 DP, EP, T = 1, 4, 256
 RUNS = [("fused", 2.0), ("ragged", 2.0), ("expert_choice", 1.0)]

@@ -16,6 +16,7 @@ from slim_switch_moe_vit_tpu.models import create_model as jax_create_model
 from slim_switch_moe_vit_tpu_torch import create_model
 from slim_switch_moe_vit_tpu_torch.parallel import launch
 from slim_switch_moe_vit_tpu_torch.utils.checkpoint import to_jax_tree
+from torch_tmp import delete_module_tmp, delete_tmp_path  # noqa: F401
 
 DP, EP, FACTOR, T = 2, 2, 0.75, 256
 FORMS = ("psum", "a2a", "a2a_perm", "sharded")

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from slim_switch_moe_vit_tpu_torch import optim
+from torch_tmp import delete_module_tmp, delete_tmp_path  # noqa: F401
 
 LR, WD = 1e-3, 0.05
 REL, SLACK = 1e-6, 1e-4

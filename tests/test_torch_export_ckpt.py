@@ -32,6 +32,7 @@ from slim_switch_moe_vit_tpu_torch.models.vit import (VisionTransformer,
 from slim_switch_moe_vit_tpu_torch.serving import export
 from slim_switch_moe_vit_tpu_torch.train_state import create_train_state
 from slim_switch_moe_vit_tpu_torch.utils.checkpoint import save_checkpoint
+from torch_tmp import delete_module_tmp, delete_tmp_path  # noqa: F401
 
 MODEL = "resmoe_tiny_patch16_224_expert8"
 GATE = "blocks.0.moe_gate.threshold"

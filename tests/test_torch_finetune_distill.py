@@ -44,6 +44,7 @@ from slim_switch_moe_vit_tpu_torch.utils.checkpoint import (
     import_torch_checkpoint,
     read_state_dict,
 )
+from torch_tmp import delete_module_tmp, delete_tmp_path  # noqa: F401
 
 CFG = dict(img_size=32, patch_size=8, num_classes=10, embed_dim=64, depth=2,
            num_heads=2)

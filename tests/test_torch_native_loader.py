@@ -25,6 +25,7 @@ from PIL import Image
 from slim_switch_moe_vit_tpu.data import native_loader as jax_native
 from slim_switch_moe_vit_tpu.data import transforms as jax_transforms
 from slim_switch_moe_vit_tpu_torch.data import native_loader, transforms
+from torch_tmp import delete_module_tmp, delete_tmp_path  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -25,6 +25,7 @@ import torch
 from slim_switch_moe_vit_tpu.models import regnet as jax_regnet
 from slim_switch_moe_vit_tpu_torch.models import regnet, registry
 from slim_switch_moe_vit_tpu_torch.utils.checkpoint import from_jax_params
+from torch_tmp import delete_module_tmp, delete_tmp_path  # noqa: F401
 
 TOY = dict(stage_widths=[8, 16], stage_depths=[1, 2], group_width=4,
            se_ratio=0.25, stem_width=8, num_classes=5)

@@ -32,6 +32,7 @@ from slim_switch_moe_vit_tpu_torch.utils.checkpoint import (
     load_npz_tree,
     to_jax_tree,
 )
+from torch_tmp import delete_module_tmp, delete_tmp_path  # noqa: F401
 
 IMG, NCLS, MODEL = 32, 10, "moe_tiny_patch16_224_expert8"
 

@@ -33,6 +33,7 @@ from slim_switch_moe_vit_tpu_torch.serving import (
     make_serve_fn,
 )
 from slim_switch_moe_vit_tpu_torch.utils.checkpoint import from_jax_params
+from torch_tmp import delete_module_tmp, delete_tmp_path  # noqa: F401
 
 IMG, NCLS, MODEL = 32, 10, "resmoe_tiny_patch16_224_expert8"
 LOWERED = 0.3

@@ -115,3 +115,37 @@ def assert_expert_group_replicated(ranks, ep: int, key: str) -> None:
             assert np.array_equal(arrays[f"{key}/{k}"], lead[f"{key}/{k}"]), \
                 (key, k, r)
 
+
+
+def import_worker(npz: str, out_dir: str, num_experts: int, ep: int,
+                  device: str = "cpu") -> None:
+    """One rank of a 1 x ``ep`` layout: ``resmoe_tiny_patch16_224_expert8``
+    at 32 px with ``num_experts``, sharded, with an AdamW state and an EMA,
+    restores the converted JAX checkpoint ``npz``; saves its parameters,
+    EMA, optimizer state (``<field>/<name>``) and step as ``rank<r>.npz``."""
+    import os
+
+    import torch.distributed as dist
+
+    from slim_switch_moe_vit_tpu_torch import create_model
+    from slim_switch_moe_vit_tpu_torch import optim as torch_optim
+    from slim_switch_moe_vit_tpu_torch.parallel import sharding
+    from slim_switch_moe_vit_tpu_torch.train_state import create_train_state
+    from slim_switch_moe_vit_tpu_torch.utils.checkpoint import \
+        restore_checkpoint
+
+    mesh = sharding.make_mesh(1, ep)
+    model = create_model("resmoe_tiny_patch16_224_expert8", num_classes=10,
+                         img_size=32, num_experts=num_experts)
+    sharding.shard_params(model, mesh)
+    init, _ = torch_optim.make_optimizer(weight_decay=0.05)
+    state = create_train_state(model, device=device, opt_init=init,
+                               use_ema=True)
+    restore_checkpoint(npz, state, mesh=mesh)
+    out = {"step": np.asarray(state.step)}
+    for name, p in model.named_parameters():
+        out[f"param/{name}"] = p.detach().cpu().numpy()
+        out[f"ema/{name}"] = state.ema_params[name].cpu().numpy()
+        for k, v in state.optimizer.state[p].items():
+            out[f"{k}/{name}"] = v.cpu().numpy()
+    np.savez(os.path.join(out_dir, f"rank{dist.get_rank()}.npz"), **out)

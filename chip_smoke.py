@@ -132,21 +132,29 @@ Phases (any failure propagates and the script exits non-zero):
     K3, K4, K8, K9 and K10 at D = 768 (moe_base_patch16_224_expert32's
     layout at B = 32; K4 and K8 also against the exact f32 function) and in
     f32 at D = 384, K4 and K8 at D = 192 (moe_tiny_patch16_224_expert8's
-    dropless layout at B = 128, both against the exact f32 function), K6
-    in f32, K5 and K6 at
+    dropless layout at B = 128, both against the exact f32 function), K5
+    and K6 in f32 at B = 32, K5 and K6 at
     N = 577 in bf16 and f32, K5, K6 and K11 at vit_huge_patch14_224's head
-    (16 heads of 80, N = 257, ``HUGE``), K11 in f32 and K12 at N = 577 and
+    (16 heads of 80, N = 257, ``HUGE``), K11 in f32, K12 in f32 at ViT-S
+    B = 128 and K12 at N = 577 and
     C = 1024 (``K12_LONG``), against their plain versions (f32 within
-    ``F32_TOL``).
+    ``F32_TOL``); each f32 attention kernel's mean |d| from the function
+    in f64 within ``F32_F64_RATIO`` times its plain version's (which the
+    plain version in one TF32 pass must fail), and K6's f32 calls
+    bit-identical.
 14. D = 768: ``resmoe_base_patch16_224_expert8`` trains ``WIDE_STEPS`` steps
     at B = 32 on the kernels (exact launch counts, every attention on the
     K5 + K6 route); ``moe_base_patch16_224_expert32`` evaluates B = 32
     images, held to the card's plain path (``plain_versions``: every
     forward kernel wrapper replaced by its plain version) within the
-    serving limit, in f32 and in bf16 (``pinned_routing``).
+    serving limit, in f32 and in bf16 (``pinned_routing``);
+    ``MoEMlp(256, 1000)`` (padded to the D = 384, H = 1024 instance)
+    trains a step in ``'fused'`` and ``'capacity_fused'``, f32 and bf16,
+    on K3/K4 against the plain expert FFN.
 15. f32: the flagship in f32 trains ``F32_STEPS`` steps at B = 16 on the
     kernels, against the same steps on the plain versions, within
-    ``F32_WITNESS`` times a batch-reversed witness (or ``F32_FLOOR``).
+    ``F32_WITNESS`` times a batch-reversed witness (or ``F32_FLOOR``); one
+    more kernel step's profile: its kernel sum and K6's share.
 16. N = 577 (the flagship at 384 px): an eval at B = 8 on the K5 route,
     one train step at B = 4 on the K5 + K6 route, each held to the card's
     plain path.
@@ -447,8 +455,15 @@ EP_DRIVER_ARGS = ["--data-set", "SYNTH", "--synth-size", "512", "--model",
                   "--no-repeated-aug", "--mixup", "0", "--cutmix", "0",
                   "--aa", "", "--color-jitter", "0", "--reprob", "0",
                   "--num_workers", "2"]
-# H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
-HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
+# H100 SXM published peaks (NVIDIA data sheet, dense, 700 W). F32_FLOPS,
+# the rate of f32 products at f32 accuracy: the dense TF32 peak over three,
+# as split TF32 takes three tensor-core products (lo.hi, hi.lo, hi.hi) for
+# one f32 product; the least time the card needs for them. SIMT_FLOPS, f32
+# outside the tensor cores: the elementwise and reduction work of the LN
+# kernels, K7 and K13 (the SIMT rate would let a tensor-core kernel of
+# f32 products read over 100% of its bound)
+HBM_BPS, BF16_FLOPS = 3.35e12, 989e12
+F32_FLOPS, SIMT_FLOPS = 494.7e12 / 3, 67e12
 SRC = "slim_switch_moe_vit_tpu_torch/"
 JAX = "slim_switch_moe_vit_tpu/"
 KERNELS = [  # name, route, source, TPU kernel it replaces
@@ -478,6 +493,13 @@ KERNELS = [  # name, route, source, TPU kernel it replaces
 # elementwise (sums over rows included); single-pass TF32 (10 mantissa
 # bits) would fail it
 F32_TOL = (1e-4, 1e-4)
+# an f32 attention kernel's mean |d| from the function in f64 (``f64_error``)
+# at most this many times its f32 plain version's. The SIMT forms (K5, K12)
+# read 1.00; the split-TF32 forms (K6, K11) 5.80-10.18, where the split's
+# rounding is ~13% of the error and the rest sits in the tensor cores' f32
+# sums (NVIDIA H100 80GB HBM3, 700 W). The plain version with one TF32
+# pass a product must read above it (``f32_attention_case``)
+F32_F64_RATIO = 15.0
 # K12 at deit-tiny eval (the shape the JAX package measured it at,
 # attention.py:400-404) and at ViT-S: (B, N, heads)
 K12_SHAPES = {"deit_tiny": (256, 197, 3), "vit_s": (128, 197, 6)}
@@ -485,6 +507,9 @@ K12_SHAPES = {"deit_tiny": (256, 197, 3), "vit_s": (128, 197, 6)}
 WIDE_MODEL, WIDE_B, WIDE_D, WIDE_E, WIDE_H = (
     "moe_base_patch16_224_expert32", 32, 768, 32, 3072)
 RESMOE_BASE, WIDE_STEPS = "resmoe_base_patch16_224_expert8", 2
+# MoEMlp(PAD_D, PAD_H): a width off the expert-FFN kernels' instances (the
+# JAX kernel takes any D and even H), one step at B = PAD_B, N = 197
+PAD_D, PAD_H, PAD_B = 256, 1000, 8
 # K4 and K8 at D = 192: moe_tiny_patch16_224_expert8's dropless layout at
 # B = 128
 TINY_B, TINY_D, TINY_E, TINY_H = 128, 192, 8, 768
@@ -745,7 +770,7 @@ def kernel_cases(B: int, gen):
     n = B * N_TOK * DIM
     Tp = xs.shape[0]
     ln_cost = lambda rows_io: (rows_io * n * 2 + 2 * DIM * 4, 10 * n,  # noqa: E731
-                               F32_FLOPS)
+                               SIMT_FLOPS)
     mha_f = 2 * B * HEADS * N_TOK * N_TOK * hd  # one N x N x d product
     w_bytes = 2 * EXPERTS * DIM * HIDDEN * 2    # w1 and w2, bf16
     return ({
@@ -893,7 +918,7 @@ def k7_phase(results: dict) -> None:
         torch._foreach_add_(ema, params, alpha=1.0 - EMA_DECAY)
 
     ema_ms = median_ms(ema_foreach)
-    bound_ms, bound_by = bound(36 * n, 15 * n, F32_FLOPS)
+    bound_ms, bound_by = bound(36 * n, 15 * n, SIMT_FLOPS)
     results["fused_adamw_ema"] = {
         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1076,6 +1101,37 @@ def exact_error(name: str, got, want, exact, what: str = "f32") -> None:
         f"{EXACT_RATIO}; mean |exact| {exact.abs().mean().item():.4e})")
     if err[0] > EXACT_RATIO * err[1]:
         raise AssertionError(f"{name}: less accurate than its plain version")
+
+
+def f64_attention(name: str, qkv, do, H: int, d: int):
+    """The function of K5, K11 (softmax(q k^T * d^-1/2) v) or K6 (its
+    backward, through autograd) evaluated in f64 on the same inputs: the
+    yardstick of an f32 kernel's accuracy, as the exact f32 function is a
+    bf16 kernel's."""
+    import torch
+
+    B, N, C3 = qkv.shape
+    leaf = qkv.double().requires_grad_(name == "fused_mha_bwd")
+    q, k, v = (t.reshape(B, N, H, d).transpose(1, 2)
+               for t in leaf.split(C3 // 3, dim=-1))
+    p = torch.softmax((q * d ** -0.5) @ k.transpose(-1, -2), dim=-1)
+    out = (p @ v).transpose(1, 2).reshape(B, N, C3 // 3)
+    if name != "fused_mha_bwd":
+        return out.detach()
+    return torch.autograd.grad(out, leaf, do.double())[0]
+
+
+def f64_error(name: str, got, want, exact) -> tuple:
+    """An f32 kernel's mean |d| from the f64 function beside its f32 plain
+    version's, held to ``F32_F64_RATIO``; returns both."""
+    err = [(t.double() - exact).abs().mean().item() for t in (got, want)]
+    log(f"  {name} vs the f64 function: mean |d| kernel {err[0]:.4e}, plain "
+        f"version {err[1]:.4e} (ratio {err[0] / err[1]:.4f}, limit "
+        f"{F32_F64_RATIO}; mean |f64| {exact.abs().mean().item():.4e})")
+    if err[0] > F32_F64_RATIO * err[1]:
+        raise AssertionError(f"{name}: {err[0] / err[1]:.2f}x its plain "
+                             "version's error from the f64 function")
+    return tuple(err)
 
 
 LN_BWD = ("fused_ln_bwd", "fused_add_ln_bwd", "fused_sum_ln_bwd")
@@ -2792,10 +2848,11 @@ def _timed_case(results, name, kernel, plain, library, cost, modes, sfx,
 
 
 def proj_case(results: dict, qkv, wp, bp, H: int, sfx: str) -> None:
-    """K12 on (qkv, wp, bp) in bf16 against its plain version, beside SDPA +
-    ``F.linear`` (its library call) and K5 + ``F.linear`` (``k5_gemm_ms``:
-    the two launches K12 folds into one); then its mean |d| from the exact
-    f32 function beside the plain version's (``exact_error``)."""
+    """K12 on (qkv, wp, bp) in bf16 or f32 against its plain version (f32
+    within ``F32_TOL``), beside SDPA + ``F.linear`` (its library call) and
+    K5 + ``F.linear`` (``k5_gemm_ms``: the two launches K12 folds into
+    one); then its mean |d| from the exact f32 function beside the plain
+    version's (``exact_error``; in f32 from the f64 function, logged)."""
     import torch
     import torch.nn.functional as F
 
@@ -2805,7 +2862,8 @@ def proj_case(results: dict, qkv, wp, bp, H: int, sfx: str) -> None:
     C = C3 // 3
     d = C // H
     scale = d ** -0.5
-    w_lin, b_lin = wp.t().contiguous(), bp.to(torch.bfloat16)
+    w_lin, b_lin = wp.t().contiguous(), bp.to(qkv.dtype)
+    f32 = qkv.dtype == torch.float32
     q4 = qkv.view(B, N, 3, H, d).permute(2, 0, 3, 1, 4)
 
     def kernel():
@@ -2819,11 +2877,17 @@ def proj_case(results: dict, qkv, wp, bp, H: int, sfx: str) -> None:
         lambda: F.linear(F.scaled_dot_product_attention(
             q4[0], q4[1], q4[2], scale=scale).transpose(1, 2).reshape(
                 B, N, C), w_lin, b_lin),
-        ((B * N * 4 * C + C * C) * 2 + C * 4,
-         4 * B * H * N * N * d + 2 * B * N * C * C, BF16_FLOPS),
-        ("elem",), sfx,
+        ((B * N * 4 * C + C * C) * qkv.element_size() + C * 4,
+         4 * B * H * N * N * d + 2 * B * N * C * C,
+         F32_FLOPS if f32 else BF16_FLOPS),
+        ("elem",), sfx, tol=F32_TOL if f32 else None,
         extra={"k5_gemm_ms": lambda: F.linear(
             attention.fused_mha(qkv, H, scale), w_lin, b_lin)})
+    if f32:
+        f64_error(f"fused_mha_proj{sfx}", kernel(), plain(),
+                  f64_attention("fused_mha", qkv, None, H, d) @ wp.double()
+                  + bp.double())
+        return
     exact_error(f"fused_mha_proj{sfx}", kernel(), plain(),
                 attention.fused_mha_proj_reference(qkv.float(), wp.float(),
                                                    bp, H, scale))
@@ -2850,6 +2914,13 @@ def proj_and_rows_kernel_phase(results: dict) -> None:
         proj_case(results, rnd(B, N, 3 * C), rnd(C, C, std=C ** -0.5),
                   rnd(C, std=0.1, dtype=torch.float32), H,
                   "" if label == "deit_tiny" else "_vit_s")
+    B, N, H = K12_SHAPES["vit_s"]  # K12's f32 form (mha_simt.cuh)
+    C = H * hd
+    f32 = torch.float32
+    proj_case(results, rnd(B, N, 3 * C, dtype=f32),
+              rnd(C, C, std=C ** -0.5, dtype=f32),
+              rnd(C, std=0.1, dtype=f32), H, "_vit_s_f32")
+    torch.cuda.empty_cache()
 
     T = TRAIN_B * N_TOK
     x = rnd(T, DIM)
@@ -2875,7 +2946,7 @@ def proj_and_rows_kernel_phase(results: dict) -> None:
                 lambda: gather.scatter_add_rows(g, gidx, T),
                 lambda: gather.reference_scatter_add_rows(g, gidx, T),
                 lambda: zeros.clone().index_add_(0, gidx, g),
-                (M * DIM * 2 + M * 8 + T * DIM * 2, M * DIM, F32_FLOPS),
+                (M * DIM * 2 + M * 8 + T * DIM * 2, M * DIM, SIMT_FLOPS),
                 ("elem",), "", tol=(0.0, 0.0),
                 extra={"plan_ms": lambda: gather.scatter_plan(gidx, T),
                        "spread_idx_ms": lambda: gather.scatter_add_rows(
@@ -2885,7 +2956,7 @@ def proj_and_rows_kernel_phase(results: dict) -> None:
                 lambda: gather.scatter_add_rows(g32, gidx, T),
                 lambda: gather.reference_scatter_add_rows(g32, gidx, T),
                 lambda: zeros.float().index_add_(0, gidx, g32),
-                (M * DIM * 4 + M * 8 + T * DIM * 4, M * DIM, F32_FLOPS),
+                (M * DIM * 4 + M * 8 + T * DIM * 4, M * DIM, SIMT_FLOPS),
                 ("elem",), "_f32", tol=(0.0, 0.0))
     log("K13: the gather equals index_select and the scatter-add its "
         "index-order plain version bit for bit (bf16 and f32)")
@@ -3006,7 +3077,7 @@ def ln_bwd_coverage(results: dict, gen) -> None:
         g = (torch.randn(D, generator=gen) * 0.1 + 1.0).cuda()
         n = LN_COV_ROWS * D
         cost = lambda streams: (streams * n * item + 2 * D * 4, 10 * n,  # noqa: E731
-                                F32_FLOPS)
+                                SIMT_FLOPS)
         tol = None if dt == "bf16" else F32_TOL
         modes = ("elem", "sum", "sum")
         sfx = f"_{dt}_d{D}"
@@ -3031,12 +3102,10 @@ def coverage_kernel_phase(results: dict) -> None:
     the expert
     family at D = 768 in bf16 (moe_base_patch16_224_expert32's layout at
     B = 32) and in f32 at D = 384 (the flagship's at B = 32), K4 and K8 at
-    D = 192 (moe_tiny_patch16_224_expert8's at B = 128); K6 in f32 at
-    N = 197 against the exact-f32 plain backward and SDPA's backward."""
+    D = 192 (moe_tiny_patch16_224_expert8's at B = 128); K5 and K6 in f32
+    at N = 197, B = 32 (``f32_attention_case``: the plain version, SDPA and
+    the f64 function)."""
     import torch
-    import torch.nn.functional as F
-
-    from slim_switch_moe_vit_tpu_torch.ops import attention
 
     proj_and_rows_kernel_phase(results)
     gen = torch.Generator().manual_seed(7)
@@ -3054,20 +3123,9 @@ def coverage_kernel_phase(results: dict) -> None:
     B, hd = 32, DIM // HEADS
     qkv = torch.randn(B, N_TOK, 3 * DIM, generator=gen).cuda()
     do = torch.randn(B, N_TOK, DIM, generator=gen).cuda()
-    leaf = qkv.detach().requires_grad_()
-    q4 = leaf.view(B, N_TOK, 3, HEADS, hd).permute(2, 0, 3, 1, 4)
-    sdpa = F.scaled_dot_product_attention(q4[0], q4[1], q4[2],
-                                          scale=hd ** -0.5)
-    do4 = do.view(B, N_TOK, HEADS, hd).transpose(1, 2)
-    n = B * N_TOK * DIM
-    _timed_case(results, "fused_mha_bwd",
-                lambda: attention.fused_mha_bwd(qkv, do, HEADS, hd ** -0.5),
-                lambda: attention.reference_mha_bwd(qkv, do, HEADS,
-                                                    hd ** -0.5),
-                lambda: torch.autograd.grad(sdpa, leaf, do4,
-                                            retain_graph=True),
-                (7 * n * 4, 10 * B * HEADS * N_TOK * N_TOK * hd, F32_FLOPS),
-                ("elem",), "_f32", tol=F32_TOL)
+    for name in ("fused_mha", "fused_mha_bwd"):
+        f32_attention_case(results, name, qkv, do, HEADS, hd, "_f32")
+    del qkv, do
     long_attention_cases(results, gen)
     head_and_k12_cases(results, gen)
 
@@ -3107,6 +3165,41 @@ def _mha_calls(name: str, qkv, do, H: int, d: int, peak: float) -> tuple:
             (4 * n * item, 2 * prod, peak))
 
 
+def f32_attention_case(results: dict, name: str, qkv, do, H: int, d: int,
+                       sfx: str) -> None:
+    """K5, K6 or K11 in f32 on (qkv, do): against its plain version within
+    F32_TOL and timed (``_timed_case``, beside SDPA), its mean |d| from the
+    f64 function held to ``F32_F64_RATIO`` times the plain version's
+    (``f64_error``), the control that the plain version with one TF32 pass
+    a product fails that limit, and K6's two calls bit-identical."""
+    import torch
+
+    kernel, plain, library, cost = _mha_calls(name, qkv, do, H, d, F32_FLOPS)
+    _timed_case(results, name, kernel, plain, library, cost, ("elem",), sfx,
+                tol=F32_TOL)
+    got, want = kernel(), plain()
+    exact = f64_attention(name, qkv, do, H, d)
+    err = f64_error(f"{name}{sfx}", got, want, exact)[1]
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        one_pass = (plain().double() - exact).abs().mean().item() / err
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    log(f"  {name}{sfx} control, the plain version in one TF32 pass: "
+        f"{one_pass:.4f}x its f32 run's error from f64 (must exceed "
+        f"{F32_F64_RATIO})")
+    if one_pass <= F32_F64_RATIO:
+        raise AssertionError(f"{name}{sfx}: F32_F64_RATIO does not reject "
+                             "one TF32 pass")
+    if name == "fused_mha_bwd":
+        if not torch.equal(got, kernel()):
+            raise AssertionError(f"{name}{sfx}: two calls on the same inputs "
+                                 "differ")
+        log(f"  {name}{sfx}: a second call bit-identical")
+    torch.cuda.empty_cache()
+
+
 def long_attention_cases(results: dict, gen) -> None:
     """K5 and K6 at N = 577 (the flagship at 384 px): K5 at phase 16's eval
     shape (B = 8) and K6 at its step's (B = 4) in bf16, and both at B = 4
@@ -3115,18 +3208,19 @@ def long_attention_cases(results: dict, gen) -> None:
     import torch
 
     N, hd = 577, DIM // HEADS
-    for dt, B_fwd, B_bwd, sfx, peak, tol in (
-            (torch.bfloat16, LONG_EVAL_B, LONG_TRAIN_B, "_n577", BF16_FLOPS,
-             None),
-            (torch.float32, LONG_TRAIN_B, LONG_TRAIN_B, "_n577_f32",
-             F32_FLOPS, F32_TOL)):
-        for name, B in (("fused_mha", B_fwd), ("fused_mha_bwd", B_bwd)):
-            qkv = torch.randn(B, N, 3 * DIM, generator=gen).to("cuda", dt)
-            do = torch.randn(B, N, DIM, generator=gen).to("cuda", dt)
-            _timed_case(results, name, *_mha_calls(name, qkv, do, HEADS, hd,
-                                                   peak),
-                        ("elem",), sfx, tol=tol)
-            del qkv, do
+    for name, B in (("fused_mha", LONG_EVAL_B), ("fused_mha_bwd",
+                                                 LONG_TRAIN_B)):
+        qkv = torch.randn(B, N, 3 * DIM, generator=gen).to("cuda",
+                                                           torch.bfloat16)
+        do = torch.randn(B, N, DIM, generator=gen).to("cuda", torch.bfloat16)
+        _timed_case(results, name, *_mha_calls(name, qkv, do, HEADS, hd,
+                                               BF16_FLOPS),
+                    ("elem",), "_n577")
+    for name in ("fused_mha", "fused_mha_bwd"):
+        qkv = torch.randn(LONG_TRAIN_B, N, 3 * DIM, generator=gen).cuda()
+        do = torch.randn(LONG_TRAIN_B, N, DIM, generator=gen).cuda()
+        f32_attention_case(results, name, qkv, do, HEADS, hd, "_n577_f32")
+    del qkv, do
     torch.cuda.empty_cache()
 
 
@@ -3146,10 +3240,8 @@ def head_and_k12_cases(results: dict, gen) -> None:
                                                BF16_FLOPS),
                     ("elem",), "_d80")
     qkv = torch.randn(32, N_TOK, 3 * DIM, generator=gen).cuda()
-    _timed_case(results, "flash_attention",
-                *_mha_calls("flash_attention", qkv, None, HEADS,
-                            DIM // HEADS, F32_FLOPS),
-                ("elem",), "_f32", tol=F32_TOL)
+    f32_attention_case(results, "flash_attention", qkv, None, HEADS,
+                       DIM // HEADS, "_f32")
     B, N, H, d = K12_LONG
     C = H * d
     proj_case(results,
@@ -3316,13 +3408,78 @@ def wide_phase(card: str) -> None:
                    f"{WIDE_MODEL} (D=768, 32 experts) eval B={WIDE_B}")
     del model, model_f32
     torch.cuda.empty_cache()
+    padded_moe_check(card)
+
+
+def padded_moe_check(card: str) -> None:
+    """``MoEMlp(PAD_D, PAD_H)``, a width off the expert-FFN kernels'
+    instances that the JAX kernel takes (``pad_call`` runs the D = 384,
+    H = 1024 instance), trains a step in training mode in ``'fused'`` and
+    ``'capacity_fused'``, in f32 and bf16, through K3 and K4 (one launch
+    each), against the same layer on the plain expert FFN
+    (``plain_versions``): y and dx elementwise, every parameter's gradient
+    elementwise in f32 (``F32_TOL``) and within ``SUM_REL`` of max |ref|
+    in bf16."""
+    import torch
+
+    from slim_switch_moe_vit_tpu_torch import ops
+    from slim_switch_moe_vit_tpu_torch.models.moe import MoEMlp
+
+    gen = torch.Generator().manual_seed(11)
+    for mode in ("fused", "capacity_fused"):
+        for dt in (torch.float32, torch.bfloat16):
+            layer = MoEMlp(PAD_D, PAD_H, dispatch_mode=mode,
+                           capacity_factor=1.25)
+            layer.init_weights(gen)
+            with torch.no_grad():
+                layer.b1.normal_(0.0, 0.1, generator=gen)
+                layer.b2.normal_(0.0, 0.1, generator=gen)
+            layer = layer.cuda().train()
+            x = torch.randn(PAD_B, N_TOK, PAD_D, generator=gen).to("cuda", dt)
+            dy = torch.randn(PAD_B, N_TOK, PAD_D, generator=gen).to("cuda",
+                                                                     dt)
+
+            def step():
+                xl = x.clone().requires_grad_()
+                layer.zero_grad(set_to_none=True)
+                y = layer(xl)
+                y.backward(dy)
+                return (y.detach(), xl.grad,
+                        *(p.grad for p in layer.parameters()))
+
+            ops.reset_launch_counts()
+            got = step()
+            counts = ops.launch_counts()
+            with plain_versions():
+                ops.reset_launch_counts()
+                want = step()
+                plain_counts = ops.launch_counts()
+            want_counts = expected({"fused_expert_ffn": 1,
+                                    "fused_expert_ffn_bwd": 1}, 1)
+            if counts != want_counts or any(plain_counts.values()):
+                raise AssertionError(f"MoEMlp({PAD_D}, {PAD_H}) {mode}: "
+                                     f"launches {counts}, plain "
+                                     f"{plain_counts}")
+            f32 = dt == torch.float32
+            tol = F32_TOL if f32 else None
+            name = f"MoEMlp({PAD_D}, {PAD_H}) {mode} {dt}"
+            err = compare(name, got[:2], want[:2], ("elem", "elem"), tol)[0]
+            gerr = compare(name + " grads", got[2:], want[2:],
+                           ("elem" if f32 else "sum",) * (len(got) - 2),
+                           tol)[0]
+            log(f"{name} step on K3/K4 (padded to D=384, H=1024) vs plain: "
+                f"y and dx max|d| {err:.3e}, gradients max|d| {gerr:.3e}; "
+                f"card {card}")
+            del layer
+    torch.cuda.empty_cache()
 
 
 def f32_phase(card: str) -> None:
     """Phase 15: the flagship in f32 trains F32_STEPS steps at B = F32_B on
     the kernels (exact launch counts), against the same steps from the same
     weights on the plain versions and, as the witness of f32 summation
-    order alone, the plain steps on the batch reversed."""
+    order alone, the plain steps on the batch reversed. One more kernel
+    step is profiled: its kernel sum and K6's share of it."""
     import torch
 
     from slim_switch_moe_vit_tpu_torch import create_model, ops
@@ -3351,6 +3508,13 @@ def f32_phase(card: str) -> None:
                 else expected({}, 1))
         if counts != want:
             raise AssertionError(f"f32 {label}: launches {counts} != {want}")
+        if label == "kernels":  # where an f32 step's device time goes
+            prof = profile_call(lambda: step(state, x, y, XTRAIN_LR,
+                                             XTRAIN_LR), f"f32 step B={F32_B}")
+            total = sum(us for us, _ in prof.values()) / 1e3
+            k6 = sum(us for k, (us, _) in prof.items() if "mha_bwd" in k) / 1e3
+            log(f"f32 step B={F32_B}: kernel sum {total:.3f} ms, K6 "
+                f"{k6:.3f} ms ({k6 / total:.3f} of it); card {card}")
         runs[label] = (losses_, grads.cpu())
         log(f"f32 {MODEL} B={F32_B}, {label}: losses "
             f"{[float(f'{v:.7f}') for v in losses_]}")

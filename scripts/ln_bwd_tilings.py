@@ -93,7 +93,7 @@ def probes() -> None:
     a, _, dy, du, g = inputs()
     want = ln.reference_ln_bwd(a, dy, du, g)
     bound = smoke.bound(4 * T * D * 2 + 2 * D * 4, 10 * T * D,
-                        smoke.F32_FLOPS)[0]
+                        smoke.SIMT_FLOPS)[0]
     rows = []
     for team in (32, 16):
         for bps in (1, 2):
@@ -129,7 +129,7 @@ def probes() -> None:
     for name, (call, streams) in forms.items():
         ms = smoke.median_ms(call)
         bnd = smoke.bound(streams * T * D * 2 + 2 * D * 4, 10 * T * D,
-                          smoke.F32_FLOPS)[0]
+                          smoke.SIMT_FLOPS)[0]
         print(f"default {name:10s}: {ms:.4f} ms, bound {bnd:.4f} "
               f"({bnd / ms:.2f})", flush=True)
 

@@ -1,6 +1,7 @@
-// The bf16 attention kernels' shared parts (K5, K6, K11, K12), built on
+// The attention kernels' shared parts (K5, K6, K11, K12), built on
 // mma_sync.cuh's tensor-core and cp.async helpers: head tiles loaded from
-// and stored to the packed layout, and ``head_fwd``, the exact-softmax
+// and stored to the packed layout (bf16, and f32 for the split-TF32 forms
+// of K6 and K11 on mma_tf32.cuh), and ``head_fwd``, the exact-softmax
 // attention of one head over a 64-row query tile that K5 writes out and
 // K12 feeds to its output projection.
 #pragma once
@@ -8,6 +9,7 @@
 #include <math_constants.h>
 
 #include "mma_sync.cuh"
+#include "mma_tf32.cuh"
 
 namespace ssmv {
 namespace attn {
@@ -96,6 +98,69 @@ __device__ __forceinline__ void store_rows(const float (&acc)[HD / 8][4],
       if (r0 + r < n_rows && c < d)
         *reinterpret_cast<uint4*>(dst + (size_t)(r0 + r) * ld + c) =
             *reinterpret_cast<const uint4*>(stage + r * LD + c);
+    }
+  } else {
+    for (int i = lane; i < 16 * HD; i += 32) {
+      const int r = i / HD, c = i % HD;
+      if (r0 + r < n_rows && c < d)
+        dst[(size_t)(r0 + r) * ld + c] = stage[r * LD + c];
+    }
+  }
+  __syncwarp();
+}
+
+// The f32 forms' head tiles (the split-TF32 kernels of K6 and K11, on
+// mma_tf32.cuh): rows of tf32::tile_ld(HD) floats, loaded as load_rows
+// loads bf16 ones, with vec where d % 4 == 0 (16-byte cp.async).
+template <int HD>
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
+                                              size_t ld, int r0, int n_rows,
+                                              int d, bool vec) {
+  constexpr int LD = tf32::tile_ld(HD);
+  if (vec) {
+    constexpr int V = HD / 4;  // 16-byte vectors a row
+    for (int i = threadIdx.x; i < kT * V; i += kThreads) {
+      const int r = i / V, c = (i % V) * 4;
+      const bool ok = r0 + r < n_rows && c < d;
+      cp_async16(dst + r * LD + c, ok ? src + (size_t)(r0 + r) * ld + c : src,
+                 ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kT * HD; i += kThreads) {
+      const int r = i / HD, c = i % HD;
+      dst[r * LD + c] =
+          r0 + r < n_rows && c < d ? src[(size_t)(r0 + r) * ld + c] : 0.f;
+    }
+  }
+}
+
+// store_rows for the f32 forms: the warp's 16 x HD f32 accumulator times
+// the row factors, through its own 16 rows of a tf32::tile_ld(HD)-strided
+// tile, to rows [r0, r0 + 16) of a global f32 head block
+template <int HD>
+__device__ __forceinline__ void store_rows_f32(const float (&acc)[HD / 8][4],
+                                               const float (&f)[2],
+                                               float* stage, float* dst,
+                                               size_t ld, int r0, int n_rows,
+                                               int d, bool vec) {
+  constexpr int LD = tf32::tile_ld(HD);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) {
+    const int c = j * 8 + 2 * t;
+    *reinterpret_cast<float2*>(stage + g * LD + c) =
+        make_float2(acc[j][0] * f[0], acc[j][1] * f[0]);
+    *reinterpret_cast<float2*>(stage + (g + 8) * LD + c) =
+        make_float2(acc[j][2] * f[1], acc[j][3] * f[1]);
+  }
+  __syncwarp();
+  if (vec) {
+    constexpr int V = HD / 4;
+    for (int i = lane; i < 16 * V; i += 32) {
+      const int r = i / V, c = (i % V) * 4;
+      if (r0 + r < n_rows && c < d)
+        *reinterpret_cast<float4*>(dst + (size_t)(r0 + r) * ld + c) =
+            *reinterpret_cast<const float4*>(stage + r * LD + c);
     }
   } else {
     for (int i = lane; i < 16 * HD; i += 32) {

@@ -46,12 +46,20 @@
 // scaling q first or S after gives the same numbers; at other d they
 // differ by f32 rounding.
 //
-// The f32 form keeps the JAX kernel's order on the CUDA cores (the tensor
-// cores have no exact f32 product): one block of 256 threads per (32-query
-// tile, head, sample), 8 threads a query row; q scaled in f32 first; per
-// 64-key tile s = q . k^T, m' = max(m, rowmax s), p = exp(s - m'),
-// alpha = exp(m - m'), l' = l * alpha + rowsum p, acc' = acc * alpha + p . v
-// (p in f32); out = acc / max(l, 1e-30).
+// The f32 form (split TF32, mma_tf32.cuh) has the bf16 form's structure
+// with the JAX kernel's f32 choices: 64-query blocks of 4 warps, 64-key K
+// and V tiles through a 2-stage cp.async ring (f32 rows of HD + 4 floats,
+// every fragment read a conflict-free 32-bit load), the online softmax in
+// registers. q is scaled in f32 first (attention.py:43) and split into
+// hi + lo as it is read from shared memory; S = (q*scale) . k^T and P . V
+// each take three tf32 mma.sync.m16n8k8 a k-step (lo.hi + hi.lo, then
+// hi.hi; swept over groups of 4 n-tiles), f32 sums; P stays f32
+// (attention.py:60) and is split as the A operand of P . V straight from
+// the S accumulators, with k relabelled (the V rows read as k0 + 2t and
+// k0 + 2t + 1); out = acc / max(l, 1e-30). A key tile's 8-key n-tiles past
+// N and a warp's 16 rows past N skip their products. What bounds it: the
+// mma pipe's latency and the split's conversions (every K and V operand
+// re-split by each of the 4 warps that read it).
 #include <math_constants.h>
 
 #include "attn_mma.cuh"
@@ -60,6 +68,7 @@
 namespace {
 
 using namespace ssmv::attn;
+namespace tf = ssmv::tf32;
 
 // K / V ring stages: 3 up to HD = 64, 2 above; the layout is head_fwd's
 template <int HD>
@@ -186,116 +195,155 @@ flash_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N,
 }
 
 // ---------------------------------------------------------------------------
-// f32: the SIMT form
+// f32: split TF32 on the tensor cores
 // ---------------------------------------------------------------------------
 
-constexpr int kFQ = 32;          // query rows per block
-constexpr int kFThreads = 256;   // 8 threads a row
-constexpr int kFKLD = kT + 1;    // f32 rows of p
-
+// Q, then the K and V rings of kF32Stages stages, tf32::tile_ld(HD) floats
+// a row
+constexpr int kF32Stages = 2;
+// n-tiles a tf32 mma_group sweeps (8 measured slower here, where it is
+// faster in K6)
+constexpr int kF32Group = 4;
 template <int HD>
 __host__ __device__ constexpr size_t f32_bytes() {
-  return sizeof(float) * ((size_t)kFQ * HD + (size_t)kT * (HD + 1) +
-                          (size_t)kT * HD + (size_t)kFQ * kFKLD);
+  return sizeof(float) * kT * tf::tile_ld(HD) * (1 + 2 * kF32Stages);
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kFThreads)
+__global__ void __launch_bounds__(kThreads)
 flash_fwd_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out,
-                     int N, int H, int d, float scale) {
-  constexpr int KLD = HD + 1, CPT = HD / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);  // kFQ x HD, q * scale
-  float* Ks = Qs + kFQ * HD;                       // kT x KLD
-  float* Vs = Ks + kT * KLD;                       // kT x HD
-  float* Ps = Vs + kT * HD;                        // kFQ x kFKLD
+                     int N, int H, int d, float scale, int vec) {
+  constexpr int LD = tf::tile_ld(HD), NST = kF32Stages;
+  constexpr int GS = tf::group_for(kT / 8, kF32Group);
+  constexpr int GD = tf::group_for(HD / 8, kF32Group);
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* Ks = Qs + kT * LD;
+  float* Vs = Ks + NST * kT * LD;
 
-  const int q0 = blockIdx.x * kFQ, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
   const int C = H * d;
   const size_t C3 = 3 * (size_t)C;
-  const int tid = threadIdx.x, row = tid >> 3, sub = tid & 7;
   const float* base = qkv + (size_t)b * N * C3 + (size_t)h * d;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tq = lane & 3;
+  const int nkt = (N + kT - 1) / kT;
+  // a warp whose 16 query rows all lie past N only keeps the block's pace
+  const bool live = q0 + warp * 16 < N;
+  const float* Qw = Qs + warp * 16 * LD;
 
-  for (int i = tid; i < kFQ * HD; i += kFThreads) {
-    const int r = i / HD, c = i % HD, n = q0 + r;
-    Qs[i] = n < N && c < d ? base[(size_t)n * C3 + c] * scale : 0.f;
-  }
-  float acc[CPT];  // columns sub + 8 q
-#pragma unroll
-  for (int q = 0; q < CPT; ++q) acc[q] = 0.f;
-  float m = -CUDART_INF_F, l = 0.f;
-
-  for (int k0 = 0; k0 < N; k0 += kT) {
-    __syncthreads();  // the last tile's readers are done
-    for (int i = tid; i < kT * HD; i += kFThreads) {
-      const int r = i / HD, c = i % HD, n = k0 + r;
-      const bool ok = n < N && c < d;
-      Ks[r * KLD + c] = ok ? base[(size_t)n * C3 + C + c] : 0.f;
-      Vs[r * HD + c] = ok ? base[(size_t)n * C3 + 2 * C + c] : 0.f;
+  auto issue = [&](int t) {
+    if (t < nkt) {
+      const int st = t % NST;
+      load_rows_f32<HD>(Ks + st * kT * LD, base + C, C3, t * kT, N, d, vec);
+      load_rows_f32<HD>(Vs + st * kT * LD, base + 2 * C, C3, t * kT, N, d,
+                        vec);
     }
+    cp_async_commit();
+  };
+  load_rows_f32<HD>(Qs, base, C3, q0, N, d, vec);  // joins tile 0's group
+  for (int s = 0; s < NST - 1; ++s) issue(s);
+
+  float o[HD / 8][4];
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < nkt; ++t) {
+    cp_async_wait<NST - 2>();
     __syncthreads();
-    float s[kT / 8];  // key columns sub + 8 j
-    float tmax = -CUDART_INF_F;
-#pragma unroll
-    for (int j = 0; j < kT / 8; ++j) {
-      const int col = sub + 8 * j;
-      float v = 0.f;
-#pragma unroll 8
-      for (int c = 0; c < HD; ++c) v = fmaf(Qs[row * HD + c], Ks[col * KLD + c], v);
-      s[j] = k0 + col < N ? v : -CUDART_INF_F;
-      tmax = fmaxf(tmax, s[j]);
-    }
-#pragma unroll
-    for (int o = 1; o < 8; o <<= 1)
-      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
-    const float m_new = fmaxf(m, tmax);  // finite: column k0 < N is valid
-    float psum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kT / 8; ++j) {
-      const float p = expf(s[j] - m_new);  // masked columns give 0
-      psum += p;
-      Ps[row * kFKLD + sub + 8 * j] = p;
-    }
-#pragma unroll
-    for (int o = 1; o < 8; o <<= 1)
-      psum += __shfl_xor_sync(0xffffffffu, psum, o);
-    const float alpha = expf(m - m_new);  // 0 on the first tile
-    l = l * alpha + psum;
-    m = m_new;
-    __syncwarp();  // the row's 8 threads share a warp
-    const int nt = min(kT, N - k0);
-    float pv[CPT];
-#pragma unroll
-    for (int q = 0; q < CPT; ++q) pv[q] = 0.f;
-    for (int n = 0; n < nt; ++n) {
-      const float p = Ps[row * kFKLD + n];
-#pragma unroll
-      for (int q = 0; q < CPT; ++q) pv[q] = fmaf(p, Vs[n * HD + sub + 8 * q], pv[q]);
-    }
-#pragma unroll
-    for (int q = 0; q < CPT; ++q) acc[q] = acc[q] * alpha + pv[q];
-  }
+    issue(t + NST - 1);
+    if (!live) continue;
+    const int k0 = t * kT;
+    const float* Kt = Ks + (t % NST) * kT * LD;
+    const float* Vt = Vs + (t % NST) * kT * LD;
+    // the 8-key n-tiles holding a key < N
+    const int nv = min(kT / 8, (N - k0 + 7) / 8);
 
-  const int n = q0 + row;
-  if (n < N) {
-    const float linv = 1.f / fmaxf(l, 1e-30f);
-    float* dst = out + ((size_t)b * N + n) * C + (size_t)h * d;
+    float s[kT / 8][4];
 #pragma unroll
-    for (int q = 0; q < CPT; ++q)
-      if (sub + 8 * q < d) dst[sub + 8 * q] = acc[q] * linv;
+    for (int j = 0; j < kT / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int kd = 0; kd < HD / 8; ++kd) {
+      tf::FragA qa;
+      tf::ld_a(qa, Qw, LD, kd * 8, scale);  // q scaled in f32 first
+#pragma unroll
+      for (int jg = 0; jg < kT / 8; jg += GS) {
+        if (jg < nv) {
+          tf::FragB kb[GS];
+#pragma unroll
+          for (int j = 0; j < GS; ++j)
+            tf::ld_b_nk(kb[j], Kt, LD, (jg + j) * 8, kd * 8);
+          tf::mma_group(s, jg, qa, kb);
+        }
+      }
+    }
+    float mt[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int j = 0; j < kT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + j * 8 + 2 * tq + (e & 1);
+        s[j][e] = col < N ? s[j][e] : -CUDART_INF_F;
+        mt[e >> 1] = fmaxf(mt[e >> 1], s[j][e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m[i], quad_max(mt[i]));  // finite: k0 < N
+      alpha[i] = expf(m[i] - m_new);                     // 0 on the first tile
+      m[i] = m_new;
+    }
+    float ls[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < kT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = expf(s[j][e] - m[e >> 1]);  // masked columns give 0
+        ls[e >> 1] += s[j][e];
+      }
+    l[0] = l[0] * alpha[0] + ls[0];
+    l[1] = l[1] * alpha[1] + ls[1];
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int j = 0; j < kT / 8; ++j) {  // P . V, 8 keys a k-step, P in f32
+      if (j < nv) {
+        tf::FragA pa;
+        tf::a_from_c(pa, s[j]);
+#pragma unroll
+        for (int ng = 0; ng < HD / 8; ng += GD) {
+          tf::FragB vb[GD];
+#pragma unroll
+          for (int i = 0; i < GD; ++i)
+            tf::ld_b_kn(vb[i], Vt, LD, j * 8, (ng + i) * 8);
+          tf::mma_group(o, ng, pa, vb);
+        }
+      }
+    }
   }
+  const float linv[2] = {1.f / fmaxf(quad_sum(l[0]), 1e-30f),
+                         1.f / fmaxf(quad_sum(l[1]), 1e-30f)};
+  // the warp's own q rows are free (no other warp reads them)
+  store_rows_f32<HD>(o, linv, Qs + warp * 16 * LD,
+                     out + (size_t)b * N * C + (size_t)h * d, C,
+                     q0 + warp * 16, N, d, vec);
 }
 
 template <int HD>
 cudaError_t launch(const void* qkv, void* out, int B, int N, int H, int d,
                    float scale, int is_bf16, cudaStream_t s) {
+  const dim3 grid((N + kT - 1) / kT, H, B);
   if (is_bf16) {
     cudaError_t err = cudaFuncSetAttribute(
         flash_fwd_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)Flash<HD>::bytes);
     if (err != cudaSuccess) return err;
-    flash_fwd_kernel<HD><<<dim3((N + kT - 1) / kT, H, B), kThreads,
-                           Flash<HD>::bytes, s>>>(
+    flash_fwd_kernel<HD><<<grid, kThreads, Flash<HD>::bytes, s>>>(
         static_cast<const bf16*>(qkv), static_cast<bf16*>(out), N, H, d, scale,
         int(d % 8 == 0));
     return cudaGetLastError();
@@ -304,9 +352,9 @@ cudaError_t launch(const void* qkv, void* out, int B, int N, int H, int d,
       flash_fwd_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)f32_bytes<HD>());
   if (err != cudaSuccess) return err;
-  flash_fwd_f32_kernel<HD><<<dim3((N + kFQ - 1) / kFQ, H, B), kFThreads,
-                             f32_bytes<HD>(), s>>>(
-      static_cast<const float*>(qkv), static_cast<float*>(out), N, H, d, scale);
+  flash_fwd_f32_kernel<HD><<<grid, kThreads, f32_bytes<HD>(), s>>>(
+      static_cast<const float*>(qkv), static_cast<float*>(out), N, H, d, scale,
+      int(d % 4 == 0));
   return cudaGetLastError();
 }
 

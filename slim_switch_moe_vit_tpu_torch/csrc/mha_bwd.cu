@@ -52,16 +52,33 @@
 //   dq = ds . k, dk = ds^T . q (q unscaled); each rounded once to bf16.
 // Pad rows >= N of q, k, v and do are zero, as in the JAX kernel.
 //
-// f32 keeps the SIMT forms (exact f32 FMAs; the tensor cores have no exact
-// f32 product): one block per (head, sample) at N <= 208 and d <= 64, and
-// beyond, two kernels (rows, cols) in the design above with the score row
-// in shared memory.
+// f32 (split TF32, mma_tf32.cuh): the same two kernels with the f32
+// arithmetic (e, dp_s and ds stay f32, nothing rounds to an activation
+// dtype; q scaled in f32 first, as the JAX kernel does) for every N <= 1024
+// and head instance. Every product takes three tf32
+// mma.sync.m16n8k8 a k-step (lo.hi + hi.lo, then hi.hi), swept over groups
+// of up to 8 n-tiles and over two products at once, so 16 independent
+// mma separate the dependent ones; the operands are split as they are
+// read from shared memory (f32 rows of HD + 4 floats, every fragment read
+// a conflict-free 32-bit load); ds and e * linv are split into the A
+// operand of the next product straight from their C tiles, k relabelled
+// (the B rows read as k0 + 2t and k0 + 2t + 1). The rows kernel takes the
+// statistics in one online pass (the running max, l and sum e . (do .
+// v^T) rescaled as the max moves) and ds and dq in a second; the cols
+// kernel keeps QC queries' S^T and dp^T in registers beside dK and dV
+// (QC = 64 at HD <= 64, 32 at 96, 16 at 128). 8-row tiles past N and
+// warps whose 16 rows lie past N skip their products. What bounds it: the
+// mma pipe's latency with two blocks of 4 warps an SM (~200 registers a
+// thread), and the split's conversions (every operand re-split by each
+// warp that reads it); at 0.09-0.11 of the bound of three TF32 products
+// (PERF.md).
 #include "attn_mma.cuh"
 #include "common.cuh"
 
 namespace {
 
 using namespace ssmv::attn;
+namespace tf = ssmv::tf32;
 
 constexpr int kMaxN = 1024;
 
@@ -364,485 +381,365 @@ cudaError_t launch_bf16(const void* qkv, const void* dout, void* dqkv,
 }
 
 // ---------------------------------------------------------------------------
-// f32: the SIMT forms
+// f32: split TF32 on the tensor cores
 // ---------------------------------------------------------------------------
-//
-// The short form, N <= 208 and d <= 64: one block per (head, sample), 256
-// threads, the softmax recomputed 16 query rows a step with the whole
-// score row on chip, dq written per step, dK and dV summed over the steps
-// in registers (thread t owns rows t / 16 + 16 i, i < 13, and columns
-// t % 16 + 16 q, q < HD / 16: 2 x 13 x 4 accumulators at HD = 64) and
-// written once. The arithmetic is the bf16 form's with every rounding to
-// the activation dtype the identity: s = scale * (q . k^T), e = exp(s - m),
-// linv = 1 / sum(e), dv = e^T . (do * linv), dp_s = (do . v^T) * (linv *
-// scale), ds = e * dp_s - e * linv * rowsum(e * dp_s), dq = ds . k,
-// dk = ds^T . q (147,584 bytes of shared memory at N = 208, HD = 64).
-constexpr int kQB = 16;          // query rows per step
-constexpr int kSThreads = 256;   // 8 warps
-constexpr int kSWarps = kSThreads / 32;
-constexpr int kMaxRowTiles = 13; // N <= 208
-constexpr int kKT = 64;          // key rows per tile of the long form
 
-__host__ __device__ constexpr size_t align128(size_t v) {
-  return (v + 127) / 128 * 128;
-}
+// the n-tiles a tf32 mma_group sweeps (4 measured slower)
+constexpr int kF32Group = 8;
 
 template <int HD>
-struct LayoutF32 {
-  int SLD;
-  size_t K, V, Q, dO, dOl, S, P, bytes;
-  __host__ __device__ explicit LayoutF32(int np) {
-    SLD = np + 4;
-    K = 0;
-    V = K + sizeof(float) * np * (HD + 1);
-    Q = V + sizeof(float) * np * (HD + 1);
-    dO = align128(Q + sizeof(float) * kQB * HD);
-    dOl = align128(dO + sizeof(float) * kQB * HD);
-    S = align128(dOl + sizeof(float) * kQB * HD);
-    P = align128(S + sizeof(float) * kQB * SLD);
-    bytes = P + sizeof(float) * kQB * SLD;
-  }
+struct BwdF32 {
+  static constexpr int LD = tf::tile_ld(HD);
+  static constexpr int NST = 2;  // ring stages
+  static constexpr size_t kTile = sizeof(float) * kT * LD;
+  static constexpr size_t kStat = sizeof(float) * kT * 3;
+  // Q, dO, the K and V rings
+  static constexpr size_t rows_bytes = kTile * (2 + 2 * NST);
+  // K, V, the Q and dO rings, the stats ring
+  static constexpr size_t cols_bytes = kTile * (2 + 2 * NST) + kStat * NST;
+  // queries a cols step: its S^T and dp^T tiles in registers beside the
+  // warp's dK and dV (2 x HD / 2 floats a thread; 32 at HD <= 64 measured
+  // slower)
+  static constexpr int QC = HD <= 64 ? 64 : HD <= 96 ? 32 : 16;
 };
+static_assert(BwdF32<128>::cols_bytes <= ssmv::kMaxSmemBytes,
+              "the f32 K6 must take head_dim 128");
 
-// rows [r0, r0 + R) of a head's d columns (row stride ld) into an
-// lds-strided f32 tile of HD columns, rows >= N and columns >= d zero
-template <int HD>
-__device__ __forceinline__ void load_f32(float* dst, int lds, const float* src,
-                                         size_t ld, int r0, int R, int N,
-                                         int d) {
-  for (int i = threadIdx.x; i < R * HD; i += kSThreads) {
-    const int r = i / HD, c = i % HD;
-    dst[r * lds + c] = r0 + r < N && c < d ? src[(size_t)(r0 + r) * ld + c] : 0.f;
+// s[j] = (A1 * fa) . (B1 * fb)^T and dp[j] = A2 . B2^T over HD for the
+// 8-column n-tiles [n0 + 8j, +8), j < nv: A from the warp's 16 rows of the
+// row-major tiles A1 and A2, B from the n-major tiles B1 and B2
+template <int HD, int NT>
+__device__ __forceinline__ void two_products(float (&s)[NT][4],
+                                             float (&dp)[NT][4],
+                                             const float* A1, float fa,
+                                             const float* B1, float fb,
+                                             const float* A2, const float* B2,
+                                             int n0, int nv) {
+  constexpr int LD = tf::tile_ld(HD), G = tf::group_for(NT, kF32Group);
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+  for (int kd = 0; kd < HD / 8; ++kd) {
+    tf::FragA a1, a2;
+    tf::ld_a(a1, A1, LD, kd * 8, fa);
+    tf::ld_a(a2, A2, LD, kd * 8);
+#pragma unroll
+    for (int jg = 0; jg < NT; jg += G) {
+      if (jg < nv) {
+        tf::FragB b1[G], b2[G];
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          tf::ld_b_nk(b1[j], B1, LD, n0 + (jg + j) * 8, kd * 8, fb);
+          tf::ld_b_nk(b2[j], B2, LD, n0 + (jg + j) * 8, kd * 8);
+        }
+        tf::mma_group2(s, jg, a1, b1, dp, jg, a2, b2);
+      }
+    }
   }
 }
 
+// acc[n] += a . the B fragments of the HD / 8 n-tiles of a k-major tile at
+// k-step k0 (its rows relabelled as a_from_c's)
 template <int HD>
-__global__ void __launch_bounds__(kSThreads, 1)
-mha_bwd_f32_kernel(const float* __restrict__ qkv,
-                   const float* __restrict__ dout, float* __restrict__ dqkv,
-                   int N, int NP, int H, int d, float scale) {
-  constexpr int KLD = HD + 1, CPT = HD / 16;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const LayoutF32<HD> L(NP);
-  float* Ks = reinterpret_cast<float*>(smem + L.K);
-  float* Vs = reinterpret_cast<float*>(smem + L.V);
-  float* Qs = reinterpret_cast<float*>(smem + L.Q);
-  float* dOs = reinterpret_cast<float*>(smem + L.dO);
-  float* dOl = reinterpret_cast<float*>(smem + L.dOl);
-  float* S = reinterpret_cast<float*>(smem + L.S);
-  float* P = reinterpret_cast<float*>(smem + L.P);
+__device__ __forceinline__ void acc_kn(float (&acc)[HD / 8][4],
+                                       const tf::FragA& a, const float* tile,
+                                       int k0) {
+  constexpr int LD = tf::tile_ld(HD), GD = tf::group_for(HD / 8, kF32Group);
+#pragma unroll
+  for (int ng = 0; ng < HD / 8; ng += GD) {
+    tf::FragB b[GD];
+#pragma unroll
+    for (int i = 0; i < GD; ++i) tf::ld_b_kn(b[i], tile, LD, k0, (ng + i) * 8);
+    tf::mma_group(acc, ng, a, b);
+  }
+}
 
-  const int h = blockIdx.x, b = blockIdx.y;
+// acc_kn of two products swept together (the cols kernel's dv and dk)
+template <int HD>
+__device__ __forceinline__ void acc_kn2(float (&acc1)[HD / 8][4],
+                                        const tf::FragA& a1,
+                                        const float* tile1,
+                                        float (&acc2)[HD / 8][4],
+                                        const tf::FragA& a2,
+                                        const float* tile2, int k0) {
+  constexpr int LD = tf::tile_ld(HD), GD = tf::group_for(HD / 8, kF32Group);
+#pragma unroll
+  for (int ng = 0; ng < HD / 8; ng += GD) {
+    tf::FragB b1[GD], b2[GD];
+#pragma unroll
+    for (int i = 0; i < GD; ++i) {
+      tf::ld_b_kn(b1[i], tile1, LD, k0, (ng + i) * 8);
+      tf::ld_b_kn(b2[i], tile2, LD, k0, (ng + i) * 8);
+    }
+    tf::mma_group2(acc1, ng, a1, b1, acc2, ng, a2, b2);
+  }
+}
+
+// rows: one block per (64-query tile, head, sample), 4 warps of 16 rows.
+// Two passes over the K and V tiles: (1) S = (q * scale) . k^T and
+// do . v^T, the row max m, l = sum e and sum e . (do . v^T) online, each
+// rescaled by exp(m - m') when the max moves (the flash forward's
+// recurrence); (2) the same products, ds and dq += ds . k. It writes dq
+// once and (m, linv, linv * delta_s) per row into `stats`.
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+mha_bwd_rows_f32(const float* __restrict__ qkv, const float* __restrict__ dout,
+                 float* __restrict__ dqkv, float* __restrict__ stats, int N,
+                 int H, int d, float scale, int vec) {
+  constexpr int LD = BwdF32<HD>::LD, NST = BwdF32<HD>::NST;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* dOs = Qs + kT * LD;
+  float* Ks = dOs + kT * LD;
+  float* Vs = Ks + NST * kT * LD;
+
+  const int q0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
   const int C = H * d;
   const size_t C3 = 3 * (size_t)C;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const float* base = qkv + (size_t)b * N * C3 + (size_t)h * d;
-  const float* dobase = dout + (size_t)b * N * C + (size_t)h * d;
-  float* dbase = dqkv + (size_t)b * N * C3 + (size_t)h * d;
+  const float* dob = dout + (size_t)b * N * C + (size_t)h * d;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int nkt = (N + kT - 1) / kT;
+  const int T = 2 * nkt;  // passes: the row statistics; ds and dq
+  const bool live = q0 + warp * 16 < N;  // else the warp keeps pace only
+  const float* Qw = Qs + warp * 16 * LD;
+  const float* dOw = dOs + warp * 16 * LD;
 
-  load_f32<HD>(Ks, KLD, base + C, C3, 0, NP, N, d);
-  load_f32<HD>(Vs, KLD, base + 2 * C, C3, 0, NP, N, d);
+  auto issue = [&](int t) {
+    if (t < T) {
+      const int st = t % NST, kt = t % nkt;
+      load_rows_f32<HD>(Ks + st * kT * LD, base + C, C3, kt * kT, N, d, vec);
+      load_rows_f32<HD>(Vs + st * kT * LD, base + 2 * C, C3, kt * kT, N, d,
+                        vec);
+    }
+    cp_async_commit();
+  };
+  load_rows_f32<HD>(Qs, base, C3, q0, N, d, vec);  // join tile 0's group
+  load_rows_f32<HD>(dOs, dob, C, q0, N, d, vec);
+  for (int s = 0; s < NST - 1; ++s) issue(s);
 
-  const int RT = NP / 16;
-  const int an = tid >> 4, cs = tid & 15;  // accumulator rows / columns
-  float dk[kMaxRowTiles][CPT], dv[kMaxRowTiles][CPT];
+  float dq[HD / 8][4];
 #pragma unroll
-  for (int i = 0; i < kMaxRowTiles; ++i)
-#pragma unroll
-    for (int q = 0; q < CPT; ++q) dk[i][q] = dv[i][q] = 0.f;
+  for (int j = 0; j < HD / 8; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+  float sedp[2] = {0.f, 0.f}, ls[2] = {0.f, 0.f}, ldl[2] = {0.f, 0.f};
 
-  for (int q0 = 0; q0 < NP; q0 += kQB) {
-    __syncthreads();  // last step's readers of Qs, dOs, dOl, S, P are done
-    load_f32<HD>(Qs, HD, base, C3, q0, kQB, N, d);
-    load_f32<HD>(dOs, HD, dobase, C, q0, kQB, N, d);
+  for (int t = 0; t < T; ++t) {
+    cp_async_wait<NST - 2>();
     __syncthreads();
-
-    {  // S = q . k^T and P = do . v^T: thread (r, cs) takes columns cs + 16 m
-      const int r = tid >> 4;
-      for (int n = cs; n < NP; n += 16) {
-        float sv = 0.f, pv = 0.f;
-#pragma unroll 8
-        for (int c = 0; c < HD; ++c) {
-          sv = fmaf(Qs[r * HD + c], Ks[n * KLD + c], sv);
-          pv = fmaf(dOs[r * HD + c], Vs[n * KLD + c], pv);
+    issue(t + NST - 1);
+    if (live) {
+      const int k0 = (t % nkt) * kT;
+      const float* Kt = Ks + (t % NST) * kT * LD;
+      const float* Vt = Vs + (t % NST) * kT * LD;
+      const int nv = min(kT / 8, (N - k0 + 7) / 8);  // n-tiles with a key < N
+      float s[kT / 8][4], dp[kT / 8][4];
+      two_products<HD, kT / 8>(s, dp, Qw, scale, Kt, 1.f, dOw, Vt, 0, nv);
+#pragma unroll
+      for (int j = 0; j < kT / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + j * 8 + 2 * tq + (e & 1);
+          if (col >= N) s[j][e] = -CUDART_INF_F;
         }
-        S[r * L.SLD + n] = n < N ? sv * scale : -CUDART_INF_F;
-        P[r * L.SLD + n] = pv;
-      }
-    }
-    __syncthreads();
-
-    // softmax rows and ds: each warp takes kQB / 8 rows; e into S, ds into P
-    for (int rr = 0; rr < kQB / kSWarps; ++rr) {
-      const int r = warp * (kQB / kSWarps) + rr;
-      float* srow = S + r * L.SLD;
-      float* prow = P + r * L.SLD;
-      float m = -CUDART_INF_F;
-      for (int c = lane; c < NP; c += 32) m = fmaxf(m, srow[c]);
-      m = ssmv::warp_max(m);
-      float l = 0.f;
-      for (int c = lane; c < NP; c += 32) {
-        const float e = expf(srow[c] - m);  // masked columns give exactly 0
-        srow[c] = e;
-        l += e;
-      }
-      const float linv = 1.f / ssmv::warp_sum(l);
-      const float ls = linv * scale;
-      float delta = 0.f;
-      for (int c = lane; c < NP; c += 32) {
-        const float edp = srow[c] * (prow[c] * ls);
-        prow[c] = edp;
-        delta += edp;
-      }
-      const float ldelta = linv * ssmv::warp_sum(delta);
-      for (int c = lane; c < NP; c += 32) prow[c] -= srow[c] * ldelta;
-      for (int c = lane; c < HD; c += 32) dOl[r * HD + c] = dOs[r * HD + c] * linv;
-    }
-    __syncthreads();
-
-    // dV += e^T . (do*linv), dK += ds^T . q over this step's 16 rows
-    for (int r = 0; r < kQB; ++r) {
-      float o4[CPT], q4[CPT];
+      if (t < nkt) {
+        float mt[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-      for (int q = 0; q < CPT; ++q) {
-        o4[q] = dOl[r * HD + cs + 16 * q];
-        q4[q] = Qs[r * HD + cs + 16 * q];
-      }
+        for (int j = 0; j < kT / 8; ++j) {
+          mt[0] = fmaxf(mt[0], fmaxf(s[j][0], s[j][1]));
+          mt[1] = fmaxf(mt[1], fmaxf(s[j][2], s[j][3]));
+        }
+        float alpha[2], le[2] = {0.f, 0.f}, sd[2] = {0.f, 0.f};
 #pragma unroll
-      for (int i = 0; i < kMaxRowTiles; ++i) {
-        if (i < RT) {
-          const int n = an + 16 * i;
-          const float e = S[r * L.SLD + n], ds = P[r * L.SLD + n];
+        for (int i = 0; i < 2; ++i) {
+          const float m_new = fmaxf(m[i], quad_max(mt[i]));  // finite: k0 < N
+          alpha[i] = expf(m[i] - m_new);  // 0 on the first tile
+          m[i] = m_new;
+        }
 #pragma unroll
-          for (int q = 0; q < CPT; ++q) {
-            dv[i][q] = fmaf(e, o4[q], dv[i][q]);
-            dk[i][q] = fmaf(ds, q4[q], dk[i][q]);
+        for (int j = 0; j < kT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1;
+            const float ee = expf(s[j][e] - m[i]);  // masked columns give 0
+            le[i] += ee;
+            sd[i] += ee * dp[j][e];
+          }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          l[i] = l[i] * alpha[i] + le[i];
+          sedp[i] = sedp[i] * alpha[i] + sd[i];
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < kT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = e >> 1;
+            const float ee = expf(s[j][e] - m[i]);
+            s[j][e] = ee * (dp[j][e] * ls[i]) - ee * ldl[i];  // ds
+          }
+#pragma unroll
+        for (int j = 0; j < kT / 8; ++j) {  // dq += ds . k, 8 keys a k-step
+          if (j < nv) {
+            tf::FragA dsa;
+            tf::a_from_c(dsa, s[j]);
+            acc_kn<HD>(dq, dsa, Kt, j * 8);
           }
         }
       }
     }
-    {  // dq = ds . k for this step's rows: thread (r, columns cs + 16 q)
-      const int r = tid >> 4;
-      float acc[CPT];
+    if (t == nkt - 1) {
 #pragma unroll
-      for (int q = 0; q < CPT; ++q) acc[q] = 0.f;
-      for (int n = 0; n < NP; ++n) {
-        const float ds = P[r * L.SLD + n];
-#pragma unroll
-        for (int q = 0; q < CPT; ++q)
-          acc[q] = fmaf(ds, Ks[n * KLD + cs + 16 * q], acc[q]);
-      }
-      if (q0 + r < N) {
-#pragma unroll
-        for (int q = 0; q < CPT; ++q)
-          if (cs + 16 * q < d) dbase[(size_t)(q0 + r) * C3 + cs + 16 * q] = acc[q];
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < kMaxRowTiles; ++i) {
-    const int n = an + 16 * i;
-    if (i < RT && n < N) {
-#pragma unroll
-      for (int q = 0; q < CPT; ++q) {
-        const int c = cs + 16 * q;
-        if (c < d) {
-          dbase[(size_t)n * C3 + C + c] = dk[i][q];
-          dbase[(size_t)n * C3 + 2 * C + c] = dv[i][q];
+      for (int i = 0; i < 2; ++i) {
+        l[i] = quad_sum(l[i]);
+        sedp[i] = quad_sum(sedp[i]);
+        const float linv = 1.f / l[i];
+        ls[i] = linv * scale;
+        ldl[i] = linv * (ls[i] * sedp[i]);
+        const int n = q0 + warp * 16 + g + 8 * i;
+        if (tq == 0 && n < N) {
+          float* st = stats + (((size_t)b * H + h) * N + n) * 3;
+          st[0] = m[i];
+          st[1] = linv;
+          st[2] = ldl[i];
         }
       }
     }
   }
+  const float one[2] = {1.f, 1.f};
+  store_rows_f32<HD>(dq, one, Qs + warp * 16 * LD,
+                     dqkv + (size_t)b * N * C3 + (size_t)h * d, C3,
+                     q0 + warp * 16, N, d, vec);
 }
 
-// The long form, for N > 208 or d > 64: two kernels with no atomics, in
-// the arithmetic above:
-//   rows: one block per (16 query rows, head, sample). K and V stream
-//     through shared memory in tiles of 64 rows to fill the whole 16 x NP
-//     score row s and its twin do . v^T; the row's softmax and ds are exact
-//     over all N columns; dq = ds . k from a second pass over the K tiles.
-//     It writes the row's statistics (m, linv, linv * rowsum(e * dp_s)) to
-//     the f32 workspace `stats` (B, H, N, 3).
-//   cols: one block per (64 key rows, head, sample), those rows' K and V in
-//     shared memory, dK and dV of them summed in registers (thread t owns
-//     key rows t / 16 + 16 i, i < 4, and columns (t % 16) * HD / 16 ..
-//     + HD / 16 - 1) over
-//     16-row query steps. Each step recomputes s and do . v^T for its
-//     16 x 64 block with the same f32 FMA chains as `rows`, and e and ds
-//     from the saved statistics, so they equal the `rows` kernel's.
+// cols: one block per (64-key tile, head, sample), 4 warps of 16 key rows;
+// per query tile and QC-query step it recomputes S^T = k . (q * scale)^T
+// and dp^T = v . do^T, e = exp(S^T - m) from the saved m (0 for keys past
+// N), ds^T = e * (dp^T * linv * scale) - e * (linv * delta_s), and sums
+// dv += (e * linv)^T-rows . do and dk += ds^T . q in registers; dk and dv
+// are written once.
 template <int HD>
-struct LayoutRows {
-  int SLD = 0;
-  size_t Q = 0, dO = 0, S = 0, P = 0, K = 0, V = 0, bytes = 0;
-  __host__ __device__ constexpr explicit LayoutRows(int np) {
-    SLD = np + 4;
-    Q = 0;
-    dO = Q + sizeof(float) * kQB * HD;
-    S = dO + sizeof(float) * kQB * HD;
-    P = S + sizeof(float) * kQB * SLD;
-    K = P + sizeof(float) * kQB * SLD;
-    V = K + sizeof(float) * kKT * (HD + 1);
-    bytes = V + sizeof(float) * kKT * (HD + 1);
-  }
-};
-static_assert(LayoutRows<128>(kMaxN).bytes <= ssmv::kMaxSmemBytes,
-              "the long K6 must take N = 1024 at head_dim 128");
-
-template <int HD>
-__global__ void __launch_bounds__(kSThreads)
-mha_bwd_rows_f32(const float* __restrict__ qkv, const float* __restrict__ dout,
-                 float* __restrict__ dqkv, float* __restrict__ stats, int N,
-                 int NP, int H, int d, float scale) {
-  constexpr int KLD = HD + 1, CPT = HD / 16;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const LayoutRows<HD> L(NP);
-  float* Qs = reinterpret_cast<float*>(smem + L.Q);
-  float* dOs = reinterpret_cast<float*>(smem + L.dO);
-  float* S = reinterpret_cast<float*>(smem + L.S);
-  float* P = reinterpret_cast<float*>(smem + L.P);
-  float* Ks = reinterpret_cast<float*>(smem + L.K);
-  float* Vs = reinterpret_cast<float*>(smem + L.V);
-
-  const int q0 = blockIdx.x * kQB, h = blockIdx.y, b = blockIdx.z;
-  const int C = H * d;
-  const size_t C3 = 3 * (size_t)C;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const float* base = qkv + (size_t)b * N * C3 + (size_t)h * d;
-  const float* dobase = dout + (size_t)b * N * C + (size_t)h * d;
-  float* dbase = dqkv + (size_t)b * N * C3 + (size_t)h * d;
-
-  load_f32<HD>(Qs, HD, base, C3, q0, kQB, N, d);
-  load_f32<HD>(dOs, HD, dobase, C, q0, kQB, N, d);
-  const int r = tid >> 4, cs = tid & 15;  // S / P: row r, columns cs + 16 j
-  for (int k0 = 0; k0 < NP; k0 += kKT) {
-    __syncthreads();  // the last tile's readers are done
-    load_f32<HD>(Ks, KLD, base + C, C3, k0, kKT, N, d);
-    load_f32<HD>(Vs, KLD, base + 2 * C, C3, k0, kKT, N, d);
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kKT / 16; ++j) {
-      const int n = cs + 16 * j;
-      float sv = 0.f, pv = 0.f;
-#pragma unroll 8
-      for (int c = 0; c < HD; ++c) {
-        sv = fmaf(Qs[r * HD + c], Ks[n * KLD + c], sv);
-        pv = fmaf(dOs[r * HD + c], Vs[n * KLD + c], pv);
-      }
-      if (k0 + n < NP) {
-        S[r * L.SLD + k0 + n] = k0 + n < N ? sv * scale : -CUDART_INF_F;
-        P[r * L.SLD + k0 + n] = pv;
-      }
-    }
-  }
-  __syncthreads();
-
-  // softmax rows and ds: each warp takes kQB / 8 rows
-  for (int rr = 0; rr < kQB / kSWarps; ++rr) {
-    const int row = warp * (kQB / kSWarps) + rr;
-    float* srow = S + row * L.SLD;
-    float* prow = P + row * L.SLD;
-    float m = -CUDART_INF_F;
-    for (int c = lane; c < NP; c += 32) m = fmaxf(m, srow[c]);
-    m = ssmv::warp_max(m);
-    float l = 0.f;
-    for (int c = lane; c < NP; c += 32) {
-      const float e = expf(srow[c] - m);  // masked columns give exactly 0
-      srow[c] = e;
-      l += e;
-    }
-    const float linv = 1.f / ssmv::warp_sum(l);
-    const float ls = linv * scale;
-    float delta = 0.f;
-    for (int c = lane; c < NP; c += 32) {
-      const float edp = srow[c] * (prow[c] * ls);
-      prow[c] = edp;
-      delta += edp;
-    }
-    const float ldelta = linv * ssmv::warp_sum(delta);
-    for (int c = lane; c < NP; c += 32) prow[c] -= srow[c] * ldelta;
-    const int n = q0 + row;
-    if (lane == 0 && n < N) {
-      float* st = stats + (((size_t)b * H + h) * N + n) * 3;
-      st[0] = m;
-      st[1] = linv;
-      st[2] = ldelta;
-    }
-  }
-
-  // dq = ds . k: thread (r, columns cs + 16 q), a second pass over K tiles
-  float acc[CPT];
-#pragma unroll
-  for (int q = 0; q < CPT; ++q) acc[q] = 0.f;
-  for (int k0 = 0; k0 < NP; k0 += kKT) {
-    __syncthreads();  // ds is complete; the last tile's readers are done
-    load_f32<HD>(Ks, KLD, base + C, C3, k0, kKT, N, d);
-    __syncthreads();
-    const int nt = min(kKT, NP - k0);
-    for (int n = 0; n < nt; ++n) {
-      const float ds = P[r * L.SLD + k0 + n];
-#pragma unroll
-      for (int q = 0; q < CPT; ++q)
-        acc[q] = fmaf(ds, Ks[n * KLD + cs + 16 * q], acc[q]);
-    }
-  }
-  if (q0 + r < N) {
-#pragma unroll
-    for (int q = 0; q < CPT; ++q)
-      if (cs + 16 * q < d) dbase[(size_t)(q0 + r) * C3 + cs + 16 * q] = acc[q];
-  }
-}
-
-__host__ __device__ constexpr size_t cols_f32_bytes(int hd) {
-  return sizeof(float) * (3 * kQB * hd + 2 * kKT * (hd + 1) +
-                          2 * kQB * (kKT + 1) + kQB * 3);
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kSThreads)
+__global__ void __launch_bounds__(kThreads)
 mha_bwd_cols_f32(const float* __restrict__ qkv, const float* __restrict__ dout,
                  float* __restrict__ dqkv, const float* __restrict__ stats,
-                 int N, int H, int d, float scale) {
-  constexpr int KLD = HD + 1, CPT = HD / 16;
+                 int N, int H, int d, float scale, int vec) {
+  constexpr int LD = BwdF32<HD>::LD, NST = BwdF32<HD>::NST;
+  constexpr int QC = BwdF32<HD>::QC, NQ = QC / 8;
   extern __shared__ __align__(128) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);  // kQB x HD
-  float* dOs = Qs + kQB * HD;                  // kQB x HD
-  float* dOl = dOs + kQB * HD;                 // kQB x HD
-  float* Ks = dOl + kQB * HD;                  // kKT x KLD
-  float* Vs = Ks + kKT * KLD;                  // kKT x KLD
-  float* E = Vs + kKT * KLD;                   // kQB x (kKT + 1)
-  float* DS = E + kQB * (kKT + 1);             // kQB x (kKT + 1)
-  float* St = DS + kQB * (kKT + 1);            // kQB x 3
+  float* Ks = reinterpret_cast<float*>(smem);
+  float* Vs = Ks + kT * LD;
+  float* Qr = Vs + kT * LD;
+  float* dOr = Qr + NST * kT * LD;
+  float* Str = dOr + NST * kT * LD;
 
-  const int k0 = blockIdx.x * kKT, h = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
   const int C = H * d;
   const size_t C3 = 3 * (size_t)C;
-  const int tid = threadIdx.x;
   const float* base = qkv + (size_t)b * N * C3 + (size_t)h * d;
-  const float* dobase = dout + (size_t)b * N * C + (size_t)h * d;
-  float* dbase = dqkv + (size_t)b * N * C3 + (size_t)h * d;
-  const float* sbase = stats + ((size_t)b * H + h) * N * 3;
+  const float* dob = dout + (size_t)b * N * C + (size_t)h * d;
+  const float* sb = stats + ((size_t)b * H + h) * N * 3;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  const int T = (N + kT - 1) / kT;  // query tiles
+  const bool live = k0 + warp * 16 < N;
+  const bool key_ok[2] = {k0 + warp * 16 + g < N, k0 + warp * 16 + g + 8 < N};
+  const float* Kw = Ks + warp * 16 * LD;
+  const float* Vw = Vs + warp * 16 * LD;
 
-  load_f32<HD>(Ks, KLD, base + C, C3, k0, kKT, N, d);
-  load_f32<HD>(Vs, KLD, base + 2 * C, C3, k0, kKT, N, d);
-  const int r = tid >> 4, cs = tid & 15;  // s / p: row r, columns cs + 16 j;
-                                          // dK / dV rows r + 16 i
-  float dk[kKT / 16][CPT], dv[kKT / 16][CPT];
-#pragma unroll
-  for (int i = 0; i < kKT / 16; ++i)
-#pragma unroll
-    for (int q = 0; q < CPT; ++q) dk[i][q] = dv[i][q] = 0.f;
-
-  for (int q0 = 0; q0 < N; q0 += kQB) {
-    __syncthreads();  // the last step's readers are done
-    load_f32<HD>(Qs, HD, base, C3, q0, kQB, N, d);
-    load_f32<HD>(dOs, HD, dobase, C, q0, kQB, N, d);
-    for (int i = tid; i < kQB * 3; i += kSThreads)
-      St[i] = q0 + i / 3 < N ? sbase[(size_t)q0 * 3 + i] : 0.f;
-    __syncthreads();
-
-    const bool row_ok = q0 + r < N;
-    const float m = St[r * 3], linv = St[r * 3 + 1], ldelta = St[r * 3 + 2];
-    const float ls = linv * scale;
-#pragma unroll
-    for (int j = 0; j < kKT / 16; ++j) {
-      const int n = cs + 16 * j;
-      float sv = 0.f, pv = 0.f;
-#pragma unroll 8
-      for (int c = 0; c < HD; ++c) {
-        sv = fmaf(Qs[r * HD + c], Ks[n * KLD + c], sv);
-        pv = fmaf(dOs[r * HD + c], Vs[n * KLD + c], pv);
+  // query tile t: q, do and the rows' (m, linv, linv * delta_s), rows >= N
+  // zero (so e = 1 there meets zero q, do and linv and adds nothing)
+  auto issue = [&](int t) {
+    if (t < T) {
+      const int st = t % NST;
+      load_rows_f32<HD>(Qr + st * kT * LD, base, C3, t * kT, N, d, vec);
+      load_rows_f32<HD>(dOr + st * kT * LD, dob, C, t * kT, N, d, vec);
+      for (int i = threadIdx.x; i < kT * 3; i += kThreads) {
+        const bool ok = t * kT + i / 3 < N;
+        cp_async4(Str + st * kT * 3 + i, ok ? sb + (size_t)t * kT * 3 + i : sb,
+                  ok);
       }
-      float e = 0.f, ds = 0.f;
-      if (row_ok && k0 + n < N) {
-        e = expf(sv * scale - m);
-        const float edp = e * (pv * ls);
-        ds = edp - e * ldelta;
-      }
-      E[r * (kKT + 1) + n] = e;
-      DS[r * (kKT + 1) + n] = ds;
     }
-    for (int i = tid; i < kQB * HD; i += kSThreads)
-      dOl[i] = dOs[i] * St[(i / HD) * 3 + 1];
-    __syncthreads();
+    cp_async_commit();
+  };
+  load_rows_f32<HD>(Ks, base + C, C3, k0, N, d, vec);  // join tile 0's group
+  load_rows_f32<HD>(Vs, base + 2 * C, C3, k0, N, d, vec);
+  for (int s = 0; s < NST - 1; ++s) issue(s);
 
-    // dV += e^T . (do*linv), dK += ds^T . q over this step's 16 rows;
-    // thread cs owns the columns cs * CPT .. + CPT - 1, read as pairs
-    for (int rr = 0; rr < kQB; ++rr) {
-      float o4[CPT], q4[CPT];
+  float dk[HD / 8][4], dv[HD / 8][4];
 #pragma unroll
-      for (int q = 0; q < CPT; q += 2) {
-        const float2 ov =
-            *reinterpret_cast<const float2*>(dOl + rr * HD + cs * CPT + q);
-        const float2 qv =
-            *reinterpret_cast<const float2*>(Qs + rr * HD + cs * CPT + q);
-        o4[q] = ov.x, o4[q + 1] = ov.y, q4[q] = qv.x, q4[q + 1] = qv.y;
-      }
+  for (int j = 0; j < HD / 8; ++j)
 #pragma unroll
-      for (int i = 0; i < kKT / 16; ++i) {
-        const int n = r + 16 * i;
-        const float e = E[rr * (kKT + 1) + n], ds = DS[rr * (kKT + 1) + n];
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  for (int t = 0; t < T; ++t) {
+    cp_async_wait<NST - 2>();
+    __syncthreads();  // tile t landed; every warp is done with tile t-1
+    issue(t + NST - 1);
+    if (!live) continue;
+    const float* Qt = Qr + (t % NST) * kT * LD;
+    const float* dOt = dOr + (t % NST) * kT * LD;
+    const float* St = Str + (t % NST) * kT * 3;
+    const int nvq = min(kT / 8, (N - t * kT + 7) / 8);  // n-tiles, a query < N
+    for (int qc = 0; qc < kT; qc += QC) {
+      const int nv = min(NQ, nvq - qc / 8);
+      if (nv <= 0) break;
+      float s[NQ][4], dp[NQ][4];
+      two_products<HD, NQ>(s, dp, Kw, 1.f, Qt, scale, Vw, dOt, qc, nv);
 #pragma unroll
-        for (int q = 0; q < CPT; ++q) {
-          dv[i][q] = fmaf(e, o4[q], dv[i][q]);
-          dk[i][q] = fmaf(ds, q4[q], dk[i][q]);
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float* st = St + (qc + j * 8 + 2 * tq + (e & 1)) * 3;
+          const float ee = key_ok[e >> 1] ? expf(s[j][e] - st[0]) : 0.f;
+          dp[j][e] = ee * (dp[j][e] * (st[1] * scale)) - ee * st[2];  // ds
+          s[j][e] = ee * st[1];  // e * linv
+        }
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {  // 8 queries a k-step
+        if (j < nv) {
+          tf::FragA ea, dsa;
+          tf::a_from_c(ea, s[j]);
+          tf::a_from_c(dsa, dp[j]);
+          acc_kn2<HD>(dv, ea, dOt, dk, dsa, Qt, qc + j * 8);
         }
       }
     }
   }
-
-#pragma unroll
-  for (int i = 0; i < kKT / 16; ++i) {
-    const int n = k0 + r + 16 * i;
-    if (n < N) {
-#pragma unroll
-      for (int q = 0; q < CPT; ++q) {
-        const int c = cs * CPT + q;
-        if (c < d) {
-          dbase[(size_t)n * C3 + C + c] = dk[i][q];
-          dbase[(size_t)n * C3 + 2 * C + c] = dv[i][q];
-        }
-      }
-    }
-  }
+  // the warp's own k and v rows are free (no other warp reads them)
+  const float one[2] = {1.f, 1.f};
+  float* dst = dqkv + (size_t)b * N * C3 + (size_t)h * d;
+  store_rows_f32<HD>(dk, one, Ks + warp * 16 * LD, dst + C, C3,
+                     k0 + warp * 16, N, d, vec);
+  store_rows_f32<HD>(dv, one, Vs + warp * 16 * LD, dst + 2 * C, C3,
+                     k0 + warp * 16, N, d, vec);
 }
 
 template <int HD>
 cudaError_t launch_f32(const void* qkv, const void* dout, void* dqkv,
                        float* stats, int B, int N, int H, int d, float scale,
                        cudaStream_t s) {
-  const int NP = (N + 15) / 16 * 16;
+  const dim3 grid((N + kT - 1) / kT, H, B);
+  const int vec = d % 4 == 0;
   const float* q = static_cast<const float*>(qkv);
   const float* o = static_cast<const float*>(dout);
   float* dq = static_cast<float*>(dqkv);
-  if constexpr (HD <= 64) {
-    if (N <= 16 * kMaxRowTiles) {
-      const LayoutF32<HD> L(NP);
-      cudaError_t err = cudaFuncSetAttribute(
-          mha_bwd_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)L.bytes);
-      if (err != cudaSuccess) return err;
-      mha_bwd_f32_kernel<HD><<<dim3(H, B), kSThreads, L.bytes, s>>>(
-          q, o, dq, N, NP, H, d, scale);
-      return cudaGetLastError();
-    }
-  }
-  const LayoutRows<HD> L(NP);
   cudaError_t err = cudaFuncSetAttribute(
       mha_bwd_rows_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)L.bytes);
+      (int)BwdF32<HD>::rows_bytes);
   if (err != cudaSuccess) return err;
-  mha_bwd_rows_f32<HD><<<dim3((N + kQB - 1) / kQB, H, B), kSThreads, L.bytes,
-                         s>>>(q, o, dq, stats, N, NP, H, d, scale);
+  mha_bwd_rows_f32<HD><<<grid, kThreads, BwdF32<HD>::rows_bytes, s>>>(
+      q, o, dq, stats, N, H, d, scale, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(mha_bwd_cols_f32<HD>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)cols_f32_bytes(HD));
+                             (int)BwdF32<HD>::cols_bytes);
   if (err != cudaSuccess) return err;
-  mha_bwd_cols_f32<HD><<<dim3((N + kKT - 1) / kKT, H, B), kSThreads,
-                         cols_f32_bytes(HD), s>>>(q, o, dq, stats, N, H, d,
-                                                  scale);
+  mha_bwd_cols_f32<HD><<<grid, kThreads, BwdF32<HD>::cols_bytes, s>>>(
+      q, o, dq, stats, N, H, d, scale, vec);
   return cudaGetLastError();
 }
 

@@ -19,8 +19,12 @@ stream K and V through ``cp.async`` rings. K5, K6 and K12 take the exact
 row maximum first, from a pass that computes only row maxima (K12 runs
 K5's head body for each head, then its projection as one tile GEMM on
 the tensor cores, the attention output never in device memory); K11 takes
-one pass with the JAX kernel's online softmax. The f32 forms run on the
-CUDA cores (exact f32 FMAs).
+one pass with the JAX kernel's online softmax. In f32, K6 and K11 keep
+those structures on the tensor cores in split TF32 (``csrc/mma_tf32.cuh``:
+each f32 operand split into two TF32 parts, three ``mma.sync.m16n8k8``
+products a k-step, mean error from the function in f64 6-10x the
+plain f32 version's; e, ds and P stay f32); K5's and K12's
+f32 forms run on the CUDA cores (f32 FMAs, ``csrc/mha_simt.cuh``).
 
 Dispatch: a CPU tensor takes the plain versions
 (:func:`fused_mha_reference`, :func:`reference_mha_bwd`,

@@ -33,11 +33,16 @@ Layout contract (``ops/moe.py::aligned_expert_layout``): rows are sorted by
 expert and every ``TILE_ROWS``-row tile belongs to one expert,
 ``e_of_tile[tile]``.
 
-Shapes and types: D in ``KERNEL_DIMS`` (192, 384, 768), H a multiple of
-64, activations and expert weights in one dtype, bf16 or f32 (the biases
-f32). In bf16 every kernel runs on the tensor cores at every D
-(``mma.sync`` with ``cp.async`` rings): K4's backward as a dh kernel, then
-one GEMM launch for dx, dW and db, the dW products split over an expert's
+Shapes and types: any D up to 768 and any H, as the JAX kernel takes any D
+and (its MoE layer routes an odd H to ``'ragged'``) any even H. The kernels
+are compiled for D in ``KERNEL_DIMS`` (192, 384, 768) and H a multiple of
+64; every entry point runs them through :func:`pad_call`, which zero-pads D
+to the next instance and H to the next multiple of 64 and slices the
+outputs back (exact: the pads add zeros, and GELU(0) = 0). D past 768
+raises, naming the cap. Activations and expert weights in one dtype, bf16
+or f32 (the biases f32). In bf16 every kernel runs on the tensor cores at
+every D (``mma.sync`` with ``cp.async`` rings): K4's backward as a dh
+kernel, then one GEMM launch for dx, dW and db, the dW products split over an expert's
 rows by :func:`wgrad_splits` where their tiles would not fill the card; K8
 as a dgrad kernel and a dW kernel that both recompute h and dy . W2^T on
 chip, with a cluster of two blocks splitting D at D = 768. f32 at every D runs in each
@@ -133,8 +138,10 @@ def _plain_bwd(xs, w1, b1, w2, e_of_tile, dy, flags):
         dh = (d @ w2[e].float().T) * dgelu(h)
         dhb = dh.to(dt).float()
         dx[rows] = (dhb @ w1[e].float().T).to(dt)
-        db1[e] += dh.sum(0)
-        db2[e] += d.sum(0)
+        # each column summed along a contiguous row: the same order at any
+        # width, so pad_call's zero columns leave db1 and db2 bit for bit
+        db1[e] += dh.T.contiguous().sum(1)
+        db2[e] += d.T.contiguous().sum(1)
         include = bool(f & 2)
         stash[int(include)] = (x, dhb, gelu_exact(h).to(dt).float(), d)
         if f & 1:
@@ -191,20 +198,72 @@ def reference_expert_ffn_bwd_defer(xs, w1, b1, w2, e_of_tile, dy):
                       bwd_flags(e_of_tile).tolist())
 
 
-KERNEL_DIMS = (192, 384, 768)  # the D the expert-FFN kernels take
+KERNEL_DIMS = (192, 384, 768)  # the D instances of the expert-FFN kernels
 KERNEL_DTYPES = (torch.bfloat16, torch.float32)
+H_ALIGN = 64  # the kernels' hidden chunk
+
+
+def kernel_dims(D: int, H: int,
+                h_at_least_d: bool = False) -> typ.Tuple[int, int]:
+    """(Dp, Hp): the smallest instance in ``KERNEL_DIMS`` >= D and H
+    rounded up to a multiple of ``H_ALIGN`` (and to at least Dp with
+    ``h_at_least_d``, as K8 needs), the shape :func:`pad_call` runs a
+    kernel at. Raises for D past the widest instance."""
+    if D > KERNEL_DIMS[-1]:
+        raise ValueError(f"the expert-FFN kernels take D <= {KERNEL_DIMS[-1]}"
+                         f", got {D}")
+    Dp = next(k for k in KERNEL_DIMS if k >= D)
+    Hp = -(-H // H_ALIGN) * H_ALIGN
+    return Dp, max(Hp, Dp) if h_at_least_d else Hp
+
+
+def _pad_to(t, shape):
+    """t zero-padded at the end of each dim to ``shape`` (t itself when it
+    has the shape already)."""
+    if tuple(t.shape) == tuple(shape):
+        return t
+    pads = []
+    for have, want in zip(reversed(t.shape), reversed(shape)):
+        pads += [0, want - have]
+    return torch.nn.functional.pad(t, pads)
+
+
+def pad_call(fn, x, w1, b1, w2, b2=None, dy=None, h_at_least_d=False):
+    """``fn(x, w1, b1, w2, b2, dy)`` on tensors zero-padded to
+    :func:`kernel_dims` (``h_at_least_d`` passed on), its outputs sliced
+    back: x's and dy's columns, W1's rows, W2's columns and b2 to Dp; W1's
+    columns, b1 and W2's rows to Hp. Exact: the zero rows and columns add
+    exact zeros to every sum, and GELU(0) = 0 (so do the hidden pad's h, g
+    and dh). ``fn`` returns y (T, Dp), or (dx, dw1, db1, dw2, db2) of the
+    padded shapes. A registered shape passes through as it is, with no
+    copy."""
+    if w1.dim() != 3:  # the kernel's checks raise
+        return fn(x, w1, b1, w2, b2, dy)
+    E, D, H = w1.shape
+    Dp, Hp = kernel_dims(D, H, h_at_least_d)
+    if (Dp, Hp) == (D, H):
+        return fn(x, w1, b1, w2, b2, dy)
+    out = fn(_pad_to(x, (x.shape[0], Dp)), _pad_to(w1, (E, Dp, Hp)),
+             _pad_to(b1, (E, Hp)), _pad_to(w2, (E, Hp, Dp)),
+             None if b2 is None else _pad_to(b2, (E, Dp)),
+             None if dy is None else _pad_to(dy, (dy.shape[0], Dp)))
+    if not isinstance(out, tuple):
+        return out[:, :D].contiguous()
+    dx, dw1, db1, dw2, db2 = out
+    return (dx[:, :D].contiguous(), dw1[:, :D, :H].contiguous(),
+            db1[:, :H].contiguous(), dw2[:, :H, :D].contiguous(),
+            db2[:, :D].contiguous())
 
 
 def _check_weights(Tp, D, dt, dev, w1, b1, w2, b2, e_of_tile):
     if w1.dim() != 3:
         raise ValueError(f"w1 must be (E, D, H), got {tuple(w1.shape)}")
     E, _, H = w1.shape
-    if D not in KERNEL_DIMS:
+    if (D, H) != kernel_dims(D, H) or Tp % TILE_ROWS:
         raise ValueError(f"the expert-FFN kernels take D in {KERNEL_DIMS}, "
-                         f"got {D}")
-    if H % 64 or Tp % TILE_ROWS:
-        raise ValueError(f"H ({H}) must be a multiple of 64 and Tp ({Tp}) of "
-                         f"{TILE_ROWS}")
+                         f"H a multiple of {H_ALIGN} (pad_call pads to "
+                         f"them) and Tp ({Tp}) a multiple of {TILE_ROWS}; got "
+                         f"D {D}, H {H}")
     check_tensor(w1, "w1", (dt,), device=dev, shape=(E, D, H))
     check_tensor(b1, "b1", (torch.float32,), device=dev, shape=(E, H))
     check_tensor(w2, "w2", (dt,), device=dev, shape=(E, H, D))
@@ -292,6 +351,11 @@ def fused_expert_ffn_bwd(xs, w1, b1, w2, e_of_tile, dy):
     cotangent dy (zero at padding slots, as the combine backward gives)."""
     if not xs.is_cuda:
         return reference_expert_ffn_bwd(xs, w1, b1, w2, e_of_tile, dy)
+    return pad_call(lambda xs, w1, b1, w2, _, dy: _bwd_launch(
+        xs, w1, b1, w2, e_of_tile, dy), xs, w1, b1, w2, dy=dy)
+
+
+def _bwd_launch(xs, w1, b1, w2, e_of_tile, dy):
     Tp, D, H, E = _check_ffn(xs, w1, b1, w2, None, e_of_tile)
     check_tensor(dy, "dy", (xs.dtype,), device=xs.device, shape=(Tp, D))
     out = _bwd_outputs(Tp, D, H, E, xs, w1, w2)
@@ -313,9 +377,17 @@ def fused_expert_ffn_bwd_defer(xs, w1, b1, w2, e_of_tile, dy):
     the dW products (over same-expert tile pairs, as :func:`bwd_flags`
     directs, in the plain version and the f32 kernel, which alone read
     the flags; over all of the expert's rows in 32-row steps, in bf16). It
-    allocates nothing but its outputs. H must be at least D."""
+    allocates nothing but its outputs. The kernel needs H >= D, so H is
+    zero-padded to at least the padded D (D = 256, H = 300 runs at 384 x
+    384)."""
     if not xs.is_cuda:
         return reference_expert_ffn_bwd_defer(xs, w1, b1, w2, e_of_tile, dy)
+    return pad_call(lambda xs, w1, b1, w2, _, dy: _bwd_defer_launch(
+        xs, w1, b1, w2, e_of_tile, dy), xs, w1, b1, w2, dy=dy,
+        h_at_least_d=True)
+
+
+def _bwd_defer_launch(xs, w1, b1, w2, e_of_tile, dy):
     Tp, D, H, E = _check_ffn(xs, w1, b1, w2, None, e_of_tile)
     check_tensor(dy, "dy", (xs.dtype,), device=xs.device, shape=(Tp, D))
     if H < D:
@@ -340,6 +412,11 @@ def fused_expert_ffn_gather_bwd(x, gather_idx, w1, b1, w2, e_of_tile, dy):
     if not x.is_cuda:
         return reference_expert_ffn_bwd(x.index_select(0, gather_idx), w1, b1,
                                         w2, e_of_tile, dy)
+    return pad_call(lambda x, w1, b1, w2, _, dy: _gather_bwd_launch(
+        x, gather_idx, w1, b1, w2, e_of_tile, dy), x, w1, b1, w2, dy=dy)
+
+
+def _gather_bwd_launch(x, gather_idx, w1, b1, w2, e_of_tile, dy):
     Tp, D, H, E = _check_gather(x, gather_idx, w1, b1, w2, None, e_of_tile)
     check_tensor(dy, "dy", (x.dtype,), device=x.device, shape=(Tp, D))
     out = _bwd_outputs(Tp, D, H, E, x, w1, w2)
@@ -399,6 +476,11 @@ def fused_expert_ffn_permuted_bwd(xs, w1, b1, w2, e_of_step, tile_perm, dy):
     if not xs.is_cuda:
         return reference_expert_ffn_bwd_permuted(xs, w1, b1, w2, e_of_step,
                                                  tile_perm, dy)
+    return pad_call(lambda xs, w1, b1, w2, _, dy: _perm_bwd_launch(
+        xs, w1, b1, w2, e_of_step, tile_perm, dy), xs, w1, b1, w2, dy=dy)
+
+
+def _perm_bwd_launch(xs, w1, b1, w2, e_of_step, tile_perm, dy):
     Tp, D, H, E = _check_ffn(xs, w1, b1, w2, None, e_of_step)
     _check_perm(Tp, xs.device, tile_perm)
     check_tensor(dy, "dy", (xs.dtype,), device=xs.device, shape=(Tp, D))
@@ -426,6 +508,11 @@ def _defer_dw() -> bool:
 def _ffn_forward(xs, w1, b1, w2, b2, e_of_tile):
     if not xs.is_cuda:
         return fused_expert_ffn_reference(xs, w1, b1, w2, b2, e_of_tile)
+    return pad_call(lambda xs, w1, b1, w2, b2, _: _fwd_launch(
+        xs, w1, b1, w2, b2, e_of_tile), xs, w1, b1, w2, b2)
+
+
+def _fwd_launch(xs, w1, b1, w2, b2, e_of_tile):
     Tp, D, H, _ = _check_ffn(xs, w1, b1, w2, b2, e_of_tile)
     y = torch.empty_like(xs)
     lib = _build.load_library()
@@ -442,6 +529,11 @@ def _ffn_gather_forward(x, gather_idx, w1, b1, w2, b2, e_of_tile):
     if not x.is_cuda:
         return fused_expert_ffn_reference(x.index_select(0, gather_idx), w1,
                                           b1, w2, b2, e_of_tile)
+    return pad_call(lambda x, w1, b1, w2, b2, _: _gather_fwd_launch(
+        x, gather_idx, w1, b1, w2, b2, e_of_tile), x, w1, b1, w2, b2)
+
+
+def _gather_fwd_launch(x, gather_idx, w1, b1, w2, b2, e_of_tile):
     Tp, D, H, _ = _check_gather(x, gather_idx, w1, b1, w2, b2, e_of_tile)
     y = torch.empty((Tp, D), dtype=x.dtype, device=x.device)
     lib = _build.load_library()
@@ -458,6 +550,11 @@ def _ffn_perm_forward(xs, w1, b1, w2, b2, e_of_step, tile_perm):
     if not xs.is_cuda:
         return reference_expert_ffn_permuted(xs, w1, b1, w2, b2, e_of_step,
                                              tile_perm)
+    return pad_call(lambda xs, w1, b1, w2, b2, _: _perm_fwd_launch(
+        xs, w1, b1, w2, b2, e_of_step, tile_perm), xs, w1, b1, w2, b2)
+
+
+def _perm_fwd_launch(xs, w1, b1, w2, b2, e_of_step, tile_perm):
     Tp, D, H, _ = _check_ffn(xs, w1, b1, w2, b2, e_of_step)
     _check_perm(Tp, xs.device, tile_perm)
     y = torch.empty_like(xs)

@@ -293,8 +293,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     case[0] = case[0].half()
     with pytest.raises(TypeError):  # bf16 and f32 only
         ffn_ops.fused_expert_ffn(*case)
-    case = _ffn_case(rs, 20, 256, 128, 2, torch.bfloat16, cuda)
-    with pytest.raises(ValueError, match="D in"):  # D in (192, 384, 768)
+    case = _ffn_case(rs, 20, 1024, 128, 2, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="D <= 768"):  # the widest instance
         ffn_ops.fused_expert_ffn(*case)
     case = list(_ffn_case(rs, 20, 192, 128, 2, torch.float32, cuda))
     case[1] = case[1].bfloat16()
@@ -604,18 +604,25 @@ def test_flash_kernel_matches_plain(cuda, B, N):
                                    atol=1.6e-2, rtol=1.6e-2)
 
 
+# the split-TF32 f32 forms of K6 and K11 (64-row tiles, 8-row n-tiles) at
+# the edges of their tiles: one row, a ragged tile (17), either side of one
+# 64-row tile, the flagship's N (three full tiles and 5 rows), K6's old
+# short-form edge (208, 209), 384 px and the cap; head widths on each
+# instance (32, 64, 96, 128), 13 (d % 4 != 0: plain loads, no cp.async)
+# and 20
+F32_LENGTHS = [1, 17, 63, 64, 65, 197, 208, 209, 577, 1024]
+F32_HEAD_DIMS = [13, 20, 32, 64, 80, 128]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,d", [(torch.float32, 64), (torch.float32, 80),
-                                     (torch.float32, 20),
-                                     (torch.bfloat16, 80),
-                                     (torch.bfloat16, 128),
-                                     (torch.bfloat16, 20)])
-@pytest.mark.parametrize("N", [197, 577, 1])
+@pytest.mark.parametrize("dtype,d,N", [
+    (torch.bfloat16, d, N) for d in (80, 128, 20) for N in (197, 577, 1)]
+    + [(torch.float32, d, N) for d in F32_HEAD_DIMS for N in F32_LENGTHS])
 def test_flash_kernel_head_dims_and_f32(cuda, dtype, d, N):
-    """K11 beyond head_dim 64 and in f32 (the JAX kernel's online softmax
-    on the CUDA cores): f32 within F32_TOL of the exact-f32 plain version
-    (the same function, the softmax rescaled tile by tile), bf16 within
-    the global limit."""
+    """K11 beyond head_dim 64 and in f32 (the JAX kernel's online softmax,
+    split TF32 on the tensor cores): f32 within F32_TOL of the exact-f32
+    plain version (the same function, the softmax rescaled tile by tile),
+    bf16 within the global limit."""
     H = 3
     rs = np.random.RandomState(21)
     qkv = _rand(rs, 2, N, 3 * H * d, dtype=dtype, device=cuda)
@@ -972,12 +979,12 @@ def _close(got, want, dtype, what, sums=False):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", HEAD_DIMS)
-@pytest.mark.parametrize("N", LENGTHS + [50])
+@pytest.mark.parametrize("d", F32_HEAD_DIMS)
+@pytest.mark.parametrize("N", F32_LENGTHS + [50])
 def test_mha_bwd_f32_kernel_matches_plain(cuda, N, d):
-    """K6's f32 forms (one block per (head, sample) at N <= 208 and
-    d <= 64, the rows and cols kernels beyond) against the exact-f32 plain
-    backward, within F32_TOL."""
+    """K6's f32 form (the rows and cols kernels in split TF32 on the
+    tensor cores, one form for every N and head width) against the
+    exact-f32 plain backward, within F32_TOL."""
     rs = np.random.RandomState(16)
     qkv = _rand(rs, 2, N, 3 * 3 * d, device=cuda)
     do = _rand(rs, 2, N, 3 * d, device=cuda)
@@ -989,11 +996,30 @@ def test_mha_bwd_f32_kernel_matches_plain(cuda, N, d):
            torch.float32, "dqkv")
 
 
-# (dtype, T, D, H, E): f32 at each width (the SIMT forms), bf16 at D = 768
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,d", [(197, 64), (577, 64), (65, 13)])
+def test_mha_bwd_f32_kernel_bit_identical(cuda, N, d):
+    """K6 in f32 is deterministic (no atomics; each sum in a fixed order):
+    two calls on the same inputs give bit-identical d(qkv)."""
+    rs = np.random.RandomState(18)
+    qkv = _rand(rs, 3, N, 3 * 6 * d, device=cuda)
+    do = _rand(rs, 3, N, 6 * d, device=cuda)
+    first = attn_ops.fused_mha_bwd(qkv, do, 6, d ** -0.5)
+    assert torch.equal(first, attn_ops.fused_mha_bwd(qkv, do, 6, d ** -0.5))
+
+
+# (dtype, T, D, H, E): f32 at each width (the SIMT forms), bf16 at D = 768,
+# and D = 256, H = 1000 in both (MoEMlp(256, 1000), which the JAX kernel
+# takes: pad_call runs the D = 384, H = 1024 instance), and D = 256, H = 300
+# in both (384 x 320, and K8, which needs H >= D, at 384 x 384)
 WIDE = [(torch.float32, 300, 384, 1536, 4),
         (torch.float32, 200, 192, 768, 3),
         (torch.float32, 150, 768, 1024, 3),
-        (torch.bfloat16, 300, 768, 3072, 4)]
+        (torch.bfloat16, 300, 768, 3072, 4),
+        (torch.float32, 300, 256, 1000, 4),
+        (torch.bfloat16, 300, 256, 1000, 4),
+        (torch.float32, 300, 256, 300, 4),
+        (torch.bfloat16, 300, 256, 300, 4)]
 
 
 @pytest.mark.cuda
@@ -1001,10 +1027,12 @@ WIDE = [(torch.float32, 300, 384, 1536, 4),
 def test_expert_ffn_family_f32_and_d768(cuda, dtype, T, D, H, E):
     """K3, K4, K8, K9 and K10 against their plain versions on one routed
     layout (a favoured and a starved expert): in f32 every form's SIMT
-    kernel; in bf16 at D = 768 the tensor-core forward and backward forms
-    of K3, K4, K9 and K10 and K8's SIMT form. y and dx elementwise, dW and
-    db elementwise in f32 and within 1e-2 of max |ref| in bf16; one launch
-    each."""
+    kernel; in bf16 at D = 768 the tensor-core forms; at D = 256, H = 1000
+    and H = 300 both, zero-padded to the D = 384 instance by pad_call (K8
+    to H >= D) while the plain versions take the shape as it is. y and dx
+    elementwise, dW
+    and db elementwise in f32 and within 1e-2 of max |ref| in bf16; one
+    launch each."""
     rs = np.random.RandomState(17)
     x, gidx, pslot, keep, (w1, b1, w2, b2), eot, dy = _routed_case(
         rs, T, D, H, E, None, cuda)
@@ -1054,6 +1082,50 @@ def test_expert_ffn_family_f32_and_d768(cuda, dtype, T, D, H, E):
             _close(gt, wt, dtype, f"{name} {part}", sums=True)
         if name != "perm_bwd":  # the flipped steps give it real rows
             assert g[1][E - 1].abs().max().item() == 0.0  # starved expert
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["fused", "capacity_fused"])
+def test_moe_layer_off_instance_widths_trains_on_the_kernels(cuda, dtype,
+                                                             mode,
+                                                             monkeypatch):
+    """MoEMlp(256, 1000), which the JAX package trains on its kernel, in
+    training mode through K3 and K4 (pad_call to D = 384, H = 1024): y, dx
+    and every parameter's gradient against the same layer with the plain
+    expert FFN (F32_TOL elementwise in f32; in bf16 1.6e-2 elementwise, the
+    gradients within 1e-2 of max |ref|); one K3 and one K4 launch."""
+    from slim_switch_moe_vit_tpu_torch.models.moe import MoEMlp
+
+    rs = np.random.RandomState(24)
+    layer = MoEMlp(256, 1000, dispatch_mode=mode, capacity_factor=1.25)
+    layer.init_weights(torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        layer.b1.copy_(_rand(rs, 8, 1000, scale=0.1))
+        layer.b2.copy_(_rand(rs, 8, 256, scale=0.1))
+    layer = layer.to(cuda).train()
+    x = _rand(rs, 4, 197, 256, dtype=dtype, device=cuda)
+    dy = _rand(rs, 4, 197, 256, dtype=dtype, device=cuda)
+
+    def step():
+        xl = x.clone().requires_grad_()
+        layer.zero_grad(set_to_none=True)
+        y = layer(xl)
+        y.backward(dy)
+        return [y.detach(), xl.grad] + [p.grad for p in layer.parameters()]
+
+    ops.reset_launch_counts()
+    got = step()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert (counts["fused_expert_ffn"], counts["fused_expert_ffn_bwd"]) == \
+        (1, 1), counts
+    monkeypatch.setattr(moe_ops, "fused_expert_ffn",
+                        ffn_ops.fused_expert_ffn_reference)
+    want = step()
+    names = ["y", "dx"] + [n for n, _ in layer.named_parameters()]
+    for i, (name, g, w) in enumerate(zip(names, got, want, strict=True)):
+        _close(g, w, dtype, f"{mode} {name}", sums=i >= 2)
 
 
 @pytest.mark.cuda

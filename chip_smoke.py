@@ -494,11 +494,12 @@ KERNELS = [  # name, route, source, TPU kernel it replaces
 # bits) would fail it
 F32_TOL = (1e-4, 1e-4)
 # an f32 attention kernel's mean |d| from the function in f64 (``f64_error``)
-# at most this many times its f32 plain version's. The SIMT forms (K5, K12)
-# read 1.00; the split-TF32 forms (K6, K11) 5.80-10.18, where the split's
-# rounding is ~13% of the error and the rest sits in the tensor cores' f32
-# sums (NVIDIA H100 80GB HBM3, 700 W). The plain version with one TF32
-# pass a product must read above it (``f32_attention_case``)
+# at most this many times its f32 plain version's. Every f32 attention form
+# is split TF32 and reads 5.79-10.18 (K5 5.79-9.80, K6 6.34-10.18, K11 5.80,
+# K12 6.77-9.18), where the split's rounding is ~13% of the error and the
+# rest sits in the tensor cores' f32 sums (NVIDIA H100 80GB HBM3, 700 W).
+# The plain version with one TF32 pass a product must read above it
+# (``one_tf32_pass_control``)
 F32_F64_RATIO = 15.0
 # K12 at deit-tiny eval (the shape the JAX package measured it at,
 # attention.py:400-404) and at ViT-S: (B, N, heads)
@@ -2847,12 +2848,11 @@ def _timed_case(results, name, kernel, plain, library, cost, modes, sfx,
     return err
 
 
-def proj_case(results: dict, qkv, wp, bp, H: int, sfx: str) -> None:
-    """K12 on (qkv, wp, bp) in bf16 or f32 against its plain version (f32
-    within ``F32_TOL``), beside SDPA + ``F.linear`` (its library call) and
-    K5 + ``F.linear`` (``k5_gemm_ms``: the two launches K12 folds into
-    one); then its mean |d| from the exact f32 function beside the plain
-    version's (``exact_error``; in f32 from the f64 function, logged)."""
+def _proj_calls(qkv, wp, bp, H: int) -> tuple:
+    """(kernel, plain, library, cost, k5_gemm) of K12 on (qkv, wp, bp):
+    ``fused_mha_proj``, its plain version, SDPA + ``F.linear`` (its library
+    call), the (bytes, flops, peak) of ``bound`` and K5 + ``F.linear`` (the
+    two launches K12 folds into one)."""
     import torch
     import torch.nn.functional as F
 
@@ -2863,34 +2863,56 @@ def proj_case(results: dict, qkv, wp, bp, H: int, sfx: str) -> None:
     d = C // H
     scale = d ** -0.5
     w_lin, b_lin = wp.t().contiguous(), bp.to(qkv.dtype)
-    f32 = qkv.dtype == torch.float32
     q4 = qkv.view(B, N, 3, H, d).permute(2, 0, 3, 1, 4)
+    return (lambda: attention.fused_mha_proj(qkv, wp, bp, H, scale),
+            lambda: attention.fused_mha_proj_reference(qkv, wp, bp, H, scale),
+            lambda: F.linear(F.scaled_dot_product_attention(
+                q4[0], q4[1], q4[2], scale=scale).transpose(1, 2).reshape(
+                    B, N, C), w_lin, b_lin),
+            ((B * N * 4 * C + C * C) * qkv.element_size() + C * 4,
+             4 * B * H * N * N * d + 2 * B * N * C * C,
+             F32_FLOPS if qkv.dtype == torch.float32 else BF16_FLOPS),
+            lambda: F.linear(attention.fused_mha(qkv, H, scale), w_lin,
+                             b_lin))
 
-    def kernel():
-        return attention.fused_mha_proj(qkv, wp, bp, H, scale)
 
-    def plain():
-        return attention.fused_mha_proj_reference(qkv, wp, bp, H, scale)
+def f64_proj(qkv, wp, bp, H: int):
+    """K12's function evaluated in f64 on the same inputs."""
+    d = qkv.shape[-1] // 3 // H
+    return (f64_attention("fused_mha", qkv, None, H, d) @ wp.double()
+            + bp.double())
 
-    _timed_case(
-        results, "fused_mha_proj", kernel, plain,
-        lambda: F.linear(F.scaled_dot_product_attention(
-            q4[0], q4[1], q4[2], scale=scale).transpose(1, 2).reshape(
-                B, N, C), w_lin, b_lin),
-        ((B * N * 4 * C + C * C) * qkv.element_size() + C * 4,
-         4 * B * H * N * N * d + 2 * B * N * C * C,
-         F32_FLOPS if f32 else BF16_FLOPS),
-        ("elem",), sfx, tol=F32_TOL if f32 else None,
-        extra={"k5_gemm_ms": lambda: F.linear(
-            attention.fused_mha(qkv, H, scale), w_lin, b_lin)})
+
+def proj_case(results: dict, qkv, wp, bp, H: int, sfx: str) -> None:
+    """K12 on (qkv, wp, bp) in bf16 or f32 against its plain version (f32
+    within ``F32_TOL``), beside SDPA + ``F.linear`` (its library call) and
+    K5 + ``F.linear`` (``k5_gemm_ms``); then its mean |d| from the exact
+    f32 function beside the plain version's (``exact_error``); in f32 from
+    the f64 function (``f64_error``, with ``one_tf32_pass_control``), and
+    two calls bit-identical."""
+    import torch
+
+    from slim_switch_moe_vit_tpu_torch.ops import attention
+
+    kernel, plain, library, cost, k5_gemm = _proj_calls(qkv, wp, bp, H)
+    f32 = qkv.dtype == torch.float32
+    _timed_case(results, "fused_mha_proj", kernel, plain, library, cost,
+                ("elem",), sfx, tol=F32_TOL if f32 else None,
+                extra={"k5_gemm_ms": k5_gemm})
     if f32:
-        f64_error(f"fused_mha_proj{sfx}", kernel(), plain(),
-                  f64_attention("fused_mha", qkv, None, H, d) @ wp.double()
-                  + bp.double())
+        got = kernel()
+        exact = f64_proj(qkv, wp, bp, H)
+        err = f64_error(f"fused_mha_proj{sfx}", got, plain(), exact)[1]
+        one_tf32_pass_control(f"fused_mha_proj{sfx}", plain, exact, err)
+        if not torch.equal(got, kernel()):
+            raise AssertionError(f"fused_mha_proj{sfx}: two calls on the "
+                                 "same inputs differ")
+        log(f"  fused_mha_proj{sfx}: a second call bit-identical")
         return
+    d = qkv.shape[-1] // 3 // H
     exact_error(f"fused_mha_proj{sfx}", kernel(), plain(),
                 attention.fused_mha_proj_reference(qkv.float(), wp.float(),
-                                                   bp, H, scale))
+                                                   bp, H, d ** -0.5))
 
 
 def proj_and_rows_kernel_phase(results: dict) -> None:
@@ -2914,7 +2936,7 @@ def proj_and_rows_kernel_phase(results: dict) -> None:
         proj_case(results, rnd(B, N, 3 * C), rnd(C, C, std=C ** -0.5),
                   rnd(C, std=0.1, dtype=torch.float32), H,
                   "" if label == "deit_tiny" else "_vit_s")
-    B, N, H = K12_SHAPES["vit_s"]  # K12's f32 form (mha_simt.cuh)
+    B, N, H = K12_SHAPES["vit_s"]  # K12's f32 form (split TF32)
     C = H * hd
     f32 = torch.float32
     proj_case(results, rnd(B, N, 3 * C, dtype=f32),
@@ -3180,24 +3202,33 @@ def f32_attention_case(results: dict, name: str, qkv, do, H: int, d: int,
     got, want = kernel(), plain()
     exact = f64_attention(name, qkv, do, H, d)
     err = f64_error(f"{name}{sfx}", got, want, exact)[1]
-    before = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = True
-    try:
-        one_pass = (plain().double() - exact).abs().mean().item() / err
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = before
-    log(f"  {name}{sfx} control, the plain version in one TF32 pass: "
-        f"{one_pass:.4f}x its f32 run's error from f64 (must exceed "
-        f"{F32_F64_RATIO})")
-    if one_pass <= F32_F64_RATIO:
-        raise AssertionError(f"{name}{sfx}: F32_F64_RATIO does not reject "
-                             "one TF32 pass")
+    one_tf32_pass_control(f"{name}{sfx}", plain, exact, err)
     if name == "fused_mha_bwd":
         if not torch.equal(got, kernel()):
             raise AssertionError(f"{name}{sfx}: two calls on the same inputs "
                                  "differ")
         log(f"  {name}{sfx}: a second call bit-identical")
     torch.cuda.empty_cache()
+
+
+def one_tf32_pass_control(what: str, plain, exact, err: float) -> None:
+    """The control of ``F32_F64_RATIO``: ``plain()`` run with one TF32 pass
+    a product must read more than that many times its f32 run's mean |d|
+    from the f64 function (``err``)."""
+    import torch
+
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        one_pass = (plain().double() - exact).abs().mean().item() / err
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    log(f"  {what} control, the plain version in one TF32 pass: "
+        f"{one_pass:.4f}x its f32 run's error from f64 (must exceed "
+        f"{F32_F64_RATIO})")
+    if one_pass <= F32_F64_RATIO:
+        raise AssertionError(f"{what}: F32_F64_RATIO does not reject one "
+                             "TF32 pass")
 
 
 def long_attention_cases(results: dict, gen) -> None:
@@ -3228,7 +3259,8 @@ def head_and_k12_cases(results: dict, gen) -> None:
     """K5, K6 and K11 at vit_huge_patch14_224's head (HUGE: 16 heads of 80,
     N = 257) in bf16 (``_d80``); K11 in f32 at the flagship's shape at
     B = 32 (``_f32``); K12 at N = 577 and C = 1024 (K12_LONG: 16 heads of
-    64, ``_n577_c1024``, ``proj_case``): each against its plain version."""
+    64, ``proj_case``) in bf16 (``_n577_c1024``) and f32 (``_f32``: the
+    head-group path): each against its plain version."""
     import torch
 
     B, N, H, d = HUGE
@@ -3244,12 +3276,13 @@ def head_and_k12_cases(results: dict, gen) -> None:
                        DIM // HEADS, "_f32")
     B, N, H, d = K12_LONG
     C = H * d
-    proj_case(results,
-              torch.randn(B, N, 3 * C, generator=gen).to("cuda",
-                                                         torch.bfloat16),
-              (torch.randn(C, C, generator=gen) * C ** -0.5).to(
-                  "cuda", torch.bfloat16),
-              (torch.randn(C, generator=gen) * 0.1).cuda(), H, "_n577_c1024")
+    for dt, sfx in ((torch.bfloat16, "_n577_c1024"),
+                    (torch.float32, "_n577_c1024_f32")):
+        proj_case(results,
+                  torch.randn(B, N, 3 * C, generator=gen).to("cuda", dt),
+                  (torch.randn(C, C, generator=gen) * C ** -0.5).to("cuda",
+                                                                    dt),
+                  (torch.randn(C, generator=gen) * 0.1).cuda(), H, sfx)
     del qkv, do
     torch.cuda.empty_cache()
 
@@ -3479,7 +3512,7 @@ def f32_phase(card: str) -> None:
     the kernels (exact launch counts), against the same steps from the same
     weights on the plain versions and, as the witness of f32 summation
     order alone, the plain steps on the batch reversed. One more kernel
-    step is profiled: its kernel sum and K6's share of it."""
+    step is profiled: its kernel sum and K6's and K5's shares of it."""
     import torch
 
     from slim_switch_moe_vit_tpu_torch import create_model, ops
@@ -3513,8 +3546,11 @@ def f32_phase(card: str) -> None:
                                              XTRAIN_LR), f"f32 step B={F32_B}")
             total = sum(us for us, _ in prof.values()) / 1e3
             k6 = sum(us for k, (us, _) in prof.items() if "mha_bwd" in k) / 1e3
+            k5 = sum(us for k, (us, _) in prof.items()
+                     if "fwd_f32_kernel" in k) / 1e3
             log(f"f32 step B={F32_B}: kernel sum {total:.3f} ms, K6 "
-                f"{k6:.3f} ms ({k6 / total:.3f} of it); card {card}")
+                f"{k6:.3f} ms ({k6 / total:.3f} of it), K5 {k5:.3f} ms "
+                f"({k5 / total:.3f}); card {card}")
         runs[label] = (losses_, grads.cpu())
         log(f"f32 {MODEL} B={F32_B}, {label}: losses "
             f"{[float(f'{v:.7f}') for v in losses_]}")

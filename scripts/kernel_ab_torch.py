@@ -14,7 +14,9 @@ tree's kernels. Usage, from the repository root on a machine with one GPU:
 where a tree is a checkout holding ``chip_smoke.py`` and the port (for
 example the parent commit unpacked by ``git archive``), and ``--phases``
 names the phases to run (all four by default; ``coverage`` alone holds the
-f32 attention and expert-FFN cases). The runs' logs and results go to DIR.
+f32 attention and expert-FFN cases). A timed key that only B's phases
+record (a case B adds) prints B's two runs. The runs' logs and results go
+to DIR.
 """
 from __future__ import annotations
 
@@ -76,9 +78,16 @@ def main() -> None:
     for name in res["b1"]:
         for key in sorted(res["b1"][name]):
             vals = [res[tag].get(name, {}).get(key) for tag, _ in order]
-            if not key.startswith("ms") or not all(
-                    isinstance(v, float) for v in vals) or not (
-                        vals[0] + vals[3]):
+            if not key.startswith("ms"):
+                continue
+            if vals[0] is None and vals[3] is None and all(
+                    isinstance(v, float) for v in vals[1:3]):
+                # a case only B's phases run
+                print(f"{name:30s} {key:14s} - {vals[1]:.4f} {vals[2]:.4f} -"
+                      "  B only")
+                continue
+            if not all(isinstance(v, float) for v in vals) or not (
+                    vals[0] + vals[3]):
                 continue
             change = (vals[1] + vals[2]) / (vals[0] + vals[3]) - 1
             print(f"{name:30s} {key:14s} "

@@ -1,9 +1,11 @@
 // The attention kernels' shared parts (K5, K6, K11, K12), built on
 // mma_sync.cuh's tensor-core and cp.async helpers: head tiles loaded from
 // and stored to the packed layout (bf16, and f32 for the split-TF32 forms
-// of K6 and K11 on mma_tf32.cuh), and ``head_fwd``, the exact-softmax
-// attention of one head over a 64-row query tile that K5 writes out and
-// K12 feeds to its output projection.
+// on mma_tf32.cuh), ``head_fwd``, the exact-softmax bf16 attention of one
+// head over a 64-row query tile that K5 writes out and K12 feeds to its
+// output projection, and ``head_fwd_f32``, the online-softmax f32
+// attention that K5 and K11 write out (one kernel, ``fwd_f32_kernel``) and
+// K12 feeds to its projection.
 #pragma once
 
 #include <math_constants.h>
@@ -109,29 +111,35 @@ __device__ __forceinline__ void store_rows(const float (&acc)[HD / 8][4],
   __syncwarp();
 }
 
-// The f32 forms' head tiles (the split-TF32 kernels of K6 and K11, on
-// mma_tf32.cuh): rows of tf32::tile_ld(HD) floats, loaded as load_rows
-// loads bf16 ones, with vec where d % 4 == 0 (16-byte cp.async).
+// The f32 forms' head tiles (the split-TF32 kernels on mma_tf32.cuh): rows
+// of tf32::tile_ld(HD) floats, loaded as load_rows loads bf16 ones, with
+// vec where d % 4 == 0 (16-byte cp.async).
 template <int HD>
 __device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
                                               size_t ld, int r0, int n_rows,
-                                              int d, bool vec) {
+                                              int d, bool vec, int tid) {
   constexpr int LD = tf32::tile_ld(HD);
   if (vec) {
     constexpr int V = HD / 4;  // 16-byte vectors a row
-    for (int i = threadIdx.x; i < kT * V; i += kThreads) {
+    for (int i = tid; i < kT * V; i += kThreads) {
       const int r = i / V, c = (i % V) * 4;
       const bool ok = r0 + r < n_rows && c < d;
       cp_async16(dst + r * LD + c, ok ? src + (size_t)(r0 + r) * ld + c : src,
                  ok);
     }
   } else {
-    for (int i = threadIdx.x; i < kT * HD; i += kThreads) {
+    for (int i = tid; i < kT * HD; i += kThreads) {
       const int r = i / HD, c = i % HD;
       dst[r * LD + c] =
           r0 + r < n_rows && c < d ? src[(size_t)(r0 + r) * ld + c] : 0.f;
     }
   }
+}
+template <int HD>
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
+                                              size_t ld, int r0, int n_rows,
+                                              int d, bool vec) {
+  load_rows_f32<HD>(dst, src, ld, r0, n_rows, d, vec, threadIdx.x);
 }
 
 // store_rows for the f32 forms: the warp's 16 x HD f32 accumulator times
@@ -298,6 +306,171 @@ __device__ __forceinline__ void head_fwd(const bf16* base, size_t C3, int C,
   linv[0] = 1.f / quad_sum(l[0]);
   linv[1] = 1.f / quad_sum(l[1]);
 }
+
+// ---------------------------------------------------------------------------
+// f32: split TF32 on the tensor cores (mma_tf32.cuh)
+// ---------------------------------------------------------------------------
+
+// Shared-memory layout of ``head_fwd_f32``: the q tile, then kF32Stages K
+// and kF32Stages V stages, each kT rows of tf32::tile_ld(HD) floats.
+constexpr int kF32Stages = 2;
+// n-tiles a tf32 mma_group sweeps (8 measured slower here, where it is
+// faster in K6)
+constexpr int kF32Group = 4;
+template <int HD>
+__host__ __device__ constexpr size_t f32_bytes() {
+  return sizeof(float) * kT * tf32::tile_ld(HD) * (1 + 2 * kF32Stages);
+}
+
+// The f32 attention of one head over the query rows [q0, q0 + kT), by 4
+// warps of 16 rows, in one pass over the keys with the JAX flash kernel's
+// online softmax (attention.py:35-72; in f32 K5's function up to the
+// order of the softmax): the threads of ranks tid in [0, kThreads), whose
+// barrier is sync(). base, C3, C and the return values as ``head_fwd``'s
+// (o unnormalized, linv = 1 / max(rowsum, 1e-30)); smem: f32_bytes<HD>().
+// The caller syncs before a second call reuses smem. On return the warp's
+// own 16 rows of the q tile are free.
+//
+// K and V tiles of kT rows pass together through a ring of kF32Stages
+// stages filled by cp.async (pad rows zero), one commit group a tile. q is
+// scaled in f32 first (attention.py:43) and split into hi + lo as it is
+// read from shared memory; S = (q*scale) . k^T and P . V each take three
+// tf32 mma.sync.m16n8k8 a k-step (lo.hi + hi.lo, then hi.hi; swept over
+// groups of kF32Group n-tiles), f32 sums; per tile m' = max(m, rowmax S)
+// (columns >= N -inf), alpha = exp(m - m'), P = exp(S - m') in f32,
+// l' = l * alpha + rowsum P, o scaled by alpha; P stays f32 (attention.py
+// :60) and is split as the A operand of P . V straight from the S
+// accumulators, k relabelled (``a_from_c``, the V rows read as k0 + 2t and
+// k0 + 2t + 1). A key tile's 8-key n-tiles past N and a warp's 16 rows past
+// N skip their products (such a warp returns o = 0).
+template <int HD, typename Sync>
+__device__ __forceinline__ void head_fwd_f32(const float* base, size_t C3,
+                                             int C, int N, int q0, int d,
+                                             float scale, bool vec,
+                                             float* smem, int tid, Sync sync,
+                                             float (&o)[HD / 8][4],
+                                             float (&linv)[2]) {
+  constexpr int LD = tf32::tile_ld(HD), NST = kF32Stages;
+  constexpr int GS = tf32::group_for(kT / 8, kF32Group);
+  constexpr int GD = tf32::group_for(HD / 8, kF32Group);
+  float* Qs = smem;
+  float* Ks = Qs + kT * LD;
+  float* Vs = Ks + NST * kT * LD;
+  const int warp = tid >> 5, lane = threadIdx.x & 31;
+  const int tq = lane & 3;
+  const int nkt = (N + kT - 1) / kT;
+  // a warp whose 16 query rows all lie past N only keeps the block's pace
+  const bool live = q0 + warp * 16 < N;
+  const float* Qw = Qs + warp * 16 * LD;
+
+  // K and V tile t into stage t % NST, as one commit group (empty past the
+  // end, so the group count stays uniform)
+  auto issue = [&](int t) {
+    if (t < nkt) {
+      const int st = t % NST;
+      load_rows_f32<HD>(Ks + st * kT * LD, base + C, C3, t * kT, N, d, vec,
+                        tid);
+      load_rows_f32<HD>(Vs + st * kT * LD, base + 2 * C, C3, t * kT, N, d,
+                        vec, tid);
+    }
+    cp_async_commit();
+  };
+  load_rows_f32<HD>(Qs, base, C3, q0, N, d, vec, tid);  // joins tile 0's group
+  for (int s = 0; s < NST - 1; ++s) issue(s);
+
+#pragma unroll
+  for (int j = 0; j < HD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+  // rows g and g + 8 of the warp's 16: the running max (the quad's), and
+  // this lane's part of the running sum
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < nkt; ++t) {
+    cp_async_wait<NST - 2>();  // tile t (and q) landed, for this thread
+    sync();                    // ... for every thread; tile t-1 is done
+    issue(t + NST - 1);        // into the stage tile t-1 used
+    if (!live) continue;
+    const int k0 = t * kT;
+    const float* Kt = Ks + (t % NST) * kT * LD;
+    const float* Vt = Vs + (t % NST) * kT * LD;
+    // the 8-key n-tiles holding a key < N
+    const int nv = min(kT / 8, (N - k0 + 7) / 8);
+
+    float s[kT / 8][4];
+#pragma unroll
+    for (int j = 0; j < kT / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int kd = 0; kd < HD / 8; ++kd) {
+      tf32::FragA qa;
+      tf32::ld_a(qa, Qw, LD, kd * 8, scale);  // q scaled in f32 first
+#pragma unroll
+      for (int jg = 0; jg < kT / 8; jg += GS) {
+        if (jg < nv) {
+          tf32::FragB kb[GS];
+#pragma unroll
+          for (int j = 0; j < GS; ++j)
+            tf32::ld_b_nk(kb[j], Kt, LD, (jg + j) * 8, kd * 8);
+          tf32::mma_group(s, jg, qa, kb);
+        }
+      }
+    }
+    float mt[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+    for (int j = 0; j < kT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + j * 8 + 2 * tq + (e & 1);
+        s[j][e] = col < N ? s[j][e] : -CUDART_INF_F;
+        mt[e >> 1] = fmaxf(mt[e >> 1], s[j][e]);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m_new = fmaxf(m[i], quad_max(mt[i]));  // finite: k0 < N
+      alpha[i] = expf(m[i] - m_new);                     // 0 on the first tile
+      m[i] = m_new;
+    }
+    float ls[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < kT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = expf(s[j][e] - m[e >> 1]);  // masked columns give 0
+        ls[e >> 1] += s[j][e];
+      }
+    l[0] = l[0] * alpha[0] + ls[0];
+    l[1] = l[1] * alpha[1] + ls[1];
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      o[j][0] *= alpha[0];
+      o[j][1] *= alpha[0];
+      o[j][2] *= alpha[1];
+      o[j][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int j = 0; j < kT / 8; ++j) {  // P . V, 8 keys a k-step, P in f32
+      if (j < nv) {
+        tf32::FragA pa;
+        tf32::a_from_c(pa, s[j]);
+#pragma unroll
+        for (int ng = 0; ng < HD / 8; ng += GD) {
+          tf32::FragB vb[GD];
+#pragma unroll
+          for (int i = 0; i < GD; ++i)
+            tf32::ld_b_kn(vb[i], Vt, LD, j * 8, (ng + i) * 8);
+          tf32::mma_group(o, ng, pa, vb);
+        }
+      }
+    }
+  }
+  linv[0] = 1.f / fmaxf(quad_sum(l[0]), 1e-30f);
+  linv[1] = 1.f / fmaxf(quad_sum(l[1]), 1e-30f);
+}
+
+// The f32 forward of K5 and K11, one kernel for the one f32 function of
+// the two TPU kernels (``fwd_f32_kernel``, defined once, in flash_fwd.cu):
+// qkv (B, N, 3 H d) -> out (B, N, H d), f32, contiguous and 16-byte
+// aligned, d <= 128; the caller checks the rest of its own caps.
+cudaError_t fwd_f32(const float* qkv, float* out, int B, int N, int H, int d,
+                    float scale, cudaStream_t s);
 
 }  // namespace attn
 }  // namespace ssmv

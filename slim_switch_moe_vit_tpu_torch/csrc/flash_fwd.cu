@@ -46,20 +46,13 @@
 // scaling q first or S after gives the same numbers; at other d they
 // differ by f32 rounding.
 //
-// The f32 form (split TF32, mma_tf32.cuh) has the bf16 form's structure
-// with the JAX kernel's f32 choices: 64-query blocks of 4 warps, 64-key K
-// and V tiles through a 2-stage cp.async ring (f32 rows of HD + 4 floats,
-// every fragment read a conflict-free 32-bit load), the online softmax in
-// registers. q is scaled in f32 first (attention.py:43) and split into
-// hi + lo as it is read from shared memory; S = (q*scale) . k^T and P . V
-// each take three tf32 mma.sync.m16n8k8 a k-step (lo.hi + hi.lo, then
-// hi.hi; swept over groups of 4 n-tiles), f32 sums; P stays f32
-// (attention.py:60) and is split as the A operand of P . V straight from
-// the S accumulators, with k relabelled (the V rows read as k0 + 2t and
-// k0 + 2t + 1); out = acc / max(l, 1e-30). A key tile's 8-key n-tiles past
-// N and a warp's 16 rows past N skip their products. What bounds it: the
-// mma pipe's latency and the split's conversions (every K and V operand
-// re-split by each of the 4 warps that read it).
+// The f32 form is one kernel with K5's (``fwd_f32_kernel`` below, on
+// ``head_fwd_f32`` of attn_mma.cuh; K5 launches it through ``fwd_f32``):
+// split TF32 on the tensor cores (mma_tf32.cuh) with the
+// bf16 form's structure and the JAX kernel's f32 choices, q scaled in f32
+// first and P kept in f32, both split into hi + lo TF32 parts at the read.
+// What bounds it: the mma pipe's latency and the split's conversions
+// (every K and V operand re-split by each of the 4 warps that read it).
 #include <math_constants.h>
 
 #include "attn_mma.cuh"
@@ -68,7 +61,6 @@
 namespace {
 
 using namespace ssmv::attn;
-namespace tf = ssmv::tf32;
 
 // K / V ring stages: 3 up to HD = 64, 2 above; the layout is head_fwd's
 template <int HD>
@@ -195,143 +187,42 @@ flash_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int N,
 }
 
 // ---------------------------------------------------------------------------
-// f32: split TF32 on the tensor cores
+// f32: split TF32 on the tensor cores, K5's and K11's one kernel
 // ---------------------------------------------------------------------------
 
-// Q, then the K and V rings of kF32Stages stages, tf32::tile_ld(HD) floats
-// a row
-constexpr int kF32Stages = 2;
-// n-tiles a tf32 mma_group sweeps (8 measured slower here, where it is
-// faster in K6)
-constexpr int kF32Group = 4;
-template <int HD>
-__host__ __device__ constexpr size_t f32_bytes() {
-  return sizeof(float) * kT * tf::tile_ld(HD) * (1 + 2 * kF32Stages);
-}
-
+// one block per (64-query tile, head, sample) runs ``head_fwd_f32`` and
+// writes o * linv through the warp's own rows of the q tile
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out,
-                     int N, int H, int d, float scale, int vec) {
-  constexpr int LD = tf::tile_ld(HD), NST = kF32Stages;
-  constexpr int GS = tf::group_for(kT / 8, kF32Group);
-  constexpr int GD = tf::group_for(HD / 8, kF32Group);
+fwd_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out, int N,
+               int H, int d, float scale, int vec) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
-  float* Ks = Qs + kT * LD;
-  float* Vs = Ks + NST * kT * LD;
-
   const int q0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
   const int C = H * d;
   const size_t C3 = 3 * (size_t)C;
-  const float* base = qkv + (size_t)b * N * C3 + (size_t)h * d;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int tq = lane & 3;
-  const int nkt = (N + kT - 1) / kT;
-  // a warp whose 16 query rows all lie past N only keeps the block's pace
-  const bool live = q0 + warp * 16 < N;
-  const float* Qw = Qs + warp * 16 * LD;
-
-  auto issue = [&](int t) {
-    if (t < nkt) {
-      const int st = t % NST;
-      load_rows_f32<HD>(Ks + st * kT * LD, base + C, C3, t * kT, N, d, vec);
-      load_rows_f32<HD>(Vs + st * kT * LD, base + 2 * C, C3, t * kT, N, d,
-                        vec);
-    }
-    cp_async_commit();
-  };
-  load_rows_f32<HD>(Qs, base, C3, q0, N, d, vec);  // joins tile 0's group
-  for (int s = 0; s < NST - 1; ++s) issue(s);
-
-  float o[HD / 8][4];
-#pragma unroll
-  for (int j = 0; j < HD / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
-
-  for (int t = 0; t < nkt; ++t) {
-    cp_async_wait<NST - 2>();
-    __syncthreads();
-    issue(t + NST - 1);
-    if (!live) continue;
-    const int k0 = t * kT;
-    const float* Kt = Ks + (t % NST) * kT * LD;
-    const float* Vt = Vs + (t % NST) * kT * LD;
-    // the 8-key n-tiles holding a key < N
-    const int nv = min(kT / 8, (N - k0 + 7) / 8);
-
-    float s[kT / 8][4];
-#pragma unroll
-    for (int j = 0; j < kT / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    for (int kd = 0; kd < HD / 8; ++kd) {
-      tf::FragA qa;
-      tf::ld_a(qa, Qw, LD, kd * 8, scale);  // q scaled in f32 first
-#pragma unroll
-      for (int jg = 0; jg < kT / 8; jg += GS) {
-        if (jg < nv) {
-          tf::FragB kb[GS];
-#pragma unroll
-          for (int j = 0; j < GS; ++j)
-            tf::ld_b_nk(kb[j], Kt, LD, (jg + j) * 8, kd * 8);
-          tf::mma_group(s, jg, qa, kb);
-        }
-      }
-    }
-    float mt[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-    for (int j = 0; j < kT / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + 2 * tq + (e & 1);
-        s[j][e] = col < N ? s[j][e] : -CUDART_INF_F;
-        mt[e >> 1] = fmaxf(mt[e >> 1], s[j][e]);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m[i], quad_max(mt[i]));  // finite: k0 < N
-      alpha[i] = expf(m[i] - m_new);                     // 0 on the first tile
-      m[i] = m_new;
-    }
-    float ls[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < kT / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = expf(s[j][e] - m[e >> 1]);  // masked columns give 0
-        ls[e >> 1] += s[j][e];
-      }
-    l[0] = l[0] * alpha[0] + ls[0];
-    l[1] = l[1] * alpha[1] + ls[1];
-#pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int j = 0; j < kT / 8; ++j) {  // P . V, 8 keys a k-step, P in f32
-      if (j < nv) {
-        tf::FragA pa;
-        tf::a_from_c(pa, s[j]);
-#pragma unroll
-        for (int ng = 0; ng < HD / 8; ng += GD) {
-          tf::FragB vb[GD];
-#pragma unroll
-          for (int i = 0; i < GD; ++i)
-            tf::ld_b_kn(vb[i], Vt, LD, j * 8, (ng + i) * 8);
-          tf::mma_group(o, ng, pa, vb);
-        }
-      }
-    }
-  }
-  const float linv[2] = {1.f / fmaxf(quad_sum(l[0]), 1e-30f),
-                         1.f / fmaxf(quad_sum(l[1]), 1e-30f)};
+  const int warp = threadIdx.x >> 5;
+  float o[HD / 8][4], linv[2];
+  head_fwd_f32<HD>(qkv + (size_t)b * N * C3 + (size_t)h * d, C3, C, N, q0, d,
+                   scale, vec, Qs, threadIdx.x, [] { __syncthreads(); }, o,
+                   linv);
   // the warp's own q rows are free (no other warp reads them)
-  store_rows_f32<HD>(o, linv, Qs + warp * 16 * LD,
+  store_rows_f32<HD>(o, linv, Qs + warp * 16 * ssmv::tf32::tile_ld(HD),
                      out + (size_t)b * N * C + (size_t)h * d, C,
                      q0 + warp * 16, N, d, vec);
+}
+
+template <int HD>
+cudaError_t launch_f32(const float* qkv, float* out, int B, int N, int H,
+                       int d, float scale, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fwd_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)f32_bytes<HD>());
+  if (err != cudaSuccess) return err;
+  fwd_f32_kernel<HD><<<dim3((N + kT - 1) / kT, H, B), kThreads,
+                       f32_bytes<HD>(), s>>>(qkv, out, N, H, d, scale,
+                                             int(d % 4 == 0));
+  return cudaGetLastError();
 }
 
 template <int HD>
@@ -348,17 +239,22 @@ cudaError_t launch(const void* qkv, void* out, int B, int N, int H, int d,
         int(d % 8 == 0));
     return cudaGetLastError();
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)f32_bytes<HD>());
-  if (err != cudaSuccess) return err;
-  flash_fwd_f32_kernel<HD><<<grid, kThreads, f32_bytes<HD>(), s>>>(
-      static_cast<const float*>(qkv), static_cast<float*>(out), N, H, d, scale,
-      int(d % 4 == 0));
-  return cudaGetLastError();
+  return launch_f32<HD>(static_cast<const float*>(qkv),
+                        static_cast<float*>(out), B, N, H, d, scale, s);
 }
 
 }  // namespace
+
+cudaError_t ssmv::attn::fwd_f32(const float* qkv, float* out, int B, int N,
+                                int H, int d, float scale, cudaStream_t s) {
+  switch (ssmv::head_instance(d)) {
+    case 32: return launch_f32<32>(qkv, out, B, N, H, d, scale, s);
+    case 64: return launch_f32<64>(qkv, out, B, N, H, d, scale, s);
+    case 96: return launch_f32<96>(qkv, out, B, N, H, d, scale, s);
+    case 128: return launch_f32<128>(qkv, out, B, N, H, d, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
 
 // qkv (B, N, 3*H*head_dim) -> out (B, N, H*head_dim), both bf16
 // (is_bf16 = 1) or f32, contiguous and 16-byte aligned; head_dim <= 128.

@@ -40,11 +40,15 @@
 // columns >= N are -inf; m the exact row max; e = exp(S - m) in f32, l the
 // sum of that f32 e; e rounded to bf16 for e.V (f32 sums); o = (e.V) / l.
 //
-// The f32 form keeps the SIMT design of mha_simt.cuh (exact f32 FMAs: the
-// tensor cores have no exact f32 product), 64 query rows a block where the
-// score tile fits and 32 beyond, q scaled in f32 first as the JAX kernel.
+// The f32 form: the JAX kernel with T = f32 (``p.astype(T)`` the
+// identity) computes K11's function up to the order of the softmax, so it
+// runs K11's f32 kernel (``fwd_f32`` of attn_mma.cuh, whose kernel runs
+// ``head_fwd_f32``: 64-query blocks of 4 warps, split TF32
+// on the tensor cores, q scaled in f32 first, P kept in f32), whose
+// softmax is online where the JAX kernel takes the exact row max first
+// (attention.py:195): the same function, within f32 rounding.
 #include "attn_mma.cuh"
-#include "mha_simt.cuh"
+#include "common.cuh"
 
 namespace {
 
@@ -92,64 +96,6 @@ cudaError_t launch_bf16(const void* qkv, void* out, int B, int N, int H, int d,
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// f32: the SIMT form
-// ---------------------------------------------------------------------------
-
-template <int HD, int QT>
-__global__ void __launch_bounds__(ssmv::simt::kThreads)
-mha_fwd_f32_kernel(const float* __restrict__ qkv, float* __restrict__ out,
-                   int N, int NP, int H, int d, float scale) {
-  namespace sm = ssmv::simt;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const sm::Smem<float> L = sm::carve<float>(smem_raw, QT, HD, NP);
-  const int q0 = blockIdx.x * QT, h = blockIdx.y, b = blockIdx.z;
-  const int C = H * d;
-  const size_t C3 = 3 * (size_t)C;
-  float o[QT / 16][HD / 16];
-  sm::head_attention<float, HD, QT>(qkv + (size_t)b * N * C3 + (size_t)h * d,
-                                    C3, C, N, NP, q0, d, scale, L, o);
-  const int rg = threadIdx.x >> 4, cl = threadIdx.x & 15;
-#pragma unroll
-  for (int i = 0; i < QT / 16; ++i) {
-    const int r = rg * (QT / 16) + i, n = q0 + r;
-    if (n < N) {
-      const float li = L.linv[r];
-      float* orow = out + ((size_t)b * N + n) * C + (size_t)h * d;
-#pragma unroll
-      for (int j = 0; j < HD / 16; ++j)
-        if (cl + 16 * j < d) orow[cl + 16 * j] = o[i][j] * li;
-    }
-  }
-}
-
-template <int HD>
-cudaError_t launch_f32(const void* qkv, void* out, int B, int N, int H, int d,
-                       float scale, cudaStream_t s) {
-  namespace sm = ssmv::simt;
-  const int NP = (N + 15) / 16 * 16;
-  const bool wide = sm::smem_bytes(64, HD, NP, 4) <= ssmv::kMaxSmemBytes;
-  const size_t smem = sm::smem_bytes(wide ? 64 : 32, HD, NP, 4);
-  auto kernel = wide ? mha_fwd_f32_kernel<HD, 64> : mha_fwd_f32_kernel<HD, 32>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int qt = wide ? 64 : 32;
-  kernel<<<dim3((N + qt - 1) / qt, H, B), sm::kThreads, smem, s>>>(
-      static_cast<const float*>(qkv), static_cast<float*>(out), N, NP, H, d,
-      scale);
-  return cudaGetLastError();
-}
-static_assert(ssmv::simt::smem_bytes(32, 128, kMaxN, 4) <= ssmv::kMaxSmemBytes,
-              "K5's f32 form must take N = 1024 at head_dim 128");
-
-template <int HD>
-cudaError_t launch(const void* qkv, void* out, int B, int N, int H, int d,
-                   float scale, int is_bf16, cudaStream_t s) {
-  return is_bf16 ? launch_bf16<HD>(qkv, out, B, N, H, d, scale, s)
-                 : launch_f32<HD>(qkv, out, B, N, H, d, scale, s);
-}
-
 }  // namespace
 
 // qkv (B, N, 3*H*head_dim) -> out (B, N, H*head_dim), both contiguous and
@@ -161,11 +107,15 @@ extern "C" int ssmv_mha_fwd(const void* qkv, void* out, int B, int N, int H,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B < 1 || N < 1 || H < 1 || B > 65535 || H > 65535 || N > kMaxN)
     return (int)cudaErrorInvalidValue;
+  if (!is_bf16)
+    return (int)ssmv::attn::fwd_f32(static_cast<const float*>(qkv),
+                                    static_cast<float*>(out), B, N, H,
+                                    head_dim, scale, s);
   switch (ssmv::head_instance(head_dim)) {
-    case 32: return (int)launch<32>(qkv, out, B, N, H, head_dim, scale, is_bf16, s);
-    case 64: return (int)launch<64>(qkv, out, B, N, H, head_dim, scale, is_bf16, s);
-    case 96: return (int)launch<96>(qkv, out, B, N, H, head_dim, scale, is_bf16, s);
-    case 128: return (int)launch<128>(qkv, out, B, N, H, head_dim, scale, is_bf16, s);
+    case 32: return (int)launch_bf16<32>(qkv, out, B, N, H, head_dim, scale, s);
+    case 64: return (int)launch_bf16<64>(qkv, out, B, N, H, head_dim, scale, s);
+    case 96: return (int)launch_bf16<96>(qkv, out, B, N, H, head_dim, scale, s);
+    case 128: return (int)launch_bf16<128>(qkv, out, B, N, H, head_dim, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -65,25 +65,33 @@
 // groups' partials added in group order, bp added in f32 and y rounded
 // once.
 //
-// The f32 form keeps the SIMT design of mha_simt.cuh (exact f32 FMAs: the
-// tensor cores have no exact f32 product): one block per (query tile,
-// sample) loops over the heads; each head's exact softmax over its score
-// row in shared memory (q scaled in f32 first, as the JAX kernel), o_h
-// added times Wp[h] into an f32 (rows x C) accumulator in registers: thread
-// (warp, lane) owns rows warp + 8 i and columns lane + 32 j. The query tile
-// is 64 rows for C <= 320, 32 for C <= 640 and 16 above (up to C = 1280),
-// smaller wherever its score tile does not fit in shared memory; Wp is
-// read through the cache.
+// The f32 form (split TF32 on the tensor cores, mma_tf32.cuh) has the bf16
+// form's structure: the teams take the group's heads in turn, each head
+// runs the f32 head body of K5 and K11 (``head_fwd_f32`` of attn_mma.cuh:
+// the online softmax, q scaled in f32 first, P in f32), and its o_h * linv
+// stays f32 (the JAX kernel rounds it to T, the identity here) in the
+// block's f32 o tile in shared memory, never in device memory; then
+// y_g = o . Wp[group's rows, :] in split TF32 (three mma.sync.m16n8k8 a
+// k-step, the A operand read from the o tile with k relabelled, ``ld_a_c``,
+// and the B operand to match, ``ld_b_kn``), Wp's k-rows streaming from L2
+// through a cp.async ring in f32. A 64-row f32 o tile takes 100 KB at
+// C = 384 and 322 KB at C = 1280, against 227 KB, so the heads split into
+// groups wherever the tile does not fit beside a team's stages (87 KB at
+// head_dim 64), as wherever B leaves SMs idle; the groups share the bf16
+// form's workspace and its second kernel, and every sum keeps one order
+// (bit-identical from call to call).
+#include <type_traits>
+
 #include "attn_mma.cuh"
-#include "mha_simt.cuh"
+#include "common.cuh"
 
 namespace {
 
-namespace sm = ssmv::simt;
-
 constexpr int kMaxN = 1024;
+// C up to vit_huge's 1280, the widest model of either zoo and the widest
+// the kernels are tested at; no tile bounds C (the heads split into
+// groups wherever the o tile does not fit)
 constexpr int kMaxC = 1280;
-constexpr int kYCols = 640;  // QT * NJ: y rows a thread (QT / 8) x NJ = 80
 
 // ---------------------------------------------------------------------------
 // bf16: the tensor-core form
@@ -265,59 +273,269 @@ mha_proj_bf16_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ wp,
   }
 }
 
-// y = the groups' partials summed in group order, + bp, rounded once
+// ---------------------------------------------------------------------------
+// f32: split TF32 on the tensor cores
+// ---------------------------------------------------------------------------
+
+namespace tf = ssmv::tf32;
+
+// f32 rows of a Wp tile: 4 words past a multiple of 32, so ld_b_kn's reads
+// (rows k0 + 2t and k0 + 2t + 1, column n0 + g) are conflict-free
+constexpr int kF32WLD = kNC + 4;
+// n-tiles of a y chunk one tf32 mma_group sweeps
+constexpr int kProjGroup = 8;
+
+// f32 row stride of the o tile for kg columns: 8 words past a multiple of
+// 32, so ld_a_c's 8-byte reads and the heads' 8-byte writes (row g, column
+// 2t) are conflict-free
+__host__ __device__ constexpr int o_ld_f32(int kg) {
+  return (kg + 31) / 32 * 32 + 8;
+}
+
+// a team's shared memory: the head body's stages, then the Wp ring in the
+// same bytes
+template <int HD>
+__host__ __device__ constexpr size_t team_bytes_f32() {
+  return at::f32_bytes<HD>() > sizeof(float) * kWStages * kT * kF32WLD
+             ? at::f32_bytes<HD>()
+             : sizeof(float) * kWStages * kT * kF32WLD;
+}
+
+// the f32 o tile for kg columns, then nt teams' stages
+template <int HD>
+__host__ __device__ constexpr size_t proj_smem_bytes_f32(int kg, int nt) {
+  return sizeof(float) * kT * o_ld_f32(kg) + nt * team_bytes_f32<HD>();
+}
+
+// The bf16 kernel's structure in split TF32: grid (query tiles, head
+// groups, B), NT teams of 4 warps; part as the bf16 kernel's.
+template <int HD, int NT>
+__global__ void __launch_bounds__(NT * at::kThreads)
+mha_proj_f32_kernel(const float* __restrict__ qkv,
+                    const float* __restrict__ wp, const float* __restrict__ bp,
+                    float* __restrict__ y, float* __restrict__ part, int N,
+                    int H, int d, int hpg, float scale, int vec) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int q0 = blockIdx.x * kT, gi = blockIdx.y, b = blockIdx.z;
+  const int C = H * d;
+  const size_t C3 = 3 * (size_t)C;
+  const int h0 = gi * hpg, nh = min(hpg, H - h0), kg = nh * d;
+  const int OLD = o_ld_f32(hpg * d);
+  const int team = threadIdx.x / at::kThreads, tid = threadIdx.x % at::kThreads;
+  float* Os = reinterpret_cast<float*>(smem);
+  // the team's stages: the heads' Q / K / V, then the Wp tiles
+  float* ring = reinterpret_cast<float*>(smem + sizeof(float) * kT * OLD +
+                                         team * team_bytes_f32<HD>());
+  const int warp = tid >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tq = lane & 3;
+  float* Ow = Os + warp * 16 * OLD;  // the warp's 16 rows
+  // a warp whose 16 rows all lie past N only keeps its team's pace
+  const bool live = q0 + warp * 16 < N;
+
+  // the GEMM's last k step reads columns [kg, 8-multiple): zero, so that
+  // 0 times the zero-filled Wp rows there adds nothing
+  const int kg8 = (kg + 7) / 8 * 8;
+  if (team == 0)
+    for (int i = lane; i < 16 * (kg8 - kg); i += 32)
+      Ow[(i / (kg8 - kg)) * OLD + kg + i % (kg8 - kg)] = 0.f;
+
+  // the teams take the group's heads in turn; o_h * linv stays f32 (the
+  // JAX kernel's rounding to T, attention.py:364, is the identity here)
+  const float* base = qkv + (size_t)b * N * C3;
+  for (int hl = team; hl < nh; hl += NT) {
+    float o[HD / 8][4], linv[2];
+    at::team_sync(team);  // the last head's readers of the stages are done
+    at::head_fwd_f32<HD>(base + (size_t)(h0 + hl) * d, C3, C, N, q0, d, scale,
+                         vec, ring, tid, [team] { at::team_sync(team); }, o,
+                         linv);
+    float* dst = Ow + hl * d;  // the warp's rows, columns [hl*d, hl*d + d)
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const int c = j * 8 + 2 * tq;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float f = linv[r];
+        float* p = dst + (g + 8 * r) * OLD + c;
+        if (c + 1 < d && !(d & 1)) {  // an even column: one 8-byte pair
+          *reinterpret_cast<float2*>(p) =
+              make_float2(o[j][2 * r] * f, o[j][2 * r + 1] * f);
+        } else {
+          if (c < d) p[0] = o[j][2 * r] * f;
+          if (c + 1 < d) p[1] = o[j][2 * r + 1] * f;
+        }
+      }
+    }
+  }
+  __syncthreads();  // the o tile is complete, and every team's stages free
+
+  // y_g = o . Wp[h0*d + k, c] in split TF32: the teams take y's 64-column
+  // chunks in turn; a team streams its chunks' Wp tiles (kT k-rows x kNC
+  // columns, f32) in the order (chunk, k tile), one commit group each. The
+  // A operand is read with k relabelled (ld_a_c), the B operand to match
+  // (ld_b_kn).
+  const int nk = (kg + kT - 1) / kT, ncc = (C + kNC - 1) / kNC;
+  const int T = (ncc - team + NT - 1) / NT * nk;  // this team's tiles
+  const bool wvec = C % 4 == 0;  // every Wp row starts 16-byte aligned
+  const float* wg = wp + (size_t)h0 * d * C;
+  auto issue = [&](int t) {
+    if (t < T) {
+      const int c0 = (team + NT * (t / nk)) * kNC, k0 = (t % nk) * kT;
+      float* dst = ring + (t % kWStages) * kT * kF32WLD;
+      if (wvec) {
+        for (int i = tid; i < kT * (kNC / 4); i += at::kThreads) {
+          const int r = i / (kNC / 4), c = (i % (kNC / 4)) * 4;
+          const bool ok = k0 + r < kg && c0 + c < C;
+          at::cp_async16(dst + r * kF32WLD + c,
+                         ok ? wg + (size_t)(k0 + r) * C + c0 + c : wg, ok);
+        }
+      } else {
+        for (int i = tid; i < kT * kNC; i += at::kThreads) {
+          const int r = i / kNC, c = i % kNC;
+          dst[r * kF32WLD + c] = k0 + r < kg && c0 + c < C
+                                     ? wg[(size_t)(k0 + r) * C + c0 + c]
+                                     : 0.f;
+        }
+      }
+    }
+    at::cp_async_commit();
+  };
+  for (int s = 0; s < kWStages - 1; ++s) issue(s);
+
+  float acc[kNC / 8][4];
+#pragma unroll
+  for (int j = 0; j < kNC / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int t = 0; t < T; ++t) {
+    at::cp_async_wait<kWStages - 2>();  // tile t landed, for this thread
+    at::team_sync(team);                // ... for the team; t-1 is done
+    issue(t + kWStages - 1);            // into the stage tile t-1 used
+    if (!live) continue;
+    const int cc = team + NT * (t / nk), kt = t % nk;
+    const float* W = ring + (t % kWStages) * kT * kF32WLD;
+#pragma unroll
+    for (int ks = 0; ks < kT / 8; ++ks) {
+      const int k = kt * kT + ks * 8;
+      if (k < kg) {
+        tf::FragA a;
+        tf::ld_a_c(a, Ow, OLD, k);
+#pragma unroll
+        for (int jg = 0; jg < kNC / 8; jg += kProjGroup) {
+          tf::FragB wb[kProjGroup];
+#pragma unroll
+          for (int i = 0; i < kProjGroup; ++i)
+            tf::ld_b_kn(wb[i], W, kF32WLD, ks * 8, (jg + i) * 8);
+          tf::mma_group(acc, jg, a, wb);
+        }
+      }
+    }
+    if (kt == nk - 1) {  // the chunk's sums are complete: write them
+#pragma unroll
+      for (int j = 0; j < kNC / 8; ++j) {
+        const int c = cc * kNC + j * 8 + 2 * tq;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int n = q0 + warp * 16 + g + 8 * r;
+          if (n >= N) continue;
+          const size_t off = ((size_t)b * N + n) * C + c;
+          const float v0 = acc[j][2 * r], v1 = acc[j][2 * r + 1];
+          float* dst = part == nullptr
+                           ? y + off
+                           : part + (size_t)gi * gridDim.z * N * C + off;
+          const float b0 = part == nullptr && c < C ? bp[c] : 0.f;
+          const float b1 = part == nullptr && c + 1 < C ? bp[c + 1] : 0.f;
+          if (c + 1 < C && !(C & 1)) {
+            *reinterpret_cast<float2*>(dst) = make_float2(v0 + b0, v1 + b1);
+          } else {
+            if (c < C) dst[0] = v0 + b0;
+            if (c + 1 < C) dst[1] = v1 + b1;
+          }
+        }
+        acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// both forms: the groups' sum, and how a shape is cut
+// ---------------------------------------------------------------------------
+
+// y = the groups' partials summed in group order, + bp, rounded once to T
+template <typename T>
 __global__ void mha_proj_reduce_kernel(const float* __restrict__ part,
                                        const float* __restrict__ bp,
-                                       bf16* __restrict__ y, size_t M, int C,
+                                       T* __restrict__ y, size_t M, int C,
                                        int G) {
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < M;
        i += (size_t)gridDim.x * blockDim.x) {
     float v = part[i];
     for (int g = 1; g < G; ++g) v += part[(size_t)g * M + i];
-    y[i] = __float2bfloat16(v + bp[i % C]);
+    y[i] = ssmv::from_f32<T>(v + bp[i % C]);
   }
 }
 
 constexpr int kMaxTeams = 3;
+// The teams the plan first tries to fit beside the o tile when it picks
+// the heads a block takes (then fewer, down to one). f32: 2, as a block
+// then runs 8 warps that hide one another's mma latency, where one team
+// of a larger group runs 4 (ViT-S eval at B = 128: groups of 3 heads in 2
+// teams 0.6154 ms, of 6 heads in one team 0.7539; NVIDIA H100 80GB HBM3,
+// 700 W, scripts/attn_f32_tilings.py); bf16: 1, its stages small enough
+// that one team's plan leaves room for more.
+template <typename T>
+constexpr int kPlanTeams = std::is_same_v<T, float> ? 2 : 1;
 
 // How a shape is cut: heads a block (hpg) and teams a block (nt).
 struct Plan {
   int hpg, nt;
 };
 
-template <int HD, int NT>
+template <typename T, int HD>
+__host__ __device__ constexpr size_t smem_bytes(int kg, int nt) {
+  if constexpr (std::is_same_v<T, float>)
+    return proj_smem_bytes_f32<HD>(kg, nt);
+  else
+    return proj_smem_bytes<HD>(kg, nt);
+}
+
+template <typename T, int HD, int NT>
 cudaError_t launch_plan(const void* qkv, const void* wp, const void* bp,
                         void* y, void* part, int B, int N, int H, int d,
                         int hpg, float scale, cudaStream_t s) {
   const int G = (H + hpg - 1) / hpg;
   if ((G > 1) != (part != nullptr)) return cudaErrorInvalidValue;
-  const size_t smem = proj_smem_bytes<HD>(hpg * d, NT);
+  const size_t smem = smem_bytes<T, HD>(hpg * d, NT);
   if (smem > ssmv::kMaxSmemBytes) return cudaErrorInvalidValue;
+  void (*kernel)(const T*, const T*, const float*, T*, float*, int, int, int,
+                 int, float, int);
+  if constexpr (std::is_same_v<T, float>)
+    kernel = mha_proj_f32_kernel<HD, NT>;
+  else
+    kernel = mha_proj_bf16_kernel<HD, NT>;
   cudaError_t err = cudaFuncSetAttribute(
-      mha_proj_bf16_kernel<HD, NT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  mha_proj_bf16_kernel<HD, NT><<<dim3((N + kT - 1) / kT, G, B),
-                                 NT * at::kThreads, smem, s>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(wp),
-      static_cast<const float*>(bp), static_cast<bf16*>(y),
-      static_cast<float*>(part), N, H, d, hpg, scale, int(d % 8 == 0));
+  // 16-byte q / k / v rows: bf16 d % 8 == 0, f32 d % 4 == 0
+  const int vec = d % (16 / (int)sizeof(T)) == 0;
+  kernel<<<dim3((N + kT - 1) / kT, G, B), NT * at::kThreads, smem, s>>>(
+      static_cast<const T*>(qkv), static_cast<const T*>(wp),
+      static_cast<const float*>(bp), static_cast<T*>(y),
+      static_cast<float*>(part), N, H, d, hpg, scale, vec);
   if (G == 1) return cudaGetLastError();
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t M = (size_t)B * N * H * d;
   const int blocks = (int)((M + 255) / 256 < 4096 ? (M + 255) / 256 : 4096);
-  mha_proj_reduce_kernel<<<blocks, 256, 0, s>>>(
+  mha_proj_reduce_kernel<T><<<blocks, 256, 0, s>>>(
       static_cast<const float*>(part), static_cast<const float*>(bp),
-      static_cast<bf16*>(y), M, H * d, G);
+      static_cast<T*>(y), M, H * d, G);
   return cudaGetLastError();
 }
 
 // hpg: the most heads a block (so the fewest groups and the least
 // workspace) that still give every SM a block and whose o tile fits in
-// shared memory beside one team; nt: the most teams, up to 3 and one a
-// head, that fit beside it.
-template <int HD>
+// shared memory beside kPlanTeams<T> teams, or failing that fewer; nt:
+// the most teams, up to 3 and one a head, that fit beside it.
+template <typename T, int HD>
 cudaError_t plan(int B, int N, int H, int d, Plan* p) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -326,185 +544,79 @@ cudaError_t plan(int B, int N, int H, int d, Plan* p) {
   if (err != cudaSuccess) return err;
   const long tiles = (long)((N + kT - 1) / kT) * B;
   int hpg = 1;
-  for (int h = H; h > 1; --h)
-    if (tiles * ((H + h - 1) / h) >= sms &&
-        proj_smem_bytes<HD>(h * d, 1) <= ssmv::kMaxSmemBytes) {
-      hpg = h;
-      break;
-    }
+  for (int mt = kPlanTeams<T>; mt >= 1 && hpg == 1; --mt)
+    for (int h = H; h > 1; --h)
+      if (tiles * ((H + h - 1) / h) >= sms &&
+          smem_bytes<T, HD>(h * d, mt) <= ssmv::kMaxSmemBytes) {
+        hpg = h;
+        break;
+      }
   int nt = 1;
   while (nt < kMaxTeams && nt < hpg &&
-         proj_smem_bytes<HD>(hpg * d, nt + 1) <= ssmv::kMaxSmemBytes)
+         smem_bytes<T, HD>(hpg * d, nt + 1) <= ssmv::kMaxSmemBytes)
     ++nt;
   *p = {hpg, nt};
   return cudaSuccess;
 }
 static_assert(proj_smem_bytes<128>(128, 1) <= ssmv::kMaxSmemBytes,
               "K12's bf16 form must take one head of 128 a block");
+static_assert(proj_smem_bytes_f32<128>(128, 1) <= ssmv::kMaxSmemBytes,
+              "K12's f32 form must take one head of 128 a block");
 
-template <int HD>
+template <typename T, int HD>
 cudaError_t plan_and_launch(const void* qkv, const void* wp, const void* bp,
                             void* y, void* part, int B, int N, int H, int d,
                             float scale, cudaStream_t s) {
   Plan p;
-  const cudaError_t err = plan<HD>(B, N, H, d, &p);
+  const cudaError_t err = plan<T, HD>(B, N, H, d, &p);
   if (err != cudaSuccess) return err;
   switch (p.nt) {
-    case 1: return launch_plan<HD, 1>(qkv, wp, bp, y, part, B, N, H, d, p.hpg, scale, s);
-    case 2: return launch_plan<HD, 2>(qkv, wp, bp, y, part, B, N, H, d, p.hpg, scale, s);
-    case 3: return launch_plan<HD, 3>(qkv, wp, bp, y, part, B, N, H, d, p.hpg, scale, s);
+    case 1: return launch_plan<T, HD, 1>(qkv, wp, bp, y, part, B, N, H, d, p.hpg, scale, s);
+    case 2: return launch_plan<T, HD, 2>(qkv, wp, bp, y, part, B, N, H, d, p.hpg, scale, s);
+    case 3: return launch_plan<T, HD, 3>(qkv, wp, bp, y, part, B, N, H, d, p.hpg, scale, s);
     default: return cudaErrorInvalidValue;
   }
-}
-
-// the head groups of the bf16 form at this shape on the current device
-template <int HD>
-cudaError_t groups(int B, int N, int H, int d, int* G) {
-  Plan p;
-  const cudaError_t err = plan<HD>(B, N, H, d, &p);
-  *G = (H + p.hpg - 1) / p.hpg;
-  return err;
-}
-
-// ---------------------------------------------------------------------------
-// f32: the SIMT form
-// ---------------------------------------------------------------------------
-
-template <typename T, int HD, int QT>
-__global__ void __launch_bounds__(sm::kThreads, 1)
-mha_proj_fwd_kernel(const T* __restrict__ qkv, const T* __restrict__ wp,
-                    const float* __restrict__ bp, T* __restrict__ y, int N,
-                    int NP, int H, int d, float scale) {
-  constexpr int RPT = QT / 16, CJ = HD / 16;  // o rows and columns a thread
-  constexpr int YR = QT / 8;                  // y rows a thread
-  constexpr int NJ = kYCols / QT;             // y column groups, at most
-  constexpr int QLD = sm::q_ld(HD);
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const sm::Smem<T> L = sm::carve<T>(smem_raw, QT, HD, NP);
-  const int C = H * d;
-  const size_t C3 = 3 * (size_t)C;
-  const int nj = (C + 31) / 32;
-  const int q0 = blockIdx.x * QT, b = blockIdx.y;
-  const T* base = qkv + (size_t)b * N * C3;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int rg = tid >> 4, cl = tid & 15;
-
-  float yacc[YR][NJ];
-#pragma unroll
-  for (int i = 0; i < YR; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) yacc[i][j] = 0.f;
-
-  for (int h = 0; h < H; ++h) {
-    __syncthreads();  // the last head's readers of Qs (o_h) are done
-    float o[RPT][CJ];
-    sm::head_attention<T, HD, QT>(base + (size_t)h * d, C3, C, N, NP, q0, d,
-                                  scale, L, o);
-    // o_h rounded to T, into Qs (no thread reads q after the score pass)
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = rg * RPT + i;
-      const float li = L.linv[r];
-#pragma unroll
-      for (int j = 0; j < CJ; ++j)
-        L.Qs[r * QLD + cl + 16 * j] = ssmv::to_f32(ssmv::from_f32<T>(o[i][j] * li));
-    }
-    __syncthreads();
-
-    // y += o_h . Wp[h]
-    const T* wph = wp + (size_t)h * d * C;
-    for (int k = 0; k < d; ++k) {
-      float ov[YR];
-#pragma unroll
-      for (int i = 0; i < YR; ++i) ov[i] = L.Qs[(warp + 8 * i) * QLD + k];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int c = lane + 32 * j;
-        if (j < nj && c < C) {
-          const float wv = ssmv::to_f32(wph[(size_t)k * C + c]);
-#pragma unroll
-          for (int i = 0; i < YR; ++i) yacc[i][j] = fmaf(ov[i], wv, yacc[i][j]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < YR; ++i) {
-    const int n = q0 + warp + 8 * i;
-    if (n < N) {
-      T* yrow = y + ((size_t)b * N + n) * C;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int c = lane + 32 * j;
-        if (j < nj && c < C) yrow[c] = ssmv::from_f32<T>(yacc[i][j] + bp[c]);
-      }
-    }
-  }
-}
-
-template <typename T, int HD, int QT>
-cudaError_t launch(const void* qkv, const void* wp, const void* bp, void* y,
-                   int B, int N, int NP, int H, int d, float scale,
-                   cudaStream_t stream) {
-  const size_t smem = sm::smem_bytes(QT, HD, NP, sizeof(T));
-  cudaError_t err = cudaFuncSetAttribute(
-      mha_proj_fwd_kernel<T, HD, QT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  mha_proj_fwd_kernel<T, HD, QT><<<dim3((N + QT - 1) / QT, B), sm::kThreads,
-                                   smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(wp),
-      static_cast<const float*>(bp), static_cast<T*>(y), N, NP, H, d, scale);
-  return cudaGetLastError();
-}
-static_assert(sm::smem_bytes(16, 128, kMaxN, 4) <= ssmv::kMaxSmemBytes,
-              "K12 must take N = 1024 at head_dim 128 in f32");
-
-// the largest query tile whose y accumulator holds C columns (QT / 8 rows x
-// kYCols / QT groups of 32 a thread) and whose score tile fits
-template <typename T, int HD>
-cudaError_t dispatch(const void* qkv, const void* wp, const void* bp, void* y,
-                     int B, int N, int H, int d, float scale, cudaStream_t s) {
-  const int NP = (N + 15) / 16 * 16, C = H * d;
-  auto fits = [&](int qt) {
-    return C <= kYCols / qt * 32 &&
-           sm::smem_bytes(qt, HD, NP, sizeof(T)) <= ssmv::kMaxSmemBytes;
-  };
-  if (fits(64)) return launch<T, HD, 64>(qkv, wp, bp, y, B, N, NP, H, d, scale, s);
-  if (fits(32)) return launch<T, HD, 32>(qkv, wp, bp, y, B, N, NP, H, d, scale, s);
-  return launch<T, HD, 16>(qkv, wp, bp, y, B, N, NP, H, d, scale, s);
 }
 
 template <typename T>
-cudaError_t dispatch(const void* qkv, const void* wp, const void* bp, void* y,
-                     int B, int N, int H, int d, float scale, cudaStream_t s) {
+cudaError_t plan_and_launch(const void* qkv, const void* wp, const void* bp,
+                            void* y, void* part, int B, int N, int H, int d,
+                            float scale, cudaStream_t s) {
   switch (ssmv::head_instance(d)) {
-    case 32: return dispatch<T, 32>(qkv, wp, bp, y, B, N, H, d, scale, s);
-    case 64: return dispatch<T, 64>(qkv, wp, bp, y, B, N, H, d, scale, s);
-    case 96: return dispatch<T, 96>(qkv, wp, bp, y, B, N, H, d, scale, s);
-    case 128: return dispatch<T, 128>(qkv, wp, bp, y, B, N, H, d, scale, s);
+    case 32: return plan_and_launch<T, 32>(qkv, wp, bp, y, part, B, N, H, d, scale, s);
+    case 64: return plan_and_launch<T, 64>(qkv, wp, bp, y, part, B, N, H, d, scale, s);
+    case 96: return plan_and_launch<T, 96>(qkv, wp, bp, y, part, B, N, H, d, scale, s);
+    case 128: return plan_and_launch<T, 128>(qkv, wp, bp, y, part, B, N, H, d, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// the head groups of a form at this shape on the current device
+template <typename T>
+cudaError_t groups(int B, int N, int H, int d, int* G) {
+  Plan p;
+  cudaError_t err;
+  switch (ssmv::head_instance(d)) {
+    case 32: err = plan<T, 32>(B, N, H, d, &p); break;
+    case 64: err = plan<T, 64>(B, N, H, d, &p); break;
+    case 96: err = plan<T, 96>(B, N, H, d, &p); break;
+    case 128: err = plan<T, 128>(B, N, H, d, &p); break;
+    default: return cudaErrorInvalidValue;
+  }
+  *G = (H + p.hpg - 1) / p.hpg;
+  return err;
+}
 }  // namespace
 
 // The f32 workspace ssmv_mha_proj_fwd needs, in units of B * N * C floats:
-// the number of head groups of the bf16 form (0 where there is one group,
-// or in f32, which needs none), or -1 where the device cannot be read.
+// the number of head groups of the form (bf16: is_bf16 = 1, or f32) at
+// this shape (0 where there is one group, which needs none), or -1 where
+// the device cannot be read.
 extern "C" int ssmv_mha_proj_groups(int B, int N, int H, int head_dim,
                                     int is_bf16) {
-  if (!is_bf16) return 0;
   int G = 0;
-  cudaError_t err;
-  switch (ssmv::head_instance(head_dim)) {
-    case 32: err = groups<32>(B, N, H, head_dim, &G); break;
-    case 64: err = groups<64>(B, N, H, head_dim, &G); break;
-    case 96: err = groups<96>(B, N, H, head_dim, &G); break;
-    case 128: err = groups<128>(B, N, H, head_dim, &G); break;
-    default: return -1;
-  }
+  const cudaError_t err = is_bf16 ? groups<bf16>(B, N, H, head_dim, &G)
+                                  : groups<float>(B, N, H, head_dim, &G);
   if (err != cudaSuccess) return -1;
   return G > 1 ? G : 0;
 }
@@ -521,16 +633,8 @@ extern "C" int ssmv_mha_proj_fwd(const void* qkv, const void* wp,
   if (B < 1 || N < 1 || H < 1 || B > 65535 || N > kMaxN ||
       H * head_dim > kMaxC)
     return (int)cudaErrorInvalidValue;
-  if (!is_bf16)
-    return part ? (int)cudaErrorInvalidValue
-                : (int)dispatch<float>(qkv, wp, bp, y, B, N, H, head_dim,
-                                       scale, s);
-  const int d = head_dim;
-  switch (ssmv::head_instance(d)) {
-    case 32: return (int)plan_and_launch<32>(qkv, wp, bp, y, part, B, N, H, d, scale, s);
-    case 64: return (int)plan_and_launch<64>(qkv, wp, bp, y, part, B, N, H, d, scale, s);
-    case 96: return (int)plan_and_launch<96>(qkv, wp, bp, y, part, B, N, H, d, scale, s);
-    case 128: return (int)plan_and_launch<128>(qkv, wp, bp, y, part, B, N, H, d, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)(is_bf16 ? plan_and_launch<bf16>(qkv, wp, bp, y, part, B, N, H,
+                                               head_dim, scale, s)
+                       : plan_and_launch<float>(qkv, wp, bp, y, part, B, N,
+                                                H, head_dim, scale, s));
 }

@@ -155,5 +155,19 @@ __device__ __forceinline__ void a_from_c(FragA& a, const float (&c)[4]) {
   split(c[3], a.hi[3], a.lo[3]);
 }
 
+// The A fragment of columns [k0, k0 + 8) of a row-major tile, k relabelled
+// as ``a_from_c`` relabels a C tile (its B operand read by ``ld_b_kn``):
+// rows g and g + 8 at columns k0 + 2t and k0 + 2t + 1, two 8-byte loads
+// (conflict-free where ld is 8 past a multiple of 32 words)
+__device__ __forceinline__ void ld_a_c(FragA& a, const float* tile, int ld,
+                                       int k0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* p = tile + g * ld + k0 + 2 * t;
+  const float2 r0 = *reinterpret_cast<const float2*>(p);
+  const float2 r1 = *reinterpret_cast<const float2*>(p + 8 * ld);
+  const float c[4] = {r0.x, r0.y, r1.x, r1.y};
+  a_from_c(a, c);
+}
+
 }  // namespace tf32
 }  // namespace ssmv

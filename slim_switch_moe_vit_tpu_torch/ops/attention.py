@@ -13,18 +13,20 @@ header notes say what bounds them on the card and how their designs answer
 that. In short: the forward reads the packed (B, N, 3C) qkv once and
 writes the (B, N, C) output once, and the backward recomputes the softmax
 and writes d(qkv) in the packed layout, the probabilities never in device
-memory. In bf16 all four take their products on the tensor cores
-(``mma.sync``, ``csrc/attn_mma.cuh``) with the scores in registers, and
-stream K and V through ``cp.async`` rings. K5, K6 and K12 take the exact
-row maximum first, from a pass that computes only row maxima (K12 runs
-K5's head body for each head, then its projection as one tile GEMM on
-the tensor cores, the attention output never in device memory); K11 takes
-one pass with the JAX kernel's online softmax. In f32, K6 and K11 keep
-those structures on the tensor cores in split TF32 (``csrc/mma_tf32.cuh``:
-each f32 operand split into two TF32 parts, three ``mma.sync.m16n8k8``
-products a k-step, mean error from the function in f64 6-10x the
-plain f32 version's; e, ds and P stay f32); K5's and K12's
-f32 forms run on the CUDA cores (f32 FMAs, ``csrc/mha_simt.cuh``).
+memory. All four take their products on the tensor cores (``mma.sync``,
+``csrc/attn_mma.cuh``) with the scores in registers, and stream K and V
+through ``cp.async`` rings. In bf16, K5, K6 and K12 take the exact row
+maximum first, from a pass that computes only row maxima (K12 runs K5's
+head body for each head, then its projection as one tile GEMM on the
+tensor cores, the attention output never in device memory); K11 takes
+one pass with the JAX kernel's online softmax. In f32 every form runs in
+split TF32 (``csrc/mma_tf32.cuh``: each f32 operand split into two TF32
+parts, three ``mma.sync.m16n8k8`` products a k-step, mean error from the
+function in f64 5-10x the plain f32 version's; e, ds and P stay f32):
+K6 in K6's structure, and K5, K11 and K12 on one f32 head body with the
+online softmax (``head_fwd_f32``; K5's and K11's f32 forms are one kernel,
+the same function up to the order of the softmax, and K12 feeds the body's
+output to its projection in split TF32).
 
 Dispatch: a CPU tensor takes the plain versions
 (:func:`fused_mha_reference`, :func:`reference_mha_bwd`,
@@ -54,7 +56,7 @@ from ._checks import check_tensor
 
 MAX_HEAD_DIM = 128  # the widest head the attention kernels take
 MAX_N = 1024        # K5, K6 and K12 take N up to the JAX package's kernel rule
-K12_MAX_C = 1280    # K12's f32 form: QT / 8 rows x C / 32 accumulators a thread
+K12_MAX_C = 1280    # K12 takes C up to vit_huge's, the widest of either zoo
 
 
 def fused_mha_reference(qkv: torch.Tensor, num_heads: int,
@@ -264,8 +266,9 @@ def _mha_proj_forward(qkv, wp, bp, num_heads, scale):
     y = torch.empty((B, N, C), dtype=qkv.dtype, device=qkv.device)
     is_bf16 = int(qkv.dtype == torch.bfloat16)
     lib = _build.load_library()
-    # where the batch is too small to fill the card, the bf16 kernel splits
-    # the heads over blocks and sums their f32 partials here
+    # where the batch is too small to fill the card, or (in f32) the o tile
+    # of every head does not fit in shared memory, the kernel splits the
+    # heads over blocks and sums their f32 partials here
     groups = lib.ssmv_mha_proj_groups(B, N, num_heads, d, is_bf16)
     if groups < 0:
         raise RuntimeError("fused_mha_proj: cannot read the CUDA device")

@@ -196,17 +196,30 @@ def test_ln_kernels_match_plain(cuda, dtype, tol):
 # (577) and the JAX kernel rule's cap (1024)
 HEAD_DIMS = [32, 64, 80, 128, 20]
 LENGTHS = [1, 17, 197, 208, 209, 577, 1024]
+# the split-TF32 f32 forms (64-row tiles, 8-row n-tiles) at the edges of
+# their tiles: one row, a ragged tile (17), either side of one 64-row tile,
+# the flagship's N (three full tiles and 5 rows), K6's old short-form edge
+# (208, 209), 384 px and the cap; head widths on each instance (32, 64, 96,
+# 128), 13 (d % 4 != 0: plain loads, no cp.async) and 20
+F32_LENGTHS = [1, 17, 63, 64, 65, 197, 208, 209, 577, 1024]
+F32_HEAD_DIMS = [13, 20, 32, 64, 80, 128]
+# K5's cases: both dtypes at HEAD_DIMS x LENGTHS, and f32 also at the
+# F32_HEAD_DIMS x F32_LENGTHS pairs those leave out
+MHA_CASES = (
+    [(dt, tol, d, N) for dt, tol in ((torch.float32, 2e-5),
+                                     (torch.bfloat16, 1.6e-2))
+     for d in HEAD_DIMS for N in LENGTHS]
+    + [(torch.float32, 2e-5, d, N) for d in F32_HEAD_DIMS for N in F32_LENGTHS
+       if d not in HEAD_DIMS or N not in LENGTHS])
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
-                                       (torch.bfloat16, 1.6e-2)])
-@pytest.mark.parametrize("d", HEAD_DIMS)
-@pytest.mark.parametrize("N", LENGTHS)
+@pytest.mark.parametrize("dtype,tol,d,N", MHA_CASES)
 def test_mha_kernel_matches_plain(cuda, dtype, tol, N, d):
-    """K5 against its plain version: bf16 on the tensor cores (e rounds
-    to bf16 before e.V, the plain version rounds the normalized
-    probabilities), f32 on the CUDA cores; one launch."""
+    """K5 against its plain version: bf16 (e rounds to bf16 before e.V,
+    the plain version rounds the normalized probabilities) and f32 (split
+    TF32, the online softmax: K11's f32 kernel) on the tensor cores; one
+    launch."""
     H = 3
     rs = np.random.RandomState(3)
     qkv = _rand(rs, 2, N, 3 * H * d, dtype=dtype, device=cuda)
@@ -602,16 +615,6 @@ def test_flash_kernel_matches_plain(cuda, B, N):
         torch.testing.assert_close(got.float(),
                                    attn_ops.fused_mha(qkv, 6, 0.125).float(),
                                    atol=1.6e-2, rtol=1.6e-2)
-
-
-# the split-TF32 f32 forms of K6 and K11 (64-row tiles, 8-row n-tiles) at
-# the edges of their tiles: one row, a ragged tile (17), either side of one
-# 64-row tile, the flagship's N (three full tiles and 5 rows), K6's old
-# short-form edge (208, 209), 384 px and the cap; head widths on each
-# instance (32, 64, 96, 128), 13 (d % 4 != 0: plain loads, no cp.async)
-# and 20
-F32_LENGTHS = [1, 17, 63, 64, 65, 197, 208, 209, 577, 1024]
-F32_HEAD_DIMS = [13, 20, 32, 64, 80, 128]
 
 
 @pytest.mark.cuda
@@ -1153,8 +1156,8 @@ def test_mha_proj_kernel_matches_plain(cuda, dtype, B, N, H, d):
     """K12 against its plain version (K5's function, then the proj product
     rounded as the JAX reference): bf16 within 1.6e-2 + 1.6e-2 |ref| (the
     plain side rounds o.Wp and adds bp in bf16, the kernel rounds once),
-    f32 within F32_TOL; one launch counted (in bf16, a head split adds a
-    second kernel that sums the groups)."""
+    f32 (split TF32) within F32_TOL; one launch counted (a head split adds
+    a second kernel that sums the groups)."""
     rs = np.random.RandomState(18)
     C = H * d
     qkv = _rand(rs, B, N, 3 * C, dtype=dtype, device=cuda)
@@ -1166,6 +1169,23 @@ def test_mha_proj_kernel_matches_plain(cuda, dtype, B, N, H, d):
     assert ops.launch_counts()["fused_mha_proj"] == 1
     _close(got, attn_ops.fused_mha_proj_reference(qkv, wp, bp, H, d ** -0.5),
            dtype, "y")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,H,d", [(1, 577, 20, 64), (1, 197, 10, 128)])
+def test_mha_proj_f32_kernel_bit_identical(cuda, B, N, H, d):
+    """K12 in f32 is deterministic where it splits its heads into groups
+    (here one a head: too few query tiles to fill the card), summed by its
+    second kernel in group order, no atomics: two calls on the same inputs
+    give bit-identical y."""
+    rs = np.random.RandomState(20)
+    C = H * d
+    qkv = _rand(rs, B, N, 3 * C, device=cuda)
+    wp = _rand(rs, C, C, scale=C ** -0.5, device=cuda)
+    bp = _rand(rs, C, scale=0.1, device=cuda)
+    first = attn_ops.fused_mha_proj(qkv, wp, bp, H, d ** -0.5)
+    assert torch.equal(first, attn_ops.fused_mha_proj(qkv, wp, bp, H,
+                                                      d ** -0.5))
 
 
 @pytest.mark.cuda

@@ -138,10 +138,13 @@ Phases (any failure propagates and the script exits non-zero):
     (16 heads of 80, N = 257, ``HUGE``), K11 in f32, K12 in f32 at ViT-S
     B = 128 and K12 at N = 577 and
     C = 1024 (``K12_LONG``), against their plain versions (f32 within
-    ``F32_TOL``); each f32 attention kernel's mean |d| from the function
-    in f64 within ``F32_F64_RATIO`` times its plain version's (which the
-    plain version in one TF32 pass must fail), and K6's f32 calls
-    bit-identical.
+    ``F32_TOL``); each f32 attention kernel's and each f32 expert-FFN
+    form's (K3, K4, K9, K10: y, or dx, dW1, db1, dW2 and db2; ``f64_ffn``)
+    mean |d| from the function in f64 within ``F32_F64_RATIO`` times its
+    plain version's (which the plain version in one TF32 pass must fail,
+    for the products), K6's and K4's, K9's and K10's backward f32 calls
+    bit-identical, and the dense cuBLAS yardstick in f32 (TF32 off) beside
+    K3.
 14. D = 768: ``resmoe_base_patch16_224_expert8`` trains ``WIDE_STEPS`` steps
     at B = 32 on the kernels (exact launch counts, every attention on the
     K5 + K6 route); ``moe_base_patch16_224_expert32`` evaluates B = 32
@@ -154,7 +157,8 @@ Phases (any failure propagates and the script exits non-zero):
 15. f32: the flagship in f32 trains ``F32_STEPS`` steps at B = 16 on the
     kernels, against the same steps on the plain versions, within
     ``F32_WITNESS`` times a batch-reversed witness (or ``F32_FLOOR``); one
-    more kernel step's profile: its kernel sum and K6's share.
+    more kernel step's profile: its kernel sum and K6's, K5's, K3's and
+    K4's shares.
 16. N = 577 (the flagship at 384 px): an eval at B = 8 on the K5 route,
     one train step at B = 4 on the K5 + K6 route, each held to the card's
     plain path.
@@ -493,13 +497,16 @@ KERNELS = [  # name, route, source, TPU kernel it replaces
 # elementwise (sums over rows included); single-pass TF32 (10 mantissa
 # bits) would fail it
 F32_TOL = (1e-4, 1e-4)
-# an f32 attention kernel's mean |d| from the function in f64 (``f64_error``)
-# at most this many times its f32 plain version's. Every f32 attention form
-# is split TF32 and reads 5.79-10.18 (K5 5.79-9.80, K6 6.34-10.18, K11 5.80,
-# K12 6.77-9.18), where the split's rounding is ~13% of the error and the
-# rest sits in the tensor cores' f32 sums (NVIDIA H100 80GB HBM3, 700 W).
-# The plain version with one TF32 pass a product must read above it
-# (``one_tf32_pass_control``)
+# an f32 attention kernel's or expert-FFN form's mean |d| from the function
+# in f64 (``f64_error``) at most this many times its f32 plain version's.
+# Every f32 attention form is split TF32 and reads 5.79-10.18 (K5
+# 5.79-9.80, K6 6.34-10.18, K11 5.80, K12 6.77-9.18), where the split's
+# rounding is ~13% of the error and the rest sits in the tensor cores' f32
+# sums (NVIDIA H100 80GB HBM3, 700 W). The expert FFN's split-TF32 forms
+# add each k-step's products to their sums on the CUDA cores and read
+# 1.1-1.4 for y, dx and dW (38-46 with the tensor cores' own sums across
+# all of k, scripts/ffn_f32_tilings.py ``tcsum``). The plain version with
+# one TF32 pass a product must read above it (``one_tf32_pass_control``)
 F32_F64_RATIO = 15.0
 # K12 at deit-tiny eval (the shape the JAX package measured it at,
 # attention.py:400-404) and at ViT-S: (B, N, heads)
@@ -1076,20 +1083,93 @@ def exact_ffn_fwd(name: str, got, want, args, perm=None) -> None:
     exact_error(name, got, want, exact)
 
 
-def dense_yardstick(args) -> None:
+def dense_yardstick(args, sfx: str = "") -> float:
     """Two ``torch.matmul`` calls and ``F.gelu`` on K3's rows with one
-    expert's weights: the tensor-core rate cuBLAS reaches on the same
-    products, logged beside K3. Not the same function (no routing of rows
-    to experts), so it is no ``library_ms``; used nowhere in the port."""
+    expert's weights: the rate cuBLAS reaches on the same products (the
+    tensor cores in bf16; in f32 with TF32 off, as the smoke runs, its f32
+    GEMMs), logged beside K3. Not the same function (no routing of rows to
+    experts), so it is no ``library_ms``; used nowhere in the port."""
     import torch
     import torch.nn.functional as F
 
     xs, w1, _, w2, _, _ = args
     ms = median_ms(lambda: torch.matmul(F.gelu(torch.matmul(xs, w1[0])),
                                         w2[0]))
-    log(f"kernel fused_expert_ffn: dense cuBLAS yardstick, not the same "
+    log(f"kernel fused_expert_ffn{sfx}: dense cuBLAS yardstick, not the same "
         f"function ({xs.shape[0]} rows x one expert's W1 and W2, "
-        f"torch.matmul + F.gelu): {ms:.4f} ms")
+        f"torch.matmul + F.gelu, {str(xs.dtype)[6:]}, TF32 "
+        f"{'on' if torch.backends.cuda.matmul.allow_tf32 else 'off'}): "
+        f"{ms:.4f} ms")
+    return ms
+
+
+def f64_ffn(xs, w1, b1, w2, b2, e_of_tile, dy=None):
+    """The expert FFN's function evaluated in f64 on the same inputs, tile
+    by tile with the tile's expert: y = GELU(xs W1[e] + b1[e]) W2[e] +
+    b2[e] (K3's), or with the cotangent dy its backward (dx, dW1, db1, dW2,
+    db2) through autograd (K4's): the yardstick of the f32 forms' accuracy,
+    as ``f64_attention`` is the attention kernels'."""
+    import torch
+
+    leaves = [t.double().requires_grad_(dy is not None)
+              for t in (xs, w1, b1, w2)]
+    x64, w164, b164, w264 = leaves
+    tile = xs.shape[0] // e_of_tile.shape[0]
+    ys = []
+    for i, e in enumerate(e_of_tile.tolist()):
+        h = x64[i * tile:(i + 1) * tile] @ w164[e] + b164[e]
+        y = (0.5 * h * (1.0 + torch.erf(h * 0.5 ** 0.5))) @ w264[e]
+        ys.append(y if b2 is None else y + b2[e].double())
+    y = torch.cat(ys)
+    if dy is None:
+        return y.detach()
+    dy64 = dy.double()
+    dx, dw1, db1, dw2 = torch.autograd.grad(y, leaves, dy64)
+    db2 = torch.zeros(w1.shape[0], w1.shape[1], dtype=torch.float64,
+                      device=dy.device)
+    db2.index_add_(0, e_of_tile.long().repeat_interleave(tile), dy64)
+    return dx, dw1, db1, dw2, db2
+
+
+FFN_PARTS = ("dx", "dw1", "db1", "dw2", "db2")
+
+
+def f32_ffn_checks(label: str, cases: dict, f64_inputs: dict) -> None:
+    """The f32 expert-FFN forms of ``_ffn_family``: each output's mean |d|
+    from the f64 function (``f64_ffn`` on the form's rows in step order,
+    ``f64_inputs[name]`` = (args, step rows or None)) within
+    ``F32_F64_RATIO`` times the plain version's (``f64_error``); the
+    control that K3's and K4's plain versions in one TF32 pass fail it (y,
+    dx, dW1 and dW2: the products); and each backward form's two calls
+    bit-identical."""
+    import torch
+
+    for name, (args, rows) in f64_inputs.items():
+        kernel, plain = cases[name][:2]
+        got, want = kernel(), plain()
+        exact = f64_ffn(*args)
+        bwd = isinstance(got, tuple)
+        got, want = ((got,), (want,)) if not bwd else (got, want)
+        exact = exact if bwd else (exact,)
+        for i, part in enumerate(FFN_PARTS if bwd else ("y",)):
+            g, w = got[i], want[i]
+            if rows is not None and part in ("y", "dx"):
+                g, w = g[rows], w[rows]
+            err = f64_error(f"{name}_{label} {part}", g, w, exact[i])[1]
+            if name in ("fused_expert_ffn", "fused_expert_ffn_bwd") and \
+                    part not in ("db1", "db2"):
+                one_tf32_pass_control(
+                    f"{name}_{label} {part}",
+                    (lambda i=i: plain()[i]) if bwd else plain, exact[i],
+                    err)
+        if bwd:
+            again = kernel()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name}_{label}: two calls on the same "
+                                     "inputs differ")
+            log(f"  {name}_{label}: a second call bit-identical (dx, dW, db)")
+        del got, want, exact
+        torch.cuda.empty_cache()
 
 
 def exact_error(name: str, got, want, exact, what: str = "f32") -> None:
@@ -3060,6 +3140,20 @@ def _ffn_family(results, label, dtype, T, D, H, E, peak, gen, only=None):
     for name, (kernel, plain, cost, mode) in cases.items():
         _timed_case(results, name, kernel, plain, None, cost, mode,
                     "_" + label, tol=tol, reps=5)
+    if dtype == torch.float32:
+        results["fused_expert_ffn"]["yardstick_ms_" + label] = \
+            dense_yardstick((xs, w1, b1, w2, b2, eot), "_" + label)
+        xg, rows = x.index_select(0, gidx), ffn.permuted_rows(perm)
+        f32_ffn_checks(label, cases, {
+            "fused_expert_ffn": ((xs, w1, b1, w2, b2, eot), None),
+            "fused_expert_ffn_bwd": ((xs, w1, b1, w2, None, eot, dy), None),
+            "fused_expert_ffn_gather": ((xg, w1, b1, w2, b2, eot), None),
+            "fused_expert_ffn_gather_bwd": ((xg, w1, b1, w2, None, eot, dy),
+                                            None),
+            "fused_expert_ffn_permuted": (
+                (xs[rows], w1, b1, w2, b2, eot), rows),
+            "fused_expert_ffn_permuted_bwd": (
+                (xs[rows], w1, b1, w2, None, eot, dy[rows]), rows)})
     if dtype == torch.bfloat16:
         if "fused_expert_ffn" in cases:
             exact_ffn_fwd(f"fused_expert_ffn_{label}",
@@ -3512,7 +3606,8 @@ def f32_phase(card: str) -> None:
     the kernels (exact launch counts), against the same steps from the same
     weights on the plain versions and, as the witness of f32 summation
     order alone, the plain steps on the batch reversed. One more kernel
-    step is profiled: its kernel sum and K6's and K5's shares of it."""
+    step is profiled: its kernel sum and K6's, K5's, K3's and K4's shares
+    of it."""
     import torch
 
     from slim_switch_moe_vit_tpu_torch import create_model, ops
@@ -3547,10 +3642,16 @@ def f32_phase(card: str) -> None:
             total = sum(us for us, _ in prof.values()) / 1e3
             k6 = sum(us for k, (us, _) in prof.items() if "mha_bwd" in k) / 1e3
             k5 = sum(us for k, (us, _) in prof.items()
-                     if "fwd_f32_kernel" in k) / 1e3
+                     if "fwd_f32_kernel" in k and "expert" not in k) / 1e3
+            k3 = sum(us for k, (us, _) in prof.items()
+                     if "expert_ffn_fwd_f32" in k) / 1e3
+            k4 = sum(us for k, (us, _) in prof.items()
+                     if "expert_ffn_dh_f32" in k or "grads_f32" in k
+                     or "dw_reduce" in k) / 1e3
             log(f"f32 step B={F32_B}: kernel sum {total:.3f} ms, K6 "
                 f"{k6:.3f} ms ({k6 / total:.3f} of it), K5 {k5:.3f} ms "
-                f"({k5 / total:.3f}); card {card}")
+                f"({k5 / total:.3f}), K3 {k3:.3f} ms ({k3 / total:.3f}), "
+                f"K4 {k4:.3f} ms ({k4 / total:.3f}); card {card}")
         runs[label] = (losses_, grads.cpu())
         log(f"f32 {MODEL} B={F32_B}, {label}: losses "
             f"{[float(f'{v:.7f}') for v in losses_]}")

@@ -104,18 +104,19 @@
 // workspace's extra reads by the dx tiles (Tp x H bf16, D / 128 times,
 // mostly from L2).
 //
-// f32 at every D takes the SIMT forms of both kernels (expert_ffn_dgrad.cuh's
-// SIMT dgrad, 16 rows a block, and the SIMT wgrad below): the same math with
-// f32 FMAs, T in place of bf16.
+// f32, at every D: the same three launches on the tensor cores in split
+// TF32 (mma_tf32.cuh), with f32 in place of bf16 throughout (dh and g kept
+// in f32); the note above the f32 kernels says what bounds them and how.
 #include "expert_ffn_dgrad.cuh"
 #include "mma_sync.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
 using namespace ssmv_ffn;
 using namespace ssmv::tc;
 
-constexpr int kWT = 64;  // SIMT wgrad output tile edge; db column blocks
+constexpr int kWT = 64;  // db column blocks
 
 // ---------------------------------------------------------------------------
 // bf16: the tensor-core kernels
@@ -399,10 +400,11 @@ __device__ __forceinline__ void gemm_tile(int nk, bf16* smem, Load load,
   __syncthreads();
 }
 
-// Store this warp's part of a gemm_tile result: rows [m0, M) x columns
-// [n0, N) of a row-major output with row stride ldo, as bf16 (out) or as
-// f32 (part), tile row m at row out_row(m); kTrans stores the transpose
-// (element (m, n) at n * ldo + m).
+// Store this warp's part of a gemm_tile or gemm_tile_f32 result: rows
+// [m0, M) x columns [n0, N) of a row-major output with row stride ldo, as
+// bf16 (out) or as f32 (part: the split partials, and every f32 output),
+// tile row m at row out_row(m); kTrans stores the transpose (element
+// (m, n) at n * ldo + m).
 template <int WM, int WN, bool kTrans, typename RowOf>
 __device__ __forceinline__ void store_tile(
     const float (&acc)[WM / 16][WN / 8][4], bf16* out, float* part, int ldo,
@@ -437,6 +439,64 @@ __device__ __forceinline__ void store_tile(
         }
       }
     }
+}
+
+// The layout tiles of expert e (steps, with kPerm): e_of_tile is
+// nondecreasing, so they are the [#tiles with e_of_tile < e, + #tiles with
+// e_of_tile == e) range; every thread of the block gets both.
+__device__ __forceinline__ void expert_tiles(const int* __restrict__ e_of_tile,
+                                             int n_tiles, int e, int& first,
+                                             int& count) {
+  first = count = 0;
+  for (int t0 = 0; t0 < n_tiles; t0 += blockDim.x) {
+    const int t = t0 + threadIdx.x;
+    const int et = t < n_tiles ? e_of_tile[t] : 0x7fffffff;
+    first += __syncthreads_count(et < e);
+    count += __syncthreads_count(et == e);
+  }
+}
+
+// A db job of the grads kernels: the 64 columns jb of [db1[e] | db2[e]],
+// db1 from the dh kernels' per-128-row partials, db2 the sum of dy (T) over
+// the expert's rows. Thread (grp, c) sums rows grp, grp + kGroups, ... of
+// column c, then thread c adds the kGroups sums in order (deterministic);
+// red holds a float a thread.
+template <bool kPerm, typename T>
+__device__ __forceinline__ void db_job(const int* __restrict__ tile_perm,
+                                       const T* __restrict__ dy,
+                                       const float* __restrict__ db1_part,
+                                       int first, int count, int tile_rows,
+                                       int jb, int e, float* __restrict__ db1,
+                                       float* __restrict__ db2, int D, int H,
+                                       float* red) {
+  constexpr int kGroups = kTC / kWT;
+  const int tid = threadIdx.x;
+  const int r_begin = first * tile_rows, r_end = (first + count) * tile_rows;
+  const int c = tid % kWT, grp = tid / kWT;
+  float sum = 0.f;
+  if (jb < H / kWT) {  // db1[e] from the dh kernel's per-128-row sums
+    const int col = jb * kWT + c;
+    for (int blk = r_begin / kDhRows + grp; blk < r_end / kDhRows;
+         blk += kGroups)
+      sum += db1_part[(size_t)blk * H + col];
+  } else {             // db2[e] = sum of dy over the expert's rows
+    const int col = (jb - H / kWT) * kWT + c;
+#pragma unroll 16  // loads in flight; the adds keep row order
+    for (int r = r_begin + grp; r < r_end; r += kGroups)
+      sum += ssmv::to_f32(
+          dy[(size_t)permuted_row<kPerm>(tile_perm, r, tile_rows) * D + col]);
+  }
+  red[tid] = sum;
+  __syncthreads();
+  if (tid < kWT) {
+    float total = red[c];
+#pragma unroll
+    for (int q = 1; q < kGroups; ++q) total += red[q * kWT + c];
+    if (jb < H / kWT)
+      db1[(size_t)e * H + jb * kWT + c] = total;
+    else
+      db2[(size_t)e * D + (jb - H / kWT) * kWT + c] = total;
+  }
 }
 
 // (b) Grid (E * splits * 2 * TD * TH + E * (H + D) / 64 + (Tp / 256) * TD),
@@ -505,13 +565,8 @@ expert_ffn_grads_kernel(const bf16* __restrict__ xs,
   const bool is_dw = job < n_dw;
   const int e = is_dw ? job / (splits * per_split)
                       : (job - n_dw) / ((H + D) / kWT);
-  int first = 0, count = 0;
-  for (int t0 = 0; t0 < n_tiles; t0 += kTC) {
-    const int t = t0 + tid;
-    const int et = t < n_tiles ? e_of_tile[t] : 0x7fffffff;
-    first += __syncthreads_count(et < e);
-    count += __syncthreads_count(et == e);
-  }
+  int first, count;
+  expert_tiles(e_of_tile, n_tiles, e, first, count);
 
   if (is_dw) {
     // dW1[e] (D, H) = x^T . bf16(dh), and dW2[e] (H, D) as its transpose
@@ -575,44 +630,24 @@ expert_ffn_grads_kernel(const bf16* __restrict__ xs,
     return;
   }
 
-  // column sums: thread (grp, c) sums rows grp, grp + kGroups, ... of
-  // column c, then thread c adds the kGroups sums in order (deterministic)
-  constexpr int kGroups = kTC / kWT;
-  float* red = reinterpret_cast<float*>(smem);
-  const int r_begin = first * tile_rows, r_end = (first + count) * tile_rows;
-  const int c = tid % kWT, grp = tid / kWT;
-  const int jb = (job - n_dw) % ((H + D) / kWT);
-  float sum = 0.f;
-  if (jb < H / kWT) {  // db1[e] from the dh kernel's per-128-row sums
-    const int col = jb * kWT + c;
-    for (int blk = r_begin / kDhRows + grp; blk < r_end / kDhRows;
-         blk += kGroups)
-      sum += db1_part[(size_t)blk * H + col];
-  } else {             // db2[e] = sum of dy over the expert's rows
-    const int col = (jb - H / kWT) * kWT + c;
-#pragma unroll 16  // loads in flight; the adds keep row order
-    for (int r = r_begin + grp; r < r_end; r += kGroups)
-      sum += __bfloat162float(
-          dy[(size_t)permuted_row<kPerm>(tile_perm, r, tile_rows) * D + col]);
-  }
-  red[tid] = sum;
-  __syncthreads();
-  if (tid < kWT) {
-    float total = red[c];
-#pragma unroll
-    for (int q = 1; q < kGroups; ++q) total += red[q * kWT + c];
-    if (jb < H / kWT)
-      db1[(size_t)e * H + jb * kWT + c] = total;
-    else
-      db2[(size_t)e * D + (jb - H / kWT) * kWT + c] = total;
-  }
+  db_job<kPerm>(tile_perm, dy, db1_part, first, count, tile_rows,
+                (job - n_dw) % ((H + D) / kWT), e, db1, db2, D, H,
+                reinterpret_cast<float*>(smem));
 }
 
 // (c) dW1 and dW2 from the splits' f32 partials (splits x [dW1 | dW2], n
-// = E * D * H values each), added in split order and rounded once.
+// = E * D * H values each), added in split order and rounded once (to T).
+__device__ __forceinline__ void store4(bf16* out, float4 v) {
+  *reinterpret_cast<uint2*>(out) = make_uint2(pack2(v.x, v.y), pack2(v.z, v.w));
+}
+__device__ __forceinline__ void store4(float* out, float4 v) {
+  *reinterpret_cast<float4*>(out) = v;
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kTC)
 expert_ffn_dw_reduce(const float* __restrict__ part, int splits, size_t n,
-                     bf16* __restrict__ dw1, bf16* __restrict__ dw2) {
+                     T* __restrict__ dw1, T* __restrict__ dw2) {
   const size_t stride = (size_t)gridDim.x * kTC * 4;
   for (size_t i = ((size_t)blockIdx.x * kTC + threadIdx.x) * 4; i < 2 * n;
        i += stride) {
@@ -621,10 +656,20 @@ expert_ffn_dw_reduce(const float* __restrict__ part, int splits, size_t n,
       const float4 w = *reinterpret_cast<const float4*>(part + s * 2 * n + i);
       v.x += w.x, v.y += w.y, v.z += w.z, v.w += w.w;
     }
-    bf16* out = i < n ? dw1 + i : dw2 + (i - n);
-    *reinterpret_cast<uint2*>(out) =
-        make_uint2(pack2(v.x, v.y), pack2(v.z, v.w));
+    store4(i < n ? dw1 + i : dw2 + (i - n), v);
   }
+}
+
+// the reduce's launch: at most 4096 blocks
+template <typename T>
+cudaError_t launch_dw_reduce(const void* ws_dw, int splits, size_t n, void* dw1,
+                             void* dw2, cudaStream_t stream) {
+  const size_t blocks = (2 * n / 4 + kTC - 1) / kTC;
+  expert_ffn_dw_reduce<T><<<(unsigned)(blocks < 4096 ? blocks : 4096), kTC, 0,
+                            stream>>>(static_cast<const float*>(ws_dw), splits,
+                                      n, static_cast<T*>(dw1),
+                                      static_cast<T*>(dw2));
+  return cudaGetLastError();
 }
 
 template <bool kGather, bool kPerm>
@@ -670,155 +715,461 @@ cudaError_t launch_tc(const void* xs, const void* gather_idx,
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
 
-  const size_t n = (size_t)E * D * H;
-  const size_t blocks = (2 * n / 4 + kTC - 1) / kTC;
-  expert_ffn_dw_reduce<<<(unsigned)(blocks < 4096 ? blocks : 4096), kTC, 0,
-                         stream>>>(static_cast<const float*>(ws_dw), splits,
-                                   n, static_cast<bf16*>(dw1),
-                                   static_cast<bf16*>(dw2));
-  return cudaGetLastError();
+  return launch_dw_reduce<bf16>(ws_dw, splits, (size_t)E * D * H, dw1, dw2,
+                                stream);
 }
 
 // ---------------------------------------------------------------------------
-// f32: the SIMT forms
+// f32: split TF32 on the tensor cores (mma_tf32.cuh)
 // ---------------------------------------------------------------------------
+//
+// The bf16 form's structure with f32 tiles: (a) a dh kernel, (b) one grads
+// launch, (c) the ordered split-reduce. Each product is a GEMM tile in split
+// TF32: f32 operands in shared memory through 3-stage cp.async rings of
+// 32-deep k steps (f32 doubles a slice's bytes), fragments by 32-bit
+// loads split into hi and lo parts once per k step, and three
+// mma.sync.m16n8k8 a product swept over 4 (grads: 2) n-tiles of two
+// m-tiles at once, each k step's products summed into zeroed fragments and
+// added to the accumulators on the CUDA cores (mma_group2_rn: the tensor
+// cores' own f32 sums across all of k read 38-43x an f32 FMA chain's error
+// from the f64 function in dx and dW at D = 384, 1.2-1.3x summed apart).
+// What bounds it: 10 x D x H flops a row at the split-TF32 rate, 164.9
+// TFLOP/s: 0.531 ms at ViT-S, B = 32 (Tp = 14,848). What holds it back (0.28
+// of the bound at D = 384, 0.30 at 768, 0.23 at 192, measured on the card):
+// as the f32 forward's note says, the issue slots every mma shares with its
+// fragment loads, splits and CUDA-core adds; 4 ring stages, groups of 1-4
+// n-tiles and an unrolled k step time within 4%. The products' operands:
+//  - h = x . W1 and p = dy . W2^T: x and dy m-major (ld_a), W1's slice
+//    k-major (ld_b_km), W2's n-major (ld_b_nk);
+//  - dx = dh . W1^T: dh m-major, W1 n-major;
+//  - dW1 = x^T . dh and dW2^T = dy^T . g over each expert's rows: both
+//    sides k-major row slices (ld_a_km, ld_b_km: ldmatrix has no f32
+//    transpose), rows of 128 + 8 words so every fragment read is
+//    conflict-free.
+// (a) the dh kernel, f32: a block of 8 warps per (128-row block, 64 hidden
+//     columns), each warp 32 x 32 of h and of p (64 accumulators a
+//     thread); the epilogue runs gelu' in registers and writes dh and g
+//     (f32) to the (Tp, H) workspaces as 32-byte row segments, and the
+//     block's column sums of dh (over lanes, then the 4 row warps in
+//     order) to the (Tp / 128, H) partials, as the bf16 kernel does.
+// (b) the grads kernel, f32: 16-warp blocks over 128 x 128 tiles (warps
+//     32 x 32) for dx and for dW1 and dW2^T (D x H), jobs in the bf16
+//     kernel's order (dW, db, dx), the dW tiles split over the rows by
+//     wgrad_splits (ops/fused_ffn.py) where 128 x 128 tiles would fill
+//     fewer than two waves, each split's partial summed by (c) in order.
+// No atomics, every sum in a fixed order: two calls are bit-identical.
+namespace tf = ssmv::tf32;
 
-// The SIMT wgrad, beside the SIMT dgrad: jobs as the grads kernel's dW and
-// db jobs, with the same expert walk, each block a 64 x 64
-// tile of dW1 or dW2 (4 x 4 outputs a thread, f32 FMAs over 32-row steps),
-// or 64 columns of db1 (from the SIMT dgrad's (Tp / 16, H) partials) or of
-// db2. Outputs in T (dW) and f32 (db).
-constexpr int kSStep = 32;  // rows per step of the SIMT wgrad
+constexpr int kFBK = 32;         // k step of the f32 kernels
+constexpr int kFMLd = kFBK + 4;  // row of an m- or n-major slice (36 words)
 
-template <typename T, bool kGather, bool kPerm>
-__global__ void __launch_bounds__(kThreads)
-expert_ffn_wgrad_simt(const T* __restrict__ xs,
-                      const long long* __restrict__ gather_idx,
-                      const int* __restrict__ tile_perm,
-                      const T* __restrict__ dy, const T* __restrict__ ws_dh,
-                      const T* __restrict__ ws_g,
-                      const float* __restrict__ db1_part,
-                      const int* __restrict__ e_of_tile, int n_tiles,
-                      int tile_rows, T* __restrict__ dw1,
-                      float* __restrict__ db1, T* __restrict__ dw2,
-                      float* __restrict__ db2, int D, int H) {
-  __shared__ __align__(16) float As[kSStep * kWT];
-  __shared__ __align__(16) float Bs[kSStep * kWT];
-  __shared__ float red[kThreads];
+// (a) dh, f32: 128 rows x 64 hidden columns a block, 8 warps (4 x 2)
+constexpr int kFDhCols = 64;
+constexpr int kFDhThreads = 256;
+constexpr int kFDhStages = 3;
+constexpr int kFW1Ld = kFDhCols + 8;    // W1 slice rows (k-major)
+constexpr int kFXSz = kDhRows * kFMLd;  // x or dy slice, floats
+constexpr int kFW1Sz = kFBK * kFW1Ld;
+constexpr int kFW2Sz = kFDhCols * kFMLd;
+constexpr int kFDhStage = 2 * kFXSz + kFW1Sz + kFW2Sz;
+constexpr size_t kFDhSmem = sizeof(float) * kFDhStage * kFDhStages;
 
-  const int e = blockIdx.y, job = blockIdx.x;
-  const int tid = threadIdx.x;
-  int first = 0, count = 0;
-  for (int t0 = 0; t0 < n_tiles; t0 += kThreads) {
-    const int t = t0 + tid;
-    const int et = t < n_tiles ? e_of_tile[t] : 0x7fffffff;
-    first += __syncthreads_count(et < e);
-    count += __syncthreads_count(et == e);
+// (b) grads, f32: 128 x 128 tiles, 16 warps (4 x 4) of 32 x 32; a ring
+// stage holds the larger A and B slice of either product
+constexpr int kFG = 128;
+constexpr int kFGStages = 3;
+// n-tiles a swept group (mma_group2_rn): 4 spilled under the 128
+// registers a thread of a 16-warp block may hold
+constexpr int kFGroup = 2;
+constexpr int kFKLd = kFG + 8;          // row of a k-major slice (136 words)
+constexpr int kFSlice = kFG * kFMLd;    // an m- or n-major slice, floats
+static_assert(kFBK * kFKLd <= kFSlice, "a k-major slice fits a stage's half");
+constexpr size_t kFGSmem = sizeof(float) * 2 * kFSlice * kFGStages;
+
+// The 16-byte copies of an f32 slice of R rows of C floats over the block's
+// NTH threads: fn(row, column) issues one.
+template <int R, int C, int NTH, typename Fn>
+__device__ __forceinline__ void each_vec4(Fn fn) {
+  constexpr int V = C / 4;
+  static_assert(R * V % NTH == 0, "whole copies a thread");
+#pragma unroll
+  for (int q = 0; q < R * V / NTH; ++q) {
+    const int i = threadIdx.x + q * NTH;
+    fn(i / V, i % V * 4);
   }
-  const int r_begin = first * tile_rows, r_end = (first + count) * tile_rows;
-  const int DT = D / kWT, HT = H / kWT;
+}
 
-  if (job < 2 * DT * HT) {
-    const bool is_w1 = job < DT * HT;
-    const int jj = is_w1 ? job : job - DT * HT;
-    const T *A, *Bsrc;
-    int lda, ldb, a0, b0, ldo;
-    T* out;
-    if (is_w1) {  // dW1[e] (D, H) = x^T . T(dh)
-      a0 = (jj / HT) * kWT, b0 = (jj % HT) * kWT;
-      A = xs, lda = D, Bsrc = ws_dh, ldb = H;
-      out = dw1 + (size_t)e * D * H, ldo = H;
-    } else {      // dW2[e] (H, D) = T(g)^T . dy
-      a0 = (jj / DT) * kWT, b0 = (jj % DT) * kWT;
-      A = ws_g, lda = H, Bsrc = dy, ldb = D;
-      out = dw2 + (size_t)e * H * D, ldo = D;
-    }
-    const int ti = (tid >> 4) * 4, tj = (tid & 15) * 4;
-    float acc[4][4];
+// (a) Grid (Tp / 128, H / 64).
+template <bool kGather, bool kPerm>
+__global__ void __launch_bounds__(kFDhThreads, 1)
+expert_ffn_dh_f32_kernel(const float* __restrict__ xs,
+                         const long long* __restrict__ gather_idx,
+                         const int* __restrict__ tile_perm,
+                         const float* __restrict__ dy,
+                         const float* __restrict__ w1,
+                         const float* __restrict__ b1,
+                         const float* __restrict__ w2,
+                         const int* __restrict__ e_of_tile,
+                         float* __restrict__ ws_dh, float* __restrict__ ws_g,
+                         float* __restrict__ db1_part, int D, int H,
+                         int tile_rows) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
+  const int row0 = blockIdx.x * kDhRows;  // step order: workspace rows
+  const int c0 = blockIdx.y * kFDhCols;
+  const int e = e_of_tile[row0 / tile_rows];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  // this thread's copies of x and dy: rows xr + q * kRP at column xc
+  constexpr int kV = kFBK / 4, kRP = kFDhThreads / kV, kXQ = kDhRows / kRP;
+  const int xr = tid / kV, xc = tid % kV * 4;
+  const float* xsrc[kXQ];
+  const float* dsrc[kXQ];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int q = 0; q < kXQ; ++q) {
+    const int r = row0 + xr + q * kRP;
+    xsrc[q] = xs + x_row<kGather, kPerm>(gather_idx, tile_perm, r,
+                                         tile_rows) * D + xc;
+    dsrc[q] = dy + (size_t)permuted_row<kPerm>(tile_perm, r, tile_rows) * D +
+              xc;
+  }
+  const float* w1e = w1 + (size_t)e * D * H;
+  const float* w2e = w2 + (size_t)e * H * D;
+  const int nk = D / kFBK;
+  auto issue = [&](int t) {  // k step t into its stage, one commit group
+    if (t < nk) {
+      float* st = smem + (t % kFDhStages) * kFDhStage;
+      const int k0 = t * kFBK;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int r0 = r_begin; r0 < r_end; r0 += kSStep) {
-      __syncthreads();
-      for (int i = tid; i < kSStep * kWT; i += kThreads) {
-        const int r = i / kWT, c = i % kWT;
-        const size_t prow =
-            (size_t)permuted_row<kPerm>(tile_perm, r0 + r, tile_rows);
-        const size_t ar = (kGather && is_w1) ? (size_t)gather_idx[r0 + r]
-                          : is_w1            ? prow
-                                             : (size_t)(r0 + r);
-        const size_t br = is_w1 ? (size_t)(r0 + r) : prow;
-        As[i] = ssmv::to_f32(A[ar * lda + a0 + c]);
-        Bs[i] = ssmv::to_f32(Bsrc[br * ldb + b0 + c]);
+      for (int q = 0; q < kXQ; ++q) {
+        const int r = xr + q * kRP;
+        cp_async16(st + r * kFMLd + xc, xsrc[q] + k0, true);
+        cp_async16(st + kFXSz + r * kFMLd + xc, dsrc[q] + k0, true);
       }
-      __syncthreads();
-      for (int r = 0; r < kSStep; ++r) {
-        const float4 a = *reinterpret_cast<const float4*>(As + r * kWT + ti);
-        const float4 b = *reinterpret_cast<const float4*>(Bs + r * kWT + tj);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
+      each_vec4<kFBK, kFDhCols, kFDhThreads>([&](int k, int c) {
+        cp_async16(st + 2 * kFXSz + k * kFW1Ld + c,
+                   w1e + (size_t)(k0 + k) * H + c0 + c, true);
+      });
+      each_vec4<kFDhCols, kFBK, kFDhThreads>([&](int n, int c) {
+        cp_async16(st + 2 * kFXSz + kFW1Sz + n * kFMLd + c,
+                   w2e + (size_t)(c0 + n) * D + k0 + c, true);
+      });
     }
+    cp_async_commit();
+  };
+
+  const int wm = warp & 3, wn = warp >> 2;  // rows wm * 32, columns wn * 32
+  float h[2][4][4], p[2][4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) h[i][j][c] = p[i][j][c] = 0.f;
+
+  for (int s = 0; s < kFDhStages - 1; ++s) issue(s);
+#pragma unroll 1
+  for (int t = 0; t < nk; ++t) {
+    cp_async_wait<kFDhStages - 2>();
+    __syncthreads();
+    issue(t + kFDhStages - 1);
+    const float* st = smem + (t % kFDhStages) * kFDhStage;
+    const float* Xt = st + wm * 32 * kFMLd;
+    const float* DYt = st + kFXSz + wm * 32 * kFMLd;
+    const float* W1t = st + 2 * kFXSz;
+    const float* W2t = W1t + kFW1Sz;
+#pragma unroll
+    for (int kk = 0; kk < kFBK; kk += 8) {
+      tf::FragA a0, a1;
+      tf::FragB b[4];
+      tf::ld_a(a0, Xt, kFMLd, kk);
+      tf::ld_a(a1, Xt + 16 * kFMLd, kFMLd, kk);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        out[(size_t)(a0 + ti + i) * ldo + b0 + tj + j] =
-            ssmv::from_f32<T>(acc[i][j]);
+        tf::ld_b_km(b[j], W1t, kFW1Ld, kk, wn * 32 + j * 8);
+      tf::mma_group2_rn<4>(h[0], 0, a0, b, h[1], 0, a1, b);
+      tf::ld_a(a0, DYt, kFMLd, kk);
+      tf::ld_a(a1, DYt + 16 * kFMLd, kFMLd, kk);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        tf::ld_b_nk(b[j], W2t, kFMLd, wn * 32 + j * 8, kk);
+      tf::mma_group2_rn<4>(p[0], 0, a0, b, p[1], 0, a1, b);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the column sums stage over it
+
+  float* red = smem;  // 4 row warps x kFDhCols
+  const int g = lane >> 2, tq = lane & 3;
+  const float* b1e = b1 + (size_t)e * H;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int col = wn * 32 + j * 8 + 2 * tq;
+    const float2 bias = *reinterpret_cast<const float2*>(b1e + c0 + col);
+    float csum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {  // rows g and g + 8 of the m-tile
+        float gv[2], dh[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float dg;
+          gelu_pair(h[i][j][2 * hh + c] + (c ? bias.y : bias.x), &gv[c], &dg);
+          dh[c] = p[i][j][2 * hh + c] * dg;
+          csum[c] += dh[c];
+        }
+        const size_t o =
+            (size_t)(row0 + wm * 32 + i * 16 + g + hh * 8) * H + c0 + col;
+        *reinterpret_cast<float2*>(ws_dh + o) = make_float2(dh[0], dh[1]);
+        *reinterpret_cast<float2*>(ws_g + o) = make_float2(gv[0], gv[1]);
+      }
+    // over the lanes that share a column (the warp's 32 rows)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      float v = csum[c];
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (g == 0) red[wm * kFDhCols + col + c] = v;
+    }
+  }
+  __syncthreads();
+  if (tid < kFDhCols)  // the four row warps in order
+    db1_part[(size_t)blockIdx.x * H + c0 + tid] =
+        red[tid] + red[kFDhCols + tid] + red[2 * kFDhCols + tid] +
+        red[3 * kFDhCols + tid];
+}
+
+// The f32 grads kernel's main loop over a 128 x 128 tile, this warp's
+// 32 x 32 in acc (rows wm * 32, columns wn * 32): acc = the sum over nk k
+// steps of A_t . B_t, where load(t, a_dst, b_dst) issues the copies of step
+// t's A slice (m-major 128 x 32, or k-major 32 x 128 as kAkm) and B slice
+// (n-major, or k-major as kBkm). Returns with every copy landed and every
+// thread past its last read of the ring.
+template <bool kAkm, bool kBkm, typename Load>
+__device__ __forceinline__ void gemm_tile_f32(int nk, float* smem, Load load,
+                                              float (&acc)[2][4][4]) {
+  constexpr int AL = kAkm ? kFKLd : kFMLd, BL = kBkm ? kFKLd : kFMLd;
+  const int warp = threadIdx.x >> 5, wm = warp & 3, wn = warp >> 2;
+  auto issue = [&](int t) {
+    if (t < nk) {
+      float* st = smem + (t % kFGStages) * 2 * kFSlice;
+      load(t, st, st + kFSlice);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+  for (int s = 0; s < kFGStages - 1; ++s) issue(s);
+#pragma unroll 1
+  for (int t = 0; t < nk; ++t) {
+    cp_async_wait<kFGStages - 2>();
+    __syncthreads();
+    issue(t + kFGStages - 1);
+    const float* As = smem + (t % kFGStages) * 2 * kFSlice;
+    const float* Bs = As + kFSlice;
+#pragma unroll 1  // unrolled, it spills past 128 registers
+    for (int kk = 0; kk < kFBK; kk += 8) {
+      tf::FragA a[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (kAkm)
+          tf::ld_a_km(a[i], As, AL, kk, wm * 32 + i * 16);
+        else
+          tf::ld_a(a[i], As + (wm * 32 + i * 16) * AL, AL, kk);
+      }
+#pragma unroll
+      for (int j0 = 0; j0 < 4; j0 += kFGroup) {
+        tf::FragB b[kFGroup];
+#pragma unroll
+        for (int j = 0; j < kFGroup; ++j) {
+          const int n0 = wn * 32 + (j0 + j) * 8;
+          if (kBkm)
+            tf::ld_b_km(b[j], Bs, BL, kk, n0);
+          else
+            tf::ld_b_nk(b[j], Bs, BL, n0, kk);
+        }
+        tf::mma_group2_rn<kFGroup>(acc[0], j0, a[0], b, acc[1], j0, a[1], b);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// (b) Grid (E * splits * 2 * TD * TH + E * (H + D) / 64 + (Tp / 128) * TD),
+// TD = ceil(D / 128), TH = H / 128 rounded up; jobs in the bf16 kernel's
+// order: the dW tiles, the db column blocks, the dx tiles.
+template <bool kGather, bool kPerm>
+__global__ void __launch_bounds__(kTC, 1)
+expert_ffn_grads_f32_kernel(const float* __restrict__ xs,
+                            const long long* __restrict__ gather_idx,
+                            const int* __restrict__ tile_perm,
+                            const float* __restrict__ dy,
+                            const float* __restrict__ w1,
+                            const float* __restrict__ ws_dh,
+                            const float* __restrict__ ws_g,
+                            const float* __restrict__ db1_part,
+                            const int* __restrict__ e_of_tile, int n_tiles,
+                            int tile_rows, float* __restrict__ dxs,
+                            float* __restrict__ dw1, float* __restrict__ db1,
+                            float* __restrict__ dw2, float* __restrict__ db2,
+                            float* __restrict__ dw_part, int D, int H, int E,
+                            int splits) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
+  const int tid = threadIdx.x;
+  const int TD = (D + kFG - 1) / kFG, TH = (H + kFG - 1) / kFG;
+  const int per_split = 2 * TD * TH;
+  int job = blockIdx.x;
+  const int n_dw = E * splits * per_split;
+  const int n_db = E * ((H + D) / kWT);
+  float acc[2][4][4];
+  if (job >= n_dw + n_db) {  // dx = ws_dh . W1[e]^T over K = H
+    job -= n_dw + n_db;
+    const int r0 = job / TD * kFG, n0 = job % TD * kFG;
+    const float* w1e = w1 + (size_t)e_of_tile[r0 / tile_rows] * D * H;
+    gemm_tile_f32<false, false>(
+        H / kFBK, smem,
+        [&](int t, float* a, float* b) {
+          const int k0 = t * kFBK;
+          each_vec4<kFG, kFBK, kTC>([&](int m, int c) {
+            cp_async16(a + m * kFMLd + c,
+                       ws_dh + (size_t)(r0 + m) * H + k0 + c, true);
+          });
+          each_vec4<kFG, kFBK, kTC>([&](int n, int c) {
+            const bool ok = n0 + n < D;
+            cp_async16(b + n * kFMLd + c,
+                       ok ? w1e + (size_t)(n0 + n) * H + k0 + c : w1e, ok);
+          });
+        },
+        acc);
+    store_tile<32, 32, false>(acc, nullptr, dxs, D, 0, kFG, n0, D,
+                              [&](int m) {
+                                return permuted_row<kPerm>(tile_perm, r0 + m,
+                                                           tile_rows);
+                              });
     return;
   }
 
-  const int c = tid % kWT, grp = tid / kWT;
-  const int jb = job - 2 * DT * HT;
-  float s = 0.f;
-  if (jb < HT) {  // db1[e] from the SIMT dgrad's per-16-row-block sums
-    const int col = jb * kWT + c;
-    for (int blk = r_begin / kSRows + grp; blk < r_end / kSRows; blk += 4)
-      s += db1_part[(size_t)blk * H + col];
-  } else {        // db2[e] = sum of dy over the expert's rows
-    const int col = (jb - HT) * kWT + c;
-    for (int r = r_begin + grp; r < r_end; r += 4)
-      s += ssmv::to_f32(
-          dy[(size_t)permuted_row<kPerm>(tile_perm, r, tile_rows) * D + col]);
+  const bool is_dw = job < n_dw;
+  const int e = is_dw ? job / (splits * per_split)
+                      : (job - n_dw) / ((H + D) / kWT);
+  int first, count;
+  expert_tiles(e_of_tile, n_tiles, e, first, count);
+  if (!is_dw) {
+    db_job<kPerm>(tile_perm, dy, db1_part, first, count, tile_rows,
+                  (job - n_dw) % ((H + D) / kWT), e, db1, db2, D, H, smem);
+    return;
   }
-  red[tid] = s;
-  __syncthreads();
-  if (tid < kWT) {
-    const float total = red[c] + red[kWT + c] + red[2 * kWT + c] + red[3 * kWT + c];
-    if (jb < HT)
-      db1[(size_t)e * H + jb * kWT + c] = total;
-    else
-      db2[(size_t)e * D + (jb - HT) * kWT + c] = total;
-  }
+  // dW1[e] (D, H) = x^T . dh, and dW2[e] (H, D) as its transpose dy^T . g
+  // (D, H), over the split's rows of the expert
+  const int s = job / per_split % splits, jj = job % per_split;
+  const int r_begin = (first + count * s / splits) * tile_rows;
+  const int nk = ((first + count * (s + 1) / splits) * tile_rows - r_begin) /
+                 kFBK;
+  const bool is_w1 = jj < TD * TH;
+  const int tj = is_w1 ? jj : jj - TD * TH;
+  const int m0 = tj / TH * kFG, n0 = tj % TH * kFG;
+  // this thread copies A's (x's or dy's) rows ak and ak + 16 of each step
+  // at column ac; their source rows (K9's and K10's lookups) are read a
+  // step ahead, off the copies' issue path
+  const float* A = is_w1 ? xs : dy;
+  const float* Bsrc = is_w1 ? ws_dh : ws_g;
+  static_assert(kFBK * kFG / 4 == 2 * kTC, "two A copies a thread");
+  const int ak = tid >> 5, ac = (tid & 31) * 4;
+  const bool aok = m0 + ac < D;
+  size_t src_row[2];
+  const auto rows_of = [&](int t) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int r = r_begin + t * kFBK + ak + 16 * q;
+      src_row[q] = t >= nk ? 0
+                   : is_w1 ? x_row<kGather, kPerm>(gather_idx, tile_perm, r,
+                                                   tile_rows)
+                           : (size_t)permuted_row<kPerm>(tile_perm, r,
+                                                         tile_rows);
+    }
+  };
+  rows_of(0);
+  gemm_tile_f32<true, true>(
+      nk, smem,
+      [&](int t, float* a, float* b) {
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          cp_async16(a + (ak + 16 * q) * kFKLd + ac,
+                     aok ? A + src_row[q] * D + m0 + ac : A, aok);
+        rows_of(t + 1);
+        const int r0 = r_begin + t * kFBK;
+        each_vec4<kFBK, kFG, kTC>([&](int k, int c) {
+          const bool ok = n0 + c < H;
+          cp_async16(b + k * kFKLd + c,
+                     ok ? Bsrc + (size_t)(r0 + k) * H + n0 + c : Bsrc, ok);
+        });
+      },
+      acc);
+  float* part = splits > 1 ? dw_part + ((size_t)(s * 2 + !is_w1) * E + e) *
+                                           D * H
+                           : nullptr;
+  const auto same = [](int m) { return m; };
+  if (is_w1)
+    store_tile<32, 32, false>(acc, nullptr,
+                              part ? part : dw1 + (size_t)e * D * H, H, m0, D,
+                              n0, H, same);
+  else
+    store_tile<32, 32, true>(acc, nullptr,
+                             part ? part : dw2 + (size_t)e * H * D, D, m0, D,
+                             n0, H, same);
 }
 
-template <typename T, int D, bool kGather, bool kPerm>
-cudaError_t launch_simt(const void* xs, const void* gather_idx,
-                        const void* tile_perm, const void* dy, const void* w1,
-                        const void* b1, const void* w2, const void* e_of_tile,
-                        void* dxs, void* dw1, void* db1, void* dw2, void* db2,
-                        void* ws_dh, void* ws_g, void* ws_db1, int Tp, int H,
-                        int E, int tile_rows, cudaStream_t stream) {
-  cudaError_t err = launch_dgrad_simt<T, D, kGather, true, kPerm>(
-      xs, gather_idx, dy, w1, b1, w2, e_of_tile, dxs, ws_dh, ws_g, ws_db1, Tp,
-      H, tile_rows, stream, tile_perm);
+template <bool kGather, bool kPerm>
+cudaError_t launch_f32(const void* xs, const void* gather_idx,
+                       const void* tile_perm, const void* dy, const void* w1,
+                       const void* b1, const void* w2, const void* e_of_tile,
+                       void* dxs, void* dw1, void* db1, void* dw2, void* db2,
+                       void* ws_dh, void* ws_g, void* ws_db1, void* ws_dw,
+                       int splits, int Tp, int D, int H, int E, int tile_rows,
+                       cudaStream_t stream) {
+  auto dh = expert_ffn_dh_f32_kernel<kGather, kPerm>;
+  cudaError_t err = cudaFuncSetAttribute(
+      dh, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kFDhSmem);
   if (err != cudaSuccess) return err;
-  const int jobs = 2 * (D / kWT) * (H / kWT) + H / kWT + D / kWT;
-  expert_ffn_wgrad_simt<T, kGather, kPerm>
-      <<<dim3(jobs, E), kThreads, 0, stream>>>(
-      static_cast<const T*>(xs), static_cast<const long long*>(gather_idx),
-      static_cast<const int*>(tile_perm), static_cast<const T*>(dy),
-      static_cast<const T*>(ws_dh), static_cast<const T*>(ws_g),
-      static_cast<const float*>(ws_db1), static_cast<const int*>(e_of_tile),
-      Tp / tile_rows, tile_rows, static_cast<T*>(dw1),
-      static_cast<float*>(db1), static_cast<T*>(dw2),
-      static_cast<float*>(db2), D, H);
-  return cudaGetLastError();
+  dh<<<dim3(Tp / kDhRows, H / kFDhCols), kFDhThreads, kFDhSmem, stream>>>(
+      static_cast<const float*>(xs), static_cast<const long long*>(gather_idx),
+      static_cast<const int*>(tile_perm), static_cast<const float*>(dy),
+      static_cast<const float*>(w1), static_cast<const float*>(b1),
+      static_cast<const float*>(w2), static_cast<const int*>(e_of_tile),
+      static_cast<float*>(ws_dh), static_cast<float*>(ws_g),
+      static_cast<float*>(ws_db1), D, H, tile_rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  auto grads = expert_ffn_grads_f32_kernel<kGather, kPerm>;
+  err = cudaFuncSetAttribute(grads, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kFGSmem);
+  if (err != cudaSuccess) return err;
+  const long long TD = (D + kFG - 1) / kFG, TH = (H + kFG - 1) / kFG;
+  const long long jobs = (long long)E * splits * 2 * TD * TH +
+                         (long long)Tp / kFG * TD + (long long)E * (H + D) / kWT;
+  if (jobs > 0x7fffffffLL) return cudaErrorInvalidValue;
+  grads<<<(unsigned)jobs, kTC, kFGSmem, stream>>>(
+      static_cast<const float*>(xs), static_cast<const long long*>(gather_idx),
+      static_cast<const int*>(tile_perm), static_cast<const float*>(dy),
+      static_cast<const float*>(w1), static_cast<const float*>(ws_dh),
+      static_cast<const float*>(ws_g), static_cast<const float*>(ws_db1),
+      static_cast<const int*>(e_of_tile), Tp / tile_rows, tile_rows,
+      static_cast<float*>(dxs), static_cast<float*>(dw1),
+      static_cast<float*>(db1), static_cast<float*>(dw2),
+      static_cast<float*>(db2), static_cast<float*>(ws_dw), D, H, E, splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  return launch_dw_reduce<float>(ws_dw, splits, (size_t)E * D * H, dw1, dw2,
+                                 stream);
 }
 
 template <bool kGather, bool kPerm>
@@ -830,27 +1181,15 @@ int dispatch(const void* xs, const void* gather_idx, const void* tile_perm,
              int is_bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Tp < kRows || Tp % kRows || H < kWT || H % kWT || tile_rows % kRows ||
-      Tp % tile_rows || E < 1 || E > 65535)
+      Tp % tile_rows || E < 1 || E > 65535 ||
+      (D != 192 && D != 384 && D != 768) ||
+      tile_rows % (is_bf16 ? 256 : kFG) || splits < 1 ||
+      (splits > 1 && ws_dw == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (is_bf16) {
-    if ((D != 192 && D != 384 && D != 768) || tile_rows % 256 ||
-        splits < 1 || (splits > 1 && ws_dw == nullptr))
-      return (int)cudaErrorInvalidValue;
-    return (int)launch_tc<kGather, kPerm>(
-        xs, gather_idx, tile_perm, dy, w1, b1, w2, e_of_tile, dxs, dw1, db1,
-        dw2, db2, ws_dh, ws_g, ws_db1, ws_dw, splits, Tp, D, H, E, tile_rows,
-        s);
-  }
-#define SSMV_SIMT_BWD(DD)                                                    \
-  if (D == DD)                                                               \
-    return (int)launch_simt<float, DD, kGather, kPerm>(                      \
-        xs, gather_idx, tile_perm, dy, w1, b1, w2, e_of_tile, dxs, dw1, db1, \
-        dw2, db2, ws_dh, ws_g, ws_db1, Tp, H, E, tile_rows, s);
-  SSMV_SIMT_BWD(192)
-  SSMV_SIMT_BWD(384)
-  SSMV_SIMT_BWD(768)
-#undef SSMV_SIMT_BWD
-  return (int)cudaErrorInvalidValue;
+  return (int)(is_bf16 ? launch_tc<kGather, kPerm>
+                       : launch_f32<kGather, kPerm>)(
+      xs, gather_idx, tile_perm, dy, w1, b1, w2, e_of_tile, dxs, dw1, db1,
+      dw2, db2, ws_dh, ws_g, ws_db1, ws_dw, splits, Tp, D, H, E, tile_rows, s);
 }
 
 }  // namespace
@@ -859,12 +1198,12 @@ int dispatch(const void* xs, const void* gather_idx, const void* tile_perm,
 // (Tp / tile_rows,) int32, nondecreasing -> dxs (Tp, D), dw1 (E, D, H), db1
 // (E, H) f32, dw2 (E, H, D), db2 (E, D) f32; xs, dy, w1, w2, dxs, dw1, dw2
 // of one activation dtype, bf16 (is_bf16 = 1) or f32. Workspace from the
-// caller: ws_dh, ws_g (Tp, H) in the activation dtype, ws_db1 (Tp / 16, H)
-// f32, and, in bf16 with splits > 1, ws_dw (splits, 2, E, D * H) f32 (the
-// dW products split over each expert's rows; splits = 1 takes none). All
+// caller: ws_dh, ws_g (Tp, H) in the activation dtype, ws_db1 (Tp / 128, H)
+// f32, and, with splits > 1, ws_dw (splits, 2, E, D * H) f32 (the dW
+// products split over each expert's rows; splits = 1 takes none). All
 // contiguous and 16-byte aligned; D is 192, 384 or 768 (bf16 on the tensor
-// cores, f32 in the SIMT form), H a multiple of 64, tile_rows and Tp
-// multiples of 128 in bf16 and of 64 in f32.
+// cores, f32 in split TF32 on them), H a multiple of 64, tile_rows and Tp
+// multiples of 256 in bf16 and of 128 in f32.
 extern "C" int ssmv_expert_ffn_bwd(const void* xs, const void* dy,
                                    const void* w1, const void* b1,
                                    const void* w2, const void* e_of_tile,

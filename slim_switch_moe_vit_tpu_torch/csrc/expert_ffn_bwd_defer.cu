@@ -913,9 +913,8 @@ cudaError_t launch_simt(const void* xs, const void* dy, const void* w1,
                         const void* flags, void* dxs, void* dw1, void* db1,
                         void* dw2, void* db2, int Tp, int H, int E,
                         int tile_rows, cudaStream_t stream) {
-  cudaError_t err = launch_dgrad_simt<T, D, false, false>(
-      xs, nullptr, dy, w1, b1, w2, e_of_tile, dxs, nullptr, nullptr, nullptr,
-      Tp, H, tile_rows, stream);
+  cudaError_t err = launch_dgrad_simt<T, D>(xs, dy, w1, b1, w2, e_of_tile,
+                                            dxs, Tp, H, tile_rows, stream);
   if (err != cudaSuccess) return err;
   const size_t smem = simt_defer_smem<T>(D);
   if (smem > ssmv::kMaxSmemBytes) return cudaErrorInvalidValue;

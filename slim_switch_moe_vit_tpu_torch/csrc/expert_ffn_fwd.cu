@@ -82,17 +82,17 @@
 // Layout padding slots gather token 0 (in both forms) and yield finite rows
 // that the combine never reads.
 //
-// f32 at every D takes the SIMT form at the end of this file
-// (expert_ffn_fwd_simt), with the same three entry points.
+// f32, at every D: one launch on the tensor cores in split TF32
+// (mma_tf32.cuh), the kernel at the end of this file with the same three
+// entry points; its note says what bounds it and how its plan differs.
 #include "common.cuh"
 #include "mma_sync.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 using namespace ssmv::tc;
-
-constexpr int kThreads = 256;  // the SIMT form's 8 warps
 
 // The tensor-core tiling of one width D. A block is two warp groups: the
 // h group (4 warps) loads the x tile and computes h and g, the y group (8
@@ -488,133 +488,286 @@ using Tiling192 = Tiling<192, 64, 128, 64, 32, 3, 3, 2, 2, 1>;
 using Tiling384 = Tiling<384, 128, 128, 64, 32, 3, 2, 2, 2, 2>;
 using Tiling768 = Tiling<768, 64, 256, 32, 16, 3, 3, 2, 1, 2>;
 
-// The SIMT form: f32 at every D.
+// ---------------------------------------------------------------------------
+// f32: split TF32 on the tensor cores (mma_tf32.cuh)
+// ---------------------------------------------------------------------------
 //
-// f32 has no exact tensor-core product (single-pass TF32 keeps 10 mantissa
-// bits), so f32 runs on the CUDA cores. This kernel takes kSRows = 16 rows
-// a block and streams H in 32-wide chunks through one weight buffer, which
-// holds the W1 chunk (D x 33) for h and then the W2 chunk (32 x D+1) for
-// y; y accumulates in registers (2 rows x D/32 columns a thread). All
-// products are f32 FMAs on the activation-dtype operands, in the order of
-// the tensor-core form: h in f32 (+ b1), the exact erf GELU, g rounded to
-// T, y += g . W2 in f32, + b2, one rounding to T. A first, correct kernel:
-// faster f32 is kernel-speed work.
-using ssmv::kSHC;
-using ssmv::kSRows;
-using ssmv::simt_wbuf;
+// What bounds it: the same FLOPs, at the split-TF32 rate (three
+// mma.sync.m16n8k8 a product, 494.7 / 3 = 164.9 TFLOP/s dense): 0.212 ms at
+// ViT-S, B = 32 (Tp = 14,848). f32 doubles every shared tile against bf16,
+// so the bf16 form's plan does not carry over: its resident x tile alone
+// (128 x 384 at D = 384, 64 x 768 at D = 768) would take 196 KB of the
+// 227 KB in f32. The f32 design instead:
+//  - streams x with W1: a block's x rows are read in K1-deep slices beside
+//    the W1 slices, once per hidden chunk, from L2 (x re-read costs L2
+//    traffic, not device memory), through the same cp.async ring;
+//  - keeps y's f32 sums in registers across all of H: a block of 8 warps
+//    owns BM rows and all D columns, BM x D = 24,576 at every width (BM =
+//    128, 64, 32 at D = 192, 384, 768), 32 x 96 a warp, 96 accumulators a
+//    thread, which is why BM shrinks as D grows;
+//  - computes each chunk's h = x . W1[:, chunk] over the same warp grid
+//    (warp tiles 32 x HC / WN), b1 and the exact erf GELU on the C
+//    fragments, g kept in f32 and stored to one shared tile, then y +=
+//    g . W2[chunk, :] with the g tile as the A operand (ld_a) and the W2
+//    slice k-major (ld_b_km). The warps that share a row strip split the
+//    chunk's hidden columns, so no warp holds all of the g its y tile
+//    needs: g passes through shared memory (a_from_c has no use here);
+//  - sweeps each product's three mma over groups of 2 n-tiles for two
+//    m-tiles at once (mma_group2_rn): 12 independent mma between dependent
+//    ones, each A and B fragment loaded and split once per k-step, each
+//    k-step's products summed into zeroed fragments and added to h and y
+//    on the CUDA cores (the tensor cores' own f32 sums across all of k
+//    read 45x an f32 FMA chain's error from the f64 function at K = H;
+//    summed apart 1.1-1.4x, for ~18% more time).
+// What holds it back from the bound (0.25 of it at D = 384 and 768, 0.21
+// at 192, measured on the card): not the tiling (rows, chunk, step depths,
+// ring stages and group sizes all time within 2-8% of each other): every
+// mma takes its share of fragment loads, hi/lo splits and the CUDA-core
+// adds from the same issue slots, and the h and y phases of a chunk run
+// one after the other on the block's 8 warps, behind a barrier a step.
+// The hidden activation stays out of device memory, as in the TPU kernel
+// and the bf16 form. Arithmetic order: h in f32 (+ b1), GELU in f32, g in
+// f32, y in f32 (+ b2); the products' f32 sums in the tensor cores' order.
 
-template <typename T>
-__host__ __device__ constexpr size_t simt_fwd_smem(int d) {
-  return sizeof(T) * ((size_t)kSRows * d + simt_wbuf(d)) +
-         sizeof(float) * kSRows * kSHC;
-}
+namespace tf = ssmv::tf32;
 
-template <typename T, int D, bool kGather, bool kPerm>
-__global__ void __launch_bounds__(kThreads, 1)
-expert_ffn_fwd_simt(const T* __restrict__ xs,
-                    const long long* __restrict__ gather_idx,
-                    const int* __restrict__ tile_perm,
-                    const T* __restrict__ w1, const float* __restrict__ b1,
-                    const T* __restrict__ w2, const float* __restrict__ b2,
-                    const int* __restrict__ e_of_tile, T* __restrict__ y,
-                    int H, int tile_rows) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* Xs = reinterpret_cast<T*>(smem);      // kSRows x D
-  T* Wb = Xs + kSRows * D;                 // W1 chunk, then W2 chunk
-  float* Gs = reinterpret_cast<float*>(Wb + simt_wbuf(D));  // kSRows x kSHC
+// n-tiles a swept group of the f32 products (mma_group2_rn): its zeroed
+// fragments take 8 J registers a thread beside y's 96 accumulators; 1, 2
+// and 4 time alike (scripts/ffn_f32_tilings.py)
+constexpr int kGroupF32 = 2;
 
-  const int step_row0 = blockIdx.x * kSRows;
+// The f32 tiling of one width D: BM rows a block, HC hidden columns a
+// chunk, K1-deep h steps and K2-deep y steps, NS ring stages. A stage holds
+// an h step (the x slice, BM x K1 m-major, and the W1 slice, K1 x HC
+// k-major) or a y step (the W2 slice, K2 x D k-major); the g tile (BM x
+// HC) follows the ring. Rows of m-major tiles are 4 words past a multiple
+// of 32, of k-major ones 8 past (mma_tf32.cuh).
+template <int D_, int BM_, int HC_, int K1_, int K2_, int NS_>
+struct TilingF32 {
+  static constexpr int D = D_, BM = BM_, HC = HC_, K1 = K1_, K2 = K2_;
+  static constexpr int NS = NS_, NT = 256;
+  static constexpr int WM = BM / 32, WN = 8 / WM;  // the warp grid
+  static constexpr int HN = HC / WN, YN = D / WN;  // a warp's h, y columns
+  static constexpr int XLD = K1 + 4, W1LD = HC + 8, W2LD = D + 8;
+  static constexpr int GLD = HC + 4;
+  static constexpr int N1 = D / K1, N2 = HC / K2;  // h, y steps a chunk
+  static constexpr int HSTAGE = BM * XLD + K1 * W1LD, YSTAGE = K2 * W2LD;
+  static constexpr int STAGE = HSTAGE > YSTAGE ? HSTAGE : YSTAGE;
+  static constexpr int G_OFF = NS * STAGE;
+  static constexpr size_t SMEM = sizeof(float) * (G_OFF + BM * GLD);
+  static constexpr int XV = K1 / 4, XRP = NT / XV, XQ = BM / XRP;
+  static_assert(BM % 32 == 0 && 8 % WM == 0 && HC % WN == 0 && D % WN == 0,
+                "warp grid");
+  static_assert(HN % 8 == 0 && YN % 8 == 0 && K1 % 8 == 0 && K2 % 8 == 0 &&
+                    D % K1 == 0 && HC % K2 == 0 && HC % 64 == 0,
+                "mma tiles");
+  static_assert(NT % XV == 0 && BM % XRP == 0 &&
+                    K1 * HC / 4 % NT == 0 && K2 * D / 4 % NT == 0,
+                "whole copies a thread");
+  static_assert(256 % BM == 0, "rows of one layout tile");
+  static_assert(NS >= 2 && SMEM <= ssmv::kMaxSmemBytes, "shared memory");
+};
+
+template <class L, bool kGather, bool kPerm>
+__global__ void __launch_bounds__(L::NT, 1)
+expert_ffn_fwd_f32_kernel(const float* __restrict__ xs,
+                          const long long* __restrict__ gather_idx,
+                          const int* __restrict__ tile_perm,
+                          const float* __restrict__ w1,
+                          const float* __restrict__ b1,
+                          const float* __restrict__ w2,
+                          const float* __restrict__ b2,
+                          const int* __restrict__ e_of_tile,
+                          float* __restrict__ y, int H, int tile_rows) {
+  constexpr int D = L::D, BM = L::BM, HC = L::HC;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
+  float* Gs = smem + L::G_OFF;
+  const int step_row0 = blockIdx.x * BM;
   const int e = e_of_tile[step_row0 / tile_rows];
   const int row0 = kPerm ? tile_perm[step_row0 / tile_rows] * tile_rows +
                                step_row0 % tile_rows
                          : step_row0;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const T* w1e = w1 + (size_t)e * D * H;
-  const T* w2e = w2 + (size_t)e * H * D;
+  const float* w1e = w1 + (size_t)e * D * H;
+  const float* w2e = w2 + (size_t)e * H * D;
   const float* b1e = b1 + (size_t)e * H;
   const float* b2e = b2 + (size_t)e * D;
 
-  for (int i = tid; i < kSRows * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    const size_t src = kGather ? (size_t)gather_idx[step_row0 + r]
-                               : (size_t)(row0 + r);
-    Xs[i] = xs[src * D + c];
+  // this thread's x copies: rows xr + q XRP at column xc of each h step,
+  // their sources (K9: gather_idx) looked up once
+  const int xr = tid / L::XV, xc = tid % L::XV * 4;
+  const float* xsrc[L::XQ];
+#pragma unroll
+  for (int q = 0; q < L::XQ; ++q) {
+    const int r = xr + q * L::XRP;
+    xsrc[q] = xs + (kGather ? (size_t)gather_idx[step_row0 + r]
+                            : (size_t)(row0 + r)) * D + xc;
   }
+  const int n_chunks = (H + HC - 1) / HC;
+  const int n_steps = n_chunks * (L::N1 + L::N2);
+  const auto issue = [&](int t) {  // step t into its stage, one group
+    if (t < n_steps) {
+      float* st = smem + (t % L::NS) * L::STAGE;
+      const int c0 = t / (L::N1 + L::N2) * HC, s = t % (L::N1 + L::N2);
+      if (s < L::N1) {  // x[:, k0 + k] and W1[k0 + k, c0 + n]
+        const int k0 = s * L::K1;
+#pragma unroll
+        for (int q = 0; q < L::XQ; ++q)
+          cp_async16(st + (xr + q * L::XRP) * L::XLD + xc, xsrc[q] + k0, true);
+        constexpr int V = HC / 4;
+        float* w1s = st + BM * L::XLD;
+#pragma unroll
+        for (int q = 0; q < L::K1 * V / L::NT; ++q) {
+          const int i = tid + q * L::NT, k = i / V, n = i % V * 4;
+          const bool ok = c0 + n < H;
+          cp_async16(w1s + k * L::W1LD + n,
+                     ok ? w1e + (size_t)(k0 + k) * H + c0 + n : w1e, ok);
+        }
+      } else {          // W2[k0 + k, n]
+        const int k0 = c0 + (s - L::N1) * L::K2;
+        constexpr int V = D / 4;
+#pragma unroll
+        for (int q = 0; q < L::K2 * V / L::NT; ++q) {
+          const int i = tid + q * L::NT, k = i / V, n = i % V * 4;
+          const bool ok = k0 + k < H;
+          cp_async16(st + k * L::W2LD + n,
+                     ok ? w2e + (size_t)(k0 + k) * D + n : w2e, ok);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  // step t's stage, once it has landed for every thread and step t - 1's
+  // stage is free for step t + NS - 1
+  const auto stage = [&](int t) {
+    cp_async_wait<L::NS - 2>();
+    __syncthreads();
+    issue(t + L::NS - 1);
+    return smem + (t % L::NS) * L::STAGE;
+  };
+  for (int s = 0; s < L::NS - 1; ++s) issue(s);
 
-  constexpr int NJ = D / 32;  // y columns lane + 32 j of rows 2 warp + i
-  const int r0 = warp * 2;
-  float yacc[2][NJ];
+  const int g = lane >> 2, tq = lane & 3;
+  const int wm = warp % L::WM, wn = warp / L::WM;
+  float yacc[2][L::YN / 8][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) yacc[i][j] = 0.f;
-
-  for (int c0 = 0; c0 < H; c0 += kSHC) {
-    __syncthreads();  // last chunk's readers of Wb are done
-    for (int i = tid; i < D * kSHC; i += kThreads) {
-      const int k = i / kSHC, c = i % kSHC;
-      Wb[k * (kSHC + 1) + c] = w1e[(size_t)k * H + c0 + c];
-    }
-    __syncthreads();
-    float h0 = 0.f, h1 = 0.f;  // h of rows r0, r0 + 1 at chunk column lane
-    for (int k = 0; k < D; ++k) {
-      const float wv = ssmv::to_f32(Wb[k * (kSHC + 1) + lane]);
-      h0 = fmaf(ssmv::to_f32(Xs[r0 * D + k]), wv, h0);
-      h1 = fmaf(ssmv::to_f32(Xs[(r0 + 1) * D + k]), wv, h1);
-    }
-    const float bias = b1e[c0 + lane];
+    for (int j = 0; j < L::YN / 8; ++j)
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float hv = (i ? h1 : h0) + bias;
-      const float g = 0.5f * hv * (1.f + erff(hv * 0.70710678118654752f));
-      Gs[(r0 + i) * kSHC + lane] = ssmv::to_f32(ssmv::from_f32<T>(g));
-    }
-    __syncthreads();  // every warp is done with the W1 chunk
-    for (int i = tid; i < kSHC * D; i += kThreads) {
-      const int r = i / D, c = i % D;
-      Wb[r * (D + 1) + c] = w2e[(size_t)(c0 + r) * D + c];
-    }
-    __syncthreads();
-    for (int k = 0; k < kSHC; ++k) {
-      const float g0 = Gs[r0 * kSHC + k], g1 = Gs[(r0 + 1) * kSHC + k];
+      for (int c = 0; c < 4; ++c) yacc[i][j][c] = 0.f;
+  int t = 0;
+#pragma unroll 1
+  for (int c0 = 0; c0 < H; c0 += HC) {
+    float hacc[2][L::HN / 8][4];
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const float wv = ssmv::to_f32(Wb[k * (D + 1) + lane + 32 * j]);
-        yacc[0][j] = fmaf(g0, wv, yacc[0][j]);
-        yacc[1][j] = fmaf(g1, wv, yacc[1][j]);
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < L::HN / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) hacc[i][j][c] = 0.f;
+#pragma unroll 1
+    for (int s = 0; s < L::N1; ++s, ++t) {  // h = x . W1[:, chunk]
+      const float* st = stage(t);
+      const float* Xs = st + (wm * 32) * L::XLD;  // this warp's rows
+      const float* W1s = st + BM * L::XLD;
+#pragma unroll 1  // unrolled, 80-330 bytes a thread spill
+      for (int kk = 0; kk < L::K1; kk += 8) {
+        tf::FragA a0, a1;
+        tf::ld_a(a0, Xs, L::XLD, kk);
+        tf::ld_a(a1, Xs + 16 * L::XLD, L::XLD, kk);
+        constexpr int J = tf::group_for(L::HN / 8, kGroupF32);
+#pragma unroll
+        for (int j0 = 0; j0 < L::HN / 8; j0 += J) {
+          tf::FragB b[J];
+#pragma unroll
+          for (int j = 0; j < J; ++j)
+            tf::ld_b_km(b[j], W1s, L::W1LD, kk, wn * L::HN + (j0 + j) * 8);
+          tf::mma_group2_rn<J>(hacc[0], j0, a0, b, hacc[1], j0, a1, b);
+        }
+      }
+    }
+    // g = GELU(h + b1) into the g tile (hidden columns at and past H: 0);
+    // the next step's barrier publishes it, and the readers of the last
+    // chunk's g passed the barriers of this chunk's h steps
+#pragma unroll
+    for (int j = 0; j < L::HN / 8; ++j) {
+      const int col = wn * L::HN + j * 8 + 2 * tq;
+      const float2 bias = c0 + col < H
+                              ? *reinterpret_cast<const float2*>(b1e + c0 + col)
+                              : make_float2(0.f, 0.f);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)  // rows g and g + 8 of the m-tile
+          *reinterpret_cast<float2*>(
+              Gs + (wm * 32 + i * 16 + g + hh * 8) * L::GLD + col) =
+              make_float2(gelu(hacc[i][j][2 * hh] + bias.x),
+                          gelu(hacc[i][j][2 * hh + 1] + bias.y));
+    }
+#pragma unroll 1
+    for (int s = 0; s < L::N2; ++s, ++t) {  // y += g . W2[chunk, :]
+      const float* W2s = stage(t);
+      const float* G0 = Gs + (wm * 32) * L::GLD + s * L::K2;
+#pragma unroll 1  // as the h steps
+      for (int kk = 0; kk < L::K2; kk += 8) {
+        tf::FragA a0, a1;
+        tf::ld_a(a0, G0, L::GLD, kk);
+        tf::ld_a(a1, G0 + 16 * L::GLD, L::GLD, kk);
+        constexpr int J = tf::group_for(L::YN / 8, kGroupF32);
+#pragma unroll
+        for (int j0 = 0; j0 < L::YN / 8; j0 += J) {
+          tf::FragB b[J];
+#pragma unroll
+          for (int j = 0; j < J; ++j)
+            tf::ld_b_km(b[j], W2s, L::W2LD, kk, wn * L::YN + (j0 + j) * 8);
+          tf::mma_group2_rn<J>(yacc[0], j0, a0, b, yacc[1], j0, a1, b);
+        }
       }
     }
   }
+  cp_async_wait<0>();
+
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int j = 0; j < L::YN / 8; ++j) {
+    const int col = wn * L::YN + j * 8 + 2 * tq;
+    const float2 bias = *reinterpret_cast<const float2*>(b2e + col);
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = lane + 32 * j;
-      y[(size_t)(row0 + r0 + i) * D + c] =
-          ssmv::from_f32<T>(yacc[i][j] + b2e[c]);
-    }
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<float2*>(
+            y + (size_t)(row0 + wm * 32 + i * 16 + g + hh * 8) * D + col) =
+            make_float2(yacc[i][j][2 * hh] + bias.x,
+                        yacc[i][j][2 * hh + 1] + bias.y);
+  }
 }
 
-template <typename T, int D, bool kGather, bool kPerm>
-cudaError_t launch_simt(const void* xs, const void* gather_idx,
-                        const void* tile_perm, const void* w1, const void* b1,
-                        const void* w2, const void* b2, const void* e_of_tile,
-                        void* y, int Tp, int H, int tile_rows,
-                        cudaStream_t stream) {
-  const size_t smem = simt_fwd_smem<T>(D);
-  if (smem > ssmv::kMaxSmemBytes) return cudaErrorInvalidValue;
-  auto kernel = expert_ffn_fwd_simt<T, D, kGather, kPerm>;
+template <class L, bool kGather, bool kPerm>
+cudaError_t launch_f32(const void* xs, const void* gather_idx,
+                       const void* tile_perm, const void* w1, const void* b1,
+                       const void* w2, const void* b2, const void* e_of_tile,
+                       void* y, int Tp, int H, int tile_rows,
+                       cudaStream_t stream) {
+  if (Tp % L::BM || tile_rows % L::BM) return cudaErrorInvalidValue;
+  auto kernel = expert_ffn_fwd_f32_kernel<L, kGather, kPerm>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::SMEM);
   if (err != cudaSuccess) return err;
-  kernel<<<Tp / kSRows, kThreads, smem, stream>>>(
-      static_cast<const T*>(xs), static_cast<const long long*>(gather_idx),
-      static_cast<const int*>(tile_perm), static_cast<const T*>(w1),
-      static_cast<const float*>(b1), static_cast<const T*>(w2),
+  kernel<<<Tp / L::BM, L::NT, L::SMEM, stream>>>(
+      static_cast<const float*>(xs), static_cast<const long long*>(gather_idx),
+      static_cast<const int*>(tile_perm), static_cast<const float*>(w1),
+      static_cast<const float*>(b1), static_cast<const float*>(w2),
       static_cast<const float*>(b2), static_cast<const int*>(e_of_tile),
-      static_cast<T*>(y), H, tile_rows);
+      static_cast<float*>(y), H, tile_rows);
   return cudaGetLastError();
 }
+
+// The f32 tilings the dispatch takes (see TilingF32)
+using TilingF32_192 = TilingF32<192, 128, 64, 32, 32, 4>;
+using TilingF32_384 = TilingF32<384, 64, 128, 32, 16, 4>;
+using TilingF32_768 = TilingF32<768, 32, 256, 32, 16, 3>;
 
 template <bool kGather, bool kPerm>
 int dispatch(const void* xs, const void* gather_idx, const void* tile_perm,
@@ -630,9 +783,9 @@ int dispatch(const void* xs, const void* gather_idx, const void* tile_perm,
     return (int)launch<Tiling##DD, kGather, kPerm>(                        \
         xs, gather_idx, tile_perm, w1, b1, w2, b2, e_of_tile, y, Tp, H,    \
         tile_rows, s);
-#define SSMV_SIMT_FWD(DD)                                                  \
+#define SSMV_F32_FWD(DD)                                                   \
   if (D == DD)                                                             \
-    return (int)launch_simt<float, DD, kGather, kPerm>(                    \
+    return (int)launch_f32<TilingF32_##DD, kGather, kPerm>(                \
         xs, gather_idx, tile_perm, w1, b1, w2, b2, e_of_tile, y, Tp, H,    \
         tile_rows, s);
   if (is_bf16) {
@@ -640,12 +793,12 @@ int dispatch(const void* xs, const void* gather_idx, const void* tile_perm,
     SSMV_TC_FWD(384)
     SSMV_TC_FWD(768)
   } else {
-    SSMV_SIMT_FWD(192)
-    SSMV_SIMT_FWD(384)
-    SSMV_SIMT_FWD(768)
+    SSMV_F32_FWD(192)
+    SSMV_F32_FWD(384)
+    SSMV_F32_FWD(768)
   }
 #undef SSMV_TC_FWD
-#undef SSMV_SIMT_FWD
+#undef SSMV_F32_FWD
   return (int)cudaErrorInvalidValue;
 }
 
@@ -655,9 +808,9 @@ int dispatch(const void* xs, const void* gather_idx, const void* tile_perm,
 // (is_bf16 = 1) or f32 (is_bf16 = 0); b1 (E, H) f32, b2 (E, D) f32,
 // e_of_tile (Tp / tile_rows,) int32 -> y (Tp, D) in the activation dtype;
 // all contiguous and 16-byte aligned. D is 192, 384 or 768 (bf16 on the
-// tensor cores, f32 in the SIMT form); H a multiple of 64; tile_rows and Tp
-// multiples of 64, and in bf16 of the width's cluster rows (128 at D = 384,
-// 64 at 192 and 768).
+// tensor cores, f32 in split TF32 on them); H a multiple of 64; tile_rows
+// and Tp multiples of 64 and of the width's block rows (bf16: 128 at
+// D = 384, 64 at 192 and 768; f32: 128 at D = 192, 64 at 384, 32 at 768).
 extern "C" int ssmv_expert_ffn_fwd(const void* xs, const void* w1,
                                    const void* b1, const void* w2,
                                    const void* b2, const void* e_of_tile,

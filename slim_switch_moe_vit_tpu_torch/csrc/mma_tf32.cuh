@@ -31,7 +31,9 @@
 // Shared f32 tiles have rows of tile_ld(HD) = HD + 4 floats (HD a multiple
 // of 32, so a row is 4 words past a multiple of the 32 banks): every
 // fragment read below is a 32-bit load whose 32 lanes hit 32 distinct
-// banks, g * 4 + t for A and n-major B, 2t * 4 + g for k-major B.
+// banks, g * 4 + t for A and n-major B, 2t * 4 + g for k-major B read in
+// ``a_from_c``'s order; k-major tiles read in k's own order (``ld_a_km``,
+// ``ld_b_km``) take rows 8 words past a multiple of 32 (t * 8 + g).
 // (ldmatrix moves 16-bit elements and has no f32 transpose.)
 #pragma once
 
@@ -114,6 +116,37 @@ __device__ __forceinline__ void mma_group2(float (&c1)[NT1][4], int j1,
   }
 }
 
+// mma_group2 summed apart: this k-step's three products go into zeroed
+// fragments on the tensor cores, which are then added to c1 and c2 on the
+// CUDA cores, rounded to nearest. The tensor cores' f32 sums do not round
+// to nearest (the PTX ISA leaves the accumulation's rounding to the
+// implementation), so when c runs through every k-step their error grows
+// with the number of k-steps: 45x an f32 FMA chain's from the f64 function
+// at K = 1,536 (the expert FFN's y, measured on the card; PERF.md). Summed
+// apart, c's long sum rounds as an FMA chain's, and the tensor cores' sums
+// span 8 k each. For the long-K products (the expert FFN's).
+template <int J, int NT1, int NT2>
+__device__ __forceinline__ void mma_group2_rn(float (&c1)[NT1][4], int j1,
+                                              const FragA& a1,
+                                              const FragB (&b1)[J],
+                                              float (&c2)[NT2][4], int j2,
+                                              const FragA& a2,
+                                              const FragB (&b2)[J]) {
+  float t1[J][4], t2[J][4];
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) t1[j][c] = t2[j][c] = 0.f;
+  mma_group2<J>(t1, 0, a1, b1, t2, 0, a2, b2);
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      c1[j1 + j][c] += t1[j][c];
+      c2[j2 + j][c] += t2[j][c];
+    }
+}
+
 // A fragment: rows [0, 16) x columns [k0, k0 + 8) of a row-major tile,
 // each value times f before the split
 __device__ __forceinline__ void ld_a(FragA& a, const float* tile, int ld,
@@ -145,6 +178,30 @@ __device__ __forceinline__ void ld_b_kn(FragB& b, const float* tile, int ld,
   const float* p = tile + (k0 + 2 * t) * ld + n0 + g;
   split(p[0], b.hi[0], b.lo[0]);
   split(p[ld], b.hi[1], b.lo[1]);
+}
+
+// The fragments of k-major tiles in k's own order (rows k0 + t and
+// k0 + t + 4, as ``ld_a`` and ``ld_b_nk`` read columns): the operands of
+// the expert FFN's products, where both sides of x^T . dh come from row
+// slices and W1 and W2 are stored k-major. 32-bit loads, conflict-free
+// where ld is 8 past a multiple of 32 words (bank 8t + g).
+// A of rows [m0, m0 + 16) from a tile whose row k holds A's column k
+__device__ __forceinline__ void ld_a_km(FragA& a, const float* tile, int ld,
+                                        int k0, int m0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* p = tile + (k0 + t) * ld + m0 + g;
+  split(p[0], a.hi[0], a.lo[0]);
+  split(p[8], a.hi[1], a.lo[1]);
+  split(p[4 * ld], a.hi[2], a.lo[2]);
+  split(p[4 * ld + 8], a.hi[3], a.lo[3]);
+}
+// B of the n-tile [n0, n0 + 8) from a tile whose row k holds B's row k
+__device__ __forceinline__ void ld_b_km(FragB& b, const float* tile, int ld,
+                                        int k0, int n0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* p = tile + (k0 + t) * ld + n0 + g;
+  split(p[0], b.hi[0], b.lo[0]);
+  split(p[4 * ld], b.hi[1], b.lo[1]);
 }
 
 // the A fragment of an 8-deep k-step from the C tile of its 8 columns

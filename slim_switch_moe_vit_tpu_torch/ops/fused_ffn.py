@@ -42,13 +42,18 @@ outputs back (exact: the pads add zeros, and GELU(0) = 0). D past 768
 raises, naming the cap. Activations and expert weights in one dtype, bf16
 or f32 (the biases f32). In bf16 every kernel runs on the tensor cores at
 every D (``mma.sync`` with ``cp.async`` rings): K4's backward as a dh
-kernel, then one GEMM launch for dx, dW and db, the dW products split over an expert's
-rows by :func:`wgrad_splits` where their tiles would not fill the card; K8
-as a dgrad kernel and a dW kernel that both recompute h and dy . W2^T on
-chip, with a cluster of two blocks splitting D at D = 768. f32 at every D runs in each
-source's SIMT form (f32 FMAs on the CUDA cores: f32 has no exact
-tensor-core product), with the same arithmetic. Anything else raises on a
-CUDA tensor.
+kernel, then one GEMM launch for dx, dW and db, the dW products split over
+an expert's rows by :func:`wgrad_splits` where their tiles would not fill
+the card; K8 as a dgrad kernel and a dW kernel that both recompute h and
+dy . W2^T on chip, with a cluster of two blocks splitting D at D = 768. In
+f32, K3, K4, K9 and K10 run on the tensor cores too, in split TF32 (three
+TF32 ``mma.sync`` a product on f32 operands split into hi and lo parts,
+near f32 accuracy: f32 has no exact tensor-core product): the forward with
+x streamed beside W1 and g kept in f32 in shared memory, the backward in
+the bf16 form's three launches with f32 tiles and f32 (Tp, H) workspaces.
+K8's f32 form is still the SIMT kernels (f32 FMAs on the CUDA cores). The
+arithmetic is the same in every form. Anything else raises on a CUDA
+tensor.
 
 GELU and its derivative are the exact erf forms at every dtype. The JAX
 package evaluates them for bf16 with odd polynomials (``gelu_fast``, within
@@ -312,34 +317,46 @@ def _is_bf16(t) -> int:
     return int(t.dtype == torch.bfloat16)
 
 
-# the card's SMs: the bf16 backward splits its dW products over the rows
-# where their 128 x 256 tiles would fill fewer than two waves of them
+# the card's SMs: the backward splits its dW products over the rows where
+# their tiles would fill fewer than two waves of them
 _SMS = 132
+# the dW tiles of the backward kernels, (D rows, H columns): bf16 on
+# mma.sync m16n8k16, f32 in split TF32 (half the H columns: f32 doubles a
+# slice's bytes)
+DW_TILE = {torch.bfloat16: (128, 256), torch.float32: (128, 128)}
+DH_ROWS = 128  # the dh kernels' row block: one db1 partial row each
 
 
 def wgrad_splits(Tp: int, D: int, H: int, E: int, dtype) -> int:
-    """How many row splits the bf16 backward kernels take for their dW
-    products (1 in f32): enough for two waves of 128 x 256 dW tiles (one
-    block an SM), at most 8, and no more than the layout's 256-row tiles
-    per expert."""
-    if dtype != torch.bfloat16:
-        return 1
-    tiles = 2 * E * math.ceil(D / 128) * math.ceil(H / 256)
+    """How many row splits the backward kernels take for their dW products:
+    enough for two waves of the dtype's ``DW_TILE`` dW tiles (one block an
+    SM), at most 8, and no more than the layout's 256-row tiles per
+    expert."""
+    td, th = DW_TILE[dtype]
+    tiles = 2 * E * math.ceil(D / td) * math.ceil(H / th)
     return max(1, min(8, math.ceil(2 * _SMS / tiles), Tp // TILE_ROWS // E))
 
 
+def workspace_shapes(Tp: int, D: int, H: int, E: int, dtype) -> dict:
+    """The backward kernels' workspace: ``dh`` and ``g`` (Tp, H) in the
+    activation dtype; ``db1`` the dh partials, one f32 row per
+    ``DH_ROWS`` rows; ``dw`` the dW products' f32 partials (splits, 2, E,
+    D * H) where :func:`wgrad_splits` splits them, else None."""
+    splits = wgrad_splits(Tp, D, H, E, dtype)
+    return {"dh": (Tp, H), "g": (Tp, H), "db1": (Tp // DH_ROWS, H),
+            "dw": (splits, 2, E, D * H) if splits > 1 else None}
+
+
 def _workspace(Tp, D, H, E, like):
-    """(ws_dh, ws_g, ws_db1, ws_dw, splits) of the backward kernels: (Tp, H)
-    in the activation dtype twice; the dh partials, one f32 row per 16 rows
-    (the bf16 kernels fill one per 128); and, where the dW products split
-    over the rows, their f32 partials (splits, 2, E, D * H), else None."""
-    ws_dh = torch.empty((Tp, H), dtype=like.dtype, device=like.device)
-    splits = wgrad_splits(Tp, D, H, E, like.dtype)
-    ws_dw = (torch.empty((splits, 2, E, D * H), dtype=torch.float32,
-                         device=like.device) if splits > 1 else None)
-    return (ws_dh, torch.empty_like(ws_dh),
-            torch.empty((Tp // 16, H), dtype=torch.float32,
-                        device=like.device), ws_dw, splits)
+    """(ws_dh, ws_g, ws_db1, ws_dw, splits) of :func:`workspace_shapes`."""
+    shapes = workspace_shapes(Tp, D, H, E, like.dtype)
+    dev = like.device
+    ws_dw = (None if shapes["dw"] is None else
+             torch.empty(shapes["dw"], dtype=torch.float32, device=dev))
+    return (torch.empty(shapes["dh"], dtype=like.dtype, device=dev),
+            torch.empty(shapes["g"], dtype=like.dtype, device=dev),
+            torch.empty(shapes["db1"], dtype=torch.float32, device=dev),
+            ws_dw, 1 if ws_dw is None else shapes["dw"][0])
 
 
 def _ptr(t):

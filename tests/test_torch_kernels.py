@@ -240,18 +240,20 @@ FWD_CASES = [(300, 384, 1536, 8, None), (40, 192, 768, 4, None),
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("T,D,H,E,skew", FWD_CASES,
                          ids=["-".join(map(str, c[:4])) + ("-edges" if c[4]
                                                            else "")
                               for c in FWD_CASES])
-def test_expert_ffn_kernel_matches_plain(cuda, T, D, H, E, skew):
+def test_expert_ffn_kernel_matches_plain(cuda, T, D, H, E, skew, dtype):
     """K3 on a routed layout, and K9's and K10's forward forms on the same
     rows (x read by index; the row tiles visited in reverse), against the
-    plain version: y finite and elementwise within 1.6e-2; one launch
-    each."""
+    plain version: y finite and elementwise within 1.6e-2 in bf16, within
+    F32_TOL in f32 (split TF32 against the exact-f32 plain version); one
+    launch each."""
     rs = np.random.RandomState(4)
-    _, w1, b1, w2, b2, _ = _ffn_case(rs, T, D, H, E, torch.bfloat16, cuda)
-    x = _rand(rs, T, D, dtype=torch.bfloat16, device=cuda)
+    _, w1, b1, w2, b2, _ = _ffn_case(rs, T, D, H, E, dtype, cuda)
+    x = _rand(rs, T, D, dtype=dtype, device=cuda)
     logits = _rand(rs, T, E, device=cuda)
     if skew:
         logits[:, E - 1] = -1e9
@@ -283,9 +285,7 @@ def test_expert_ffn_kernel_matches_plain(cuda, T, D, H, E, skew):
     want = ffn_ops.fused_expert_ffn_reference(xs, w1, b1, w2, b2, e_of_tile)
     got["k10"] = got["k10"][rows]
     for form, y in got.items():
-        assert torch.isfinite(y.float()).all(), form
-        torch.testing.assert_close(y.float(), want.float(), atol=1.6e-2,
-                                   rtol=1.6e-2, msg=form)
+        _close(y, want, dtype, form)
 
 
 @pytest.mark.cuda
@@ -459,18 +459,21 @@ BWD_CASES = [(300, 384, 1536, 8, None), (40, 192, 768, 4, None),
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("T,D,H,E,skew", BWD_CASES,
                          ids=["-".join(map(str, c[:4])) + ("-edges" if c[4]
                                                            else "")
                               for c in BWD_CASES])
-def test_expert_ffn_bwd_kernel_matches_plain(cuda, T, D, H, E, skew):
+def test_expert_ffn_bwd_kernel_matches_plain(cuda, T, D, H, E, skew, dtype):
     """K4 on a routed layout, dy zero at padding slots, and K9's and K10's
     backward forms on the same rows (x read by index; the row tiles visited
-    in reverse): dx elementwise within 1.6e-2; dW (bf16 out) and db (f32)
-    within 1e-2 of max |ref|; a starved expert's dW exactly zero."""
+    in reverse): in bf16 dx elementwise within 1.6e-2, dW (bf16 out) and db
+    (f32) within 1e-2 of max |ref|; in f32 (split TF32) every output
+    elementwise within F32_TOL of the exact-f32 plain version, sums over
+    rows included; a starved expert's dW exactly zero."""
     rs = np.random.RandomState(8)
-    _, w1, b1, w2, _, _ = _ffn_case(rs, T, D, H, E, torch.bfloat16, cuda)
-    x = _rand(rs, T, D, dtype=torch.bfloat16, device=cuda)
+    _, w1, b1, w2, _, _ = _ffn_case(rs, T, D, H, E, dtype, cuda)
+    x = _rand(rs, T, D, dtype=dtype, device=cuda)
     logits = _rand(rs, T, E, device=cuda)
     if skew:
         logits[:, E - 1] = -1e9
@@ -480,15 +483,15 @@ def test_expert_ffn_bwd_kernel_matches_plain(cuda, T, D, H, E, skew):
         moe_ops.aligned_expert_layout(eidx, E, gate_w=torch.ones(T, 2,
                                                                  device=cuda))
     xs = moe_ops.dispatch_gather(x, gather_idx, pair_slot)
-    dy = _rand(rs, xs.shape[0], D, dtype=torch.bfloat16, device=cuda) * \
-        w_slot[:, None]
+    dy = _rand(rs, xs.shape[0], D, dtype=dtype, device=cuda) * \
+        w_slot[:, None].to(dtype)
     Tp = xs.shape[0]
     if skew:
         tiles = torch.bincount(e_of_tile.long(), minlength=E).tolist()
         assert (eidx == E - 1).sum().item() == 0 and tiles[E - 2] == 1, tiles
         assert (eidx == E - 2).sum().item() > 0
     if (T, D, E) == (1200, 192, 4):
-        assert ffn_ops.wgrad_splits(Tp, D, H, E, torch.bfloat16) > 1
+        assert ffn_ops.wgrad_splits(Tp, D, H, E, dtype) > 1
     perm = torch.arange(Tp // ffn_ops.TILE_ROWS, dtype=torch.int32,
                         device=cuda).flip(0)
     rows = ffn_ops.permuted_rows(perm)
@@ -508,12 +511,9 @@ def test_expert_ffn_bwd_kernel_matches_plain(cuda, T, D, H, E, skew):
     want = ffn_ops.reference_expert_ffn_bwd(xs, w1, b1, w2, e_of_tile, dy)
     got["k10"] = (got["k10"][0][rows], *got["k10"][1:])
     for form, g in got.items():
-        torch.testing.assert_close(g[0].float(), want[0].float(),
-                                   atol=1.6e-2, rtol=1.6e-2, msg=form)
+        _close(g[0], want[0], dtype, form)
         for name, gt, w in zip(["dw1", "db1", "dw2", "db2"], g[1:], want[1:]):
-            assert gt.dtype == w.dtype and torch.isfinite(gt.float()).all(), \
-                (form, name)
-            _rel_close(gt, w, 1e-2, f"{form} {name}")
+            _close(gt, w, dtype, f"{form} {name}", sums=True)
         if skew:
             assert g[1][E - 1].abs().max().item() == 0.0, form
             assert g[3][E - 1].abs().max().item() == 0.0, form
@@ -958,7 +958,7 @@ def test_capacity_train_step_launch_counts(cuda, knob, per_step, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# on the card: f32 and D = 768 (the SIMT forms), K12 and K13
+# on the card: f32 and D = 768, K12 and K13
 # ---------------------------------------------------------------------------
 
 # f32 kernels vs their plain versions, which are exact f32 on the card
@@ -1011,7 +1011,33 @@ def test_mha_bwd_f32_kernel_bit_identical(cuda, N, d):
     assert torch.equal(first, attn_ops.fused_mha_bwd(qkv, do, 6, d ** -0.5))
 
 
-# (dtype, T, D, H, E): f32 at each width (the SIMT forms), bf16 at D = 768,
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,H", [(192, 768), (384, 1536), (768, 3072)])
+def test_expert_ffn_bwd_f32_bit_identical(cuda, D, H):
+    """K4, K9's and K10's backward in f32 are deterministic (no atomics;
+    every sum, the dW split's included, in a fixed order): two calls on the
+    same inputs give bit-identical dx, dW1, db1, dW2 and db2."""
+    rs = np.random.RandomState(19)
+    T, E = 600, 4
+    x, gidx, pslot, _, (w1, b1, w2, _), eot, dy = _routed_case(
+        rs, T, D, H, E, None, cuda)
+    x, w1, w2, dy = (t.float() for t in (x, w1, w2, dy))
+    xs = moe_ops.dispatch_gather(x, gidx, pslot)
+    perm = torch.arange(eot.shape[0], dtype=torch.int32, device=cuda).flip(0)
+    for name, call in (
+            ("k4", lambda: ffn_ops.fused_expert_ffn_bwd(xs, w1, b1, w2, eot,
+                                                        dy)),
+            ("k9", lambda: ffn_ops.fused_expert_ffn_gather_bwd(
+                x, gidx, w1, b1, w2, eot, dy)),
+            ("k10", lambda: ffn_ops.fused_expert_ffn_permuted_bwd(
+                xs, w1, b1, w2, eot, perm, dy))):
+        first, second = call(), call()
+        for part, a, b in zip(["dx", "dw1", "db1", "dw2", "db2"], first,
+                              second):
+            assert torch.equal(a, b), (name, part)
+
+
+# (dtype, T, D, H, E): f32 at each width (split TF32), bf16 at D = 768,
 # and D = 256, H = 1000 in both (MoEMlp(256, 1000), which the JAX kernel
 # takes: pad_call runs the D = 384, H = 1024 instance), and D = 256, H = 300
 # in both (384 x 320, and K8, which needs H >= D, at 384 x 384)
@@ -1029,8 +1055,9 @@ WIDE = [(torch.float32, 300, 384, 1536, 4),
 @pytest.mark.parametrize("dtype,T,D,H,E", WIDE)
 def test_expert_ffn_family_f32_and_d768(cuda, dtype, T, D, H, E):
     """K3, K4, K8, K9 and K10 against their plain versions on one routed
-    layout (a favoured and a starved expert): in f32 every form's SIMT
-    kernel; in bf16 at D = 768 the tensor-core forms; at D = 256, H = 1000
+    layout (a favoured and a starved expert): in f32 K3's, K4's, K9's and
+    K10's split-TF32 forms and K8's SIMT kernels; in bf16 at D = 768 the
+    tensor-core forms; at D = 256, H = 1000
     and H = 300 both, zero-padded to the D = 384 instance by pad_call (K8
     to H >= D) while the plain versions take the shape as it is. y and dx
     elementwise, dW

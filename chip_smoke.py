@@ -1043,9 +1043,7 @@ def check_defer(res: dict, label: str, sfx: str, kernel, got, want,
                 args) -> None:
     """K8 at one layout: dx, dW1 and dW2 against the exact f32 function
     (``exact_ffn_bwd``), a second call bit-identical, and its launches
-    timed apart (``profile_call``): the dgrad kernel under ``ms_dgrad``,
-    the dW kernel under ``ms_dw``, any other launch of the wrapper under
-    ``ms_other`` (each with ``sfx``)."""
+    timed apart (``defer_split``)."""
     import torch
 
     name = "fused_expert_ffn_bwd_defer"
@@ -1055,6 +1053,14 @@ def check_defer(res: dict, label: str, sfx: str, kernel, got, want,
         raise AssertionError(f"{name} ({label}): two calls on the same "
                              "inputs differ")
     log(f"  {name} ({label}): a second call bit-identical (dx, dW, db)")
+    defer_split(res, label, sfx, kernel)
+
+
+def defer_split(res: dict, label: str, sfx: str, kernel) -> None:
+    """K8's launches timed apart (``profile_call``): the dgrad kernel under
+    ``ms_dgrad``, the dW kernel under ``ms_dw``, any other launch of the
+    wrapper under ``ms_other`` (each with ``sfx``)."""
+    name = "fused_expert_ffn_bwd_defer"
     # ten calls, each launch's mean over the events seen: a profiling
     # session that follows a large one misses its last few device events
     parts = {"dgrad": 0.0, "dw": 0.0, "other": 0.0}
@@ -3141,19 +3147,27 @@ def _ffn_family(results, label, dtype, T, D, H, E, peak, gen, only=None):
         _timed_case(results, name, kernel, plain, None, cost, mode,
                     "_" + label, tol=tol, reps=5)
     if dtype == torch.float32:
-        results["fused_expert_ffn"]["yardstick_ms_" + label] = \
-            dense_yardstick((xs, w1, b1, w2, b2, eot), "_" + label)
+        if "fused_expert_ffn" in cases:
+            results["fused_expert_ffn"]["yardstick_ms_" + label] = \
+                dense_yardstick((xs, w1, b1, w2, b2, eot), "_" + label)
         xg, rows = x.index_select(0, gidx), ffn.permuted_rows(perm)
-        f32_ffn_checks(label, cases, {
+        f64_inputs = {
             "fused_expert_ffn": ((xs, w1, b1, w2, b2, eot), None),
             "fused_expert_ffn_bwd": ((xs, w1, b1, w2, None, eot, dy), None),
+            "fused_expert_ffn_bwd_defer": ((xs, w1, b1, w2, None, eot, dy),
+                                           None),
             "fused_expert_ffn_gather": ((xg, w1, b1, w2, b2, eot), None),
             "fused_expert_ffn_gather_bwd": ((xg, w1, b1, w2, None, eot, dy),
                                             None),
             "fused_expert_ffn_permuted": (
                 (xs[rows], w1, b1, w2, b2, eot), rows),
             "fused_expert_ffn_permuted_bwd": (
-                (xs[rows], w1, b1, w2, None, eot, dy[rows]), rows)})
+                (xs[rows], w1, b1, w2, None, eot, dy[rows]), rows)}
+        f32_ffn_checks(label, cases, {k: v for k, v in f64_inputs.items()
+                                      if k in cases})
+        if "fused_expert_ffn_bwd_defer" in cases:
+            defer_split(results["fused_expert_ffn_bwd_defer"], label,
+                        "_" + label, cases["fused_expert_ffn_bwd_defer"][0])
     if dtype == torch.bfloat16:
         if "fused_expert_ffn" in cases:
             exact_ffn_fwd(f"fused_expert_ffn_{label}",
@@ -3218,7 +3232,9 @@ def coverage_kernel_phase(results: dict) -> None:
     the expert
     family at D = 768 in bf16 (moe_base_patch16_224_expert32's layout at
     B = 32) and in f32 at D = 384 (the flagship's at B = 32), K4 and K8 at
-    D = 192 (moe_tiny_patch16_224_expert8's at B = 128); K5 and K6 in f32
+    D = 192 (moe_tiny_patch16_224_expert8's at B = 128), K8 in f32 at
+    D = 192 and 768 on those layouts (its dgrad and dW kernels timed
+    apart, ``defer_split``, at every f32 width); K5 and K6 in f32
     at N = 197, B = 32 (``f32_attention_case``: the plain version, SDPA and
     the f64 function)."""
     import torch
@@ -3235,6 +3251,16 @@ def coverage_kernel_phase(results: dict) -> None:
     torch.cuda.empty_cache()
     _ffn_family(results, "f32", torch.float32, 32 * N_TOK, DIM, HIDDEN,
                 EXPERTS, F32_FLOPS, gen)
+    torch.cuda.empty_cache()
+    # K8's f32 form at the other widths: moe_tiny's layout at B = 128 and
+    # moe_base_patch16_224_expert32's at B = 32
+    _ffn_family(results, "f32_d192", torch.float32, TINY_B * N_TOK, TINY_D,
+                TINY_H, TINY_E, F32_FLOPS, gen,
+                only=("fused_expert_ffn_bwd_defer",))
+    torch.cuda.empty_cache()
+    _ffn_family(results, "f32_d768", torch.float32, WIDE_B * N_TOK, WIDE_D,
+                WIDE_H, WIDE_E, F32_FLOPS, gen,
+                only=("fused_expert_ffn_bwd_defer",))
     torch.cuda.empty_cache()
     B, hd = 32, DIM // HEADS
     qkv = torch.randn(B, N_TOK, 3 * DIM, generator=gen).cuda()
@@ -3607,7 +3633,8 @@ def f32_phase(card: str) -> None:
     weights on the plain versions and, as the witness of f32 summation
     order alone, the plain steps on the batch reversed. One more kernel
     step is profiled: its kernel sum and K6's, K5's, K3's and K4's shares
-    of it."""
+    of it; then the step under ``SSMV_DEFER_DW=1`` (``f32_defer_step``):
+    K8's launches and its share."""
     import torch
 
     from slim_switch_moe_vit_tpu_torch import create_model, ops
@@ -3652,6 +3679,7 @@ def f32_phase(card: str) -> None:
                 f"{k6:.3f} ms ({k6 / total:.3f} of it), K5 {k5:.3f} ms "
                 f"({k5 / total:.3f}), K3 {k3:.3f} ms ({k3 / total:.3f}), "
                 f"K4 {k4:.3f} ms ({k4 / total:.3f}); card {card}")
+            f32_defer_step(step, state, x, y, total, card)
         runs[label] = (losses_, grads.cpu())
         log(f"f32 {MODEL} B={F32_B}, {label}: losses "
             f"{[float(f'{v:.7f}') for v in losses_]}")
@@ -3670,6 +3698,30 @@ def f32_phase(card: str) -> None:
         raise AssertionError("f32 training on the kernels disagrees with the "
                              "plain path")
     torch.cuda.empty_cache()
+
+
+def f32_defer_step(step, state, x, y, default_ms: float, card: str) -> None:
+    """The f32 step once more under ``SSMV_DEFER_DW=1`` (phase 15): K8 in
+    place of K4, its launches exact (K8 12, K4 0), then one step profiled
+    beside the default form's kernel sum (``default_ms``)."""
+    from slim_switch_moe_vit_tpu_torch import ops
+
+    with ffn_knob("SSMV_DEFER_DW"):
+        ops.reset_launch_counts()
+        step(state, x, y, XTRAIN_LR, XTRAIN_LR)
+        counts = ops.launch_counts()
+        if counts != expected(PER_CAP_STEP["K8"], 1):
+            raise AssertionError(f"f32 step under SSMV_DEFER_DW=1: launches "
+                                 f"{counts}")
+        prof = profile_call(lambda: step(state, x, y, XTRAIN_LR, XTRAIN_LR),
+                            f"f32 step B={F32_B}, SSMV_DEFER_DW=1")
+    total = sum(us for us, _ in prof.values()) / 1e3
+    k8 = sum(us for k, (us, _) in prof.items() if "defer_" in k) / 1e3
+    log(f"f32 step B={F32_B} under SSMV_DEFER_DW=1: kernel sum {total:.3f} "
+        f"ms (default form {default_ms:.3f}), K8 {k8:.3f} ms "
+        f"({k8 / total:.3f} of it); launches K8 "
+        f"{counts['fused_expert_ffn_bwd_defer']}, K4 "
+        f"{counts['fused_expert_ffn_bwd']}; card {card}")
 
 
 def long_phase(card: str) -> None:

@@ -1,7 +1,9 @@
 """Probe the f32 forms of the expert-FFN forward (K3, K9's and K10's
-forward) and backward (K4, K9's and K10's backward) on the card.
+forward) and backward (K4, K9's and K10's backward, and K8, the
+deferred-dW backward) on the card.
 
-Builds ``csrc/expert_ffn_fwd.cu`` and ``csrc/expert_ffn_bwd.cu`` of this
+Builds ``csrc/expert_ffn_fwd.cu``, ``csrc/expert_ffn_bwd.cu`` and
+``csrc/expert_ffn_bwd_defer.cu`` of this
 checkout as ``this`` and as the variants named on the command line, each a
 copy of ``csrc/`` with the text edits of ``VARIANTS`` (the tilings the
 sources were measured against; the sources themselves keep one), and, with
@@ -14,13 +16,15 @@ moe_tiny's at B = 128; D = 768: moe_base_patch16_224_expert32's at B =
 32), each build's forward and backward in its three forms: held to the
 plain version within ``chip_smoke.F32_TOL``, the mean |d| from the f64
 function (``chip_smoke.f64_ffn``) beside the plain version's, the median
-time (``chip_smoke.median_ms``) beside the split-TF32 bound, and K4's
-launches apart from one profiled call (the dh or dgrad kernel, the grads
-or wgrad kernel, the split-reduce). Usage, from the repository root on a
-machine with one GPU:
+time (``chip_smoke.median_ms``) beside the split-TF32 bound, and K4's and
+K8's launches apart from ten profiled calls (K4: the dh or dgrad kernel,
+the grads or wgrad kernel, the split-reduce; K8: the dgrad kernel and the
+dW kernel). ``--forms`` picks the forms to time (all by default). A tree
+whose K8 entry point still takes the flags (the SIMT form's) is called
+with them. Usage, from the repository root on a machine with one GPU:
 
     python3 scripts/ffn_f32_tilings.py [--tree DIR] [--dims 192,384,768]
-        [variant ...]
+        [--forms k4,k8] [variant ...]
 """
 from __future__ import annotations
 
@@ -40,14 +44,23 @@ from slim_switch_moe_vit_tpu_torch.ops import _build  # noqa: E402
 from slim_switch_moe_vit_tpu_torch.ops import fused_ffn as ffn  # noqa: E402
 from slim_switch_moe_vit_tpu_torch.ops import moe  # noqa: E402
 
-SOURCES = ("expert_ffn_fwd.cu", "expert_ffn_bwd.cu")
+SOURCES = ("expert_ffn_fwd.cu", "expert_ffn_bwd.cu",
+           "expert_ffn_bwd_defer.cu")
 ENTRIES = ("ssmv_expert_ffn_fwd", "ssmv_expert_ffn_fwd_gather",
            "ssmv_expert_ffn_fwd_perm", "ssmv_expert_ffn_bwd",
-           "ssmv_expert_ffn_bwd_gather", "ssmv_expert_ffn_bwd_perm")
-# the f32 kernels' names, this tree's and the parent's SIMT forms
+           "ssmv_expert_ffn_bwd_gather", "ssmv_expert_ffn_bwd_perm",
+           "ssmv_expert_ffn_bwd_defer")
+FORMS = ("k3", "k9", "k10", "k4", "k9 bwd", "k10 bwd", "k8")
+# the f32 kernels' names, this tree's and older trees' SIMT forms
 F32_KERNELS = (r"(expert_ffn_fwd_f32_kernel|expert_ffn_dh_f32_kernel|"
-               r"expert_ffn_grads_f32_kernel|expert_ffn_fwd_simt|"
-               r"expert_ffn_dgrad_simt|expert_ffn_wgrad_simt)")
+               r"expert_ffn_grads_f32_kernel|defer_dgrad_f32_kernel|"
+               r"defer_dw_f32_kernel|expert_ffn_fwd_simt|"
+               r"expert_ffn_dgrad_simt|expert_ffn_wgrad_simt|"
+               r"expert_ffn_dw_defer_simt)")
+# K8's entry point with the flags argument (the SIMT form's), beside
+# _build's signature of this tree's
+_P, _I = ctypes.c_void_p, ctypes.c_int
+DEFER_WITH_FLAGS = (_P,) * 12 + (_I,) * 6 + (_P,)
 # (D, layout tokens, E, H): the smoke's layouts
 LAYOUTS = {384: (32 * smoke.N_TOK, smoke.EXPERTS, smoke.HIDDEN),
            192: (smoke.TINY_B * smoke.N_TOK, smoke.TINY_E, smoke.TINY_H),
@@ -57,6 +70,11 @@ LAYOUTS = {384: (32 * smoke.N_TOK, smoke.EXPERTS, smoke.HIDDEN),
 def _tiling(d: int, args: str) -> tuple:
     return ("expert_ffn_fwd.cu", f"using TilingF32_{d} = TilingF32<{d}, ",
             f"using TilingF32_{d} = TilingF32<{args}>;  //")
+
+
+def _k8(name: str, tiling: str) -> tuple:
+    return ("expert_ffn_bwd_defer.cu", f"using {name} = ",
+            f"using {name} = {tiling}>;  //")
 
 
 VARIANTS = {
@@ -109,6 +127,48 @@ VARIANTS = {
              "constexpr int kFDhStages = 4;")],
     "g4": [("expert_ffn_bwd.cu", "constexpr int kFGStages = 3;",
             "constexpr int kFGStages = 4;")],
+    # K8's dgrad tilings: DgradF32<D, BM, HC, K1, K2, NS>
+    "k8g384hc32": [_k8("DgradF32_384", "DgradF32<384, 64, 32, 32, 16, 4")],
+    "k8g384bm32": [_k8("DgradF32_384", "DgradF32<384, 32, 64, 32, 16, 4")],
+    "k8g384ns3": [_k8("DgradF32_384", "DgradF32<384, 64, 64, 32, 16, 3")],
+    "k8g384k2": [_k8("DgradF32_384", "DgradF32<384, 64, 64, 32, 32, 3")],
+    "k8g768k8": [_k8("DgradF32_768", "DgradF32<768, 32, 64, 32, 8, 4")],
+    "k8g192bm128": [_k8("DgradF32_192",
+                        "DgradF32<192, 128, 32, 32, 32, 3")],
+    "k8g192hc64": [_k8("DgradF32_192", "DgradF32<192, 128, 64, 32, 32, 3")],
+    # K8's dW tilings: DwF32<DC, HW, RS, AN, KS, NB, CL, BMW, BNW, NT>; a
+    # cluster of two at D = 384 (192 columns a block, 32-row steps), of
+    # four at D = 768; 48 x 32 phase-B warp tiles; phase A in 16 x 8 tiles
+    # over half of K (each in 16-warp blocks); 16-warp blocks at each width
+    # (96 x 16 phase-B warp tiles at D = 384 and 768, 48 x 16 at 192, 16 x
+    # 16 phase-A ones)
+    "k8cl2": [_k8("DwF32_384",
+                  "DwF32<192, 32, 32, 16, 2, 2, 2, 48, 16, 512")],
+    "k8cl4": [_k8("DwF32_768",
+                  "DwF32<192, 32, 32, 16, 2, 2, 4, 48, 16, 512")],
+    "k8w4832": [_k8("DwF32_384",
+                    "DwF32<384, 32, 16, 16, 4, 2, 1, 48, 32, 512")],
+    "k8ks2": [_k8("DwF32_384", "DwF32<384, 32, 16, 8, 2, 2, 1, 96, 16, 512")],
+    "k8w16": [_k8("DwF32_384",
+                  "DwF32<384, 32, 16, 16, 4, 2, 1, 96, 16, 512"),
+              _k8("DwF32_768",
+                  "DwF32<384, 32, 16, 16, 4, 2, 2, 96, 16, 512"),
+              _k8("DwF32_192",
+                  "DwF32<192, 32, 32, 16, 2, 2, 1, 48, 16, 512")],
+    # the dW kernel's phase A k-steps unrolled by 2, its phase B k-steps
+    # unrolled
+    "k8pa2": [("expert_ffn_bwd_defer.cu",
+               "#pragma unroll 1\n  for (int k = k0; k < k1; k += 8) {",
+               "#pragma unroll 2\n  for (int k = k0; k < k1; k += 8) {")],
+    "k8pbu": [("expert_ffn_bwd_defer.cu",
+               "#pragma unroll 1\n    for (int k = 0; k < RS; k += 8) {",
+               "#pragma unroll\n    for (int k = 0; k < RS; k += 8) {")],
+    # the dgrad kernel's k-steps unrolled (more fragments in flight)
+    "k8gku": [("expert_ffn_bwd_defer.cu",
+               "#pragma unroll 1  // fewer fragments in flight: no spills\n"
+               "      for (int kk = 0; kk < L::K1; kk += 8) {",
+               "#pragma unroll\n"
+               "      for (int kk = 0; kk < L::K1; kk += 8) {")],
 }
 
 
@@ -129,12 +189,18 @@ def variant_csrc(name: str, edits: list) -> str:
     return out
 
 
-def start_build(name: str, csrc: str) -> tuple:
-    """The nvcc processes of one build, started (one per source)."""
+def start_build(name: str, csrc: str, edited=None) -> tuple:
+    """The nvcc processes of one build, started (one per source; a variant
+    compiles only the sources its edits touch, ``edited``, and links this
+    tree's objects of the others)."""
     out = os.path.join(_build.BUILD_ROOT, "ffn_f32_tilings", name)
+    this = os.path.join(_build.BUILD_ROOT, "ffn_f32_tilings", "this")
     os.makedirs(out, exist_ok=True)
     procs = []
     for src in SOURCES:
+        if edited is not None and src not in edited:
+            procs.append((os.path.join(this, src + ".o"), None))
+            continue
         obj = os.path.join(out, src + ".o")
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-c", "-o", obj,
                os.path.join(csrc, src)]
@@ -144,11 +210,14 @@ def start_build(name: str, csrc: str) -> tuple:
     return out, procs
 
 
-def finish_build(out: str, procs: list) -> tuple:
-    """(the build's library with ``ENTRIES`` bound, its ptxas report of
-    the f32 kernel instances: registers and spill bytes)."""
+def finish_build(out: str, procs: list, csrc: str) -> tuple:
+    """(the build's library with ``ENTRIES`` bound, whether its K8 entry
+    point takes the flags, its ptxas report of the f32 kernel instances:
+    registers and spill bytes)."""
     log = ""
     for _, p in procs:
+        if p is None:  # this tree's object
+            continue
         text = p.communicate()[0]
         if p.returncode:
             raise RuntimeError(f"nvcc failed:\n{text[-4000:]}")
@@ -168,7 +237,12 @@ def finish_build(out: str, procs: list) -> tuple:
             stats = " ".join(ln.split(":")[-1].strip() if "info" in ln
                              else ln.strip() for ln in lines[i + 2:i + 4])
             report.append(f"{kern.group(1)}<{args}|{bools}> {stats}")
-    return _build.bind(ctypes.CDLL(so), ENTRIES), report
+    lib = _build.bind(ctypes.CDLL(so), ENTRIES)
+    with open(os.path.join(csrc, "expert_ffn_bwd_defer.cu")) as f:
+        flags = "const void* flags" in f.read()
+    if flags:
+        lib.ssmv_expert_ffn_bwd_defer.argtypes = list(DEFER_WITH_FLAGS)
+    return lib, flags, report
 
 
 def layout(D: int, gen):
@@ -192,10 +266,11 @@ def layout(D: int, gen):
     return x, gidx, eot, perm, xs, w1, b1, w2, b2, dy
 
 
-def calls(lib, x, gidx, eot, perm, xs, w1, b1, w2, b2, dy) -> dict:
-    """{form: call} of a build's six entry points. The workspace holds
-    both trees' dh partials (this tree fills Tp / 128 rows, the SIMT form
-    Tp / 16) and this tree's split partials."""
+def calls(lib, flags, x, gidx, eot, perm, xs, w1, b1, w2, b2, dy) -> dict:
+    """{form: call} of a build's seven entry points (K8's with
+    ``bwd_flags`` where ``flags``). The workspace holds both trees' dh
+    partials (this tree fills Tp / 128 rows, the SIMT form Tp / 16) and
+    this tree's split partials."""
     Tp, D = xs.shape
     E, _, H = w1.shape
     st = torch.cuda.current_stream().cuda_stream
@@ -226,6 +301,19 @@ def calls(lib, x, gidx, eot, perm, xs, w1, b1, w2, b2, dy) -> dict:
                         E, 256, 0, st), "bwd")
         return out
 
+    fl = ffn.bwd_flags(eot) if flags else None
+
+    def defer():
+        out = (torch.empty_like(xs), torch.empty_like(w1),
+               torch.empty(E, H, device="cuda"), torch.empty_like(w2),
+               torch.empty(E, D, device="cuda"))
+        _build.check(lib.ssmv_expert_ffn_bwd_defer(
+            xs.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+            w2.data_ptr(), eot.data_ptr(),
+            *([fl.data_ptr()] if flags else []),
+            *(t.data_ptr() for t in out), Tp, D, H, E, 256, 0, st), "k8")
+        return out
+
     return {
         "k3": lambda: fwd(lib.ssmv_expert_ffn_fwd, xs.data_ptr()),
         "k9": lambda: fwd(lib.ssmv_expert_ffn_fwd_gather, x.data_ptr(),
@@ -237,32 +325,46 @@ def calls(lib, x, gidx, eot, perm, xs, w1, b1, w2, b2, dy) -> dict:
                               gidx.data_ptr(), dy.data_ptr()),
         "k10 bwd": lambda: bwd(lib.ssmv_expert_ffn_bwd_perm, xs.data_ptr(),
                                dy.data_ptr(), perm_arg=(perm.data_ptr(),)),
+        "k8": defer,
     }
 
 
-def plains(x, gidx, eot, perm, xs, w1, b1, w2, b2, dy) -> dict:
-    """{form: (the plain version's result, the f64 function's)}, each in
-    the form's own row order."""
+def plains(forms, x, gidx, eot, perm, xs, w1, b1, w2, b2, dy) -> dict:
+    """{form: (the plain version's result, the f64 function's)} of each
+    of ``forms``, in the form's own row order."""
     xg, rows = x.index_select(0, gidx), ffn.permuted_rows(perm)
-    out = {
-        "k3": (ffn.fused_expert_ffn_reference(xs, w1, b1, w2, b2, eot),
-               smoke.f64_ffn(xs, w1, b1, w2, b2, eot)),
-        "k9": (ffn.fused_expert_ffn_reference(xg, w1, b1, w2, b2, eot),
-               smoke.f64_ffn(xg, w1, b1, w2, b2, eot)),
-        "k4": (ffn.reference_expert_ffn_bwd(xs, w1, b1, w2, eot, dy),
-               smoke.f64_ffn(xs, w1, b1, w2, None, eot, dy)),
-        "k9 bwd": (ffn.reference_expert_ffn_bwd(xg, w1, b1, w2, eot, dy),
-                   smoke.f64_ffn(xg, w1, b1, w2, None, eot, dy))}
-    y64 = torch.empty(xs.shape, dtype=torch.float64, device="cuda")
-    y64[rows] = smoke.f64_ffn(xs[rows], w1, b1, w2, b2, eot)
-    out["k10"] = (ffn.reference_expert_ffn_permuted(xs, w1, b1, w2, b2, eot,
-                                                    perm), y64)
-    g64 = list(smoke.f64_ffn(xs[rows], w1, b1, w2, None, eot, dy[rows]))
-    dx64 = torch.empty_like(g64[0])
-    dx64[rows] = g64[0]
-    out["k10 bwd"] = (ffn.reference_expert_ffn_bwd_permuted(
-        xs, w1, b1, w2, eot, perm, dy), (dx64, *g64[1:]))
-    return out
+
+    def k10():
+        y64 = torch.empty(xs.shape, dtype=torch.float64, device="cuda")
+        y64[rows] = smoke.f64_ffn(xs[rows], w1, b1, w2, b2, eot)
+        return (ffn.reference_expert_ffn_permuted(xs, w1, b1, w2, b2, eot,
+                                                  perm), y64)
+
+    def k10_bwd():
+        g64 = list(smoke.f64_ffn(xs[rows], w1, b1, w2, None, eot, dy[rows]))
+        dx64 = torch.empty_like(g64[0])
+        dx64[rows] = g64[0]
+        return (ffn.reference_expert_ffn_bwd_permuted(
+            xs, w1, b1, w2, eot, perm, dy), (dx64, *g64[1:]))
+
+    todo = {
+        "k3": lambda: (ffn.fused_expert_ffn_reference(xs, w1, b1, w2, b2,
+                                                      eot),
+                       smoke.f64_ffn(xs, w1, b1, w2, b2, eot)),
+        "k9": lambda: (ffn.fused_expert_ffn_reference(xg, w1, b1, w2, b2,
+                                                      eot),
+                       smoke.f64_ffn(xg, w1, b1, w2, b2, eot)),
+        "k10": k10,
+        "k4": lambda: (ffn.reference_expert_ffn_bwd(xs, w1, b1, w2, eot, dy),
+                       smoke.f64_ffn(xs, w1, b1, w2, None, eot, dy)),
+        "k9 bwd": lambda: (ffn.reference_expert_ffn_bwd(xg, w1, b1, w2, eot,
+                                                        dy),
+                           smoke.f64_ffn(xg, w1, b1, w2, None, eot, dy)),
+        "k10 bwd": k10_bwd,
+        "k8": lambda: (ffn.reference_expert_ffn_bwd_defer(xs, w1, b1, w2,
+                                                          eot, dy),
+                       smoke.f64_ffn(xs, w1, b1, w2, None, eot, dy))}
+    return {form: todo[form]() for form in forms}
 
 
 def main() -> None:
@@ -270,6 +372,9 @@ def main() -> None:
     ap.add_argument("--tree", help="another checkout, timed as 'tree'")
     ap.add_argument("--dims", default="384,192,768",
                     help="comma-separated widths to time")
+    ap.add_argument("--forms", default=",".join(FORMS),
+                    help="comma-separated forms to time, of " +
+                    ", ".join(FORMS))
     ap.add_argument("variants", nargs="*", choices=list(VARIANTS))
     args = ap.parse_args()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -280,24 +385,29 @@ def main() -> None:
         todo.append(("tree", os.path.join(
             os.path.abspath(args.tree), "slim_switch_moe_vit_tpu_torch",
             "csrc")))
-    started = [(v, start_build(v, csrc)) for v, csrc in todo]
+    forms = args.forms.split(",")
+    started = [(v, csrc, start_build(
+        v, csrc, {f for f, *_ in VARIANTS[v]} if v in VARIANTS else None))
+        for v, csrc in todo]
     libs = {}
-    for v, (out, procs) in started:
-        libs[v], report = finish_build(out, procs)
+    for v, csrc, (out, procs) in started:
+        *libs[v], report = finish_build(out, procs, csrc)
         print(f"{v}:\n  " + "\n  ".join(report), flush=True)
     gen = torch.Generator().manual_seed(0)
     for D in (int(d) for d in args.dims.split(",")):
         inputs = layout(D, gen)
         xs, w1 = inputs[4], inputs[5]
         Tp, (E, _, H) = xs.shape[0], w1.shape
-        ref = plains(*inputs)
+        ref = plains(forms, *inputs)
         flops = {"fwd": 4 * Tp * D * H, "bwd": 10 * Tp * D * H}
         print(f"D={D} H={H} E={E} Tp={Tp}: bounds fwd "
               f"{flops['fwd'] / smoke.F32_FLOPS * 1e3:.4f} ms, bwd "
               f"{flops['bwd'] / smoke.F32_FLOPS * 1e3:.4f} ms (split TF32 "
               f"at {smoke.F32_FLOPS / 1e12:.1f} TFLOP/s)", flush=True)
-        for v, lib in libs.items():
-            for form, fn in calls(lib, *inputs).items():
+        for v, (lib, flags) in libs.items():
+            for form, fn in calls(lib, flags, *inputs).items():
+                if form not in forms:
+                    continue
                 want, exact = ref[form]
                 got = fn()
                 bwd = isinstance(got, tuple)
@@ -317,15 +427,18 @@ def main() -> None:
                 ms = smoke.median_ms(fn)
                 bound = flops["bwd" if bwd else "fwd"] / smoke.F32_FLOPS * 1e3
                 split = ""
-                if form == "k4":
+                if form in ("k4", "k8"):
                     prof = smoke.profile_call(
                         lambda: [fn() for _ in range(10)],
-                        f"{v} K4 D={D}, 10 calls")
+                        f"{v} {form.upper()} D={D}, 10 calls")
+                    parts = ((("dh", ("dh_f32", "dgrad")),
+                              ("grads", ("grads", "wgrad")),
+                              ("reduce", ("reduce",))) if form == "k4" else
+                             (("dgrad", ("dgrad",)),
+                              ("dw", ("defer_dw", "dw_defer"))))
                     ms_of = {k: sum(us for kn, (us, _) in prof.items()
                                     if any(n in kn for n in names)) / 10e3
-                             for k, names in (("dh", ("dh_f32", "dgrad")),
-                                              ("grads", ("grads", "wgrad")),
-                                              ("reduce", ("reduce",)))}
+                             for k, names in parts}
                     split = " (" + " + ".join(
                         f"{k} {t:.4f}" for k, t in ms_of.items()) + ")"
                 print(f"  {v:10s} {form:8s} {ms:.4f} ms{split}, "

@@ -37,18 +37,4 @@ inline int head_instance(int d) {
 // Largest dynamic shared memory one block may use on sm_90.
 constexpr size_t kMaxSmemBytes = 232448;
 
-// K8's SIMT forms (f32 at every D; expert_ffn_dgrad.cuh,
-// expert_ffn_bwd_defer.cu): rows per block, the hidden chunk streamed
-// through the dgrad's one weight buffer, and that buffer's elements (the W1
-// chunk in rows of kSHC + 1 or the W2 chunk in rows of d + 1, the larger,
-// rounded up to 8).
-constexpr int kSRows = 16;
-constexpr int kSHC = 32;
-
-__host__ __device__ constexpr size_t simt_wbuf(int d) {
-  return (size_t)((d * (kSHC + 1) > kSHC * (d + 1) ? d * (kSHC + 1)
-                                                   : kSHC * (d + 1)) + 7) /
-         8 * 8;
-}
-
 }  // namespace ssmv

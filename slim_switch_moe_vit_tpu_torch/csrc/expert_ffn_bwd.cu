@@ -786,19 +786,6 @@ constexpr int kFSlice = kFG * kFMLd;    // an m- or n-major slice, floats
 static_assert(kFBK * kFKLd <= kFSlice, "a k-major slice fits a stage's half");
 constexpr size_t kFGSmem = sizeof(float) * 2 * kFSlice * kFGStages;
 
-// The 16-byte copies of an f32 slice of R rows of C floats over the block's
-// NTH threads: fn(row, column) issues one.
-template <int R, int C, int NTH, typename Fn>
-__device__ __forceinline__ void each_vec4(Fn fn) {
-  constexpr int V = C / 4;
-  static_assert(R * V % NTH == 0, "whole copies a thread");
-#pragma unroll
-  for (int q = 0; q < R * V / NTH; ++q) {
-    const int i = threadIdx.x + q * NTH;
-    fn(i / V, i % V * 4);
-  }
-}
-
 // (a) Grid (Tp / 128, H / 64).
 template <bool kGather, bool kPerm>
 __global__ void __launch_bounds__(kFDhThreads, 1)

@@ -19,8 +19,8 @@
 // flops a row against the function's 10 (the bound counts 10). Blocks on
 // the card run in no order, and a block cannot hold both a row block's dx
 // (all of H) and a hidden chunk's dW (all of an expert's rows), so K8 is
-// two kernels, both on mma.sync m16n8k16 (bf16 in, f32 sums; mma_sync.cuh)
-// fed by cp.async, 16 warps a block:
+// two kernels in either dtype. In bf16 both run on mma.sync m16n8k16 (bf16
+// in, f32 sums; mma_sync.cuh) fed by cp.async, 16 warps a block:
 //  (a) dgrad: one block per RS rows (one expert), dx's RS x D f32 sums in
 //      registers across all of H. The rows' x and dy stay in shared
 //      memory; H streams in 32-column chunks of W1[:, chunk] (double-
@@ -95,15 +95,59 @@
 // ROADMAP.md (Queue 3), as K4's is. An expert with no tokens owns one
 // all-padding tile (dy zero): its dW and db come out as exact zeros; an
 // expert owning no tile at all sums over no rows and is written as zeros
-// too. The bf16 kernels need no flags (they take every row of the
-// expert); the f32 SIMT form follows the flags that the wrapper computes
-// from e_of_tile as _bwd_flags gives them.
+// too. No kernel reads _bwd_flags' flags: every form takes all of its
+// expert's rows in row order, the same sums over the same rows (the TPU's
+// tile pairs only group them). The plain version still follows the flags
+// (ops/fused_ffn.py::bwd_flags, held to JAX by the CPU tests).
 //
-// f32 at every D takes the SIMT forms: the SIMT dgrad of
-// expert_ffn_dgrad.cuh, then the SIMT deferred-dW kernel below, which
-// walks its expert's tiles as the flags direct.
+// f32, at every D: the same two kernels on the tensor cores in split TF32
+// (mma_tf32.cuh: three mma.sync.m16n8k8 a product on hi/lo TF32 parts),
+// each k-step's three products summed into zeroed fragments and added to
+// the accumulators on the CUDA cores (mma_group2_rn, mma_group_rn), as K3's
+// and K4's f32 forms do: summed across all of k on the tensor cores, their
+// error from the f64 function read 38-46x an f32 FMA chain's, and K8's
+// sums are as long (K = D for h and p, H for dx, an expert's rows for dW).
+// What bounds it: the function's 10 x D x H flops a row at the split-TF32
+// rate, 164.9 TFLOP/s (0.531 ms at ViT-S, B = 32, Tp = 14,848); K8 takes
+// 14. f32 doubles every tile, so the bf16 tilings do not fit (the dgrad's
+// 64 resident rows of x and dy alone are 199 KB at D = 384):
+//  (a) dgrad (DgradF32): K3's f32 forward with two A products. x and dy
+//      stream in K1-deep slices beside the W1 and W2 slices of a hidden
+//      chunk (x re-read per chunk from L2, not device memory); each warp
+//      holds h and p of its 32 rows in registers, so gelu' runs on the C
+//      fragments into an f32 dh tile; then dx += dh . W1[:, chunk]^T with
+//      the chunk's W1 read once more, n-major, in K2-deep slices. dx's
+//      sums stay in registers across all of H: 96 a thread of 8 warps at
+//      BM = 64 and 32 rows at D = 384 and 768, 48 at 64 rows at D = 192.
+//      No cluster.
+//  (b) dW (DwF32): the bf16 kernel's structure with f32 tiles, in 8-warp
+//      blocks. W1[:, cols] and W2[cols, :] stay resident (104 KB at D =
+//      384, HW = 32), the rows come through a ring of 2 stages of 16 rows
+//      (50 KB a stage at D = 384) or 32 rows (D = 192), and at D = 768 a
+//      cluster of two splits D (384 columns a block, the D = 384 block's
+//      layout). Phase A's warps split K into KS slices of 16 x 32 tiles
+//      (an output of RS x HW is too small for 8 warps over all of K);
+//      phase B's tiles are 96 x 32 of the dW accumulators (48 x 32 at
+//      D = 192), 96 (48) sums a thread.
+// What set the tilings (NVIDIA H100 80GB HBM3, 700 W; at the flagship's
+// B = 32 layout, D = 384, unless named; scripts/ffn_f32_tilings.py times
+// the losers below as its k8* variants, PERF.md names the runs): 8-warp
+// dW blocks, 2.03 -> 1.75 ms (16 warps of 96 x 16 and 16 x 16 tiles split
+// each fragment in more warps) and 13.9 -> 11.8 ms at D = 768; a 64-row
+// dgrad block at D = 192, 1.50 -> 1.30 ms (128 rows: half the blocks, a
+// last wave 5/8 full). Losers: 32-row dgrad blocks (1.92 ms against 1.42)
+// or 32-column chunks (1.91); a cluster of two splitting D at 384 (dW
+// 2.35 against 1.94, 16 warps both: the cluster barriers and distributed
+// stores cost more than the halved row traffic saves) and of four at 768
+// (15.8 against 13.6); phase A in 16 x 8 tiles over half of K (dW 2.34);
+// k-steps unrolled (spills, or within 1%). What holds K8 at 0.16 of the
+// bound where K4's f32 form reaches 0.28: it computes 14/10 of the flops
+// the bound counts, its dW phase A products are small (16 or 32 rows by
+// 32 columns over K = D, the same fragment split by every warp of a K
+// slice), and each of its steps waits on two or three barriers.
 #include "expert_ffn_dgrad.cuh"
 #include "mma_sync.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -704,14 +748,14 @@ defer_dw_kernel(const bf16* __restrict__ xs, const bf16* __restrict__ dy,
 }
 
 template <class K, typename... Args>
-cudaError_t launch_cluster(K kernel, int grid, int cl, size_t smem,
-                           cudaStream_t stream, Args... args) {
+cudaError_t launch_cluster(K kernel, int grid, int threads, int cl,
+                           size_t smem, cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(kTC);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr;
@@ -742,12 +786,13 @@ cudaError_t launch_tc(const void* xs, const void* dy, const void* w1,
   const float* c1 = static_cast<const float*>(b1);
   const int* eot = static_cast<const int*>(e_of_tile);
   cudaError_t err = launch_cluster(
-      defer_dgrad_kernel<LG>, Tp / LG::RS * LG::CL, LG::CL, LG::SMEM, stream,
+      defer_dgrad_kernel<LG>, Tp / LG::RS * LG::CL, kTC, LG::CL, LG::SMEM,
+      stream,
       x, d, u1, c1, u2, eot, static_cast<bf16*>(dxs), H, tile_rows);
   if (err != cudaSuccess) return err;
   const long long grid = (long long)E * (H / LW::HW) * LW::CL;
   if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
-  return launch_cluster(defer_dw_kernel<LW>, (int)grid, LW::CL, LW::SMEM,
+  return launch_cluster(defer_dw_kernel<LW>, (int)grid, kTC, LW::CL, LW::SMEM,
                         stream, x, d, u1, c1, u2, eot, Tp / tile_rows,
                         tile_rows, static_cast<bf16*>(dw1),
                         static_cast<float*>(db1), static_cast<bf16*>(dw2),
@@ -764,217 +809,586 @@ using Dw384 = Dw<384, 32, 32, 16, 2, 2, 1>;
 using Dw768 = Dw<384, 32, 32, 16, 2, 2, 2>;
 
 // ---------------------------------------------------------------------------
-// f32: the SIMT forms
+// f32: split TF32 on the tensor cores (mma_tf32.cuh)
 // ---------------------------------------------------------------------------
 
-// The SIMT deferred-dW kernel, beside the SIMT dgrad (f32 at every D):
-// one block per (16-column hidden chunk, expert), the chunk's W1 (D x 17)
-// and W2 (16 x D+1) columns on chip for the whole walk, the same
-// flag-directed walk over the expert's tiles in 16-row steps (h and
-// dy . W2^T recomputed, dh and g rounded to T), and dW1[:, chunk] and
-// dW2[chunk, :] accumulated in registers (D / 8 a thread) with f32
-// FMAs. db1 and, in the first D / 16 chunk blocks, db2 are summed per
-// (row, column) thread over the walk, then over the 16 rows in order.
-constexpr int kDHC = 16;  // hidden columns per SIMT deferred-dW block
+namespace tf = ssmv::tf32;
 
-template <typename T>
-__host__ __device__ constexpr size_t simt_defer_smem(int d) {
-  return sizeof(T) * ((size_t)d * (kDHC + 1) + (size_t)kDHC * (d + 1) +
-                      2 * (size_t)kSRows * d + 8) +
-         sizeof(float) * (2 * kSRows * kDHC + 2 * kSRows * kDHC);
+// n-tiles a swept group of the f32 products (mma_group2_rn)
+constexpr int kGroupF32 = 2;
+
+// (a) f32: the dgrad kernel's tiling, K3's f32 forward with two A products:
+// BM rows a block (one expert), HC hidden columns a chunk, K1-deep A steps
+// and K2-deep B steps through one ring of NS stages. An A step holds the x
+// and dy slices (BM x K1, m-major), the W1 slice (K1 x HC, k-major) and the
+// W2 slice (HC x K1, n-major: W2[chunk, :] is dy . W2^T's B); a B step the
+// W1 slice (D x K2, n-major: dx's B is W1[:, chunk]^T). 8 warps WM x WN,
+// each 32 rows of h and p (HN columns) and of dx (XN columns, all of H).
+// Rows of m- and n-major tiles are 4 words past a multiple of 32, of
+// k-major ones 8 past (mma_tf32.cuh).
+template <int D_, int BM_, int HC_, int K1_, int K2_, int NS_>
+struct DgradF32 {
+  static constexpr int D = D_, BM = BM_, HC = HC_, K1 = K1_, K2 = K2_;
+  static constexpr int NS = NS_, NT = 256;
+  static constexpr int WM = BM / 32, WN = 8 / WM;  // the warp grid
+  static constexpr int HN = HC / WN, XN = D / WN;  // a warp's h / p, dx columns
+  static constexpr int XLD = K1 + 4, W1LD = HC + 8, WBLD = K2 + 4;
+  static constexpr int DHLD = HC + 4;
+  static constexpr int N1 = D / K1, N2 = HC / K2;  // A, B steps a chunk
+  static constexpr int ASTAGE = 2 * BM * XLD + K1 * W1LD + HC * XLD;
+  static constexpr int BSTAGE = D * WBLD;
+  static constexpr int STAGE = ASTAGE > BSTAGE ? ASTAGE : BSTAGE;
+  static constexpr int DH_OFF = NS * STAGE;
+  static constexpr size_t SMEM = sizeof(float) * (DH_OFF + BM * DHLD);
+  static_assert(BM % 32 == 0 && 8 % WM == 0 && HC % WN == 0 && D % WN == 0,
+                "warp grid");
+  static_assert(HN % 8 == 0 && XN % 8 == 0 && K1 % 8 == 0 && K2 % 8 == 0 &&
+                    D % K1 == 0 && HC % K2 == 0 && HC % 32 == 0,
+                "mma tiles");
+  static_assert(256 % BM == 0, "rows of one layout tile");
+  static_assert(NS >= 2 && SMEM <= ssmv::kMaxSmemBytes, "shared memory");
+};
+
+// (a) Grid Tp / BM: block b takes the layout rows [b BM, (b + 1) BM), all
+// of one expert.
+template <class L>
+__global__ void __launch_bounds__(L::NT, 1)
+defer_dgrad_f32_kernel(const float* __restrict__ xs,
+                       const float* __restrict__ dy,
+                       const float* __restrict__ w1,
+                       const float* __restrict__ b1,
+                       const float* __restrict__ w2,
+                       const int* __restrict__ e_of_tile,
+                       float* __restrict__ dxs, int H, int tile_rows) {
+  constexpr int D = L::D, BM = L::BM, HC = L::HC, NT = L::NT;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
+  float* DHs = smem + L::DH_OFF;
+  const int row0 = blockIdx.x * BM;
+  const int e = e_of_tile[row0 / tile_rows];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float* xb = xs + (size_t)row0 * D;
+  const float* dyb = dy + (size_t)row0 * D;
+  const float* w1e = w1 + (size_t)e * D * H;
+  const float* w2e = w2 + (size_t)e * H * D;
+  const float* b1e = b1 + (size_t)e * H;
+
+  constexpr int SPC = L::N1 + L::N2;  // steps a chunk
+  const int n_steps = H / HC * SPC;
+  const auto issue = [&](int t) {  // step t into its stage, one group
+    if (t < n_steps) {
+      float* st = smem + (t % L::NS) * L::STAGE;
+      const int c0 = t / SPC * HC, s = t % SPC;
+      if (s < L::N1) {  // x, dy[:, k0 + k], W1[k0 + k, c0 + n], W2[c0 + n, k0 + k]
+        const int k0 = s * L::K1;
+        float* dyt = st + BM * L::XLD;
+        float* w1t = dyt + BM * L::XLD;
+        float* w2t = w1t + L::K1 * L::W1LD;
+        each_vec4<BM, L::K1, NT>([&](int r, int c) {
+          cp_async16(st + r * L::XLD + c, xb + (size_t)r * D + k0 + c, true);
+          cp_async16(dyt + r * L::XLD + c, dyb + (size_t)r * D + k0 + c, true);
+        });
+        each_vec4<L::K1, HC, NT>([&](int k, int n) {
+          cp_async16(w1t + k * L::W1LD + n,
+                     w1e + (size_t)(k0 + k) * H + c0 + n, true);
+        });
+        each_vec4<HC, L::K1, NT>([&](int n, int k) {
+          cp_async16(w2t + n * L::XLD + k,
+                     w2e + (size_t)(c0 + n) * D + k0 + k, true);
+        });
+      } else {  // W1[d, k0 + k]
+        const int k0 = c0 + (s - L::N1) * L::K2;
+        each_vec4<D, L::K2, NT>([&](int d, int k) {
+          cp_async16(st + d * L::WBLD + k, w1e + (size_t)d * H + k0 + k,
+                     true);
+        });
+      }
+    }
+    cp_async_commit();
+  };
+  // step t's stage, once it has landed for every thread and step t - 1's
+  // stage is free for step t + NS - 1
+  const auto stage = [&](int t) {
+    cp_async_wait<L::NS - 2>();
+    __syncthreads();
+    issue(t + L::NS - 1);
+    return smem + (t % L::NS) * L::STAGE;
+  };
+  for (int s = 0; s < L::NS - 1; ++s) issue(s);
+
+  const int g = lane >> 2, tq = lane & 3;
+  const int wm = warp % L::WM, wn = warp / L::WM;
+  float dx[2][L::XN / 8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < L::XN / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) dx[i][j][c] = 0.f;
+  int t = 0;
+#pragma unroll 1
+  for (int c0 = 0; c0 < H; c0 += HC) {
+    float h[2][L::HN / 8][4], p[2][L::HN / 8][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < L::HN / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) h[i][j][c] = p[i][j][c] = 0.f;
+#pragma unroll 1
+    for (int s = 0; s < L::N1; ++s, ++t) {  // h = x . W1, p = dy . W2^T
+      const float* st = stage(t);
+      const float* Xt = st + wm * 32 * L::XLD;  // this warp's rows
+      const float* DYt = Xt + BM * L::XLD;
+      const float* W1t = st + 2 * BM * L::XLD;
+      const float* W2t = W1t + L::K1 * L::W1LD;
+#pragma unroll 1  // fewer fragments in flight: no spills
+      for (int kk = 0; kk < L::K1; kk += 8) {
+        constexpr int J = tf::group_for(L::HN / 8, kGroupF32);
+        tf::FragA a0, a1;
+        tf::ld_a(a0, Xt, L::XLD, kk);
+        tf::ld_a(a1, Xt + 16 * L::XLD, L::XLD, kk);
+#pragma unroll
+        for (int j0 = 0; j0 < L::HN / 8; j0 += J) {
+          tf::FragB b[J];
+#pragma unroll
+          for (int j = 0; j < J; ++j)
+            tf::ld_b_km(b[j], W1t, L::W1LD, kk, wn * L::HN + (j0 + j) * 8);
+          tf::mma_group2_rn<J>(h[0], j0, a0, b, h[1], j0, a1, b);
+        }
+        tf::ld_a(a0, DYt, L::XLD, kk);
+        tf::ld_a(a1, DYt + 16 * L::XLD, L::XLD, kk);
+#pragma unroll
+        for (int j0 = 0; j0 < L::HN / 8; j0 += J) {
+          tf::FragB b[J];
+#pragma unroll
+          for (int j = 0; j < J; ++j)
+            tf::ld_b_nk(b[j], W2t, L::XLD, wn * L::HN + (j0 + j) * 8, kk);
+          tf::mma_group2_rn<J>(p[0], j0, a0, b, p[1], j0, a1, b);
+        }
+      }
+    }
+    // dh = p * gelu'(h + b1) into the dh tile: the next step's barrier
+    // publishes it, and the readers of the last chunk's dh passed the
+    // barriers of this chunk's A steps
+#pragma unroll
+    for (int j = 0; j < L::HN / 8; ++j) {
+      const int col = wn * L::HN + j * 8 + 2 * tq;
+      const float2 bias = *reinterpret_cast<const float2*>(b1e + c0 + col);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {  // rows g and g + 8 of the m-tile
+          float gv, dg0, dg1;
+          gelu_pair(h[i][j][2 * hh] + bias.x, &gv, &dg0);
+          gelu_pair(h[i][j][2 * hh + 1] + bias.y, &gv, &dg1);
+          *reinterpret_cast<float2*>(
+              DHs + (wm * 32 + i * 16 + g + hh * 8) * L::DHLD + col) =
+              make_float2(p[i][j][2 * hh] * dg0, p[i][j][2 * hh + 1] * dg1);
+        }
+    }
+#pragma unroll 1
+    for (int s = 0; s < L::N2; ++s, ++t) {  // dx += dh . W1[:, chunk]^T
+      const float* W1t = stage(t);
+      const float* DH0 = DHs + wm * 32 * L::DHLD + s * L::K2;
+#pragma unroll 1  // as the A steps
+      for (int kk = 0; kk < L::K2; kk += 8) {
+        constexpr int J = tf::group_for(L::XN / 8, kGroupF32);
+        tf::FragA a0, a1;
+        tf::ld_a(a0, DH0, L::DHLD, kk);
+        tf::ld_a(a1, DH0 + 16 * L::DHLD, L::DHLD, kk);
+#pragma unroll
+        for (int j0 = 0; j0 < L::XN / 8; j0 += J) {
+          tf::FragB b[J];
+#pragma unroll
+          for (int j = 0; j < J; ++j)
+            tf::ld_b_nk(b[j], W1t, L::WBLD, wn * L::XN + (j0 + j) * 8, kk);
+          tf::mma_group2_rn<J>(dx[0], j0, a0, b, dx[1], j0, a1, b);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int j = 0; j < L::XN / 8; ++j) {
+    const int col = wn * L::XN + j * 8 + 2 * tq;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<float2*>(
+            dxs + (size_t)(row0 + wm * 32 + i * 16 + g + hh * 8) * D + col) =
+            make_float2(dx[i][j][2 * hh], dx[i][j][2 * hh + 1]);
+  }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, 1)
-expert_ffn_dw_defer_simt(const T* __restrict__ xs, const T* __restrict__ dy,
-                         const T* __restrict__ w1, const float* __restrict__ b1,
-                         const T* __restrict__ w2,
-                         const int* __restrict__ e_of_tile,
-                         const int* __restrict__ flags, int n_tiles,
-                         int tile_rows, T* __restrict__ dw1,
-                         float* __restrict__ db1, T* __restrict__ dw2,
-                         float* __restrict__ db2, int H) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* DHs = reinterpret_cast<float*>(smem);  // kSRows x kDHC, T(dh)
-  float* Gs = DHs + kSRows * kDHC;              // kSRows x kDHC, T(g)
-  float* R1 = Gs + kSRows * kDHC;               // db1 partials
-  float* R2 = R1 + kSRows * kDHC;               // db2 partials
-  T* W1s = reinterpret_cast<T*>(R2 + kSRows * kDHC);  // D x (kDHC + 1)
-  T* W2s = W1s + D * (kDHC + 1);                      // kDHC x (D + 1)
-  T* Xs = W2s + kDHC * (D + 1);                       // kSRows x D
-  T* DYs = Xs + kSRows * D;                           // kSRows x D
+// (b) f32: the dW kernel's tiling, the bf16 kernel's with f32 tiles. A block
+// (a cluster of CL blocks) owns HW hidden columns of one expert; block r of
+// the cluster holds the columns [r DC, (r + 1) DC) of x, dy, W1[:, cols]'s
+// rows and W2[cols, :]'s columns. W1[:, cols] (k-major) and W2[cols, :]
+// (n-major) stay in shared memory; the expert's rows come through a ring of
+// NB stages of RS rows of x and dy (the block's DC columns, rows 8 words past
+// a multiple of 32: phase A reads them as m-major A in ld_a_c's k order,
+// with W1 through ld_b_kn and W2 through ld_b_nk_c in the same order, and
+// phase B as k-major A through ld_a_km, both conflict-free). Per step:
+// phase A, h and p of the RS rows over the block's DC (warp = product x K
+// slice of DC / KS x 16-row tile x AN-column tile) into the scratch
+// (Scratch); the epilogue adds a part's CL x KS slots in order and puts dh
+// and g = gelu(h + b1), f32, into every block's tiles, the dh column sums
+// (db1) and, in the block that holds dy's columns [cb HW, (cb + 1) HW), dy's
+// (db2) in registers; phase B, dW1[:, cols] += x^T . dh and dW2[cols, :]^T
+// += dy^T . g (half of the NT / 32 warps a product, BMW x BNW each of the
+// DC x HW accumulator), stored from the registers at the end.
+template <int DC_, int HW_, int RS_, int AN_, int KS_, int NB_, int CL_,
+          int BMW_, int BNW_, int NT_>
+struct DwF32 {
+  static constexpr int DC = DC_, HW = HW_, RS = RS_, AN = AN_, KS = KS_;
+  static constexpr int NB = NB_, CL = CL_, D = DC * CL;
+  static constexpr int BMW = BMW_, BNW = BNW_, NT = NT_, NW = NT / 32;
+  using S = Scratch<CL, HW, RS>;
+  static constexpr int XLD = DC + 8, W1LD = HW + 4, W2LD = DC + 8;
+  static constexpr int GLD = HW + 8;
+  static constexpr int STAGE = 2 * RS * XLD;  // a ring stage, floats
+  static constexpr int W1 = NB * STAGE, W2 = W1 + DC * W1LD;
+  static constexpr int SC = W2 + HW * W2LD;
+  static constexpr int DH = SC + CL * KS * S::SLOT, G = DH + RS * GLD;
+  static constexpr size_t SMEM = sizeof(float) * (G + RS * GLD);
+  static_assert(2 * KS * (RS / 16) * (HW / AN) == NW && AN % 8 == 0,
+                "phase A: a tile a warp");
+  static_assert((DC / BMW) * (HW / BNW) == NW / 2 && BMW % 16 == 0 &&
+                    BNW % 8 == 0 && DC % BMW == 0 && HW % BNW == 0,
+                "phase B: half of the warps a product");
+  static_assert(DC % (8 * KS) == 0 && RS % 16 == 0 && 256 % RS == 0 &&
+                    NB >= 2 && DC % HW == 0,
+                "steps, and db2's columns in one block");
+  static_assert(4 * NT <= CL * KS * S::SLOT,
+                "the db sums' staging fits in the scratch");
+  static_assert(SMEM <= ssmv::kMaxSmemBytes, "shared memory budget");
+};
 
-  const int c0 = blockIdx.x * kDHC, e = blockIdx.y;
+// acc = A[16 rows, k in [k0, k1)] . B[k, n0 + (0..AN)], each k-step's three
+// products summed apart (mma_group_rn): A m-major in ld_a_c's k order, B
+// k-major (kW1: W1's rows, ld_b_kn) or n-major (W2's rows, ld_b_nk_c)
+template <bool kW1, int AN>
+__device__ __forceinline__ void partial_f32(float (&acc)[AN / 8][4],
+                                            const float* A, int lda,
+                                            const float* B, int ldb, int n0,
+                                            int k0, int k1) {
+#pragma unroll
+  for (int j = 0; j < AN / 8; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
+  constexpr int J = tf::group_for(AN / 8, kGroupF32);
+#pragma unroll 1
+  for (int k = k0; k < k1; k += 8) {
+    tf::FragA a;
+    tf::ld_a_c(a, A, lda, k);
+#pragma unroll
+    for (int j0 = 0; j0 < AN / 8; j0 += J) {
+      tf::FragB b[J];
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        if (kW1)
+          tf::ld_b_kn(b[j], B, ldb, k, n0 + (j0 + j) * 8);
+        else
+          tf::ld_b_nk_c(b[j], B, ldb, n0 + (j0 + j) * 8, k);
+      }
+      tf::mma_group_rn<J>(acc, j0, a, b);
+    }
+  }
+}
+
+// two floats to this offset of every block of the cluster
+template <int CL>
+__device__ __forceinline__ void put_all_f2(float* p, float a, float b) {
+  if constexpr (CL == 1) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  } else {
+#pragma unroll
+    for (uint32_t q = 0; q < CL; ++q) st_cluster_f2(p, q, a, b);
+  }
+}
+
+// (b) Grid E * (H / HW) * CL, clusters of CL: cluster (e, cb) takes hidden
+// columns [cb HW, (cb + 1) HW) over all the rows of expert e.
+template <class L>
+__global__ void __launch_bounds__(L::NT, 1)
+defer_dw_f32_kernel(const float* __restrict__ xs,
+                    const float* __restrict__ dy,
+                    const float* __restrict__ w1,
+                    const float* __restrict__ b1,
+                    const float* __restrict__ w2,
+                    const int* __restrict__ e_of_tile, int n_tiles,
+                    int tile_rows, float* __restrict__ dw1,
+                    float* __restrict__ db1, float* __restrict__ dw2,
+                    float* __restrict__ db2, int H) {
+  using S = typename L::S;
+  constexpr int DC = L::DC, HW = L::HW, RS = L::RS, CL = L::CL;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* smem = reinterpret_cast<float*>(smem_raw);
+  float* W1s = smem + L::W1;
+  float* W2s = smem + L::W2;
+  float* SCs = smem + L::SC;
+  float* DHs = smem + L::DH;
+  float* Gs = smem + L::G;
+  const int rank = CL == 1 ? 0 : (int)cluster_rank();
+  const int n_cb = H / HW, cluster = blockIdx.x / CL;
+  const int cb = cluster % n_cb, e = cluster / n_cb;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const bool has_db2 = c0 < D;
-  const T* w1e = w1 + (size_t)e * D * H;
-  const T* w2e = w2 + (size_t)e * H * D;
+  const int c0 = cb * HW, d0 = rank * DC;
 
+  // the expert's tiles: e_of_tile is nondecreasing, so they are the
+  // [#tiles with e_of_tile < e, + #tiles with e_of_tile == e) range
   int first = 0, count = 0;
-  for (int t0 = 0; t0 < n_tiles; t0 += kThreads) {
+  for (int t0 = 0; t0 < n_tiles; t0 += L::NT) {
     const int t = t0 + tid;
     const int et = t < n_tiles ? e_of_tile[t] : 0x7fffffff;
     first += __syncthreads_count(et < e);
     count += __syncthreads_count(et == e);
   }
-  for (int i = tid; i < D * kDHC; i += kThreads) {
-    const int k = i / kDHC, c = i % kDHC;
-    W1s[k * (kDHC + 1) + c] = w1e[(size_t)k * H + c0 + c];
-  }
-  for (int i = tid; i < kDHC * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    W2s[r * (D + 1) + c] = w2e[(size_t)(c0 + r) * D + c];
-  }
-  // h / p / db: thread (hr, hc) = (tid / 16, tid % 16)
-  const int hr = tid / kDHC, hc = tid % kDHC;
-  const float bias = b1[(size_t)e * H + c0 + hc];
-  float db1_sum = 0.f, db2_sum = 0.f;
-  // dW1[k][c] for k = lane + 32 j, c = 2 warp + q; dW2[c][k] likewise
-  constexpr int NJ = D / 32;
-  float acc1[NJ][2], acc2[2][NJ];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-#pragma unroll
-    for (int q = 0; q < 2; ++q) acc1[j][q] = acc2[q][j] = 0.f;
-  const int cq = warp * 2;
+  const int r_begin = first * tile_rows;
+  const int n_steps = count * tile_rows / RS;
+  if constexpr (CL > 1) cluster_sync();  // every block has started
 
-  for (int t = first; t < first + count; ++t) {
-    const int f = flags[t];
-    if (!(f & 1)) continue;  // deferred: this tile joins the next flush
-    const int r_begin = (t - ((f & 2) ? 1 : 0)) * tile_rows;
-    const int r_end = (t + 1) * tile_rows;
-    for (int r0 = r_begin; r0 < r_end; r0 += kSRows) {
-      __syncthreads();  // the last step's readers are done (and W1s/W2s set)
-      for (int i = tid; i < kSRows * D; i += kThreads) {
-        const size_t g = (size_t)r0 * D + i;
-        Xs[i] = xs[g];
-        DYs[i] = dy[g];
-      }
-      __syncthreads();
-      float h = 0.f, p = 0.f;
-      for (int k = 0; k < D; ++k) {
-        h = fmaf(ssmv::to_f32(Xs[hr * D + k]),
-                 ssmv::to_f32(W1s[k * (kDHC + 1) + hc]), h);
-        p = fmaf(ssmv::to_f32(DYs[hr * D + k]),
-                 ssmv::to_f32(W2s[hc * (D + 1) + k]), p);
-      }
-      float g, dg;
-      gelu_pair(h + bias, &g, &dg);
-      const float dh = p * dg;
-      db1_sum += dh;
-      if (has_db2) db2_sum += ssmv::to_f32(DYs[hr * D + c0 + hc]);
-      DHs[hr * kDHC + hc] = ssmv::to_f32(ssmv::from_f32<T>(dh));
-      Gs[hr * kDHC + hc] = ssmv::to_f32(ssmv::from_f32<T>(g));
-      __syncthreads();
-      for (int r = 0; r < kSRows; ++r) {
-        const float d0 = DHs[r * kDHC + cq], d1 = DHs[r * kDHC + cq + 1];
-        const float g0 = Gs[r * kDHC + cq], g1 = Gs[r * kDHC + cq + 1];
+  const float* w1e = w1 + ((size_t)e * L::D + d0) * H + c0;
+  const float* w2e = w2 + ((size_t)e * H + c0) * L::D + d0;
+  each_vec4<DC, HW, L::NT>([&](int d, int n) {  // W1[e][d0 + d][c0 + n]
+    cp_async16(W1s + d * L::W1LD + n, w1e + (size_t)d * H + n, true);
+  });
+  each_vec4<HW, DC, L::NT>([&](int n, int k) {  // W2[e][c0 + n][d0 + k]
+    cp_async16(W2s + n * L::W2LD + k, w2e + (size_t)n * L::D + k, true);
+  });
+  const auto issue = [&](int t) {  // step t's x and dy rows, one group
+    if (t < n_steps) {
+      float* st = smem + (t % L::NB) * L::STAGE;
+      const size_t row = (size_t)r_begin + (size_t)t * RS;
+      each_vec4<RS, DC, L::NT>([&](int r, int c) {
+        const size_t src = (row + r) * L::D + d0 + c;
+        cp_async16(st + r * L::XLD + c, xs + src, true);
+        cp_async16(st + (RS + r) * L::XLD + c, dy + src, true);
+      });
+    }
+    cp_async_commit();
+  };
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const float xv = ssmv::to_f32(Xs[r * D + lane + 32 * j]);
-          const float yv = ssmv::to_f32(DYs[r * D + lane + 32 * j]);
-          acc1[j][0] = fmaf(xv, d0, acc1[j][0]);
-          acc1[j][1] = fmaf(xv, d1, acc1[j][1]);
-          acc2[0][j] = fmaf(g0, yv, acc2[0][j]);
-          acc2[1][j] = fmaf(g1, yv, acc2[1][j]);
+  for (int t = 0; t < L::NB - 1; ++t) issue(t);
+
+  // phase A: warp = (product q, K slice ks, 16-row tile mi, AN columns ni)
+  constexpr int TM = RS / 16, TN = HW / L::AN, KW = DC / L::KS;
+  const int q = warp / (L::NW / 2), wq = warp % (L::NW / 2);
+  const int ks = wq / (TM * TN), mi = wq % (TM * TN) / TN, ni = wq % TN;
+  // epilogue: this thread's column pair of this block's part, first row
+  constexpr int CP = S::COLS / 2, RSTEP = L::NT / CP;
+  const int ec = tid % CP * 2, er = tid / CP;
+  const int gc = rank * S::COLS + ec;  // the pair's column among the HW
+  const float2 bias =
+      *reinterpret_cast<const float2*>(b1 + (size_t)e * H + c0 + gc);
+  // db2: dy's columns [c0, c0 + HW) of D, in the block whose slice holds
+  // them; this thread's pair of them and first row
+  const bool has_db2 = c0 >= d0 && c0 < d0 + DC;
+  constexpr int CP2 = HW / 2, RSTEP2 = L::NT / CP2;
+  const int ec2 = tid % CP2 * 2, er2 = tid / CP2;
+  float db1s[2] = {0.f, 0.f}, db2s[2] = {0.f, 0.f};
+  // phase B: this warp's BMW x BNW tile of dW1[:, cols] (q = 0) or of
+  // dW2[cols, :]^T (q = 1)
+  constexpr int MT = L::BMW / 16, NTL = L::BNW / 8, BWN = HW / L::BNW;
+  const int bm = wq / BWN, bn = wq % BWN;
+  float acc[MT][NTL][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NTL; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][j][c] = 0.f;
+
+#pragma unroll 1
+  for (int t = 0; t < n_steps; ++t) {
+    cp_async_wait<L::NB - 2>();  // step t (and the weights) landed
+    __syncthreads();             // ... for all; step t - 1 is done
+    issue(t + L::NB - 1);        // into the stage step t - 1 used
+    const float* Xt = smem + (t % L::NB) * L::STAGE;
+    const float* DYt = Xt + RS * L::XLD;
+    {
+      float a2[L::AN / 8][4];
+      if (q == 0)
+        partial_f32<true, L::AN>(a2, Xt + mi * 16 * L::XLD, L::XLD, W1s,
+                                 L::W1LD, ni * L::AN, ks * KW, (ks + 1) * KW);
+      else
+        partial_f32<false, L::AN>(a2, DYt + mi * 16 * L::XLD, L::XLD, W2s,
+                                  L::W2LD, ni * L::AN, ks * KW,
+                                  (ks + 1) * KW);
+      put_partial<CL, HW, RS, L::AN>(SCs, rank * L::KS + ks, q, mi * 16,
+                                     ni * L::AN, a2);
+    }
+    group_sync<CL>();  // the partial sums are in
+#pragma unroll 1
+    for (int r = er; r < RS; r += RSTEP) {
+      float h[2], p[2];
+      sum_slots<CL, HW, RS, CL * L::KS>(SCs, r, ec, h, p);
+      float gv[2], dh[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float dg;
+        gelu_pair(h[c] + (c ? bias.y : bias.x), &gv[c], &dg);
+        dh[c] = p[c] * dg;
+        db1s[c] += dh[c];
+      }
+      put_all_f2<CL>(DHs + r * L::GLD + gc, dh[0], dh[1]);
+      put_all_f2<CL>(Gs + r * L::GLD + gc, gv[0], gv[1]);
+    }
+    if (has_db2) {
+#pragma unroll 1
+      for (int r = er2; r < RS; r += RSTEP2) {
+        const float2 y2 = *reinterpret_cast<const float2*>(
+            DYt + r * L::XLD + c0 - d0 + ec2);
+        db2s[0] += y2.x;
+        db2s[1] += y2.y;
+      }
+    }
+    group_sync<CL>();  // dh and g complete; the slots are read
+    const float* At = q ? DYt : Xt;
+    const float* Bt = q ? Gs : DHs;
+#pragma unroll 1
+    for (int k = 0; k < RS; k += 8) {
+      tf::FragB b[NTL];
+#pragma unroll
+      for (int j = 0; j < NTL; ++j)
+        tf::ld_b_km(b[j], Bt, L::GLD, k, bn * L::BNW + j * 8);
+#pragma unroll
+      for (int i = 0; i + 1 < MT; i += 2) {
+        tf::FragA a0, a1;
+        tf::ld_a_km(a0, At, L::XLD, k, bm * L::BMW + i * 16);
+        tf::ld_a_km(a1, At, L::XLD, k, bm * L::BMW + i * 16 + 16);
+        tf::mma_group2_rn<NTL>(acc[i], 0, a0, b, acc[i + 1], 0, a1, b);
+      }
+      if constexpr (MT % 2 == 1) {
+        tf::FragA a;
+        tf::ld_a_km(a, At, L::XLD, k, bm * L::BMW + (MT - 1) * 16);
+        tf::mma_group_rn<NTL>(acc[MT - 1], 0, a, b);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // dW1[e][d0 + m][c0 + n] (q = 0), dW2[e][c0 + n][d0 + m] (q = 1), from
+  // the registers: each row segment of 8 floats is one 32-byte sector
+  const int g = lane >> 2, tq = lane & 3;
+  const size_t per_e = (size_t)L::D * H;  // one expert's dW1 or dW2
+  float* ow = (q ? dw2 : dw1) + (size_t)e * per_e;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NTL; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int m = d0 + bm * L::BMW + i * 16 + g + hh * 8;
+        const int n = c0 + bn * L::BNW + j * 8 + 2 * tq;
+        const float v0 = acc[i][j][2 * hh], v1 = acc[i][j][2 * hh + 1];
+        if (q == 0) {
+          *reinterpret_cast<float2*>(ow + (size_t)m * H + n) =
+              make_float2(v0, v1);
+        } else {
+          ow[(size_t)n * L::D + m] = v0;
+          ow[(size_t)(n + 1) * L::D + m] = v1;
         }
       }
-    }
-  }
 
-  T* dw1e = dw1 + (size_t)e * D * H;
-  T* dw2e = dw2 + (size_t)e * H * D;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int k = lane + 32 * j, c = cq + q;
-      dw1e[(size_t)k * H + c0 + c] = ssmv::from_f32<T>(acc1[j][q]);
-      dw2e[(size_t)(c0 + c) * D + k] = ssmv::from_f32<T>(acc2[q][j]);
-    }
-  __syncthreads();  // the walk's readers of DHs / Gs are done
-  R1[hr * kDHC + hc] = db1_sum;
-  R2[hr * kDHC + hc] = db2_sum;
+  // db1 (this block's part of the columns) and db2: the threads of a
+  // column pair added in row order; the scratch is free (its last readers
+  // passed the last step's second barrier)
+  float* red = SCs;
+  red[tid * 2] = db1s[0];
+  red[tid * 2 + 1] = db1s[1];
+  red[2 * L::NT + tid * 2] = db2s[0];
+  red[2 * L::NT + tid * 2 + 1] = db2s[1];
   __syncthreads();
-  if (tid < kDHC) {
-    float s1 = 0.f, s2 = 0.f;
-    for (int r = 0; r < kSRows; ++r) {
-      s1 += R1[r * kDHC + tid];
-      s2 += R2[r * kDHC + tid];
-    }
-    db1[(size_t)e * H + c0 + tid] = s1;
-    if (has_db2) db2[(size_t)e * D + c0 + tid] = s2;
+  if (tid < S::COLS) {
+    float s1 = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < RSTEP; ++k)
+      s1 += red[(k * CP + tid / 2) * 2 + (tid & 1)];
+    db1[(size_t)e * H + c0 + rank * S::COLS + tid] = s1;
+  }
+  if (has_db2 && tid < HW) {
+    float s2 = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < RSTEP2; ++k)
+      s2 += red[2 * L::NT + (k * CP2 + tid / 2) * 2 + (tid & 1)];
+    db2[(size_t)e * L::D + c0 + tid] = s2;
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_simt(const void* xs, const void* dy, const void* w1,
-                        const void* b1, const void* w2, const void* e_of_tile,
-                        const void* flags, void* dxs, void* dw1, void* db1,
-                        void* dw2, void* db2, int Tp, int H, int E,
-                        int tile_rows, cudaStream_t stream) {
-  cudaError_t err = launch_dgrad_simt<T, D>(xs, dy, w1, b1, w2, e_of_tile,
-                                            dxs, Tp, H, tile_rows, stream);
+template <class LG, class LW>
+cudaError_t launch_f32(const void* xs, const void* dy, const void* w1,
+                       const void* b1, const void* w2, const void* e_of_tile,
+                       void* dxs, void* dw1, void* db1, void* dw2, void* db2,
+                       int Tp, int H, int E, int tile_rows,
+                       cudaStream_t stream) {
+  static_assert(LG::D == LW::D, "one width");
+  if (H % LG::HC || H % LW::HW || tile_rows % LG::BM || tile_rows % LW::RS)
+    return cudaErrorInvalidValue;
+  const float* x = static_cast<const float*>(xs);
+  const float* d = static_cast<const float*>(dy);
+  const float* u1 = static_cast<const float*>(w1);
+  const float* u2 = static_cast<const float*>(w2);
+  const float* c1 = static_cast<const float*>(b1);
+  const int* eot = static_cast<const int*>(e_of_tile);
+  auto dgrad = defer_dgrad_f32_kernel<LG>;
+  cudaError_t err = cudaFuncSetAttribute(
+      dgrad, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)LG::SMEM);
   if (err != cudaSuccess) return err;
-  const size_t smem = simt_defer_smem<T>(D);
-  if (smem > ssmv::kMaxSmemBytes) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(expert_ffn_dw_defer_simt<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  dgrad<<<Tp / LG::BM, LG::NT, LG::SMEM, stream>>>(
+      x, d, u1, c1, u2, eot, static_cast<float*>(dxs), H, tile_rows);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  expert_ffn_dw_defer_simt<T, D>
-      <<<dim3(H / kDHC, E), kThreads, smem, stream>>>(
-      static_cast<const T*>(xs), static_cast<const T*>(dy),
-      static_cast<const T*>(w1), static_cast<const float*>(b1),
-      static_cast<const T*>(w2), static_cast<const int*>(e_of_tile),
-      static_cast<const int*>(flags), Tp / tile_rows, tile_rows,
-      static_cast<T*>(dw1), static_cast<float*>(db1), static_cast<T*>(dw2),
-      static_cast<float*>(db2), H);
-  return cudaGetLastError();
+  const long long grid = (long long)E * (H / LW::HW) * LW::CL;
+  if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
+  return launch_cluster(defer_dw_f32_kernel<LW>, (int)grid, LW::NT, LW::CL,
+                        LW::SMEM,
+                        stream, x, d, u1, c1, u2, eot, Tp / tile_rows,
+                        tile_rows, static_cast<float*>(dw1),
+                        static_cast<float*>(db1), static_cast<float*>(dw2),
+                        static_cast<float*>(db2), H);
 }
 
+// The f32 tilings the dispatch takes: DgradF32<D, BM, HC, K1, K2, NS> and
+// DwF32<DC, HW, RS, AN, KS, NB, CL, BMW, BNW, NT>
+using DgradF32_192 = DgradF32<192, 64, 64, 32, 32, 4>;
+using DgradF32_384 = DgradF32<384, 64, 64, 32, 16, 4>;
+using DgradF32_768 = DgradF32<768, 32, 64, 32, 16, 3>;
+using DwF32_192 = DwF32<192, 32, 32, 32, 2, 2, 1, 48, 32, 256>;
+using DwF32_384 = DwF32<384, 32, 16, 32, 4, 2, 1, 96, 32, 256>;
+using DwF32_768 = DwF32<384, 32, 16, 32, 4, 2, 2, 96, 32, 256>;
 
 }  // namespace
 
 // K8: xs, dy (Tp, D); w1 (E, D, H), b1 (E, H) f32, w2 (E, H, D); e_of_tile
-// (Tp / tile_rows,) int32, nondecreasing; flags (Tp / tile_rows,) int32 from
-// e_of_tile as _bwd_flags gives them, read in f32 only (bf16 takes null)
-// -> dxs (Tp, D), dw1 (E, D, H), db1 (E, H) f32, dw2 (E, H, D), db2 (E, D)
-// f32; xs, dy, w1, w2, dxs, dw1, dw2 of one activation dtype, bf16
-// (is_bf16 = 1) or f32. All contiguous and 16-byte aligned; D is 192, 384
-// or 768 (bf16 on the tensor cores, f32 in the SIMT form), H a multiple
-// of 64 and at least D, tile_rows and Tp multiples of 256 in bf16 and of
-// 64 in f32.
+// (Tp / tile_rows,) int32, nondecreasing -> dxs (Tp, D), dw1 (E, D, H), db1
+// (E, H) f32, dw2 (E, H, D), db2 (E, D) f32; xs, dy, w1, w2, dxs, dw1, dw2
+// of one activation dtype, bf16 (is_bf16 = 1) or f32. All contiguous and
+// 16-byte aligned; D is 192, 384 or 768 (bf16 on mma.sync m16n8k16, f32 in
+// split TF32), H a multiple of 64 and at least D, tile_rows and Tp
+// multiples of 256.
 extern "C" int ssmv_expert_ffn_bwd_defer(
     const void* xs, const void* dy, const void* w1, const void* b1,
-    const void* w2, const void* e_of_tile, const void* flags, void* dxs,
-    void* dw1, void* db1, void* dw2, void* db2, int Tp, int D, int H, int E,
-    int tile_rows, int is_bf16, void* stream) {
+    const void* w2, const void* e_of_tile, void* dxs, void* dw1, void* db1,
+    void* dw2, void* db2, int Tp, int D, int H, int E, int tile_rows,
+    int is_bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   // H >= D: the first D / HW column blocks of each expert take db2
   if (Tp < kRows || Tp % kRows || H < 64 || H % 64 || H < D ||
       tile_rows % kRows || Tp % tile_rows || E < 1 || E > 65535)
     return (int)cudaErrorInvalidValue;
-#define SSMV_TC_DEFER(DD)                                                  \
-  if (D == DD)                                                             \
-    return (int)launch_tc<Dgrad##DD, Dw##DD>(xs, dy, w1, b1, w2,           \
-                                             e_of_tile, dxs, dw1, db1, dw2, \
-                                             db2, Tp, H, E, tile_rows, s);
-#define SSMV_SIMT_DEFER(DD)                                                \
-  if (D == DD)                                                             \
-    return (int)launch_simt<float, DD>(xs, dy, w1, b1, w2, e_of_tile,      \
-                                       flags, dxs, dw1, db1, dw2, db2, Tp, \
-                                       H, E, tile_rows, s);
-  if (is_bf16) {
-    SSMV_TC_DEFER(192)
-    SSMV_TC_DEFER(384)
-    SSMV_TC_DEFER(768)
-  } else if (flags != nullptr) {
-    SSMV_SIMT_DEFER(192)
-    SSMV_SIMT_DEFER(384)
-    SSMV_SIMT_DEFER(768)
-  }
-#undef SSMV_TC_DEFER
-#undef SSMV_SIMT_DEFER
+#define SSMV_DEFER(DD)                                                      \
+  if (D == DD)                                                              \
+    return (int)(is_bf16 ? launch_tc<Dgrad##DD, Dw##DD>                     \
+                         : launch_f32<DgradF32_##DD, DwF32_##DD>)(          \
+        xs, dy, w1, b1, w2, e_of_tile, dxs, dw1, db1, dw2, db2, Tp, H, E,   \
+        tile_rows, s);
+  SSMV_DEFER(192)
+  SSMV_DEFER(384)
+  SSMV_DEFER(768)
+#undef SSMV_DEFER
   return (int)cudaErrorInvalidValue;
 }

@@ -147,6 +147,23 @@ __device__ __forceinline__ void mma_group2_rn(float (&c1)[NT1][4], int j1,
     }
 }
 
+// mma_group2_rn of one product (one m-tile)
+template <int J, int NT>
+__device__ __forceinline__ void mma_group_rn(float (&c)[NT][4], int j0,
+                                             const FragA& a,
+                                             const FragB (&b)[J]) {
+  float t[J][4];
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) t[j][q] = 0.f;
+  mma_group<J>(t, 0, a, b);
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) c[j0 + j][q] += t[j][q];
+}
+
 // A fragment: rows [0, 16) x columns [k0, k0 + 8) of a row-major tile,
 // each value times f before the split
 __device__ __forceinline__ void ld_a(FragA& a, const float* tile, int ld,
@@ -178,6 +195,18 @@ __device__ __forceinline__ void ld_b_kn(FragB& b, const float* tile, int ld,
   const float* p = tile + (k0 + 2 * t) * ld + n0 + g;
   split(p[0], b.hi[0], b.lo[0]);
   split(p[ld], b.hi[1], b.lo[1]);
+}
+
+// The same fragment from an n-major tile, k relabelled as ``ld_a_c``
+// relabels A: row n0 + g at columns k0 + 2t and k0 + 2t + 1, one 8-byte
+// load (conflict-free where ld is 8 past a multiple of 32 words)
+__device__ __forceinline__ void ld_b_nk_c(FragB& b, const float* tile, int ld,
+                                          int n0, int k0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float2 v =
+      *reinterpret_cast<const float2*>(tile + (n0 + g) * ld + k0 + 2 * t);
+  split(v.x, b.hi[0], b.lo[0]);
+  split(v.y, b.hi[1], b.lo[1]);
 }
 
 // The fragments of k-major tiles in k's own order (rows k0 + t and

@@ -43,7 +43,7 @@ _SIGNATURES = {
     "ssmv_expert_ffn_bwd": (_P,) * 15 + (_I,) * 7 + (_P,),
     "ssmv_expert_ffn_fwd_gather": (_P,) * 8 + (_I, _I, _I, _I, _I, _P),
     "ssmv_expert_ffn_bwd_gather": (_P,) * 16 + (_I,) * 7 + (_P,),
-    "ssmv_expert_ffn_bwd_defer": (_P,) * 12 + (_I, _I, _I, _I, _I, _I, _P),
+    "ssmv_expert_ffn_bwd_defer": (_P,) * 11 + (_I,) * 6 + (_P,),
     "ssmv_expert_ffn_fwd_perm": (_P,) * 8 + (_I, _I, _I, _I, _I, _P),
     "ssmv_expert_ffn_bwd_perm": (_P,) * 16 + (_I,) * 7 + (_P,),
     "ssmv_flash_fwd": (_P, _P, _I, _I, _I, _I, _F, _I, _P),

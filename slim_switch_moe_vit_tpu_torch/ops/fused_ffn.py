@@ -50,10 +50,11 @@ f32, K3, K4, K9 and K10 run on the tensor cores too, in split TF32 (three
 TF32 ``mma.sync`` a product on f32 operands split into hi and lo parts,
 near f32 accuracy: f32 has no exact tensor-core product): the forward with
 x streamed beside W1 and g kept in f32 in shared memory, the backward in
-the bf16 form's three launches with f32 tiles and f32 (Tp, H) workspaces.
-K8's f32 form is still the SIMT kernels (f32 FMAs on the CUDA cores). The
-arithmetic is the same in every form. Anything else raises on a CUDA
-tensor.
+the bf16 form's three launches with f32 tiles and f32 (Tp, H) workspaces,
+and K8 in its two kernels with f32 tiles (the dgrad kernel streaming x and
+dy beside the weights, as the f32 forward does; the dW kernel with a
+cluster of two at D = 768, as in bf16). The arithmetic is the same in
+every form. Anything else raises on a CUDA tensor.
 
 GELU and its derivative are the exact erf forms at every dtype. The JAX
 package evaluates them for bf16 with odd polynomials (``gelu_fast``, within
@@ -392,8 +393,8 @@ def fused_expert_ffn_bwd_defer(xs, w1, b1, w2, e_of_tile, dy):
     """K8: K4's function (:func:`fused_expert_ffn_bwd`) with no (Tp, H)
     workspace: h and dy . W2^T are recomputed on chip for dx and again for
     the dW products (over same-expert tile pairs, as :func:`bwd_flags`
-    directs, in the plain version and the f32 kernel, which alone read
-    the flags; over all of the expert's rows in 32-row steps, in bf16). It
+    directs, in the plain version, which alone reads the flags; the
+    kernels take all of the expert's rows in row order, the same sums). It
     allocates nothing but its outputs. The kernel needs H >= D, so H is
     zero-padded to at least the padded D (D = 256, H = 300 runs at 384 x
     384)."""
@@ -409,14 +410,12 @@ def _bwd_defer_launch(xs, w1, b1, w2, e_of_tile, dy):
     check_tensor(dy, "dy", (xs.dtype,), device=xs.device, shape=(Tp, D))
     if H < D:
         raise ValueError(f"the deferred-dW kernel needs H ({H}) >= D ({D})")
-    flags = None if _is_bf16(xs) else bwd_flags(e_of_tile)
     out = _bwd_outputs(Tp, D, H, E, xs, w1, w2)
     lib = _build.load_library()
     err = lib.ssmv_expert_ffn_bwd_defer(
         xs.data_ptr(), dy.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        w2.data_ptr(), e_of_tile.data_ptr(), _ptr(flags),
-        *(t.data_ptr() for t in out), Tp, D, H, E, TILE_ROWS, _is_bf16(xs),
-        _stream())
+        w2.data_ptr(), e_of_tile.data_ptr(), *(t.data_ptr() for t in out),
+        Tp, D, H, E, TILE_ROWS, _is_bf16(xs), _stream())
     _build.check(err, "fused_expert_ffn_bwd_defer")
     fused_expert_ffn_bwd_defer.launches += 1
     return out

@@ -4,7 +4,8 @@ in f32 against the JAX package's ``moe_forward_fused`` on the CPU: the
 same numpy-seeded router, experts (E=4, hidden 256) and 64 tokens, top-2.
 y and the balance loss within 1e-5 of max |ref| (the same f32 products in
 other summation orders). On the card the expert-FFN kernels take D = 768
-in their SIMT form (``tests/test_torch_kernels.py``, ``cuda``-marked).
+in f32 in split TF32 on the tensor cores (``tests/test_torch_kernels.py``,
+``cuda``-marked).
 """
 from functools import partial
 

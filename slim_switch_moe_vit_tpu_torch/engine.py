@@ -37,6 +37,7 @@ from .models.moe import MoEMlp
 from .parallel import collectives as coll
 from .train_state import TrainState
 from .utils.metrics import MetricLogger, SmoothedValue
+from .utils.profiling import span
 
 
 def _moe_modules(model: torch.nn.Module) -> typ.List[torch.nn.Module]:
@@ -131,44 +132,54 @@ def make_train_step(model: torch.nn.Module, update_fn: typ.Callable,
     data_group = None if mesh is None else mesh.data_group
 
     def train_step(state: TrainState, images, targets, lr_base, lr_gate):
-        device = next(model.parameters()).device
-        images, targets = _to_device(images, device), _to_device(targets,
-                                                                  device)
-        if augment_fn is not None:
-            images = augment_fn(state.generator, images)
-        if mixup_fn is not None:
-            images, targets = mixup_fn(state.generator, images, targets)
-        if bce_loss:
-            targets = (targets > 0.0).float()
+        with span("train.step"):
+            return _step(state, images, targets, lr_base, lr_gate)
+
+    def _step(state, images, targets, lr_base, lr_gate):
+        with span("train.upload"):
+            device = next(model.parameters()).device
+            images = _to_device(images, device)
+            targets = _to_device(targets, device)
+            if augment_fn is not None:
+                images = augment_fn(state.generator, images)
+            if mixup_fn is not None:
+                images, targets = mixup_fn(state.generator, images, targets)
+            if bce_loss:
+                targets = (targets > 0.0).float()
         teacher_logits = None
         if distillation_type != "none" and teacher_apply is not None:
-            with torch.no_grad():
+            with span("train.teacher"), torch.no_grad():
                 teacher_logits = teacher_apply(images)
 
-        # set_training_mode=False keeps dropout/droppath off while still
-        # training (the reference's model.train(set_training_mode))
-        model.train(set_training_mode)
-        _reset_metrics(moe_modules)
-        out = model(images, state.generator)
-        logits, logits_kd = out if isinstance(out, tuple) else (out, None)
-        loss = distillation_loss(base_criterion(logits, targets), logits_kd,
-                                 teacher_logits, distillation_type, alpha, tau)
-        moe_metrics = _collect_moe_metrics(moe_modules)
-        if moe_balance_weight and "balance_loss" in moe_metrics:
-            loss = loss + moe_balance_weight * moe_metrics["balance_loss"]
+        with span("train.forward"):
+            # set_training_mode=False keeps dropout/droppath off while
+            # still training (the reference's model.train(set_training_mode))
+            model.train(set_training_mode)
+            _reset_metrics(moe_modules)
+            out = model(images, state.generator)
+        with span("train.loss"):
+            logits, logits_kd = out if isinstance(out, tuple) else (out, None)
+            loss = distillation_loss(base_criterion(logits, targets),
+                                     logits_kd, teacher_logits,
+                                     distillation_type, alpha, tau)
+            moe_metrics = _collect_moe_metrics(moe_modules)
+            if moe_balance_weight and "balance_loss" in moe_metrics:
+                loss = loss + moe_balance_weight * moe_metrics["balance_loss"]
 
-        model.zero_grad(set_to_none=True)  # frozen parameters' too
-        loss.backward()
-        coll.average_gradients(model.parameters(), data_group)
+        with span("train.backward"):
+            model.zero_grad(set_to_none=True)  # frozen parameters' too
+            loss.backward()
+            coll.average_gradients(model.parameters(), data_group)
         ema_on = state.ema_params is not None and ema_decay is not None
-        if fused_apply is not None:
-            fused_apply(model, state.optimizer,
-                        state.ema_params if ema_on else None, lr_base,
-                        lr_gate, ema_decay)
-        else:
-            update_fn(state.optimizer, lr_base, lr_gate)
-            if ema_on:
-                ema_update(state.ema_params, model, ema_decay)
+        with span("train.optimizer"):
+            if fused_apply is not None:
+                fused_apply(model, state.optimizer,
+                            state.ema_params if ema_on else None, lr_base,
+                            lr_gate, ema_decay)
+            else:
+                update_fn(state.optimizer, lr_base, lr_gate)
+                if ema_on:
+                    ema_update(state.ema_params, model, ema_decay)
         state.step += 1
         metrics = {"loss": loss.detach(),
                    **{k: v.detach() for k, v in moe_metrics.items()}}

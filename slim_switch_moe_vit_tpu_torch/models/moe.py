@@ -52,6 +52,7 @@ import torch
 from torch import nn
 
 from ..ops import moe as moe_ops
+from ..utils.profiling import span
 from .layers import trunc_normal_
 
 _MODES = {"fused": moe_ops.moe_forward_fused,
@@ -141,7 +142,8 @@ class MoEMlp(nn.Module):
             kw["drop_rate"] = self.drop
         if self.mesh is not None:
             fn, kw["mesh"] = _EP_MODES[mode], self.mesh
-        y, self.aux = fn(x.reshape(B * N, d), self.router_weight,
-                         self.router_bias, self.w1, self.b1, self.w2, self.b2,
-                         **kw)
+        with span("moe.forward"):
+            y, self.aux = fn(x.reshape(B * N, d), self.router_weight,
+                             self.router_bias, self.w1, self.b1, self.w2,
+                             self.b2, **kw)
         return y.reshape(B, N, d)

@@ -66,6 +66,7 @@ import torch
 
 from ..parallel import collectives as coll
 from ..parallel.sharding import EXPERT_AXIS, axis_index, mesh_axis_size
+from ..utils.profiling import count, span
 from .fused_ffn import (TILE_ROWS, fused_expert_ffn, fused_expert_ffn_gather,
                         fused_expert_ffn_permuted, gather_slots_to_tokens,
                         gelu_exact, gelu_fast)
@@ -379,28 +380,42 @@ def moe_forward_fused(x, router_w, router_b, w1, b1, w2, b2, *,
     """MoE MLP over (T, d) tokens through the expert-FFN kernels. Dropless
     by default; with ``capacity_factor`` or ``capacity`` the fused form of
     the ``'capacity'`` mode (static regions, token-major drop priority, the
-    same outputs as :func:`moe_forward`). Returns (y in x's dtype, aux)."""
+    same outputs as :func:`moe_forward`). Returns (y in x's dtype, aux).
+    Counts the routed rows (``moe.routed_rows``, T k) and the layout's
+    rows (``moe.slots``, Tp) in ``utils/profiling``."""
     T = x.shape[0]
     E = w1.shape[0]
-    logits = _router_logits(x, router_w, router_b)
-    gate_w, expert_idx = naive_topk_gate(logits, top_k)
-    if capacity is None and capacity_factor is not None:
-        capacity = compute_capacity(T, E, top_k, capacity_factor)
-    gather_idx, pair_slot, e_of_tile, w_slot, keep = aligned_expert_layout(
-        expert_idx, E, gate_w=gate_w, weight_dtype=x.dtype, capacity=capacity)
-    if capacity is None:
-        gate_eff, keep_in = gate_w, None
-    else:
-        gate_eff, keep_in = gate_w * keep.to(gate_w.dtype), keep
-    weights = (*_kernel_weights(x, w1, b1, w2, b2), e_of_tile)
+    with span("moe.route"):
+        logits = _router_logits(x, router_w, router_b)
+        gate_w, expert_idx = naive_topk_gate(logits, top_k)
+    with span("moe.layout"):
+        if capacity is None and capacity_factor is not None:
+            capacity = compute_capacity(T, E, top_k, capacity_factor)
+        gather_idx, pair_slot, e_of_tile, w_slot, keep = aligned_expert_layout(
+            expert_idx, E, gate_w=gate_w, weight_dtype=x.dtype,
+            capacity=capacity)
+        if capacity is None:
+            gate_eff, keep_in = gate_w, None
+        else:
+            gate_eff, keep_in = gate_w * keep.to(gate_w.dtype), keep
+    count("moe.routed_rows", T * top_k)
+    count("moe.slots", gather_idx.shape[0])
+    with span("moe.weights"):
+        weights = (*_kernel_weights(x, w1, b1, w2, b2), e_of_tile)
     if _gather_in_kernel():
-        out = fused_expert_ffn_gather(x, gather_idx, pair_slot, keep_in,
-                                      *weights)
+        with span("moe.ffn"):
+            out = fused_expert_ffn_gather(x, gather_idx, pair_slot, keep_in,
+                                          *weights)
     else:
-        xs = dispatch_gather(x, gather_idx, pair_slot, keep_in)
-        out = fused_expert_ffn(xs, *weights)
-    y = combine_slots(out, pair_slot, gate_eff, gather_idx, w_slot)
-    return y.to(x.dtype), _aux(logits, expert_idx, E, keep_in)
+        with span("moe.gather"):
+            xs = dispatch_gather(x, gather_idx, pair_slot, keep_in)
+        with span("moe.ffn"):
+            out = fused_expert_ffn(xs, *weights)
+    with span("moe.combine"):
+        y = combine_slots(out, pair_slot, gate_eff, gather_idx,
+                          w_slot).to(x.dtype)
+    with span("moe.aux"):
+        return y, _aux(logits, expert_idx, E, keep_in)
 
 
 def _a2a_permuted() -> bool:

@@ -44,6 +44,7 @@ import torch
 from ..data.device_aug import build_eval_normalize
 from ..models import create_model, list_models
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 
 SERVING_FORMAT_VERSION = 1
 _MANIFEST = "manifest.json"
@@ -132,7 +133,10 @@ class Predictor:
         """images: (n, H, W, 3) in the manifest's input convention (raw
         uint8 when the artifact carries preprocessing). Returns (n,
         num_classes) float32 logits."""
-        images = np.asarray(images)
+        with span("serve.predict"):
+            return self._predict(np.asarray(images))
+
+    def _predict(self, images: np.ndarray) -> np.ndarray:
         if images.ndim == 3:
             images = images[None]
         n = images.shape[0]
@@ -141,18 +145,23 @@ class Predictor:
         out = []
         i = 0
         while i < n:
-            b = self._bucket_for(n - i)
-            take = min(n - i, b)
-            chunk = images[i:i + take]
-            if take < b:
-                pad = np.zeros((b - take,) + chunk.shape[1:], chunk.dtype)
-                chunk = np.concatenate([chunk, pad], axis=0)
-            x = torch.from_numpy(np.ascontiguousarray(chunk)).to(
-                self._device, self._in_dtype)
-            logits = self.serve(x)
-            out.append(logits.cpu().numpy()[:take])
+            with span("serve.pad"):
+                b = self._bucket_for(n - i)
+                take = min(n - i, b)
+                chunk = images[i:i + take]
+                if take < b:
+                    pad = np.zeros((b - take,) + chunk.shape[1:], chunk.dtype)
+                    chunk = np.concatenate([chunk, pad], axis=0)
+                chunk = np.ascontiguousarray(chunk)
+            with span("serve.upload"):
+                x = torch.from_numpy(chunk).to(self._device, self._in_dtype)
+            with span("serve.forward"):
+                logits = self.serve(x)
+            with span("serve.download"):
+                out.append(logits.cpu().numpy()[:take])
             i += take
-        return np.concatenate(out, axis=0)
+        with span("serve.download"):
+            return np.concatenate(out, axis=0)
 
     def top_k(self, images: np.ndarray, k: int = 5):
         """Returns (classes (n,k) int, probs (n,k) float32) by softmax."""

@@ -60,10 +60,10 @@ Phases (any failure propagates and the script exits non-zero):
    busy share and kernel profile of one step, and the peak memory.
 9. ResMoE step: ``resmoe_small_patch16_224_expert8`` (the gated ResMoE
    ViT-S/16, 24 slim LNs a forward) at B = 128, bf16, 10 steps each with
-   and without the fused optimizer (K7) on the device clock, with exact
-   launch counts; then one step from the same state and gradients on both
-   optimizer paths, whose parameters, moments and EMA must agree
-   (``PATH_ULPS``, ``BC_REL``).
+   the fused optimizer (K7, the step's default) and with torch's foreach
+   AdamW + EMA on the device clock, with exact launch counts; then one
+   step from the same state and gradients on both optimizer paths, whose
+   parameters, moments and EMA must agree (``PATH_ULPS``, ``BC_REL``).
 10. Driver: ``python -m slim_switch_moe_vit_tpu_torch.main``'s ``main()``
     on ``SYNTH`` at full width (``DRIVER_ARGS``: 2 tasks of 2 epochs, 3
     steps an epoch at B = 128, rehearsal, ``--fused-optimizer``, the gates
@@ -298,9 +298,11 @@ BUCKETS = (1, 8, 32)
 REQUESTS = (1, 5, 40)              # a padded bucket, a padded tail, chunking
 PER_FORWARD = {"fused_ln": 1, "fused_add_ln": 23, "fused_sum_ln": 1,
                "fused_mha": 12, "fused_expert_ffn": 12}
+# a train step: the forward, its backward and AdamW + EMA, one K7 launch (the
+# step's default for AdamW on CUDA f32 parameters)
 PER_TRAIN_STEP = {**PER_FORWARD, "fused_ln_bwd": 1, "fused_add_ln_bwd": 23,
                   "fused_sum_ln_bwd": 1, "fused_mha_bwd": 12,
-                  "fused_expert_ffn_bwd": 12}
+                  "fused_expert_ffn_bwd": 12, "fused_adamw_ema": 1}
 # kernel vs plain version on the card, bf16 outputs: |d| <= atol + rtol*|ref|
 # elementwise; 1.6e-2 is two bf16 ulps at 1.0 (the two sides round once
 # each, with f32 sums taken in different orders)
@@ -521,7 +523,6 @@ PAD_D, PAD_H, PAD_B = 256, 1000, 8
 # K4 and K8 at D = 192: moe_tiny_patch16_224_expert8's dropless layout at
 # B = 128
 TINY_B, TINY_D, TINY_E, TINY_H = 128, 192, 8, 768
-PER_RESMOE_BASE_STEP = dict(PER_RESMOE_STEP, fused_adamw_ema=0)
 # the f32 path: moe_small_patch16_224_expert8 in f32, B = 16, 2 steps on
 # the kernels against the same steps on the plain versions; each step's
 # loss within F32_WITNESS times the gap of a witness (the plain steps on
@@ -547,7 +548,7 @@ PER_DEIT_FORWARD = {"fused_ln": 1, "fused_add_ln": 23, "fused_sum_ln": 1,
                     "fused_mha": 12}
 PER_DEIT_STEP = {**PER_DEIT_FORWARD, "fused_ln_bwd": 1,
                  "fused_add_ln_bwd": 23, "fused_sum_ln_bwd": 1,
-                 "fused_mha_bwd": 12}
+                 "fused_mha_bwd": 12, "fused_adamw_ema": 1}
 PER_VIT_L_FORWARD = {"fused_ln": 1, "fused_add_ln": 47, "fused_sum_ln": 1,
                      "fused_mha": 24}
 # cfg1 (bench.py:305-308) eval at B=256; DeiT-B steps at B=128; the
@@ -604,7 +605,8 @@ SW_MODEL, SW_BUCKETS, SW_THRESHOLD, SW_CAPACITY = ("deit_sw_tiny_patch16_224",
                                                    4, 2, 98)
 SW_B, SW_STEPS = 128, 2
 PER_SW_FORWARD = {"fused_ln": 25, "fused_mha": 12}
-PER_SW_STEP = {**PER_SW_FORWARD, "fused_ln_bwd": 25, "fused_mha_bwd": 12}
+PER_SW_STEP = {**PER_SW_FORWARD, "fused_ln_bwd": 25, "fused_mha_bwd": 12,
+               "fused_adamw_ema": 1}
 # sparse_deit_tiny_patch16_224: the search's L1 weight and steps, the
 # compress budgets; only the final norm is a kernel of the port
 SPARSE = "sparse_deit_tiny_patch16_224"
@@ -866,8 +868,8 @@ def k7_phase(results: dict) -> None:
     its bound (9 f32 streams: p, g, mu, nu, ema read, p, mu, nu, ema
     written), one ``torch.optim.AdamW(fused=True).step()`` on the same
     tensors (its library call, which computes no EMA), and the unfused
-    path the port takes without ``--fused-optimizer``: the foreach AdamW
-    step and the foreach EMA."""
+    path the port takes off the card or with another optimizer: the
+    foreach AdamW step and the foreach EMA."""
     import torch
 
     from slim_switch_moe_vit_tpu_torch import create_model, optim
@@ -1643,9 +1645,11 @@ def train_cross_check() -> None:
 
 
 def resmoe_phase(card: str) -> None:
-    """The ResMoE B=128 step on the device clock with and without the fused
-    optimizer (exact launch counts), then one step from the same state and
-    gradients on both optimizer paths (``PATH_ULPS``, ``BC_REL``)."""
+    """The ResMoE B=128 step on the device clock with the fused optimizer
+    (K7, the default) and with torch's foreach AdamW + EMA (an update
+    function without a fused form; exact launch counts), then one step
+    from the same state and gradients on both optimizer paths
+    (``PATH_ULPS``, ``BC_REL``)."""
     import torch
 
     from slim_switch_moe_vit_tpu_torch import create_model, engine, losses, ops, optim
@@ -1656,10 +1660,13 @@ def resmoe_phase(card: str) -> None:
     state = create_train_state(model, device="cuda", opt_init=opt_init,
                                use_ema=True)
     crit = losses.make_base_criterion(False, 0.1, False)
-    steps = {fused: engine.make_train_step(model, update, crit,
-                                           ema_decay=EMA_DECAY,
-                                           use_fused_optimizer=fused)
-             for fused in (False, True)}
+
+    def foreach_update(optimizer, lr_base, lr_gate):  # no fused form
+        update(optimizer, lr_base, lr_gate)
+
+    steps = {fused: engine.make_train_step(
+        model, update if fused else foreach_update, crit,
+        ema_decay=EMA_DECAY) for fused in (False, True)}
     x, y = _batch(TRAIN_B, 0, "cuda")
     for fused in (False, True):
         state, m = steps[fused](state, x, y, LR, LR)  # warm-up
@@ -2817,11 +2824,13 @@ def ep_phase(results: dict, card: str, tmp: str) -> dict:
 
 @contextlib.contextmanager
 def plain_versions():
-    """Run the port's model code on its plain versions on the card: every
-    binding of a forward kernel wrapper in the port's modules is replaced
-    by its plain PyTorch version (differentiable through autograd) and
-    restored afterwards. No kernel launches inside (checked by callers)."""
-    from slim_switch_moe_vit_tpu_torch.ops import attention, fused_ffn
+    """Run the port's model code and train step on its plain versions on
+    the card: every binding of a forward kernel wrapper and of K7 in the
+    port's modules is replaced by its plain PyTorch version
+    (differentiable through autograd) and restored afterwards. No kernel
+    launches inside (checked by callers)."""
+    from slim_switch_moe_vit_tpu_torch.ops import attention, fused_adamw
+    from slim_switch_moe_vit_tpu_torch.ops import fused_ffn
     from slim_switch_moe_vit_tpu_torch.ops import fused_ln as ln
 
     plain = {
@@ -2834,6 +2843,7 @@ def plain_versions():
         attention.fused_mha: attention.fused_mha_reference,
         attention.flash_attention: attention.flash_attention_reference,
         fused_ffn.fused_expert_ffn: fused_ffn.fused_expert_ffn_reference,
+        fused_adamw.fused_adamw_ema: fused_adamw.fused_adamw_ema_reference,
     }
     saved = []
     for name, mod in list(sys.modules.items()):
@@ -3534,14 +3544,14 @@ def wide_phase(card: str) -> None:
         losses_.append(m["loss"].item())
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
-    if (counts != expected(PER_RESMOE_BASE_STEP, WIDE_STEPS)
+    if (counts != expected(PER_RESMOE_STEP, WIDE_STEPS)
             or dict(vit.ROUTE_COUNTS) != {"k5_k6": 12 * WIDE_STEPS}
             or not all(np.isfinite(losses_))):
         raise AssertionError(f"{RESMOE_BASE}: launches {counts}, routes "
                              f"{dict(vit.ROUTE_COUNTS)}, losses {losses_}")
     log(f"{RESMOE_BASE} (D=768) train B={WIDE_B}: losses "
         f"{[round(v, 4) for v in losses_]}, {wall / WIDE_STEPS:.3f} s a step "
-        f"(host clock), launches per step exact {PER_RESMOE_BASE_STEP}, "
+        f"(host clock), launches per step exact {PER_RESMOE_STEP}, "
         f"routes {dict(vit.ROUTE_COUNTS)}; card {card}")
     del model, state, step
     torch.cuda.empty_cache()
@@ -4703,7 +4713,8 @@ def optimizer_surface_check(card: str, tmp: str) -> None:
     model.train()
     ops.reset_launch_counts()
     crit(model(x, torch.Generator("cuda").manual_seed(0)), y).backward()
-    if ops.launch_counts() != expected(PER_TRAIN_STEP, 1):
+    if ops.launch_counts() != expected(dict(PER_TRAIN_STEP,
+                                            fused_adamw_ema=0), 1):
         raise AssertionError(f"gradient step launched {ops.launch_counts()}")
     params = {n: p.detach().clone() for n, p in model.named_parameters()}
     grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}

@@ -48,11 +48,13 @@ def get_args_parser():
     parser.add_argument("--async-checkpoint", action="store_true",
                         help="commit checkpoints on a background thread")
     parser.add_argument("--fused-optimizer", action="store_true",
-                        help="single-pass AdamW(+EMA) update, the K7 "
-                             "kernel (ops/fused_adamw.py); the same math and "
-                             "torch.optim.AdamW's state. adamw only: with "
-                             "another --opt, --clip-grad or --attn-only it "
-                             "raises ValueError")
+                        help="require the single-pass AdamW(+EMA) update, "
+                             "the K7 kernel (ops/fused_adamw.py), which the "
+                             "step already takes by default for adamw on "
+                             "the card (its plain version on the CPU); the "
+                             "same math and torch.optim.AdamW's state. "
+                             "adamw only: with another --opt, --clip-grad "
+                             "or --attn-only it raises ValueError")
 
     # Learning rate schedule parameters
     parser.add_argument("--sched", default="cosine", type=str, metavar="SCHEDULER")

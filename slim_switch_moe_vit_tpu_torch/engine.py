@@ -7,13 +7,14 @@ autograd Function with its backward kernel (``ops/``). bf16 activations over
 f32 parameters, no loss scaling (bf16's exponent range needs none), as in
 the JAX package.
 
-``use_fused_optimizer`` takes the optimizer's ``fused_apply`` (the K7
-kernel: AdamW and the EMA in one pass), as the JAX step takes its
-``fused_apply`` (engine.py:116-125). Images may come as uint8 batches with
-an ``augment_fn`` (``data/device_aug.py``) that runs on the device, and a
-``mixup_fn`` (``data/mixup.py``) then mixes the batch and turns the labels
-into soft targets there, before the criterion, as the JAX step does
-(engine.py:71-79).
+The optimizer's ``fused_apply`` (the K7 kernel: AdamW and the EMA in one
+pass) is the step's default on the card wherever it exists
+(:func:`fused_optimizer`), as the JAX step takes its ``fused_apply`` under
+its flag (engine.py:116-125); ``use_fused_optimizer`` requires it. Images
+may come as uint8 batches with an ``augment_fn`` (``data/device_aug.py``)
+that runs on the device, and a ``mixup_fn`` (``data/mixup.py``) then mixes
+the batch and turns the labels into soft targets there, before the
+criterion, as the JAX step does (engine.py:71-79).
 
 Under a (data, expert) layout (``mesh``), each gradient is averaged over
 the data group after the backward, and the step's metrics too (the JAX
@@ -75,6 +76,33 @@ def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
+def fused_optimizer(update_fn: typ.Callable, model: torch.nn.Module,
+                    required: bool = False) -> typ.Optional[typ.Callable]:
+    """The optimizer's one-pass form, ``update_fn.fused_apply`` (K7: AdamW
+    and the EMA in one launch), where the train step takes it; else None,
+    and the step runs ``update_fn`` and :func:`ema_update`.
+
+    The step takes it wherever the optimizer has one (adamw without
+    ``clip_grad`` or a trainable mask: ``optim.make_optimizer`` decides)
+    and the model's trainable parameters are CUDA f32 tensors: the same
+    math as the foreach form in one pass over each byte, on the same
+    state. ``required`` (``use_fused_optimizer``) takes it on any device
+    (its plain version on the CPU) and raises ``ValueError`` where the
+    optimizer has none."""
+    fused = getattr(update_fn, "fused_apply", None)
+    if required:
+        if fused is None:
+            raise ValueError("use_fused_optimizer: this optimizer has no "
+                             "fused form (K7 is AdamW without clip_grad or "
+                             "a trainable mask)")
+        return fused
+    trainable = [p for p in model.parameters() if p.requires_grad]
+    if fused is None or not trainable or not all(
+            p.is_cuda and p.dtype == torch.float32 for p in trainable):
+        return None
+    return fused
+
+
 @torch.no_grad()
 def ema_update(ema_params: typ.Dict[str, torch.Tensor],
                model: torch.nn.Module, decay: float) -> None:
@@ -102,10 +130,12 @@ def make_train_step(model: torch.nn.Module, update_fn: typ.Callable,
 
     Args:
         update_fn: from ``optim.make_optimizer`` — (optimizer, lr_base,
-            lr_gate) -> None, one step on the gradients in ``p.grad``; with
-            ``use_fused_optimizer``, its ``fused_apply`` takes the step
-            and the EMA update in one kernel instead (an optimizer without
-            one raises ``ValueError``).
+            lr_gate) -> None, one step on the gradients in ``p.grad``. Its
+            ``fused_apply`` takes the step and the EMA update in one K7
+            launch instead wherever :func:`fused_optimizer` finds it: by
+            default for adamw on CUDA f32 parameters.
+        use_fused_optimizer: require ``fused_apply``, on any device (an
+            optimizer without one raises ``ValueError``).
         mesh: this rank's ``parallel.Mesh``, or None on one process.
         teacher_apply: fn(images) -> logits for distillation (no grad).
         augment_fn: fn(generator, images) -> images on the device (uint8
@@ -123,12 +153,7 @@ def make_train_step(model: torch.nn.Module, update_fn: typ.Callable,
         step.
     """
     moe_modules = _moe_modules(model)
-    fused_apply = (getattr(update_fn, "fused_apply", None)
-                   if use_fused_optimizer else None)
-    if use_fused_optimizer and fused_apply is None:
-        raise ValueError("use_fused_optimizer: this optimizer has no fused "
-                         "form (K7 is AdamW without clip_grad or a "
-                         "trainable mask)")
+    fused_apply = fused_optimizer(update_fn, model, use_fused_optimizer)
     data_group = None if mesh is None else mesh.data_group
 
     def train_step(state: TrainState, images, targets, lr_base, lr_gate):

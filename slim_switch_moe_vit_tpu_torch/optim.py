@@ -10,10 +10,11 @@ The JAX package's default chain (``scale_by_adam`` then
 decoupled update, p <- p - lr * (adam(g) + wd * p), which is what
 ``torch.optim.AdamW`` computes (the foreach form). ``update_fn.fused_apply``
 is the one-pass AdamW + EMA of the K7 kernel (``ops/fused_adamw.py``), in
-the JAX math's order; it reads and writes the same state
-``torch.optim.AdamW`` keeps (``exp_avg``, ``exp_avg_sq``, ``step``), so a
-checkpoint moves between the two paths, as the JAX package keeps optax's
-layout for its fused path (optim.py:604-607).
+the JAX math's order, which the train step takes on the card by default;
+it reads and writes the same state ``torch.optim.AdamW`` keeps
+(``exp_avg``, ``exp_avg_sq``, ``step``), so a checkpoint moves between the
+two paths, as the JAX package keeps optax's layout for its fused path
+(optim.py:604-607).
 
 Parameters fall into groups, weight decay or none by ``wd_mask`` crossed
 with the base or the gate learning rate by ``gate_mask`` and with expert or
@@ -537,7 +538,9 @@ def make_optimizer(*, opt: str = "adamw",
     ``update_fn.fused_apply(model, optimizer, ema, lr_base, lr_gate,
     ema_decay)`` (adamw without ``clip_grad`` or a mask, as in the JAX
     package) takes the same step, and the EMA update when ``ema`` (the EMA
-    tensors by parameter name) is given, in one K7 launch."""
+    tensors by parameter name) is given, in one K7 launch. The train step
+    takes it by default on CUDA f32 parameters
+    (``engine.fused_optimizer``)."""
     if opt not in SUPPORTED_OPTIMIZERS:
         raise ValueError(f"--opt {opt!r} is not implemented; supported: "
                          f"{SUPPORTED_OPTIMIZERS}")
@@ -611,10 +614,12 @@ def make_optimizer(*, opt: str = "adamw",
         names = {p: n for n, p in model.named_parameters()}
         leaves: typ.Dict[str, list] = {k: [] for k in (
             "p", "g", "mu", "nu", "ema", "wd", "gate", "step")}
+        still = []  # no gradient: no step, but the EMA moves, as ema_update
         for group in optimizer.param_groups:
             group["lr"] = float(lr_gate if group["gate"] else lr_base)
             for p in group["params"]:
                 if p.grad is None:  # as torch.optim.AdamW: no step
+                    still.append(p)
                     continue
                 st = optimizer.state[p]
                 if not st:  # torch.optim.AdamW's lazily built state
@@ -628,6 +633,10 @@ def make_optimizer(*, opt: str = "adamw",
                     leaves[k].append(v)
                 if ema is not None:
                     leaves["ema"].append(ema[names[p]])
+        if ema is not None and still:
+            held = [ema[names[p]] for p in still]
+            torch._foreach_mul_(held, ema_decay)
+            torch._foreach_add_(held, still, alpha=1.0 - ema_decay)
         if not leaves["p"]:
             return
         t = int(leaves["step"][0]) + 1

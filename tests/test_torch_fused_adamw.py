@@ -14,8 +14,9 @@ shares with ``torch.optim.AdamW``.
    state (``exp_avg``, ``exp_avg_sq``, ``step``). From the same state and
    the same gradients, at a fresh state and after two steps, one step of
    each lands in the same place; so does a run that switches paths between
-   steps; and a ``state_dict`` written on the fused path loads into a fresh
-   AdamW unchanged. torch's AdamW decays p first and divides by
+   steps; a parameter without a gradient takes no step on either and its
+   EMA moves on both; and a ``state_dict`` written on the fused path loads
+   into a fresh AdamW unchanged. torch's AdamW decays p first and divides by
    sqrt(nu)/sqrt(bc2) + eps, and lerps the first moment; the JAX math adds
    wd*p to the Adam update and forms b1*mu + (1-b1)*g. The same function in
    another order, a few roundings apart per element: moments within 8
@@ -200,6 +201,29 @@ def test_runs_switch_between_the_fused_and_torch_paths(paths):
     want, _ = _run((False,) * len(paths), 0)
     got, _ = _run(paths, 0)
     _close(got, want, len(paths))
+
+
+def test_a_leaf_without_a_gradient_takes_no_step_but_its_ema_moves():
+    """A parameter the loss did not reach (``p.grad`` None): neither path
+    steps it or its moments, and both move its EMA, as ``ema_update`` does
+    for every parameter."""
+    snaps = []
+    for fused in (False, True):
+        model, state, update, _ = _state(2)
+        _set_grads(model, 0)
+        still = model.cls_token
+        still.grad = None
+        before = _snapshot(state)
+        _step(fused, update, state)
+        snaps.append(_snapshot(state))
+    want, got = snaps
+    _close(got, want, 1)
+    assert got["step"]["cls_token"] == before["step"]["cls_token"] == 2.0
+    for what in ("param", "exp_avg", "exp_avg_sq"):
+        assert torch.equal(got[what]["cls_token"],
+                           before[what]["cls_token"]), what
+    assert not torch.equal(got["ema"]["cls_token"],
+                           before["ema"]["cls_token"])
 
 
 def test_fused_state_dict_loads_into_a_fresh_adamw():

@@ -522,7 +522,8 @@ def test_expert_ffn_bwd_kernel_matches_plain(cuda, T, D, H, E, skew, dtype):
 @pytest.mark.cuda
 def test_train_step_runs_through_the_kernels(cuda):
     """A bf16 train step of a small ViT-S-width model on the card launches
-    every forward and backward kernel, and its loss is finite."""
+    every forward and backward kernel and, by default, AdamW + EMA as one
+    K7 launch; its loss is finite."""
     from slim_switch_moe_vit_tpu_torch import create_model, losses, optim
     from slim_switch_moe_vit_tpu_torch.engine import make_train_step
     from slim_switch_moe_vit_tpu_torch.train_state import create_train_state
@@ -544,11 +545,90 @@ def test_train_step_runs_through_the_kernels(cuda):
         "fused_ln": 1, "fused_add_ln": 23, "fused_sum_ln": 1, "fused_mha": 12,
         "fused_expert_ffn": 12, "fused_ln_bwd": 1, "fused_add_ln_bwd": 23,
         "fused_sum_ln_bwd": 1, "fused_mha_bwd": 12, "fused_expert_ffn_bwd": 12,
-        "fused_adamw_ema": 0, "flash_attention": 0,
+        "fused_adamw_ema": 1, "flash_attention": 0,
         "fused_expert_ffn_gather": 0, "fused_expert_ffn_gather_bwd": 0,
         "fused_expert_ffn_bwd_defer": 0, "fused_expert_ffn_permuted": 0,
         "fused_expert_ffn_permuted_bwd": 0, "fused_mha_proj": 0,
         "gather_rows": 0, "scatter_add_rows": 0}
+
+
+# K7's step vs torch.optim.AdamW's foreach step + ema_update from the same
+# state and gradients: the same function in another order (tests/
+# test_torch_fused_adamw.py), within PATH_ULPS of each leaf's largest value
+# before or after the step (and of (1-b1)*g for the first moment, which can
+# cancel), plus BC_REL * lr for parameters and EMA (K7's bias corrections
+# are f32, torch's double)
+PATH_ULPS, BC_REL = 2.0 ** -20, 1e-4
+
+
+@pytest.mark.cuda
+def test_default_step_takes_k7_and_matches_the_foreach_step(cuda):
+    """The default bf16 step of the small MoE on the card launches K7 once
+    a step, and each of its first three steps lands where torch's foreach
+    AdamW + ``ema_update`` lands from the same state and gradients."""
+    from slim_switch_moe_vit_tpu_torch import create_model, engine, losses
+    from slim_switch_moe_vit_tpu_torch import optim
+    from slim_switch_moe_vit_tpu_torch.train_state import create_train_state
+
+    lr, decay = 1e-3, 0.99996
+    model = create_model("moe_small_patch16_224_expert8", img_size=64,
+                         num_classes=10, dtype=torch.bfloat16)
+    opt_init, opt_update = optim.make_optimizer(weight_decay=0.05)
+    state = create_train_state(model, opt_init=opt_init, use_ema=True)
+    step = engine.make_train_step(
+        model, opt_update, losses.make_base_criterion(False, 0.1, False),
+        ema_decay=decay)
+    named = list(model.named_parameters())
+
+    def snapshot():
+        out = {"param": {n: p.detach().clone() for n, p in named},
+               "ema": {n: e.clone() for n, e in state.ema_params.items()}}
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            out[key] = {n: state.optimizer.state[p][key].clone()
+                        for n, p in named if p in state.optimizer.state}
+        return out
+
+    def restore(snap):
+        with torch.no_grad():
+            for n, p in named:
+                p.copy_(snap["param"][n])
+                st = state.optimizer.state
+                if n in snap["step"]:
+                    for key in ("exp_avg", "exp_avg_sq", "step"):
+                        st[p][key].copy_(snap[key][n])
+                else:  # before the first step: AdamW's lazy state
+                    st.pop(p, None)
+            for n, e in state.ema_params.items():
+                e.copy_(snap["ema"][n])
+
+    rs = np.random.RandomState(24)
+    for t in range(1, 4):
+        x = torch.from_numpy(rs.randn(4, 64, 64, 3).astype(np.float32))
+        y = torch.from_numpy(rs.randint(0, 10, 4))
+        before = snapshot()
+        ops.reset_launch_counts()
+        state, metrics = step(state, x, y, lr, lr)
+        assert ops.launch_counts()["fused_adamw_ema"] == 1
+        assert torch.isfinite(metrics["loss"]).item()
+        fused = snapshot()
+        restore(before)  # the step's gradients stay in p.grad
+        opt_update(state.optimizer, lr, lr)
+        engine.ema_update(state.ema_params, model, decay)
+        want = snapshot()
+        assert {float(v) for v in fused["step"].values()} == \
+            {float(v) for v in want["step"].values()} == {float(t)}
+        for what in ("param", "ema", "exp_avg", "exp_avg_sq"):
+            extra = BC_REL * lr if what in ("param", "ema") else 0.0
+            for n, w in want[what].items():
+                scale = w.abs().max().item()
+                if n in before[what]:
+                    scale = max(scale, before[what][n].abs().max().item())
+                if what == "exp_avg":
+                    scale = max(scale, 0.1 * dict(named)[n].grad.abs().max()
+                                .item())
+                d = (fused[what][n] - w).abs().max().item()
+                assert d <= PATH_ULPS * scale + extra, (t, what, n, d)
+        restore(fused)
 
 
 # ---------------------------------------------------------------------------
@@ -925,7 +1005,8 @@ def test_permuted_ffn_kernels_match_plain(cuda, src, E, n_per, D, H):
 def test_capacity_train_step_launch_counts(cuda, knob, per_step, monkeypatch):
     """A bf16 train step of a small ViT-S-width capacity_fused model at
     factor 1.25: the expert-FFN launches of each knob form exactly, the
-    rest as the dropless step, a finite loss and a drop_fraction."""
+    rest as the dropless step (K7 for AdamW + EMA), a finite loss and a
+    drop_fraction."""
     from slim_switch_moe_vit_tpu_torch import create_model, losses, optim
     from slim_switch_moe_vit_tpu_torch.engine import make_train_step
     from slim_switch_moe_vit_tpu_torch.train_state import create_train_state
@@ -949,7 +1030,8 @@ def test_capacity_train_step_launch_counts(cuda, knob, per_step, monkeypatch):
     assert 0.0 <= metrics["drop_fraction"].item() < 1.0
     want = {"fused_ln": 1, "fused_add_ln": 23, "fused_sum_ln": 1,
             "fused_mha": 12, "fused_ln_bwd": 1, "fused_add_ln_bwd": 23,
-            "fused_sum_ln_bwd": 1, "fused_mha_bwd": 12, **per_step}
+            "fused_sum_ln_bwd": 1, "fused_mha_bwd": 12,
+            "fused_adamw_ema": 1, **per_step}
     assert ops.launch_counts() == {k: want.get(k, 0)
                                    for k in ops.launch_counts()}
 
